@@ -1,0 +1,84 @@
+"""Carry state across from NumPy: plain dicts -> the port's parameter trees.
+
+``from_numpy(kind, tree, device)`` builds a ``TrapezoidGeometry``,
+``RatingCurveParams``, ``BoundaryParams``, ``PreissmannSettings`` or an
+``(h0, Q0)`` state from a dict of NumPy arrays / floats / strings whose keys
+are the field names of the JAX package's dataclasses — what
+``dataclasses.fields`` + ``np.asarray`` give for one of its trees.  This
+module never sees a JAX object: whoever holds one turns it into such a dict
+first.  Fields the port does not have (TPU-only settings) are ignored;
+a boundary that carries lumped storage is refused.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from flowsim_tpu_torch.config import DEFAULT_DEVICE, DEFAULT_DTYPE, resolve_device
+from flowsim_tpu_torch.geometry import TrapezoidGeometry
+from flowsim_tpu_torch.ops.boundary import _STORAGE_MESSAGE, BoundaryParams
+from flowsim_tpu_torch.ops.preissmann import PreissmannSettings
+from flowsim_tpu_torch.ops.rating_curve import RatingCurveParams
+
+KINDS = ("TrapezoidGeometry", "RatingCurveParams", "BoundaryParams", "PreissmannSettings", "state")
+
+
+def _f64(v, device):
+    return torch.tensor(np.array(v, dtype=np.float64), dtype=DEFAULT_DTYPE, device=device)
+
+
+def _geometry(tree, device):
+    out = {}
+    for f in dataclasses.fields(TrapezoidGeometry):
+        v = tree[f.name]
+        if f.name == "compound":
+            out[f.name] = torch.tensor(np.array(v, dtype=bool), device=device)
+        else:
+            out[f.name] = _f64(v, device)
+    return TrapezoidGeometry(**out)
+
+
+def _rating(tree, device):
+    out = dict(kind=str(tree["kind"]))
+    for f in dataclasses.fields(RatingCurveParams):
+        if f.name == "kind":
+            continue
+        v = tree.get(f.name)
+        out[f.name] = None if v is None else _f64(v, device)
+    return RatingCurveParams(**out)
+
+
+def _boundary(tree, device):
+    if tree.get("storage") is not None:
+        raise NotImplementedError(_STORAGE_MESSAGE)
+    rating = tree.get("rating")
+    return BoundaryParams(
+        kind=str(tree["kind"]),
+        bed_level=_f64(tree["bed_level"], device),
+        bed_slope=_f64(tree["bed_slope"], device),
+        initial_depth=_f64(tree["initial_depth"], device),
+        target_series=_f64(tree["target_series"], device),
+        rating=None if rating is None else _rating(rating, device),
+    )
+
+
+def _settings(tree, device):
+    names = {f.name for f in dataclasses.fields(PreissmannSettings)}
+    return PreissmannSettings(**{k: v for k, v in tree.items() if k in names})
+
+
+def _state(tree, device):
+    return _f64(tree["h0"], device), _f64(tree["Q0"], device)
+
+
+_MAKERS = dict(zip(KINDS, (_geometry, _rating, _boundary, _settings, _state)))
+
+
+def from_numpy(kind: str, tree: dict, device=DEFAULT_DEVICE):
+    """Build the port's ``kind`` from a dict of NumPy values (see module doc)."""
+    if kind not in _MAKERS:
+        raise ValueError(f"unknown kind {kind!r}; expected one of {KINDS}")
+    return _MAKERS[kind](tree, resolve_device(device))

@@ -1,0 +1,230 @@
+"""Block-tridiagonal linear solvers (2x2 blocks, torch).
+
+Counterpart of ``flowsim_tpu/ops/tridiag.py``.  The Preissmann Jacobian with
+interleaved unknowns ``[h0,Q0,h1,Q1,...]`` is block tridiagonal when the
+equations are grouped per node:
+
+    L_i x_{i-1} + D_i x_i + U_i x_{i+1} = b_i ,   i = 0..N-1,
+
+with 2x2 blocks, ``L_0 = U_{N-1} = 0``.
+
+* :func:`block_thomas` — sequential block LU, a Python loop over the nodes
+  (O(N) depth): the correctness reference.
+* :func:`block_pcr` — parallel cyclic reduction: ceil(log2 N) sweeps of
+  elementwise 2x2 algebra over all nodes; the plain version that the CUDA
+  kernel ``ops.cuda.pcr_kernel.pcr_solve`` is held against.
+
+Both take leading batch dims.  All 2x2 inverses are closed form; the PCR
+paths apply a tiny-pivot guard by default (:data:`PIVOT_EPS`) so a singular
+system yields large-but-finite deltas instead of inf/NaN.
+"""
+
+from __future__ import annotations
+
+import torch
+
+# Default tiny-pivot guard for the closed-form 2x2 inverses.  Healthy pivot
+# determinants in this application are O(1) and the guard only replaces a
+# determinant whose magnitude is <= eps, so results on well-conditioned
+# systems are bitwise unchanged; a singular pivot gives a finite delta.
+PIVOT_EPS = {torch.float32: 1e-30, torch.float64: 1e-250}
+
+
+def _default_eps(dtype) -> float:
+    return PIVOT_EPS.get(dtype, 1e-30)
+
+
+def _inv2(M, eps=0.0):
+    """Closed-form inverse of [..., 2, 2] blocks."""
+    a = M[..., 0, 0]
+    b = M[..., 0, 1]
+    c = M[..., 1, 0]
+    d = M[..., 1, 1]
+    det = a * d - b * c
+    if eps:
+        signed = torch.where(det >= 0, torch.full_like(det, eps), torch.full_like(det, -eps))
+        det = torch.where(torch.abs(det) > eps, det, signed)
+    inv_det = (1.0 / det).unsqueeze(-1)
+    return (torch.stack([d, -b, -c, a], dim=-1) * inv_det).reshape(M.shape)
+
+
+def _mm(A, B):
+    """[..., 2, 2] @ [..., 2, m] as one broadcast product and a 2-term sum
+    (entry = A[i,0] B[0,j] + A[i,1] B[1,j]; no library matmul)."""
+    return (A.unsqueeze(-1) * B.unsqueeze(-3)).sum(-2)
+
+
+def block_thomas(L, D, U, b):
+    """Sequential block-Thomas solve along axis -3 (the node axis).
+
+    Shapes: L, D, U: [..., N, 2, 2]; b: [..., N, 2] (vector RHS) or
+    [..., N, 2, m] (multi-RHS — one forward/backward sweep shared across the
+    m columns).  Batch dims must lead.
+    """
+    multi = b.ndim == L.ndim  # [..., N, 2, m]
+    b_mat = b if multi else b.unsqueeze(-1)
+    N = L.shape[-3]
+    Ls, Ds, Us, bs = (X.unbind(-3) for X in (L, D, U, b_mat))
+
+    C = torch.zeros_like(Ds[0])
+    d = torch.zeros_like(bs[0])
+    Cs, ds = [], []
+    for i in range(N):
+        Dhat_inv = _inv2(Ds[i] - _mm(Ls[i], C))
+        d = _mm(Dhat_inv, bs[i] - _mm(Ls[i], d))
+        C = _mm(Dhat_inv, Us[i])
+        Cs.append(C)
+        ds.append(d)
+
+    x = torch.zeros_like(bs[0])
+    xs = [None] * N
+    for i in range(N - 1, -1, -1):
+        x = ds[i] - _mm(Cs[i], x)
+        xs[i] = x
+    out = torch.stack(xs, dim=-3)
+    return out if multi else out[..., 0]
+
+
+def _shift(arr, s, node_axis):
+    """arr shifted so index i reads i+s; out-of-range rows give zeros."""
+    N = arr.shape[node_axis]
+    if s == 0:
+        return arr
+    out = torch.zeros_like(arr)
+    k = min(abs(s), N)
+    if k == N:
+        return out
+    if s > 0:
+        out.narrow(node_axis, 0, N - k).copy_(arr.narrow(node_axis, k, N - k))
+    else:
+        out.narrow(node_axis, k, N - k).copy_(arr.narrow(node_axis, 0, N - k))
+    return out
+
+
+def _pcr_core(L, D, U, b, pivot_eps: float | None = None):
+    """Parallel cyclic reduction over 2x2 blocks.
+
+    Each sweep eliminates the couplings at the current stride: with
+    ``a = -L_i D_{i-s}^{-1}`` and ``c = -U_i D_{i+s}^{-1}``,
+
+        L' = a L_{i-s},  U' = c U_{i+s},
+        D' = D + a U_{i-s} + c L_{i+s},
+        b' = b + a b_{i-s} + c b_{i+s}.
+
+    Out-of-range neighbours are identity-diagonal/zero rows, so the update is
+    a no-op there.  After ceil(log2 N) sweeps the system is block diagonal.
+
+    ``pivot_eps=None`` selects the dtype default (:data:`PIVOT_EPS`); pass
+    ``0.0`` to disable the guard entirely.  ``b`` may be a vector RHS
+    [..., N, 2] or multi-RHS [..., N, 2, m].
+    """
+    if pivot_eps is None:
+        pivot_eps = _default_eps(D.dtype)
+    N = L.shape[-3]
+    node_axis = L.ndim - 3
+
+    multi = b.ndim == L.ndim  # [..., N, 2, m]
+    b_mat = b if multi else b.unsqueeze(-1)
+
+    eye = torch.eye(2, dtype=D.dtype, device=D.device)
+    idx = torch.arange(N, device=D.device)
+    m = b_mat.shape[-1]
+    cL, cD, cU, cb = slice(0, 2), slice(2, 4), slice(4, 6), slice(6, 6 + m)
+
+    # one packed tensor [..., N, 2, 6 + m] = [L | D | U | b]: a sweep shifts
+    # it once per direction and multiplies it once by a and once by c — the
+    # same scalar operations as block by block, in fewer tensor calls
+    X = torch.cat([L, D, U, b_mat], dim=-1)
+    s = 1
+    n_sweeps = max(1, (N - 1).bit_length())
+    for _ in range(n_sweeps):
+        Xm = _shift(X, -s, node_axis)
+        Xp = _shift(X, +s, node_axis)
+        # out-of-range neighbour D must be invertible: use identity there
+        valid_m = (idx - s >= 0).reshape(N, 1, 1)
+        valid_p = (idx + s < N).reshape(N, 1, 1)
+        a = -_mm(X[..., cL], _inv2(torch.where(valid_m, Xm[..., cD], eye), pivot_eps))
+        c = -_mm(X[..., cU], _inv2(torch.where(valid_p, Xp[..., cD], eye), pivot_eps))
+        aXm = _mm(a, Xm)
+        cXp = _mm(c, Xp)
+        X = torch.cat([
+            aXm[..., cL],                               # L' = a L[i-s]
+            X[..., cD] + aXm[..., cU] + cXp[..., cL],   # D' = D + a U[i-s] + c L[i+s]
+            cXp[..., cU],                               # U' = c U[i+s]
+            X[..., cb] + aXm[..., cb] + cXp[..., cb],   # b' = b + a b[i-s] + c b[i+s]
+        ], dim=-1)
+        s *= 2
+    D, b_mat = X[..., cD], X[..., cb]
+
+    x = _mm(_inv2(D, pivot_eps), b_mat)
+    return (x if multi else x[..., 0]), D
+
+
+def block_pcr(L, D, U, b, pivot_eps: float | None = None):
+    """Parallel cyclic reduction solve (see :func:`_pcr_core`)."""
+    x, _ = _pcr_core(L, D, U, b, pivot_eps)
+    return x
+
+
+def _rel_pivot_det(D):
+    """|det| of each 2x2 pivot relative to its entry scale, [..., N]."""
+    a = D[..., 0, 0]
+    b_ = D[..., 0, 1]
+    c = D[..., 1, 0]
+    d = D[..., 1, 1]
+    det = a * d - b_ * c
+    scale = torch.maximum(torch.maximum(torch.abs(a), torch.abs(b_)),
+                          torch.maximum(torch.abs(c), torch.abs(d)))
+    tiny = torch.finfo(D.dtype).tiny
+    return torch.abs(det) / torch.clamp(scale * scale, min=tiny)
+
+
+def block_pcr_diag(L, D, U, b, pivot_eps: float | None = None):
+    """PCR solve plus a reciprocal-condition proxy: ``(x, rcond)`` where
+    ``rcond`` is the minimum over the final (fully decoupled) PCR pivots of
+    ``|det| / scale^2``."""
+    x, D_final = _pcr_core(L, D, U, b, pivot_eps)
+    rcond = torch.min(_rel_pivot_det(D_final), dim=-1).values
+    return x, rcond
+
+
+def blocks_to_dense(L, D, U):
+    """Assemble the dense 2N x 2N matrix from block-tridiagonal form (tests)."""
+    N = L.shape[0]
+    A = torch.zeros((2 * N, 2 * N), dtype=D.dtype, device=D.device)
+    for i in range(N):
+        A[2 * i: 2 * i + 2, 2 * i: 2 * i + 2] = D[i]
+        if i > 0:
+            A[2 * i: 2 * i + 2, 2 * i - 2: 2 * i] = L[i]
+        if i < N - 1:
+            A[2 * i: 2 * i + 2, 2 * i + 2: 2 * i + 4] = U[i]
+    return A
+
+
+METHODS = ("thomas", "pcr", "pcr_f32", "cuda_pcr")
+
+
+def solve_block_tridiag(L, D, U, b, method: str = "pcr"):
+    """Solve the 2x2 block-tridiagonal system.
+
+    ``b``: [..., N, 2] vector RHS, or [..., N, 2, m] multi-RHS (thomas / pcr /
+    pcr_f32 share the reduction work across the m columns; the CUDA kernel
+    solves the columns independently).
+    """
+    if method == "thomas":
+        return block_thomas(L, D, U, b)
+    if method == "pcr":
+        return block_pcr(L, D, U, b)
+    if method == "pcr_f32":
+        # inexact-Newton inner solve: the increment only needs a few correct
+        # digits for Newton to keep its convergence behavior
+        f32 = torch.float32
+        return block_pcr(L.to(f32), D.to(f32), U.to(f32), b.to(f32)).to(b.dtype)
+    if method == "cuda_pcr":
+        # hand-written Hopper kernel, system resident in shared memory
+        from flowsim_tpu_torch.ops.cuda.pcr_kernel import pcr_solve
+
+        if b.ndim == L.ndim:
+            return torch.stack([pcr_solve(L, D, U, b[..., j]) for j in range(b.shape[-1])], dim=-1)
+        return pcr_solve(L, D, U, b)
+    raise ValueError(f"unknown method {method!r}")

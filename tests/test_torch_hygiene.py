@@ -1,0 +1,166 @@
+"""The port stands alone: it imports neither JAX, the JAX package, pandas nor
+triton; its entry points default to the card and say so when there is none;
+the fused engine refuses what it does not implement instead of falling back.
+"""
+
+import dataclasses
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "flowsim_tpu_torch")
+
+torch.set_num_threads(1)
+
+
+@pytest.mark.parametrize("module", ["flowsim_tpu_torch", "flowsim_tpu_torch.models.gerd_roseires.model",
+                                    "flowsim_tpu_torch.ops.cuda.fused_newton",
+                                    "flowsim_tpu_torch.ops.cuda.pcr_kernel", "flowsim_tpu_torch.convert"])
+def test_import_leaves_other_frameworks_out(module):
+    code = (f"import sys, {module}\n"
+            "bad = [m for m in ('jax', 'jaxlib', 'flowsim_tpu', 'pandas', 'triton') if m in sys.modules]\n"
+            "assert not bad, bad\n"
+            "import torch; assert 'torch' in sys.modules")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True)
+    assert res.returncode == 0, res.stderr
+
+
+def _port_sources():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(PORT):
+        files += [os.path.join(root, n) for n in names if n.endswith((".py", ".cu", ".cuh"))]
+    return files
+
+
+def test_sources_import_no_jax_no_jax_package_no_pandas():
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|pandas|triton|flowsim_tpu)(\.|\s|$)", re.M)
+    files = _port_sources()
+    assert len(files) > 20
+    for path in files:
+        with open(path) as f:
+            hit = pattern.search(f.read())
+        assert hit is None, f"{path}: {hit.group(0)!r}"
+
+
+def test_kernel_sources_have_their_notes_and_no_library_calls():
+    for name, replaced in (("pcr_kernel.cu", "pcr_kernel.py"), ("fused_newton.cu", "fused_newton.py"),
+                           ("pcr_common.cuh", "pcr_common.py")):
+        with open(os.path.join(PORT, "ops", "cuda", "csrc", name)) as f:
+            text = f.read()
+        assert "Replaces flowsim_tpu/ops/pallas/" + replaced in text
+        for lib in ("cublas", "cusolver", "torch/extension.h", "cutlass"):
+            assert lib not in text.lower()
+
+
+def test_cuda_entry_points_raise_clearly_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works here")
+    from flowsim_tpu_torch import build_trapezoid_geometry, resolve_device
+    from flowsim_tpu_torch.models.gerd_roseires import model
+    from flowsim_tpu_torch.ops import boundary, rating_curve
+
+    for call in (lambda: resolve_device(), lambda: resolve_device("cuda:0"),
+                 lambda: model.build(),
+                 lambda: build_trapezoid_geometry(5, 100.0, 1.0, 0.0, 10.0, 0.03),
+                 lambda: rating_curve.make_polynomial(1.0, 2.0, 3.0),
+                 lambda: boundary.make_boundary("fixed_depth", initial_depth=1.0)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_build_needs_nvcc_and_says_so(monkeypatch, tmp_path):
+    from flowsim_tpu_torch.ops.cuda import build
+
+    monkeypatch.setenv("FLOWSIM_TORCH_BUILD_DIR", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.delenv("NVCC", raising=False)
+    if os.path.exists("/usr/local/cuda/bin/nvcc"):
+        pytest.skip("nvcc is installed here")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.load("pcr_kernel")
+    log = ("ptxas info    : Compiling entry function '_Z3fooPd' for 'sm_90a'\n"
+           "ptxas info    : Function properties for _Z3fooPd\n"
+           "    16 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads\n"
+           "ptxas info    : Used 96 registers, 512 bytes smem, 400 bytes cmem[0]\n")
+    assert build.parse_ptxas(log) == [dict(kernel="_Z3fooPd", stack_bytes=16, spill_store_bytes=8,
+                                           spill_load_bytes=12, registers=96, static_smem_bytes=512)]
+
+
+@pytest.fixture(scope="module")
+def flagship():
+    from flowsim_tpu_torch.models.gerd_roseires import model
+
+    solver, channel = model.build(sim_duration=3600 * 2, device="cpu")
+    return solver, channel, solver.settings(1e-6, 100)
+
+
+def test_check_supported_accepts_the_flagship(flagship):
+    from flowsim_tpu_torch.ops.cuda import fused_newton as fn
+
+    solver, channel, sset = flagship
+    fn._check_supported(channel.geometry, solver.us_params, solver.ds_params, sset)
+    par, rc_kind = fn.pack_params(solver.us_params, solver.ds_params, sset)
+    assert par.shape == (22,) and rc_kind == 1
+    assert fn.pack_geometry(channel.geometry).shape == (13, 121)
+    assert fn.SMEM_BYTES_PER_NODE * fn.MAX_N + 512 <= 232448  # 227 KB per block
+
+
+@pytest.mark.parametrize("case", ["table_geometry", "storage", "newton_fixed", "store_boundaries",
+                                  "upstream_rating", "lateral_inflow", "too_long", "table_rating",
+                                  "normal_depth_without_slope", "diagnos"])
+def test_check_supported_raises_fused_unsupported(flagship, case):
+    from flowsim_tpu_torch.ops import rating_curve as rc
+    from flowsim_tpu_torch.ops.cuda.fused_newton import FusedUnsupported, _check_supported, fused_simulate
+
+    solver, channel, sset = flagship
+    geo, us, ds = channel.geometry, solver.us_params, solver.ds_params
+    kw = {}
+    if case == "table_geometry":
+        class TableGeometry:  # anything that is not a TrapezoidGeometry
+            n_nodes = 121
+        geo = TableGeometry()
+    elif case == "storage":
+        ds = dataclasses.replace(ds, kind="fixed_depth", storage=object())
+    elif case == "newton_fixed":
+        sset = dataclasses.replace(sset, newton="fixed")
+    elif case == "store_boundaries":
+        sset = dataclasses.replace(sset, store="boundaries")
+    elif case == "diagnos":
+        sset = dataclasses.replace(sset, diagnos=True)
+    elif case == "upstream_rating":
+        us = dataclasses.replace(ds)
+    elif case == "lateral_inflow":
+        kw = dict(lateral_inflow=torch.zeros(121))
+    elif case == "too_long":
+        geo = dataclasses.replace(geo, **{f.name: getattr(geo, f.name).repeat(8)
+                                          for f in dataclasses.fields(geo)})
+    elif case == "table_rating":
+        ds = dataclasses.replace(ds, rating=rc.make_table([480.0, 490.0], [0.0, 1e4], device="cpu"))
+    elif case == "normal_depth_without_slope":
+        ds = dataclasses.replace(ds, kind="normal_depth")  # the flagship's bed_slope is NaN
+    with pytest.raises(FusedUnsupported):
+        _check_supported(geo, us, ds, sset, **kw)
+    # and the entry point lets it reach the caller: no fallback to the plain engine
+    with pytest.raises(FusedUnsupported):
+        fused_simulate(geo, us, ds, solver.h0, solver.Q0, sset, **kw)
+
+
+def test_api_fused_engine_does_not_fall_back(flagship):
+    from flowsim_tpu_torch.ops.cuda.fused_newton import FusedUnsupported
+
+    solver, _, _ = flagship
+    solver.newton = "fixed"
+    try:
+        with pytest.raises(FusedUnsupported):
+            solver.run(engine="fused", tolerance=1e-6, verbose=0)
+        with pytest.raises(ValueError, match="engine"):
+            solver.run(engine="xla")
+    finally:
+        solver.newton = "while"

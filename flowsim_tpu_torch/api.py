@@ -385,7 +385,8 @@ class PreissmannSolver(_SolverBase):
 
     RCOND_THRESHOLD = 1e-12  # ref preissmann.py:142
 
-    def run(self, tolerance=1e-4, verbose=1, max_iter=100, diagnos=False, engine="plain"):
+    def run(self, tolerance=1e-4, verbose=1, max_iter=100, diagnos=False, engine="plain",
+            lateral_inflow=None):
         """Run the full simulation on the solver's device.
 
         ``engine``: ``"plain"`` (default) runs the eager scan-of-Newton;
@@ -394,17 +395,26 @@ class PreissmannSolver(_SolverBase):
         (no fallback to the plain engine).  Returns the ``SimOutput`` of
         tensors on the device; ``self.depth`` / ``self.flow`` hold NumPy
         copies for the accessors.
+
+        ``lateral_inflow``: distributed source q [m^2/s per unit length] —
+        scalar (uniform), per node [N], or per level and node [nt, N]; both
+        engines take it.
         """
         if engine not in self.ENGINES:
             raise ValueError(f"unknown engine {engine!r}; expected one of {self.ENGINES}")
         sset = self.settings(tolerance, max_iter, diagnos=diagnos)
         args = (self.channel.geometry, self.us_params, self.ds_params, self.h0, self.Q0, sset)
+        if lateral_inflow is not None:
+            lateral_inflow = np.asarray(lateral_inflow, dtype=np.float64)
+            if lateral_inflow.ndim == 0:
+                lateral_inflow = np.full(self.number_of_nodes, float(lateral_inflow))
+            lateral_inflow = prs.as_lateral_inflow(lateral_inflow, self.h0)
         if engine == "fused":
             from flowsim_tpu_torch.ops.cuda.fused_newton import fused_simulate
 
-            out = fused_simulate(*args)
+            out = fused_simulate(*args, lateral_inflow=lateral_inflow)
         else:
-            out = prs.simulate(*args)
+            out = prs.simulate(*args, lateral_inflow=lateral_inflow)
         self.output = out
         self.depth = out.depth.cpu().numpy()
         self.flow = out.flow.cpu().numpy()

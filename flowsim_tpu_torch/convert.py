@@ -4,7 +4,10 @@
 ``RatingCurveParams``, ``BoundaryParams``, ``PreissmannSettings`` or an
 ``(h0, Q0)`` state from a dict of NumPy arrays / floats / strings whose keys
 are the field names of the JAX package's dataclasses — what
-``dataclasses.fields`` + ``np.asarray`` give for one of its trees.  This
+``dataclasses.fields`` + ``np.asarray`` give for one of its trees.  Array
+values may carry a leading member axis (a batched geometry, stacked
+boundaries, a ``[B, N]`` state): the result is then the batched tree that
+``parallel.ensemble`` takes.  This
 module never sees a JAX object: whoever holds one turns it into such a dict
 first.  Fields the port does not have (TPU-only settings) are ignored;
 a boundary that carries lumped storage is refused.

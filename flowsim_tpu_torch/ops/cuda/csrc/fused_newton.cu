@@ -1,7 +1,10 @@
-// fused_simulate: a whole single-reach Preissmann simulation in one launch.
+// fused_simulate: a whole single-reach Preissmann simulation in one launch,
+// and fused_simulate_batched: B such simulations (ensemble members) in one
+// launch, one thread block per member.
 //
 // Replaces flowsim_tpu/ops/pallas/fused_newton.py (_kernel via _build_call /
-// fused_simulate): for each of nt-1 time levels — gate-controller update,
+// fused_simulate, and _kernel_batched via _build_call_batched /
+// fused_simulate_batched): for each of nt-1 time levels — gate-controller update,
 // previous-level state, then a while-Newton of {section state + energy slope
 // per node, cell residuals and Jacobian, boundary rows, residual norm,
 // 2x2-block PCR solve, update} that ends on the PRE-update residual norm
@@ -33,8 +36,19 @@
 //    per-warp partial sums, so the loop condition is uniform and no thread
 //    can leave a barrier behind;
 //  * blockIdx.x indexes the simulation and every per-simulation array is
-//    reached through it, so a batch of independent simulations (ensemble
-//    members) fills the other 131 SMs without changing the kernel.
+//    reached through it: a batch of B ensemble members is the same kernel on
+//    a grid of B blocks.  Each member has its own geometry rows, initial
+//    state, boundary series, parameter block (rating coefficients, pivots,
+//    gate cooldown, bed levels) and gate-controller state, and runs its own
+//    while-Newton, so its per-level iteration counts are those of its single
+//    run and a member that diverges holds up no other.  The TPU kernel puts
+//    members on vector sublanes and loops while any member is active; here
+//    the hardware scheduler queues the blocks that are not resident yet.
+//
+// Options: lateral inflow (qlat_mode 1: per node, 2: per level and node; the
+// theta-weighted cell average is formed once per level with the plain
+// engine's association), store_boundaries (write nodes 0 and N-1 only,
+// [S, nt, 2]), and an upstream rating curve with its own coefficient block.
 //
 // Everything is float64 (native on this card): no double-single pairs and no
 // f32 Jacobian as on the TPU.  The arithmetic mirrors ops/sections.py,
@@ -45,9 +59,13 @@
 // trajectory matches the plain PyTorch engine to rounding.
 //
 // Reached on an NVIDIA H100 80GB HBM3 at a 700 W power limit (chip_smoke.py):
-// 15.3 us per Newton iteration at N = 121 (the flagship: 73.7 ms for 4803
-// iterations, no register spills) and 44 us at N = 964 (the 1024-thread build,
-// 64 registers, spilling).  PERF.md keeps the readings.
+// 15.2 us per Newton iteration at N = 121 (the flagship: 73.1 ms for 4803
+// iterations, 250 registers, no spills) and 45 us at N = 964 (the 1024-thread
+// build, 64 registers, spilling).  As a batch the flagship's 128-thread blocks
+// are resident two to an SM (registers), 264 on the card: 132 members take
+// 81 ms, 264 take 91 ms, and beyond that the time grows with the member count
+// (10 240 members, nodes 0 and N-1 stored: 2.85 s, 12.6 times the bound by
+// FP64 operations).  PERF.md keeps the readings.
 //
 // C interface (ctypes): launches on the given stream, allocates nothing,
 // does not synchronise, returns cudaGetLastError().
@@ -69,10 +87,14 @@ enum { P_THETA, P_DT, P_DX, P_TOL,
        P_US_BED_LEVEL, P_US_BED_SLOPE, P_US_INIT_DEPTH,
        P_DS_BED_LEVEL, P_DS_BED_SLOPE, P_DS_INIT_DEPTH,
        P_RC_LOW0, P_RC_LOW1, P_RC_LOW2, P_RC_HIGH0, P_RC_HIGH1, P_RC_HIGH2,
-       P_RC_SHIFT, P_RC_PIVOT, P_RC_BUFFER, P_RC_FD, P_RC_COOLDOWN, P_GATE_INIT, P_COUNT };
+       P_RC_SHIFT, P_RC_PIVOT, P_RC_BUFFER, P_RC_FD, P_RC_COOLDOWN, P_GATE_INIT,
+       // the upstream rating curve (polynomial or blended_poly; never gated)
+       P_URC_LOW0, P_URC_LOW1, P_URC_LOW2, P_URC_HIGH0, P_URC_HIGH1, P_URC_HIGH2,
+       P_URC_SHIFT, P_URC_PIVOT, P_URC_BUFFER, P_URC_FD, P_COUNT };
 
 enum { BC_FLOW = 0, BC_STAGE = 1, BC_FIXED = 2, BC_NORMAL = 3, BC_RATING = 4 };
 enum { RC_POLY = 0, RC_BLEND = 1, RC_GATED = 2 };
+enum { QLAT_NONE = 0, QLAT_CONST = 1, QLAT_LEVELS = 2 };
 
 constexpr int COMP = pcr::components<1>();  // 14 components per node
 constexpr int SMEM_DOUBLES_PER_NODE = 2 * COMP + 2;
@@ -350,14 +372,16 @@ fused_simulate_kernel(const double* __restrict__ geo_all,   // [S, 13, N]
                       const double* __restrict__ us_all,    // [S, nt]
                       const double* __restrict__ ds_all,    // [S, nt]
                       const double* __restrict__ par_all,   // [S, P_COUNT]
-                      double* __restrict__ depth_all,       // [S, nt, N]
-                      double* __restrict__ flow_all,        // [S, nt, N]
+                      const double* __restrict__ qlat_all,  // [S, N] / [S, nt, N] / null
+                      double* __restrict__ depth_all,       // [S, nt, W], W = N or 2
+                      double* __restrict__ flow_all,        // [S, nt, W]
                       int* __restrict__ iters_all,          // [S, nt]
                       double* __restrict__ err_all,         // [S, nt]
                       int* __restrict__ conv_all,           // [S, nt]
                       double* __restrict__ gate_all,        // [S, nt]
                       int n, int nt, int max_iter, int sweeps,
-                      int us_kind, int ds_kind, int rc_kind) {
+                      int us_kind, int ds_kind, int rc_kind, int us_rc_kind,
+                      int store_boundaries, int qlat_mode) {
     extern __shared__ double smem[];
     __shared__ double warp_part[2][32];
 
@@ -366,8 +390,11 @@ fused_simulate_kernel(const double* __restrict__ geo_all,   // [S, 13, N]
     const double* us_series = us_all + sim * (size_t)nt;
     const double* ds_series = ds_all + sim * (size_t)nt;
     const double* par = par_all + sim * (size_t)P_COUNT;
-    double* depth = depth_all + sim * (size_t)nt * n;
-    double* flow = flow_all + sim * (size_t)nt * n;
+    const int width = store_boundaries ? 2 : n;   // stored nodes per level
+    double* depth = depth_all + sim * (size_t)nt * width;
+    double* flow = flow_all + sim * (size_t)nt * width;
+    const double* qlat = qlat_mode == QLAT_NONE ? nullptr
+        : qlat_all + sim * (size_t)(qlat_mode == QLAT_LEVELS ? nt : 1) * n;
     int* iters = iters_all + sim * (size_t)nt;
     double* errs = err_all + sim * (size_t)nt;
     int* conv = conv_all + sim * (size_t)nt;
@@ -406,9 +433,16 @@ fused_simulate_kernel(const double* __restrict__ geo_all,   // [S, 13, N]
         if (cell) z1 = geo[G_ZBED * n + i + 1];
         sh[i] = h0_all[sim * (size_t)n + i];
         sQ[i] = Q0_all[sim * (size_t)n + i];
-        depth[i] = sh[i];
-        flow[i] = sQ[i];
     }
+#define STORE_LEVEL(k)                                                      \
+    if (store_boundaries) {                                                 \
+        if (first) { depth[(size_t)(k) * 2] = sh[0]; flow[(size_t)(k) * 2] = sQ[0]; }          \
+        if (last) { depth[(size_t)(k) * 2 + 1] = sh[i]; flow[(size_t)(k) * 2 + 1] = sQ[i]; }   \
+    } else if (node) {                                                      \
+        depth[(size_t)(k) * n + i] = sh[i];                                 \
+        flow[(size_t)(k) * n + i] = sQ[i];                                  \
+    }
+    STORE_LEVEL(0)
     // gate-controller state: identical in every thread
     double gate_open = par[P_GATE_INIT];
     double gate_cooldown = 0.0, gate_prev_time = -1.0;
@@ -454,6 +488,13 @@ fused_simulate_kernel(const double* __restrict__ geo_all,   // [S, 13, N]
             Ap1 = buf1[0 * n + i + 1]; Sep1 = buf1[1 * n + i + 1]; Q2Ap1 = buf1[2 * n + i + 1];
         }
         const double us_target = us_series[k], ds_target = ds_series[k];
+        // lateral inflow of this level: the theta-weighted cell average
+        double qavg = 0.0;
+        if (cell && qlat_mode != QLAT_NONE) {
+            const double* qc = qlat_mode == QLAT_LEVELS ? qlat + (size_t)k * n : qlat;
+            const double* qp = qlat_mode == QLAT_LEVELS ? qlat + (size_t)(k - 1) * n : qlat;
+            qavg = CAVG(qc[i + 1], qc[i], qp[i + 1], qp[i]);
+        }
         __syncthreads();
 
         // -- while-Newton: the condition is on the residual computed BEFORE
@@ -492,7 +533,8 @@ fused_simulate_kernel(const double* __restrict__ geo_all,   // [S, 13, N]
                 const double A0 = s.A, Se0 = e.Se, dA_dh0 = s.dA_dh;
                 const double dSe_dA0 = e.dSe_dA, dSe_dQ0 = e.dSe_dQ;
 
-                const double Rc = TDIFF(A1, A0, Ap1, Ap0) + SDIFF(Q1, Q, Qp1, Qp0);
+                double Rc = TDIFF(A1, A0, Ap1, Ap0) + SDIFF(Q1, Q, Qp1, Qp0);
+                if (qlat_mode != QLAT_NONE) Rc = Rc - qavg;
                 const double avgA = CAVG(A1, A0, Ap1, Ap0);
                 const double dYdx = (z1 - g.z) / dx + SDIFF(h1, h, hp1, hp0);
                 const double avgSe = CAVG(Se1, Se0, Sep1, Sep0);
@@ -523,7 +565,15 @@ fused_simulate_kernel(const double* __restrict__ geo_all,   // [S, 13, N]
             }
             if (node && first) {  // upstream row: D row 0 of node 0
                 double res, df_dh, df_dQ;
-                boundary_row(us_bc, rat, s, h, Q, us_target, gate_open, res, df_dh, df_dQ);
+                // read here, by this one thread and only for a rating row, so
+                // that the block is not held in registers by every thread
+                Rating us_rat{};
+                if (us_kind == BC_RATING)
+                    us_rat = Rating{par[P_URC_LOW0], par[P_URC_LOW1], par[P_URC_LOW2],
+                                    par[P_URC_HIGH0], par[P_URC_HIGH1], par[P_URC_HIGH2],
+                                    par[P_URC_SHIFT], par[P_URC_PIVOT], par[P_URC_BUFFER],
+                                    par[P_URC_FD], 0.0, us_rc_kind};
+                boundary_row(us_bc, us_rat, s, h, Q, us_target, gate_open, res, df_dh, df_dQ);
                 buf0[0 * n + i] = 0.0;   buf0[1 * n + i] = 0.0;
                 buf0[4 * n + i] = df_dh; buf0[5 * n + i] = df_dQ;
                 buf0[12 * n + i] = -res;
@@ -559,10 +609,7 @@ fused_simulate_kernel(const double* __restrict__ geo_all,   // [S, 13, N]
             __syncthreads();
         }
 
-        if (node) {
-            depth[(size_t)k * n + i] = sh[i];
-            flow[(size_t)k * n + i] = sQ[i];
-        }
+        STORE_LEVEL(k)
         gate_stage = ds_bc.bed_level + sh[n - 1];
         if (first) {
             iters[k] = it;
@@ -574,21 +621,24 @@ fused_simulate_kernel(const double* __restrict__ geo_all,   // [S, 13, N]
 #undef TDIFF
 #undef SDIFF
 #undef CAVG
+#undef STORE_LEVEL
 }
 
 template <int BLOCK>
 int launch(const double* geo, const double* h0, const double* Q0, const double* us,
-           const double* ds, const double* par, double* depth, double* flow, int* iters,
-           double* err, int* conv, double* gate, int n_sims, int n, int nt, int max_iter,
-           int us_kind, int ds_kind, int rc_kind, cudaStream_t stream) {
+           const double* ds, const double* par, const double* qlat, double* depth, double* flow,
+           int* iters, double* err, int* conv, double* gate, int n_sims, int n, int nt,
+           int max_iter, int us_kind, int ds_kind, int rc_kind, int us_rc_kind,
+           int store_boundaries, int qlat_mode, cudaStream_t stream) {
     const int threads = ((n + 31) / 32) * 32;
     const size_t smem = (size_t)SMEM_DOUBLES_PER_NODE * n * sizeof(double);
     cudaError_t e = cudaFuncSetAttribute(fused_simulate_kernel<BLOCK>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     fused_simulate_kernel<BLOCK><<<n_sims, threads, smem, stream>>>(
-        geo, h0, Q0, us, ds, par, depth, flow, iters, err, conv, gate,
-        n, nt, max_iter, pcr::n_sweeps(n), us_kind, ds_kind, rc_kind);
+        geo, h0, Q0, us, ds, par, qlat, depth, flow, iters, err, conv, gate,
+        n, nt, max_iter, pcr::n_sweeps(n), us_kind, ds_kind, rc_kind, us_rc_kind,
+        store_boundaries, qlat_mode);
     return (int)cudaGetLastError();
 }
 
@@ -597,17 +647,23 @@ int launch(const double* geo, const double* h0, const double* Q0, const double* 
 extern "C" int flowsim_fused_param_count() { return P_COUNT; }
 extern "C" int flowsim_fused_smem_bytes_per_node() { return SMEM_DOUBLES_PER_NODE * (int)sizeof(double); }
 
+// One block per simulation: n_sims = 1 is fused_simulate, n_sims = B is
+// fused_simulate_batched.  Every array carries a leading n_sims axis.
 extern "C" int flowsim_fused_simulate(const void* geo, const void* h0, const void* Q0,
                                       const void* us, const void* ds, const void* par,
-                                      void* depth, void* flow, void* iters, void* err,
-                                      void* conv, void* gate, int n_sims, int n, int nt,
-                                      int max_iter, int us_kind, int ds_kind, int rc_kind,
-                                      void* stream) {
-    if (n_sims <= 0 || n <= 0 || n > 1024 || nt <= 0) return (int)cudaErrorInvalidValue;
+                                      const void* qlat, void* depth, void* flow, void* iters,
+                                      void* err, void* conv, void* gate, int n_sims, int n,
+                                      int nt, int max_iter, int us_kind, int ds_kind,
+                                      int rc_kind, int us_rc_kind, int store_boundaries,
+                                      int qlat_mode, void* stream) {
+    if (n_sims <= 0 || n <= 1 || n > 1024 || nt <= 0) return (int)cudaErrorInvalidValue;
+    if (qlat_mode < QLAT_NONE || qlat_mode > QLAT_LEVELS) return (int)cudaErrorInvalidValue;
+    if ((qlat_mode != QLAT_NONE) != (qlat != nullptr)) return (int)cudaErrorInvalidValue;
 #define FLOWSIM_LAUNCH(B) launch<B>((const double*)geo, (const double*)h0, (const double*)Q0, \
-        (const double*)us, (const double*)ds, (const double*)par, (double*)depth, (double*)flow, \
-        (int*)iters, (double*)err, (int*)conv, (double*)gate, n_sims, n, nt, max_iter, us_kind, \
-        ds_kind, rc_kind, (cudaStream_t)stream)
+        (const double*)us, (const double*)ds, (const double*)par, (const double*)qlat, \
+        (double*)depth, (double*)flow, (int*)iters, (double*)err, (int*)conv, (double*)gate, \
+        n_sims, n, nt, max_iter, us_kind, ds_kind, rc_kind, us_rc_kind, store_boundaries, \
+        qlat_mode, (cudaStream_t)stream)
     // the block size is a launch bound, so a small reach gets the full
     // register budget and only a long one is squeezed to 64 registers
     if (n <= 128) return FLOWSIM_LAUNCH(128);

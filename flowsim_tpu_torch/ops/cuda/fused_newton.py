@@ -12,6 +12,10 @@ and unpacks a :class:`~flowsim_tpu_torch.ops.preissmann.SimOutput`.
 On CUDA tensors the wrapper launches the kernel or raises.  The plain version
 :func:`fused_simulate_plain` — ``ops.preissmann.simulate`` with
 ``linear_solver="pcr"`` — runs only for tensors that lie on the CPU.
+
+The same kernel on a grid of B blocks is the batched (ensemble) kernel; its
+wrapper is ``ops/cuda/fused_batched.py``, which shares :func:`launch` and the
+packing functions of this module (they accept a leading member axis).
 """
 
 from __future__ import annotations
@@ -36,7 +40,8 @@ _GEO_ROWS = ("z_bed", "b_main", "m_main", "n_main", "compound", "h_bank", "b_fp_
 _BC_KINDS = {"flow_hydrograph": 0, "stage_hydrograph": 1, "fixed_depth": 2,
              "normal_depth": 3, "rating_curve": 4}
 _RC_KINDS = {"polynomial": 0, "blended_poly": 1, "gated_blend": 2}
-_N_PARAMS = 22
+_US_RC_KINDS = ("polynomial", "blended_poly")   # the gate controller is downstream-only
+_N_PARAMS = 32
 
 # number of kernel launches made by fused_simulate (not by its plain version)
 launch_count = 0
@@ -46,34 +51,38 @@ class FusedUnsupported(Exception):
     """Raised when the configuration is outside the fused kernel's scope."""
 
 
-def _check_supported(geo, us_bc, ds_bc, settings, lateral_inflow=None):
+def _check_rating(name, bc, kinds):
+    kind = None if bc.rating is None else bc.rating.kind
+    if kind not in kinds:
+        raise FusedUnsupported(f"unsupported {name} rating kind {kind!r}; the kernel has {tuple(kinds)}")
+    if bc.rating.coeffs.shape[-1] != 3:
+        raise FusedUnsupported("the fused kernel packs quadratics (3 coefficients)")
+
+
+def _check_supported(geo, us_bc, ds_bc, settings):
+    """Raise :class:`FusedUnsupported` outside the kernel's scope."""
     if not isinstance(geo, TrapezoidGeometry):
         raise FusedUnsupported(
             "fused kernel supports TrapezoidGeometry only (table geometry is "
-            "an extension still to be ported)")
-    if lateral_inflow is not None:
-        raise FusedUnsupported("lateral inflow is not in the fused kernel yet")
+            "an extension still to be ported, ROADMAP.md Queue 1 item 8)")
     for name, bc in (("upstream", us_bc), ("downstream", ds_bc)):
         if bc.kind not in _BC_KINDS:
             raise FusedUnsupported(f"unknown {name} BC kind {bc.kind!r}")
         if bc.storage is not None:
-            raise FusedUnsupported("lumped storage is not in the fused kernel yet")
+            raise FusedUnsupported(
+                "lumped storage is not in the fused kernel yet (ROADMAP.md Queue 1 item 8)")
         if bc.kind == "normal_depth":
-            s0 = float(bc.bed_slope)
+            s0 = float(bc.bed_slope.reshape(-1)[0])
             if not math.isfinite(s0) or s0 <= 0.0:
                 raise FusedUnsupported(f"normal_depth {name} BC needs S0 > 0")
     if us_bc.kind == "rating_curve":
-        raise FusedUnsupported("an upstream rating curve is not in the fused kernel yet")
+        _check_rating("upstream", us_bc, _US_RC_KINDS)
     if ds_bc.kind == "rating_curve":
-        if ds_bc.rating is None or ds_bc.rating.kind not in _RC_KINDS:
-            kind = None if ds_bc.rating is None else ds_bc.rating.kind
-            raise FusedUnsupported(f"unsupported rating kind {kind!r}")
-        if ds_bc.rating.coeffs.shape[-1] != 3:
-            raise FusedUnsupported("the fused kernel packs quadratics (3 coefficients)")
+        _check_rating("downstream", ds_bc, _RC_KINDS)
     if settings.newton != "while":
         raise FusedUnsupported("fused kernel implements the while-Newton only")
-    if settings.store != "full":
-        raise FusedUnsupported("fused kernel stores full fields only")
+    if settings.store not in prs.STORES:
+        raise FusedUnsupported(f"fused kernel stores {prs.STORES}; got {settings.store!r}")
     if settings.diagnos:
         raise FusedUnsupported("fused kernel has no rcond diagnostics")
     n = geo.n_nodes
@@ -83,18 +92,18 @@ def _check_supported(geo, us_bc, ds_bc, settings, lateral_inflow=None):
             f"({MAX_N} nodes at {SMEM_BYTES_PER_NODE} B/node)")
 
 
-def fused_simulate_plain(geo, us_bc, ds_bc, h0, Q0, settings) -> prs.SimOutput:
+def fused_simulate_plain(geo, us_bc, ds_bc, h0, Q0, settings, lateral_inflow=None) -> prs.SimOutput:
     """The plain PyTorch version of the kernel: the eager scan-of-Newton with
     the PCR inner solve."""
     sset = dataclasses.replace(settings, linear_solver="pcr")
-    return prs.simulate(geo, us_bc, ds_bc, h0, Q0, sset)
+    return prs.simulate(geo, us_bc, ds_bc, h0, Q0, sset, lateral_inflow=lateral_inflow)
 
 
 def _lib():
     lib = build.load("fused_newton")
     fn = lib.flowsim_fused_simulate
     if not getattr(fn, "_typed", False):
-        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         for aux in (lib.flowsim_fused_param_count, lib.flowsim_fused_smem_bytes_per_node):
             aux.argtypes = []
@@ -108,91 +117,157 @@ def _lib():
 
 
 def pack_geometry(geo: TrapezoidGeometry) -> torch.Tensor:
-    """[13, N] float64: the geometry rows in the kernel's order (``compound``
-    as 0/1)."""
+    """[13, N] float64 ([B, 13, N] for a batched geometry): the geometry rows
+    in the kernel's order (``compound`` as 0/1)."""
     dt = geo.z_bed.dtype
-    return torch.stack([getattr(geo, r).to(dt) for r in _GEO_ROWS]).contiguous()
+    return torch.stack([getattr(geo, r).to(dt) for r in _GEO_ROWS], dim=-2).contiguous()
 
 
-def pack_params(us_bc, ds_bc, settings) -> tuple[torch.Tensor, int]:
-    """The 22 scalar parameters the kernel reads, and the rating-curve kind."""
+def _rating_slots(rc, gated):
+    """(tensor, width) pairs of one rating block: low, high, shift, pivot,
+    buffer, fd step and (downstream only, by the caller) the gate cooldown."""
+    if rc is None:
+        return [(None, 3), (None, 3), (None, 1), (None, 1), (None, 1), (None, 1)], None
+    high = rc.coeffs_high if rc.coeffs_high.shape[-1] == 3 else None
+    slots = [(rc.coeffs, 3), (high, 3), (rc.stage_shift, 1), (rc.pivot_stage, 1),
+             (rc.buffer, 1), (rc.fd_step, 1)]
+    return slots, (rc.max_cooldown if gated else None)
+
+
+def pack_params(us_bc, ds_bc, settings, batch_shape=()) -> tuple[torch.Tensor, int, int]:
+    """The 32 scalar parameters the kernel reads — ``[32]``, or ``[B, 32]``
+    with ``batch_shape=(B,)`` where any boundary leaf may carry a leading
+    member axis — and the downstream and upstream rating-curve kinds."""
     dev, dt = us_bc.bed_level.device, torch.float64
     rc = ds_bc.rating if ds_bc.kind == "rating_curve" else None
-    z = torch.zeros((), dtype=dt, device=dev)
-    zero3 = torch.zeros((3,), dtype=dt, device=dev)
+    urc = us_bc.rating if us_bc.kind == "rating_curve" else None
+    ds_slots, cooldown = _rating_slots(rc, rc is not None and rc.kind == "gated_blend")
+    us_slots, _ = _rating_slots(urc, False)
     host = torch.tensor(
         [settings.theta, settings.time_step, settings.spatial_step, settings.tolerance],
         dtype=dt, device=dev)
-    gated = rc is not None and rc.kind == "gated_blend"
-    parts = [
-        host,
-        torch.stack([us_bc.bed_level, us_bc.bed_slope, us_bc.initial_depth,
-                     ds_bc.bed_level, ds_bc.bed_slope, ds_bc.initial_depth]),
-        rc.coeffs if rc is not None else zero3,
-        rc.coeffs_high if rc is not None and rc.coeffs_high.numel() == 3 else zero3,
-        torch.stack([rc.stage_shift, rc.pivot_stage, rc.buffer, rc.fd_step]) if rc is not None
-        else torch.zeros((4,), dtype=dt, device=dev),
-        (rc.max_cooldown if gated else z).reshape(1),
-        torch.full((1,), 1.0 if settings.gate_initially_open else 0.0, dtype=dt, device=dev),
-    ]
-    par = torch.cat([p.to(dt).reshape(-1) for p in parts]).contiguous()
-    if par.numel() != _N_PARAMS:
-        raise RuntimeError(f"packed {par.numel()} parameters, the kernel reads {_N_PARAMS}")
-    return par, (_RC_KINDS[rc.kind] if rc is not None else 0)
+    gate_init = torch.tensor(1.0 if settings.gate_initially_open else 0.0, dtype=dt, device=dev)
+    slots = [(host, 4), (us_bc.bed_level, 1), (us_bc.bed_slope, 1), (us_bc.initial_depth, 1),
+             (ds_bc.bed_level, 1), (ds_bc.bed_slope, 1), (ds_bc.initial_depth, 1),
+             *ds_slots, (cooldown, 1), (gate_init, 1), *us_slots]
+    parts = []
+    for t, width in slots:
+        if t is None:
+            t = torch.zeros((width,), dtype=dt, device=dev)
+        elif width == 1:
+            t = t.unsqueeze(-1)    # a scalar leaf: 0-d when shared, [B] per member
+        parts.append(t.to(dt).expand(*batch_shape, width))
+    par = torch.cat(parts, dim=-1).contiguous()
+    if par.shape[-1] != _N_PARAMS:
+        raise RuntimeError(f"packed {par.shape[-1]} parameters, the kernel reads {_N_PARAMS}")
+    return par, (_RC_KINDS[rc.kind] if rc is not None else 0), (_RC_KINDS[urc.kind] if urc is not None else 0)
 
 
-def _series(bc, nt, dev):
+def output_bytes(n_sims: int, n: int, nt: int, store: str) -> int:
+    """Bytes of the kernel's outputs: depth and flow (float64, N or 2 nodes
+    per level) plus error, gate, iterations and converged per level."""
+    width = n if store == "full" else 2
+    return n_sims * nt * (2 * width * 8 + 2 * 8 + 2 * 4)
+
+
+def check_output_memory(n_sims: int, n: int, nt: int, store: str, free_bytes: int) -> None:
+    """Refuse, before anything is allocated, a launch whose outputs exceed
+    the free memory of the card."""
+    need = output_bytes(n_sims, n, nt, store)
+    if need > free_bytes:
+        raise MemoryError(
+            f"the outputs of {n_sims} simulations (N={n}, nt={nt}, store={store!r}) take "
+            f"{need / 1e9:.2f} GB but the card has {free_bytes / 1e9:.2f} GB free: run the "
+            f"ensemble in chunks (batched_simulate(..., chunk_size=...)) or use store='boundaries'")
+
+
+def launch(geo_rows, h0, Q0, us_series, ds_series, par, qlat, settings, us_kind, ds_kind,
+           rc_kind, us_rc_kind) -> prs.SimOutput:
+    """Launch the kernel on a grid of ``S = geo_rows.shape[0]`` blocks, one per
+    simulation.  Every input carries the leading ``S`` axis and lies on one
+    CUDA device; ``qlat`` is ``None``, ``[S, N]`` or ``[S, nt, N]``.  Returns a
+    SimOutput whose fields carry the ``S`` axis."""
+    dev = geo_rows.device
+    n_sims, _, n = geo_rows.shape
+    nt = settings.n_time_levels
+    expect = dict(geo_rows=(n_sims, len(_GEO_ROWS), n), h0=(n_sims, n), Q0=(n_sims, n),
+                  us_series=(n_sims, nt), ds_series=(n_sims, nt), par=(n_sims, _N_PARAMS))
+    given = dict(geo_rows=geo_rows, h0=h0, Q0=Q0, us_series=us_series, ds_series=ds_series, par=par)
+    if qlat is not None:
+        expect["qlat"] = (n_sims, n) if qlat.dim() == 2 else (n_sims, nt, n)
+        given["qlat"] = qlat
+    for name, t in given.items():
+        if tuple(t.shape) != expect[name] or t.dtype != torch.float64 or t.device != dev \
+                or not t.is_contiguous():
+            raise ValueError(
+                f"{name}: need a contiguous float64 {expect[name]} tensor on {dev}; got "
+                f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    with torch.cuda.device(dev):
+        check_output_memory(n_sims, n, nt, settings.store, torch.cuda.mem_get_info()[0])
+        width = n if settings.store == "full" else 2
+        f64 = dict(dtype=torch.float64, device=dev)
+        depth = torch.empty((n_sims, nt, width), **f64)
+        flow = torch.empty((n_sims, nt, width), **f64)
+        error = torch.empty((n_sims, nt), **f64)
+        gate = torch.empty((n_sims, nt), **f64)
+        iters = torch.empty((n_sims, nt), dtype=torch.int32, device=dev)
+        conv = torch.empty((n_sims, nt), dtype=torch.int32, device=dev)
+        rc = _lib().flowsim_fused_simulate(
+            geo_rows.data_ptr(), h0.data_ptr(), Q0.data_ptr(), us_series.data_ptr(),
+            ds_series.data_ptr(), par.data_ptr(), None if qlat is None else qlat.data_ptr(),
+            depth.data_ptr(), flow.data_ptr(), iters.data_ptr(), error.data_ptr(),
+            conv.data_ptr(), gate.data_ptr(), n_sims, n, nt, int(settings.max_iter),
+            _BC_KINDS[us_kind], _BC_KINDS[ds_kind], rc_kind, us_rc_kind,
+            int(settings.store == "boundaries"), 0 if qlat is None else qlat.dim() - 1,
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_simulate launch failed: CUDA error {rc}")
+    return prs.SimOutput(
+        depth=depth, flow=flow, iterations=iters, error=error, converged=conv.bool(),
+        reservoir_stage=torch.full((n_sims, nt), float("nan"), **f64), gate_open=gate,
+        rcond=None,
+    )
+
+
+def series(bc, nt, dev, batch_shape=()):
+    """The boundary's target series ``[*batch_shape, nt]`` (zeros for a kind
+    that reads none)."""
     if bc.kind in ("flow_hydrograph", "stage_hydrograph"):
-        return bc.target_series.contiguous()
-    return torch.zeros((nt,), dtype=torch.float64, device=dev)
+        return bc.target_series.expand(*batch_shape, nt).contiguous()
+    return torch.zeros((*batch_shape, nt), dtype=torch.float64, device=dev)
 
 
-def fused_simulate(geo, us_bc, ds_bc, h0, Q0, settings, lateral_inflow=None) -> prs.SimOutput:
-    """Run the full simulation in one CUDA kernel launch; returns a SimOutput.
-
-    Raises :class:`FusedUnsupported` for configurations outside the kernel's
-    scope.  CPU tensors take the plain version.
-    """
-    global launch_count
-    _check_supported(geo, us_bc, ds_bc, settings, lateral_inflow)
-    prs.check_shapes(geo, us_bc, ds_bc, h0, Q0, settings)
-    dev = h0.device
-    if dev.type == "cpu":
-        return fused_simulate_plain(geo, us_bc, ds_bc, h0, Q0, settings)
+def check_device(dev, h0, Q0, geo, us_bc, ds_bc, name):
     if dev.type != "cuda":
-        raise ValueError(f"fused_simulate needs CUDA or CPU tensors; got {dev}")
+        raise ValueError(f"{name} needs CUDA or CPU tensors; got {dev}")
     if h0.dtype != torch.float64 or Q0.dtype != torch.float64:
         raise TypeError("h0 and Q0 must be float64 on the card")
     if geo.device != dev or Q0.device != dev or us_bc.bed_level.device != dev \
             or ds_bc.bed_level.device != dev:
         raise ValueError("geometry, boundaries and state must lie on the same device")
 
-    n, nt = geo.n_nodes, settings.n_time_levels
-    geo_rows = pack_geometry(geo)
-    par, rc_kind = pack_params(us_bc, ds_bc, settings)
-    us_series, ds_series = _series(us_bc, nt, dev), _series(ds_bc, nt, dev)
-    h0c, Q0c = h0.contiguous(), Q0.contiguous()
 
-    f64 = dict(dtype=torch.float64, device=dev)
-    depth = torch.empty((nt, n), **f64)
-    flow = torch.empty((nt, n), **f64)
-    error = torch.empty((nt,), **f64)
-    gate = torch.empty((nt,), **f64)
-    iters = torch.empty((nt,), dtype=torch.int32, device=dev)
-    conv = torch.empty((nt,), dtype=torch.int32, device=dev)
+def fused_simulate(geo, us_bc, ds_bc, h0, Q0, settings, lateral_inflow=None) -> prs.SimOutput:
+    """Run the full simulation in one CUDA kernel launch; returns a SimOutput.
 
-    with torch.cuda.device(dev):
-        rc = _lib().flowsim_fused_simulate(
-            geo_rows.data_ptr(), h0c.data_ptr(), Q0c.data_ptr(), us_series.data_ptr(),
-            ds_series.data_ptr(), par.data_ptr(), depth.data_ptr(), flow.data_ptr(),
-            iters.data_ptr(), error.data_ptr(), conv.data_ptr(), gate.data_ptr(),
-            1, n, nt, int(settings.max_iter), _BC_KINDS[us_bc.kind], _BC_KINDS[ds_bc.kind],
-            rc_kind, torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"fused_simulate launch failed: CUDA error {rc}")
+    ``lateral_inflow``: ``None``, per node ``[N]`` or per level and node
+    ``[nt, N]``.  Raises :class:`FusedUnsupported` for configurations outside
+    the kernel's scope.  CPU tensors take the plain version.
+    """
+    global launch_count
+    _check_supported(geo, us_bc, ds_bc, settings)
+    qlat = prs.as_lateral_inflow(lateral_inflow, h0)
+    prs.check_shapes(geo, us_bc, ds_bc, h0, Q0, settings, qlat)
+    dev = h0.device
+    if dev.type == "cpu":
+        return fused_simulate_plain(geo, us_bc, ds_bc, h0, Q0, settings, qlat)
+    check_device(dev, h0, Q0, geo, us_bc, ds_bc, "fused_simulate")
+
+    nt = settings.n_time_levels
+    par, rc_kind, us_rc_kind = pack_params(us_bc, ds_bc, settings)
+    one = lambda t: t.unsqueeze(0).contiguous()
+    out = launch(one(pack_geometry(geo)), one(h0), one(Q0), one(series(us_bc, nt, dev)),
+                 one(series(ds_bc, nt, dev)), one(par), None if qlat is None else one(qlat),
+                 settings, us_bc.kind, ds_bc.kind, rc_kind, us_rc_kind)
     launch_count += 1
-    return prs.SimOutput(
-        depth=depth, flow=flow, iterations=iters, error=error, converged=conv.bool(),
-        reservoir_stage=torch.full((nt,), float("nan"), **f64), gate_open=gate,
-        rcond=None,
-    )
+    return prs.SimOutput(*(None if f is None else f[0] for f in out))

@@ -24,8 +24,8 @@ Numerical semantics replicated exactly:
 * the gate controller of a ``gated_blend`` downstream curve steps once per
   level, before Newton, on the previous level's downstream stage.
 
-Not ported yet (ROADMAP.md Queue 2): ``newton="fixed"`` / ``"implicit"``,
-lateral inflow, ``store="boundaries"``, lumped storage.  The TPU-only
+Not ported yet (ROADMAP.md Queue 1): ``newton="fixed"`` / ``"implicit"`` and
+lumped storage.  The TPU-only
 settings ``out_memory`` and ``fused_unroll`` of the JAX package have no
 counterpart: they steer VMEM placement and a loop-overhead trick of the
 Pallas kernel.
@@ -58,7 +58,8 @@ class PreissmannSettings:
     gate_initially_open: bool = False
     # diagnos=True tracks a PCR-pivot rcond proxy per level (SimOutput.rcond)
     diagnos: bool = False
-    # "full" stores every node of every level; "boundaries" is not ported yet
+    # "full" stores every node of every level; "boundaries" keeps only nodes
+    # 0 and N-1 (depth/flow become [nt, 2]): the Monte-Carlo output mode
     store: str = "full"
 
 
@@ -73,8 +74,8 @@ class PrevLevel(NamedTuple):
 
 
 class SimOutput(NamedTuple):
-    depth: torch.Tensor        # [nt, N]
-    flow: torch.Tensor         # [nt, N]
+    depth: torch.Tensor        # [nt, N] ([nt, 2] with store="boundaries")
+    flow: torch.Tensor         # [nt, N] ([nt, 2] with store="boundaries")
     iterations: torch.Tensor   # [nt] Newton iterations (0 at level 0)
     error: torch.Tensor        # [nt] final pre-update residual norm
     converged: torch.Tensor    # [nt] bool
@@ -83,15 +84,17 @@ class SimOutput(NamedTuple):
     rcond: Optional[torch.Tensor] = None  # [nt] min pivot-rcond proxy (diagnos)
 
 
+STORES = ("full", "boundaries")
+
+
 def check_settings(settings: PreissmannSettings) -> None:
     """Reject the options of the JAX package that are not ported yet."""
     if settings.newton != "while":
         raise NotImplementedError(
             f"newton={settings.newton!r} is not ported yet (ROADMAP.md Queue 2); "
             "only the while-Newton is")
-    if settings.store != "full":
-        raise NotImplementedError(
-            f"store={settings.store!r} is not ported yet (ROADMAP.md Queue 2)")
+    if settings.store not in STORES:
+        raise ValueError(f"unknown store {settings.store!r}; expected one of {STORES}")
     if settings.linear_solver not in tridiag.METHODS:
         raise ValueError(f"unknown linear_solver {settings.linear_solver!r}")
 
@@ -132,7 +135,12 @@ def node_stencil_fields(geo, st, es, h, Q) -> dict:
 
 def cell_stencil(theta, dt, dx, cur: dict, prev: dict) -> CellOut:
     """Interior residual + Jacobian stencil over the n-1 cells of n node
-    tensors.  ``prev`` needs keys A, Se, Q2A, Q, h only."""
+    tensors.  ``prev`` needs keys A, Se, Q2A, Q, h only.
+
+    Optional ``qlat`` key on both dicts ([N] lateral inflow per unit length,
+    m^2/s): continuity becomes dA/dt + dQ/dx = q with q entering as the
+    theta-weighted cell average; the lateral momentum flux is neglected.
+    State-independent, so the Jacobian is unchanged."""
     A, Se, Q2A, Q, hcur, z = cur["A"], cur["Se"], cur["Q2A"], cur["Q"], cur["h"], cur["z"]
     dA_dh, dSe_dA, dSe_dQ, QA = cur["dA_dh"], cur["dSe_dA"], cur["dSe_dQ"], cur["QA"]
     Ap, Sep, Q2Ap, Qp, hp = prev["A"], prev["Se"], prev["Q2A"], prev["Q"], prev["h"]
@@ -142,6 +150,8 @@ def cell_stencil(theta, dt, dx, cur: dict, prev: dict) -> CellOut:
     cavg = lambda c, p: 0.5 * theta * (c[1:] + c[:-1]) + 0.5 * (1.0 - theta) * (p[1:] + p[:-1])
 
     Rc = tdiff(A, Ap) + sdiff(Q, Qp)
+    if cur.get("qlat") is not None:
+        Rc = Rc - cavg(cur["qlat"], prev["qlat"])
     avgA = cavg(A, Ap)
     # water-level slope as bed slope + theta-weighted depth slope: identical
     # algebra to sdiff(z+h) but cancellation-free
@@ -170,7 +180,8 @@ def cell_stencil(theta, dt, dx, cur: dict, prev: dict) -> CellOut:
     )
 
 
-def assemble(geo, us_bc, ds_bc, settings: PreissmannSettings, prev: PrevLevel, h, Q, k, bc_state=None):
+def assemble(geo, us_bc, ds_bc, settings: PreissmannSettings, prev: PrevLevel, h, Q, k, bc_state=None,
+             qlat_cur=None, qlat_prev=None):
     """Residuals + block-tridiagonal Jacobian at the current Newton iterate.
 
     Returns (L, D, U, b, err_norm): the 2x2 block system J delta = b
@@ -185,8 +196,8 @@ def assemble(geo, us_bc, ds_bc, settings: PreissmannSettings, prev: PrevLevel, h
 
     # -- interior residuals + Jacobian, one stencil over cells -------------
     cells = cell_stencil(
-        theta, dt, dx, node_stencil_fields(geo, st, es, h, Q),
-        dict(A=prev.A, Se=prev.Se, Q2A=prev.Q2A, Q=prev.Q, h=prev.h))
+        theta, dt, dx, dict(node_stencil_fields(geo, st, es, h, Q), qlat=qlat_cur),
+        dict(A=prev.A, Se=prev.Se, Q2A=prev.Q2A, Q=prev.Q, h=prev.h, qlat=qlat_prev))
     Rc, Rm = cells.Rc, cells.Rm
     th_dx = theta / dx
 
@@ -238,7 +249,8 @@ def _solve_with_diag(L, D, U, b, settings):
     return delta, rc
 
 
-def newton_solve(geo, us_bc, ds_bc, settings, prev: PrevLevel, h, Q, k, bc_state=None):
+def newton_solve(geo, us_bc, ds_bc, settings, prev: PrevLevel, h, Q, k, bc_state=None,
+                 qlat_cur=None, qlat_prev=None):
     """One time level: Newton-iterate to tolerance.
 
     Returns ``(h, Q, err, iters, rcond)``; the loop condition is on the
@@ -253,7 +265,8 @@ def newton_solve(geo, us_bc, ds_bc, settings, prev: PrevLevel, h, Q, k, bc_state
     # one host read of the residual norm per iteration: the loop is data
     # dependent, as lax.while_loop is in the JAX package
     while float(err) >= tol and it < settings.max_iter:
-        L, D, U, b, err = assemble(geo, us_bc, ds_bc, settings, prev, h, Q, k, bc_state)
+        L, D, U, b, err = assemble(geo, us_bc, ds_bc, settings, prev, h, Q, k, bc_state,
+                                   qlat_cur=qlat_cur, qlat_prev=qlat_prev)
         delta, rc = _solve_with_diag(L, D, U, b, settings)
         h = h + delta[:, 0]
         Q = Q + delta[:, 1]
@@ -269,7 +282,7 @@ def _initial_state(ds_bc, h0, settings):
         h0.dtype, h0.device, gate_open=gate_open0, gate_stage=ds_bc.bed_level + h0[-1])
 
 
-def check_shapes(geo, us_bc, ds_bc, h0, Q0, settings) -> None:
+def check_shapes(geo, us_bc, ds_bc, h0, Q0, settings, lateral_inflow=None) -> None:
     """Explicit shape checks: torch would raise on an out-of-range index, but
     a mismatched series or state should fail before the first level."""
     N, nt = geo.n_nodes, settings.n_time_levels
@@ -280,21 +293,45 @@ def check_shapes(geo, us_bc, ds_bc, h0, Q0, settings) -> None:
             raise ValueError(
                 f"{name} target_series must have n_time_levels={nt} entries; "
                 f"got {tuple(bc.target_series.shape)}")
+    if lateral_inflow is not None:
+        q = lateral_inflow
+        if q.shape[-1:] != (N,):
+            raise ValueError(f"lateral_inflow last dim {tuple(q.shape)[-1:]} != n_nodes {N}")
+        if q.dim() != 1 and (q.dim() != 2 or q.shape[0] != nt):
+            # a wrong time length would otherwise index past the last row
+            raise ValueError(f"lateral_inflow must be [N] or [nt={nt}, N]; got {tuple(q.shape)}")
 
 
-def simulate(geo, us_bc, ds_bc, h0, Q0, settings: PreissmannSettings) -> SimOutput:
-    """Full run: Newton-solved levels 1..nt-1, on the device of ``h0``."""
+def as_lateral_inflow(lateral_inflow, like):
+    """``None`` or a float64 tensor on the device of ``like``."""
+    if lateral_inflow is None:
+        return None
+    return torch.as_tensor(lateral_inflow, dtype=like.dtype, device=like.device)
+
+
+def simulate(geo, us_bc, ds_bc, h0, Q0, settings: PreissmannSettings, lateral_inflow=None) -> SimOutput:
+    """Full run: Newton-solved levels 1..nt-1, on the device of ``h0``.
+
+    ``lateral_inflow``: optional distributed source q [m^2/s], per node [N]
+    (constant in time) or per level and node [nt, N] (see
+    :func:`cell_stencil`)."""
     check_settings(settings)
-    check_shapes(geo, us_bc, ds_bc, h0, Q0, settings)
+    lateral_inflow = as_lateral_inflow(lateral_inflow, h0)
+    check_shapes(geo, us_bc, ds_bc, h0, Q0, settings, lateral_inflow)
     nt = settings.n_time_levels
     N = h0.shape[0]
     dev, dtype = h0.device, h0.dtype
     ds_bed = ds_bc.bed_level
+    if lateral_inflow is not None and lateral_inflow.dim() == 1:
+        lateral_inflow = lateral_inflow.expand(nt, N)
+    # store="boundaries" keeps nodes 0 and N-1 only
+    keep = slice(None) if settings.store == "full" else torch.tensor([0, N - 1], device=dev)
+    width = N if settings.store == "full" else 2
 
     gate_open0, bc_state = _initial_state(ds_bc, h0, settings)
-    depth = torch.empty((nt, N), dtype=dtype, device=dev)
-    flow = torch.empty((nt, N), dtype=dtype, device=dev)
-    depth[0], flow[0] = h0, Q0
+    depth = torch.empty((nt, width), dtype=dtype, device=dev)
+    flow = torch.empty((nt, width), dtype=dtype, device=dev)
+    depth[0], flow[0] = h0[keep], Q0[keep]
     iters = torch.zeros((nt,), dtype=torch.int32)
     errs = torch.zeros((nt,), dtype=dtype, device=dev)
     gates = torch.full((nt,), gate_open0, dtype=dtype, device=dev)
@@ -305,9 +342,12 @@ def simulate(geo, us_bc, ds_bc, h0, Q0, settings: PreissmannSettings) -> SimOutp
         # per-level gate-controller update (no-op unless gated_blend ds curve)
         bc_state = bnd.update_gate_level_start(ds_bc, bc_state, float(k) * settings.time_step)
         prev = prev_level_state(geo, h, Q)
-        h, Q, err, it, rcond = newton_solve(geo, us_bc, ds_bc, settings, prev, h, Q, k, bc_state)
+        qlat_cur = None if lateral_inflow is None else lateral_inflow[k]
+        qlat_prev = None if lateral_inflow is None else lateral_inflow[k - 1]
+        h, Q, err, it, rcond = newton_solve(geo, us_bc, ds_bc, settings, prev, h, Q, k, bc_state,
+                                            qlat_cur=qlat_cur, qlat_prev=qlat_prev)
         bc_state = bc_state._replace(gate_stage=ds_bed + h[-1])
-        depth[k], flow[k] = h, Q
+        depth[k], flow[k] = h[keep], Q[keep]
         iters[k] = it
         errs[k] = err
         gates[k] = bc_state.gate_open
@@ -327,7 +367,8 @@ def simulate(geo, us_bc, ds_bc, h0, Q0, settings: PreissmannSettings) -> SimOutp
     )
 
 
-def single_step(geo, us_bc, ds_bc, h, Q, k, settings: PreissmannSettings, bc_state=None):
+def single_step(geo, us_bc, ds_bc, h, Q, k, settings: PreissmannSettings, bc_state=None,
+                qlat_cur=None, qlat_prev=None):
     """Advance one time level with the full per-level semantics of
     :func:`simulate`'s loop body (gate update, Newton solve, state carry).
 
@@ -338,6 +379,7 @@ def single_step(geo, us_bc, ds_bc, h, Q, k, settings: PreissmannSettings, bc_sta
         _, bc_state = _initial_state(ds_bc, h, settings)
     bc_state = bnd.update_gate_level_start(ds_bc, bc_state, float(k) * settings.time_step)
     prev = prev_level_state(geo, h, Q)
-    h2, Q2, err, iters, _ = newton_solve(geo, us_bc, ds_bc, settings, prev, h, Q, k, bc_state)
+    h2, Q2, err, iters, _ = newton_solve(geo, us_bc, ds_bc, settings, prev, h, Q, k, bc_state,
+                                         qlat_cur=qlat_cur, qlat_prev=qlat_prev)
     bc_state = bc_state._replace(gate_stage=ds_bc.bed_level + h2[-1])
     return h2, Q2, err, iters, bc_state

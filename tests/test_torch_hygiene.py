@@ -20,7 +20,10 @@ torch.set_num_threads(1)
 
 @pytest.mark.parametrize("module", ["flowsim_tpu_torch", "flowsim_tpu_torch.models.gerd_roseires.model",
                                     "flowsim_tpu_torch.ops.cuda.fused_newton",
-                                    "flowsim_tpu_torch.ops.cuda.pcr_kernel", "flowsim_tpu_torch.convert"])
+                                    "flowsim_tpu_torch.ops.cuda.pcr_kernel", "flowsim_tpu_torch.convert",
+                                    "flowsim_tpu_torch.ops.cuda.fused_batched",
+                                    "flowsim_tpu_torch.parallel.ensemble",
+                                    "flowsim_tpu_torch.models.calibrate"])
 def test_import_leaves_other_frameworks_out(module):
     code = (f"import sys, {module}\n"
             "bad = [m for m in ('jax', 'jaxlib', 'flowsim_tpu', 'pandas', 'triton') if m in sys.modules]\n"
@@ -106,8 +109,9 @@ def test_check_supported_accepts_the_flagship(flagship):
 
     solver, channel, sset = flagship
     fn._check_supported(channel.geometry, solver.us_params, solver.ds_params, sset)
-    par, rc_kind = fn.pack_params(solver.us_params, solver.ds_params, sset)
-    assert par.shape == (22,) and rc_kind == 1
+    par, rc_kind, us_rc_kind = fn.pack_params(solver.us_params, solver.ds_params, sset)
+    assert par.shape == (32,) and (rc_kind, us_rc_kind) == (1, 0)
+    assert float(par[22:].abs().max()) == 0.0          # no upstream rating: its block is zero
     assert fn.pack_geometry(channel.geometry).shape == (13, 121)
     assert fn.SMEM_BYTES_PER_NODE * fn.MAX_N + 512 <= 232448  # 227 KB per block
 
@@ -121,7 +125,6 @@ def test_check_supported_raises_fused_unsupported(flagship, case):
 
     solver, channel, sset = flagship
     geo, us, ds = channel.geometry, solver.us_params, solver.ds_params
-    kw = {}
     if case == "table_geometry":
         class TableGeometry:  # anything that is not a TrapezoidGeometry
             n_nodes = 121
@@ -131,13 +134,22 @@ def test_check_supported_raises_fused_unsupported(flagship, case):
     elif case == "newton_fixed":
         sset = dataclasses.replace(sset, newton="fixed")
     elif case == "store_boundaries":
-        sset = dataclasses.replace(sset, store="boundaries")
+        sset = dataclasses.replace(sset, store="ends")      # "boundaries" itself is in the kernel now
     elif case == "diagnos":
         sset = dataclasses.replace(sset, diagnos=True)
     elif case == "upstream_rating":
-        us = dataclasses.replace(ds)
+        # a polynomial or blended upstream rating is in the kernel; the gate
+        # controller is downstream-only
+        gated = rc.make_gated_blend([0.0, 50.0, 0.0], [0.0, 80.0, 0.0], 480.0, device="cpu")
+        us = dataclasses.replace(ds, rating=gated)
     elif case == "lateral_inflow":
-        kw = dict(lateral_inflow=torch.zeros(121))
+        # lateral inflow is in the kernel; what stays refused is a batched
+        # inflow of a shape the batched wrapper cannot place
+        from flowsim_tpu_torch.ops.cuda.fused_batched import batched_lateral_inflow
+        with pytest.raises(FusedUnsupported, match="lateral_inflow"):
+            batched_lateral_inflow(torch.zeros(5, 121), 4, 121, 3, solver.h0)
+        _check_supported(geo, us, ds, sset)
+        return
     elif case == "too_long":
         geo = dataclasses.replace(geo, **{f.name: getattr(geo, f.name).repeat(8)
                                           for f in dataclasses.fields(geo)})
@@ -146,10 +158,10 @@ def test_check_supported_raises_fused_unsupported(flagship, case):
     elif case == "normal_depth_without_slope":
         ds = dataclasses.replace(ds, kind="normal_depth")  # the flagship's bed_slope is NaN
     with pytest.raises(FusedUnsupported):
-        _check_supported(geo, us, ds, sset, **kw)
+        _check_supported(geo, us, ds, sset)
     # and the entry point lets it reach the caller: no fallback to the plain engine
     with pytest.raises(FusedUnsupported):
-        fused_simulate(geo, us, ds, solver.h0, solver.Q0, sset, **kw)
+        fused_simulate(geo, us, ds, solver.h0, solver.Q0, sset)
 
 
 def test_api_fused_engine_does_not_fall_back(flagship):
@@ -164,3 +176,24 @@ def test_api_fused_engine_does_not_fall_back(flagship):
             solver.run(engine="xla")
     finally:
         solver.newton = "while"
+
+
+def test_ensemble_entry_points_stay_on_the_device_of_their_inputs(flagship):
+    """The ensemble and calibration helpers create their tensors where the
+    geometry lies (no default device of their own), and the batched wrapper
+    takes its plain version for CPU tensors only."""
+    from flowsim_tpu_torch import trees
+    from flowsim_tpu_torch.models import calibrate
+    from flowsim_tpu_torch.ops.cuda.fused_batched import fused_simulate_batched
+    from flowsim_tpu_torch.parallel import ensemble
+
+    solver, channel, sset = flagship
+    on_meta = lambda tree: trees.tree_map(lambda v: v.to("meta"), tree)
+    geo = on_meta(channel.geometry)
+    geob = ensemble.roughness_ensemble(geo, [0.03, 0.04])
+    assert geob.n_main.shape == (2, 121)
+    assert {getattr(geob, f.name).device.type for f in dataclasses.fields(geob)} == {"meta"}
+    assert calibrate.set_main_roughness(geo, 0.03).n_main.device.type == "meta"
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        fused_simulate_batched(geob, on_meta(solver.us_params), on_meta(solver.ds_params),
+                               solver.h0.to("meta"), solver.Q0.to("meta"), sset)

@@ -118,9 +118,11 @@ def test_settings_and_shape_checks(pair):
     js, jc, s, c = pair
     pset = s.settings(1e-6, 100)
     args = (c.geometry, s.us_params, s.ds_params, s.h0, s.Q0)
-    for bad in (dict(newton="fixed"), dict(newton="implicit"), dict(store="boundaries")):
+    for bad in (dict(newton="fixed"), dict(newton="implicit")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             prs.simulate(*args, dataclasses.replace(pset, **bad))
+    with pytest.raises(ValueError, match="store"):
+        prs.simulate(*args, dataclasses.replace(pset, store="ends"))
     with pytest.raises(ValueError, match="linear_solver"):
         prs.simulate(*args, dataclasses.replace(pset, linear_solver="pallas_pcr"))
     with pytest.raises(ValueError, match="n_time_levels"):

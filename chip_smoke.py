@@ -7,7 +7,7 @@ Run from the repository root, no arguments, one card::
 
 It builds the CUDA kernels of ``flowsim_tpu_torch/ops/cuda/csrc`` with
 ``nvcc``, holds each against its plain PyTorch version on the card, and drives
-two main paths through the user entry points:
+four main paths through the user entry points:
 
 * one forecast: the GERD->Roseires flagship end to end (``model.build`` ->
   ``PreissmannSolver.run``), checked by the repository's own means (all levels
@@ -16,7 +16,13 @@ two main paths through the user entry points:
   (per-member roughness and inflow) through
   ``parallel.ensemble.batched_simulate(engine="fused")`` in one kernel launch,
   with the scaling curve over the member count, and a 64-candidate
-  ``models.calibrate.rmse_sweep(engine="fused")``.
+  ``models.calibrate.rmse_sweep(engine="fused")``;
+* the long reach: a synthetic prismatic reach of 10 000, 100 000 and 1 000 000
+  nodes through ``ops.preissmann.simulate(linear_solver="cuda_tiled")`` — one
+  launch of the tiled SPIKE kernel per Newton iteration — against the same
+  run with the plain ``"pcr"`` solve;
+* the reservoir: ``models.example.build()`` (a flood wave routed into a lumped
+  storage) with ``engine="fused"`` against ``engine="plain"``.
 
 Any mismatch raises: no phase's failure is caught.  Every phase prints one
 JSON line; the last line of the output is
@@ -55,10 +61,17 @@ PEAK_F64_FLOPS = 33.5e12
 #                               (~420) + cell stencil and Jacobian (~110)
 FLOPS_PCR_SWEEP = 118
 FLOPS_PCR_BACKSOLVE = 15
+# the same with five right-hand-side pairs (the tiled SPIKE kernel): each
+# further pair adds 16 to a sweep and 6 to the back-substitution
+FLOPS_PCR_SWEEP_5 = FLOPS_PCR_SWEEP + 4 * 16
+FLOPS_PCR_BACKSOLVE_5 = FLOPS_PCR_BACKSOLVE + 4 * 6
 FLOPS_ASSEMBLY = 530
 
 H_TOL = 1e-9      # m: kernel vs plain engine, same arithmetic up to rounding
 Q_TOL = 1e-6      # m^3/s on flows of ~1e4
+STAGE_TOL = 1e-9  # m: reservoir stage of a lumped storage
+TILED_REL_TOL = 1e-11   # tiled SPIKE kernel vs its plain version, relative
+LONG_REACH_NODES = (10_000, 100_000, 1_000_000)
 FLAGSHIP_ITERATIONS = 4803
 # the plain engine on the card is a Python loop of small launches (~12 ms per
 # Newton iteration): the flagship is held against it over its first levels
@@ -186,9 +199,145 @@ def build_boundary_case(api, name: str, levels: int = 12, **solver_kw):
                                 simulation_time=3600.0 * levels, **solver_kw)
 
 
+def tiled_system(n: int, seed: int, device, coupling: float = 0.3):
+    """Seeded random diagonally dominant system for the tiled solve (the
+    ``_random_system`` of ``tests/test_tiled_pcr.py``, in float64)."""
+    rng = np.random.default_rng(seed)
+    L = rng.normal(size=(n, 2, 2)) * coupling
+    L[0] = 0.0
+    D = rng.normal(size=(n, 2, 2)) + 4.0 * np.eye(2)
+    U = rng.normal(size=(n, 2, 2)) * coupling
+    U[-1] = 0.0
+    b = rng.normal(size=(n, 2))
+    return tuple(torch.tensor(a, dtype=torch.float64, device=device) for a in (L, D, U, b))
+
+
+def build_long_reach(n_nodes: int, device, levels: int = 8, linear_solver: str = "pcr"):
+    """Synthetic long prismatic reach: trapezoid b = 80 m, m = 10, n = 0.03,
+    slope 2e-4, dx = 200 m, theta = 0.7, dt = 600 s, an inflow ramp
+    1500 -> 3000 m^3/s over the first hour, normal depth downstream; float64,
+    tolerance 1e-6.  Returns (geo, us_bc, ds_bc, h0, Q0, settings)."""
+    from flowsim_tpu_torch import geometry as geom, trees
+    from flowsim_tpu_torch.ops import boundary as bnd
+    from flowsim_tpu_torch.ops import initial_conditions as ic
+    from flowsim_tpu_torch.ops import preissmann as prs
+
+    length = (n_nodes - 1) * 200.0
+    slope = 2e-4
+    sts = [geom.TrapezoidStation(z_bed=length * slope, b_main=80.0, m_main=10.0, n_main=0.03, bed_slope=slope),
+           geom.TrapezoidStation(z_bed=0.0, b_main=80.0, m_main=10.0, n_main=0.03, bed_slope=slope)]
+    # the two stations differ in bed level only: lower them at the two ends
+    # and lay the prismatic section out over all nodes with tensor ops
+    # (interpolate_stations walks the nodes one by one on the host, which is
+    # for surveyed reaches, not for a million nodes)
+    ends = geom.interpolate_stations(sts, [0.0, length], [0.0, length], device=device)
+    geo = trees.tree_map(lambda v: v[:1].expand(n_nodes).contiguous(), ends)
+    x = torch.linspace(0.0, length, n_nodes, dtype=torch.float64, device=device)
+    geo = dataclasses.replace(geo, z_bed=(length - x) * slope)
+    # the vectorised normal-depth bisection, not the per-node backwater march
+    h0, Q0 = ic.initial_conditions(geo, "steady-state", 1500.0, 200.0)
+
+    nt = levels + 1
+    times = np.arange(nt) * 600.0
+    series = 1500.0 + 1500.0 * np.minimum(times / 3600.0, 1.0)
+    us = bnd.make_boundary("flow_hydrograph", bed_level=length * slope, target_series=series, device=device)
+    ds = bnd.make_boundary("normal_depth", bed_level=0.0, bed_slope=slope, device=device)
+    sset = prs.PreissmannSettings(theta=0.7, time_step=600.0, spatial_step=200.0, n_time_levels=nt,
+                                  tolerance=1e-6, max_iter=30, linear_solver=linear_solver)
+    return geo, us, ds, h0, Q0, sset
+
+
+STORAGE_CASES = ("ds_const", "ds_curve_rating_losses", "ds_const_losses", "us_const", "us_curve", "both_ends")
+
+
+def build_storage_case(name: str, device, levels: int = 12):
+    """A 29 km rectangular reach (N = 30, width 120 m, n = 0.023, slope 6.1e-4,
+    dx = 1 km, dt = 1 h, theta = 0.6) with lumped storage behind a
+    ``fixed_depth`` boundary, one of STORAGE_CASES: constant area, a
+    stage-area curve with a polynomial rating on the storage and entrance
+    losses, losses alone, an upstream reservoir (constant area, area curve)
+    over a quiescent pool, and a reservoir at each end.  Returns
+    (geo, us_bc, ds_bc, h0, Q0, settings)."""
+    from flowsim_tpu_torch import geometry as geom
+    from flowsim_tpu_torch.ops import boundary as bnd
+    from flowsim_tpu_torch.ops import initial_conditions as ic
+    from flowsim_tpu_torch.ops import preissmann as prs
+    from flowsim_tpu_torch.ops import rating_curve as rcurve
+    from flowsim_tpu_torch.ops import storage as stg
+
+    n, slope, dx, dt = 30, 0.00061, 1000.0, 3600.0
+    nt = levels + 1
+    length = (n - 1) * dx
+    geo = geom.build_trapezoid_geometry(n, length, slope * length, 0.0, 120.0, 0.023, device=device)
+    z = geo.z_bed.cpu().numpy()
+    bed_us, bed_ds = float(z[0]), float(z[-1])
+    h0, Q0 = ic.initial_conditions(geo, "steady-state", 100.0, dx)
+    h_ds0 = float(h0[-1])
+    mk = lambda *a, **kw: bnd.make_boundary(*a, device=device, **kw)
+    inflow = 100.0 + 200.0 * np.sin(np.linspace(0.0, np.pi, nt))
+    us_hyd = mk("flow_hydrograph", bed_level=bed_us, target_series=inflow)
+    # a quiescent pool for the upstream reservoirs: level surface, no flow
+    stage_pool = bed_us + 2.0
+    pool_h0 = torch.tensor(stage_pool - z, dtype=torch.float64, device=device)
+    pool_Q0 = torch.zeros_like(Q0)
+    ds_stage_pool = mk("stage_hydrograph", bed_level=bed_ds,
+                       target_series=stage_pool + 0.05 * np.sin(np.linspace(0.0, np.pi, nt)))
+    tol = 1e-6
+    if name == "ds_const":
+        us, state = us_hyd, (h0, Q0)
+        ds = mk("fixed_depth", bed_level=bed_ds, storage=stg.make_storage(
+            surface_area=1.25e6, min_stage=bed_ds + h_ds0, solution_boundaries=(0.0, 100.0), device=device))
+    elif name == "ds_curve_rating_losses":
+        us, state = us_hyd, (h0, Q0)
+        curve = np.stack([bed_ds + np.linspace(-2.0, 20.0, 12), 4.0e5 * (1.0 + 0.08 * np.arange(12))], axis=1)
+        ds = mk("fixed_depth", bed_level=bed_ds, storage=stg.make_storage(
+            area_curve=curve, min_stage=bed_ds - 1.0,
+            rating=rcurve.make_polynomial(0.0, 30.0, -30.0 * (bed_ds - 1.0), device=device),
+            capture_losses=True, reservoir_length=1500.0, K_q=0.2, device=device))
+    elif name == "ds_const_losses":
+        us, state = us_hyd, (h0, Q0)
+        ds = mk("fixed_depth", bed_level=bed_ds, storage=stg.make_storage(
+            surface_area=5.0e5, min_stage=bed_ds - 1.0, solution_boundaries=(bed_ds - 2.0, bed_ds + 30.0),
+            capture_losses=True, reservoir_length=1500.0, K_q=0.2, device=device))
+    elif name == "us_const":
+        ds, state = ds_stage_pool, (pool_h0, pool_Q0)
+        us = mk("fixed_depth", bed_level=bed_us, storage=stg.make_storage(
+            surface_area=8.0e6, min_stage=bed_us - 1.0, solution_boundaries=(bed_us - 2.0, bed_us + 30.0),
+            device=device))
+    elif name == "us_curve":
+        ds, state = ds_stage_pool, (pool_h0, pool_Q0)
+        curve = np.stack([bed_us + np.linspace(-2.0, 30.0, 10), 8.0e6 * (1.0 + 0.05 * np.arange(10))], axis=1)
+        us = mk("fixed_depth", bed_level=bed_us, storage=stg.make_storage(
+            area_curve=curve, min_stage=bed_us - 1.0, device=device))
+    elif name == "both_ends":
+        state, tol = (h0, Q0), 1e-8
+        us = mk("fixed_depth", bed_level=bed_us, storage=stg.make_storage(
+            surface_area=3.0e6, min_stage=bed_us - 5.0, solution_boundaries=(0.0, 100.0), device=device))
+        ds = mk("fixed_depth", bed_level=bed_ds, storage=stg.make_storage(
+            surface_area=1.25e6, min_stage=bed_ds + h_ds0, solution_boundaries=(0.0, 100.0), device=device))
+    else:
+        raise ValueError(f"unknown storage case {name!r}; expected one of {STORAGE_CASES}")
+    sset = prs.PreissmannSettings(theta=0.6, time_step=dt, spatial_step=dx, n_time_levels=nt,
+                                  tolerance=tol, max_iter=100)
+    return (geo, us, ds, *state, sset)
+
+
+def stage_diff(a, b, what: str) -> float:
+    """max |a - b| over two reservoir-stage series that must be NaN at the
+    same places (no storage, level 0)."""
+    if a is None or b is None:
+        if a is not b:
+            raise AssertionError(f"{what}: one run carries an upstream reservoir stage, the other none")
+        return 0.0
+    if not torch.equal(torch.isnan(a), torch.isnan(b)):
+        raise AssertionError(f"{what}: reservoir stages are NaN at different places")
+    return float(torch.nan_to_num(a - b).abs().max())
+
+
 def compare_runs(kernel_out, plain_out, what: str) -> dict:
     """Kernel B against the plain engine: identical per-level iteration
-    counts and gate series, fields within H_TOL / Q_TOL."""
+    counts and gate series, fields within H_TOL / Q_TOL, reservoir stages
+    within STAGE_TOL."""
     it_k = kernel_out.iterations.cpu().tolist()
     it_p = plain_out.iterations.cpu().tolist()
     if it_k != it_p:
@@ -199,16 +348,21 @@ def compare_runs(kernel_out, plain_out, what: str) -> dict:
         raise AssertionError(f"{what}: max|dh|={dh} (tol {H_TOL}), max|dQ|={dq} (tol {Q_TOL})")
     if not torch.equal(kernel_out.gate_open, plain_out.gate_open):
         raise AssertionError(f"{what}: gate series differ")
+    ds_stage = max(stage_diff(kernel_out.reservoir_stage, plain_out.reservoir_stage, what),
+                   stage_diff(kernel_out.reservoir_stage_us, plain_out.reservoir_stage_us, what))
+    if not ds_stage <= STAGE_TOL:
+        raise AssertionError(f"{what}: max|d reservoir stage|={ds_stage} (tol {STAGE_TOL})")
     if not bool(kernel_out.converged.all()) or not bool(torch.isfinite(kernel_out.depth).all()):
         raise AssertionError(f"{what}: kernel run not converged / not finite")
-    return dict(levels=len(it_k), iterations=int(sum(it_k)), max_abs_dh=dh, max_abs_dQ=dq)
+    return dict(levels=len(it_k), iterations=int(sum(it_k)), max_abs_dh=dh, max_abs_dQ=dq,
+                max_abs_dstage=ds_stage)
 
 
 def compare_members(batched_out, member_outs, what: str, exact: bool) -> dict:
     """A batched run against one run per member: identical per-level iteration
     counts and gate series; fields bit-identical (``exact``: the same kernel
     launched once per member) or within H_TOL / Q_TOL (the plain version)."""
-    dh = dq = 0.0
+    dh = dq = dstage = 0.0
     for m, ref in enumerate(member_outs):
         it_b, it_r = batched_out.iterations[m].cpu().tolist(), ref.iterations.cpu().tolist()
         if it_b != it_r:
@@ -222,11 +376,14 @@ def compare_members(batched_out, member_outs, what: str, exact: bool) -> dict:
         else:
             dh = max(dh, float((batched_out.depth[m] - ref.depth).abs().max()))
             dq = max(dq, float((batched_out.flow[m] - ref.flow).abs().max()))
-    if not (dh <= H_TOL and dq <= Q_TOL):
-        raise AssertionError(f"{what}: max|dh|={dh} (tol {H_TOL}), max|dQ|={dq} (tol {Q_TOL})")
+        dstage = max(dstage, stage_diff(batched_out.reservoir_stage[m], ref.reservoir_stage, what),
+                     stage_diff(batched_out.reservoir_stage_us[m], ref.reservoir_stage_us, what))
+    if not (dh <= H_TOL and dq <= Q_TOL and dstage <= (0.0 if exact else STAGE_TOL)):
+        raise AssertionError(f"{what}: max|dh|={dh} (tol {H_TOL}), max|dQ|={dq} (tol {Q_TOL}), "
+                             f"max|d reservoir stage|={dstage} (tol {STAGE_TOL})")
     return dict(members=len(member_outs), levels=int(batched_out.iterations.shape[1]),
                 iterations=int(batched_out.iterations.sum()), max_abs_dh=dh, max_abs_dQ=dq,
-                bit_identical=exact)
+                max_abs_dstage=dstage, bit_identical=exact)
 
 
 def prs_out_member(out, m):
@@ -246,6 +403,237 @@ def scaled_inflow(us_params, scales):
     scales = torch.as_tensor(scales, dtype=torch.float64, device=us_params.target_series.device)
     batched = expand_members(us_params, scales.shape[0])
     return dataclasses.replace(batched, target_series=us_params.target_series[None, :] * scales[:, None])
+
+
+def check_tiled_kernel(dev) -> dict:
+    """tiled_spike_solve against tiled_spike_plain on the card: random
+    diagonally dominant systems from one partial tile to a million nodes, and
+    the Newton system of the long reach."""
+    from flowsim_tpu_torch.ops import preissmann as prs
+    from flowsim_tpu_torch.ops import tridiag
+    from flowsim_tpu_torch.ops.cuda import tiled_pcr
+
+    checks = []
+    for n in (200, 1000, 4096, 100_000, 1_000_003):
+        L, D, U, b = tiled_system(n, seed=n, device=dev)
+        x = tiled_pcr.tiled_spike_solve(L, D, U, b)
+        torch.cuda.synchronize()
+        x_plain = tiled_pcr.tiled_spike_plain(L, D, U, b)
+        scale = float(x_plain.abs().max())
+        rel = float((x - x_plain).abs().max()) / scale
+        rel_pcr = float((x - tridiag.block_pcr(L, D, U, b)).abs().max()) / scale
+        res = block_residual(L, D, U, b, x)
+        if not (rel <= TILED_REL_TOL and rel_pcr <= 1e-9):
+            raise AssertionError(f"tiled_spike_solve N={n}: rel err {rel} vs its plain version, "
+                                 f"{rel_pcr} vs block_pcr")
+        checks.append(dict(n=n, tile=tiled_pcr.DEFAULT_TILE, rel_err=rel, rel_err_vs_block_pcr=rel_pcr,
+                           residual=res, solution_scale=scale))
+    # other tiles: two blocks resident per SM, and the largest that fits
+    for tile in (256, tiled_pcr.MAX_TILE):
+        L, D, U, b = tiled_system(5000, seed=tile, device=dev)
+        x = tiled_pcr.tiled_spike_solve(L, D, U, b, tile=tile)
+        x_plain = tiled_pcr.tiled_spike_plain(L, D, U, b, tile=tile)
+        rel = float((x - x_plain).abs().max() / x_plain.abs().max())
+        if not rel <= TILED_REL_TOL:
+            raise AssertionError(f"tiled_spike_solve tile={tile}: rel err {rel}")
+        checks.append(dict(n=5000, tile=tile, rel_err=rel, residual=block_residual(L, D, U, b, x)))
+    # realistic conditioning: the first Newton system of a 2048-node long reach
+    geo, us, ds, h0, Q0, sset = build_long_reach(2048, dev, levels=2)
+    prev = prs.prev_level_state(geo, h0, Q0)
+    L, D, U, b, *_ = prs.assemble(geo, us, ds, sset, prev, h0, Q0, 1)
+    x = tiled_pcr.tiled_spike_solve(L, D, U, b, tile=256)
+    x_plain = tiled_pcr.tiled_spike_plain(L, D, U, b, tile=256)
+    x_pcr = tridiag.block_pcr(L, D, U, b)
+    scale = float(x_plain.abs().max()) + 1e-300
+    rel = float((x - x_plain).abs().max()) / scale
+    rel_pcr = float((x - x_pcr).abs().max()) / scale
+    if not (rel <= TILED_REL_TOL and rel_pcr <= 1e-8):
+        raise AssertionError(f"tiled_spike_solve on the Newton system: rel err {rel}, {rel_pcr} vs block_pcr")
+    checks.append(dict(n=2048, tile=256, system="long-reach Newton step", rel_err=rel,
+                       rel_err_vs_block_pcr=rel_pcr, residual=block_residual(L, D, U, b, x)))
+    try:
+        tiled_pcr.tiled_spike_solve(*tiled_system(2000, seed=1, device=dev), tile=tiled_pcr.MAX_TILE + 1)
+    except ValueError as e:
+        oversize = str(e)
+    else:
+        raise AssertionError("tiled_spike_solve accepted a tile beyond shared memory")
+    return dict(checks=checks, oversize_tile_raises=oversize)
+
+
+def check_storage_kernels(dev) -> dict:
+    """Kernel 1 with each storage variant and kernel 3 with storage ensembles
+    against their plain versions: identical per-level counts, fields and
+    reservoir stages within the tolerances."""
+    from flowsim_tpu_torch import trees
+    from flowsim_tpu_torch.ops import rating_curve as rcurve
+    from flowsim_tpu_torch.ops.cuda.fused_batched import fused_simulate_batched, fused_simulate_batched_plain
+    from flowsim_tpu_torch.ops.cuda.fused_newton import FusedUnsupported, fused_simulate, fused_simulate_plain
+    from flowsim_tpu_torch.parallel import ensemble
+
+    out = {}
+    for name in STORAGE_CASES:
+        args = build_storage_case(name, dev)
+        out_k = fused_simulate(*args)
+        out_p = fused_simulate_plain(*args)
+        stage = out_k.reservoir_stage[1:]
+        if not bool(torch.isfinite(stage).all()):
+            raise AssertionError(f"storage case {name}: the reservoir stage is not finite")
+        out[name] = dict(compare_runs(out_k, out_p, "storage " + name),
+                         stage_first_last=[float(stage[0]), float(stage[-1])])
+    # an ensemble of four reservoirs: per-member surface area and inflow scale
+    geo, us, ds, h0, Q0, sset = build_storage_case("ds_const", dev, levels=8)
+    B = 4
+    geob = ensemble.roughness_ensemble(geo, [0.021, 0.023, 0.026, 0.030])
+    us_b = scaled_inflow(us, [0.9, 1.0, 1.1, 1.2])
+    ds_members = [dataclasses.replace(ds, storage=dataclasses.replace(
+        ds.storage, surface_area=torch.tensor(a, dtype=torch.float64, device=dev)))
+        for a in (1.0e6, 1.25e6, 1.5e6, 2.0e6)]
+    ds_b, _ = ensemble.batch_boundaries(ds_members)
+    args = (geob, us_b, ds_b, h0, Q0, sset)
+    kw = dict(us_batched=True, ds_batched=True)
+    out_k = fused_simulate_batched(*args, **kw)
+    out_p = fused_simulate_batched_plain(*args, **kw)
+    out["ensemble_ds_const_4x8"] = compare_members(
+        out_k, [prs_out_member(out_p, m) for m in range(B)], "storage ensemble", exact=False)
+    singles = [fused_simulate(trees.member(geob, m), trees.member(us_b, m), ds_members[m], h0, Q0, sset)
+               for m in range(B)]
+    compare_members(out_k, singles, "storage ensemble vs single launches", exact=True)
+    final = out_k.reservoir_stage[:, -1].tolist()
+    if len(set(final)) != B:
+        raise AssertionError(f"storage ensemble: the members' final stages do not differ: {final}")
+    out["ensemble_ds_const_4x8"]["final_stage_per_member"] = final
+    # per-member stage-area tables, storage rating and losses; shared reservoirs at both ends
+    geo, us, ds, h0, Q0, sset = build_storage_case("ds_curve_rating_losses", dev, levels=6)
+    ds_members = []
+    for f_area, f_q in ((0.8, 25.0), (1.0, 30.0), (1.3, 35.0)):
+        sp = ds.storage
+        ds_members.append(dataclasses.replace(ds, storage=dataclasses.replace(
+            sp, area_table=sp.area_table * f_area, vol_table=sp.vol_table * f_area,
+            rating=dataclasses.replace(sp.rating, coeffs=sp.rating.coeffs * (f_q / 30.0)))))
+    ds_b, _ = ensemble.batch_boundaries(ds_members)
+    geob = expand_members(geo, 3)
+    out_k = fused_simulate_batched(geob, us, ds_b, h0, Q0, sset, ds_batched=True)
+    out_p = fused_simulate_batched_plain(geob, us, ds_b, h0, Q0, sset, ds_batched=True)
+    out["ensemble_ds_curve_3x6"] = compare_members(
+        out_k, [prs_out_member(out_p, m) for m in range(3)], "curve storage ensemble", exact=False)
+    args = build_storage_case("both_ends", dev, levels=6)
+    geob = ensemble.roughness_ensemble(args[0], [0.023, 0.025, 0.028])
+    out_k = fused_simulate_batched(geob, *args[1:])
+    out_p = fused_simulate_batched_plain(geob, *args[1:])
+    out["ensemble_both_ends_3x6"] = compare_members(
+        out_k, [prs_out_member(out_p, m) for m in range(3)], "both-ends storage ensemble", exact=False)
+    # a gated rating on the storage itself is outside the kernel, as on the TPU
+    geo, us, ds, h0, Q0, sset = build_storage_case("ds_curve_rating_losses", dev, levels=2)
+    gated = rcurve.make_gated_blend([0.0, 20.0, 0.0], [0.0, 30.0, 0.0], pivot_stage=2.0, device=dev)
+    bad = dataclasses.replace(ds, storage=dataclasses.replace(ds.storage, rating=gated))
+    try:
+        fused_simulate(geo, us, bad, h0, Q0, sset)
+    except FusedUnsupported as e:
+        out["refuses_gated_storage_rating"] = str(e)
+    else:
+        raise AssertionError("fused_simulate accepted a gated_blend rating on the storage")
+    return out
+
+
+def drive_long_reach(dev, launches: dict) -> tuple[list, dict]:
+    """The long-reach main path: ``simulate(linear_solver="cuda_tiled")`` at
+    each of LONG_REACH_NODES against the same run with ``"pcr"``, with the
+    stage times of one solve.  Returns the per-size records and the figures of
+    the largest size for the kernel table."""
+    from flowsim_tpu_torch.ops import preissmann as prs
+    from flowsim_tpu_torch.ops.cuda import tiled_pcr
+
+    records, table = [], {}
+    for n in LONG_REACH_NODES:
+        geo, us, ds, h0, Q0, sset = build_long_reach(n, dev, levels=8, linear_solver="cuda_tiled")
+        sset_pcr = dataclasses.replace(sset, linear_solver="pcr")
+        tiled_pcr.launch_count = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out_t = prs.simulate(geo, us, ds, h0, Q0, sset)
+        torch.cuda.synchronize()
+        tiled_ms = (time.perf_counter() - t0) * 1e3
+        count = tiled_pcr.launch_count
+        t0 = time.perf_counter()
+        out_p = prs.simulate(geo, us, ds, h0, Q0, sset_pcr)
+        torch.cuda.synchronize()
+        pcr_ms = (time.perf_counter() - t0) * 1e3
+        cmp = compare_runs(out_t, out_p, f"long reach N={n}, cuda_tiled vs pcr")
+        if count != cmp["iterations"] or count == 0:
+            raise AssertionError(f"long reach N={n}: {count} launches for {cmp['iterations']} iterations")
+        if out_t.depth.shape != (sset.n_time_levels, n):
+            raise AssertionError(f"long reach N={n}: depth has shape {tuple(out_t.depth.shape)}")
+
+        # one solve, stage by stage, on the first Newton system of level 1
+        prev = prs.prev_level_state(geo, h0, Q0)
+        L, D, U, b, *_ = prs.assemble(geo, us, ds, sset, prev, h0, Q0, 1)
+        T, n_tiles = tiled_pcr._tiling(n, tiled_pcr.DEFAULT_TILE)
+        G, V, W = tiled_pcr.stage_a(L, D, U, b, T)
+        y = tiled_pcr.stage_b(G, V, W, T)
+        x = tiled_pcr.stage_c(G, V, W, y, T)
+        x_plain = tiled_pcr.tiled_spike_plain(L, D, U, b)
+        err = float((x - x_plain).abs().max())
+        if not err <= TILED_REL_TOL * float(x_plain.abs().max()):
+            raise AssertionError(f"long reach N={n}: the staged solve differs from the plain one by {err}")
+        a_ms = time_cuda(lambda: tiled_pcr.stage_a(L, D, U, b, T), reps=20)
+        b_ms = statistics.median(wall_ms(lambda: tiled_pcr.stage_b(G, V, W, T)) for _ in range(3))
+        c_ms = time_cuda(lambda: tiled_pcr.stage_c(G, V, W, y, T), reps=10)
+        solve_ms = statistics.median(wall_ms(lambda: tiled_pcr.tiled_spike_solve(L, D, U, b)) for _ in range(3))
+        plain_ms = statistics.median(wall_ms(lambda: tiled_pcr.tiled_spike_plain(L, D, U, b)) for _ in range(2))
+        pcr_solve_ms = time_cuda(lambda: prs.tridiag.block_pcr(L, D, U, b), reps=3, warmup=1)
+        tiled_pcr.launch_count = count   # the timing launches above are not the main path's
+        # the kernel's own traffic: L, D, U, b read once (14 doubles a node),
+        # G, V, W written once (10); operations: ceil(log2 T) sweeps + back-solve
+        nbytes = 8 * (14 + 10) * n
+        flops = n_tiles * T * (sweeps(T) * FLOPS_PCR_SWEEP_5 + FLOPS_PCR_BACKSOLVE_5)
+        tb, tf = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_F64_FLOPS * 1e3
+        rec = dict(n_nodes=n, tile=T, tiles=n_tiles, launches=count,
+                   iterations_per_level=out_t.iterations.tolist(), wall_ms=tiled_ms, wall_ms_pcr=pcr_ms,
+                   newton_node_updates_per_s=n * cmp["iterations"] / (tiled_ms * 1e-3),
+                   newton_node_updates_per_s_pcr=n * cmp["iterations"] / (pcr_ms * 1e-3),
+                   solve_ms=solve_ms, stage_a_ms=a_ms, stage_b_ms=b_ms, stage_c_ms=c_ms,
+                   plain_solve_ms=plain_ms, block_pcr_solve_ms=pcr_solve_ms,
+                   bound_ms=max(tb, tf), bound_bytes_ms=tb, bound_operations_ms=tf, **cmp)
+        records.append(rec)
+        table = dict(rec, max_abs_err=err, bound_by="bytes" if tb >= tf else "operations")
+        del out_t, out_p, L, D, U, b, G, V, W, x, x_plain
+        torch.cuda.empty_cache()
+    launches["tiled_spike_solve"] = table["launches"]
+    return records, table
+
+
+def drive_reservoir(dev) -> dict:
+    """The reservoir main path: the shipped example (a flood wave routed into
+    a lumped storage) through ``models.example.build`` and ``solver.run``,
+    ``engine="fused"`` against ``engine="plain"``, all 24 levels."""
+    from flowsim_tpu_torch.models import example
+    from flowsim_tpu_torch.ops.cuda import fused_newton
+
+    solver, _ = example.build("preissmann", device=dev)
+    fused_newton.launch_count = 0
+    out_k = solver.run(engine="fused", max_iter=100, verbose=0)
+    torch.cuda.synchronize()
+    count = fused_newton.launch_count
+    if count != 1:
+        raise AssertionError(f"the reservoir example took {count} launches of fused_simulate, expected 1")
+    sset = solver.settings(1e-4, 100)
+    args = (solver.channel.geometry, solver.us_params, solver.ds_params, solver.h0, solver.Q0, sset)
+    kernel_ms = statistics.median(wall_ms(lambda: fused_newton.fused_simulate(*args)) for _ in range(3))
+    fused_newton.launch_count = count
+    t0 = time.perf_counter()
+    out_p = solver.run(engine="plain", max_iter=100, verbose=0)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    if (solver.number_of_nodes, solver.number_of_time_levels) != (21, 25):
+        raise AssertionError("the example is not at its shipped size (21 nodes, 25 levels)")
+    cmp = compare_runs(out_k, out_p, "reservoir example fused vs plain")
+    stage = out_k.reservoir_stage
+    if not bool(torch.isnan(stage[0])) or not bool(torch.isfinite(stage[1:]).all()):
+        raise AssertionError("reservoir example: the stage series is not finite after level 0")
+    return dict(n_nodes=21, n_time_levels=25, launches=count, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                iterations_per_level=out_k.iterations.tolist(), reservoir_stage=stage[1:].tolist(),
+                peak_stage=float(stage[1:].max()), peak_inflow=float(out_k.flow[:, 0].max()),
+                peak_flow_into_reservoir=float(out_k.flow[:, -1].max()), **cmp)
 
 
 def main() -> int:
@@ -447,7 +835,8 @@ def main() -> int:
         sound_members_bit_identical=True)
     emit("kernels", pcr_solve=pcr_checks, pcr_solve_oversize_raises=oversize,
          fused_simulate=fused_checks, fused_simulate_refuses=refused,
-         fused_simulate_batched=batched_checks)
+         fused_simulate_batched=batched_checks, tiled_spike_solve=check_tiled_kernel(dev),
+         storage=check_storage_kernels(dev))
 
     # -- phases 4 + 5: the main path, through the user entry points ----------
     # counts to 0, drive, read the counts; comparisons and timings come after
@@ -518,7 +907,7 @@ def main() -> int:
     # kernel A timed at the main path's shape: one N=121 system of a Newton step
     from flowsim_tpu_torch.ops import preissmann as prs
     prev = prs.prev_level_state(channel.geometry, solver.h0, solver.Q0)
-    L, D, U, b, _ = prs.assemble(channel.geometry, solver.us_params, solver.ds_params, args[5],
+    L, D, U, b, *_ = prs.assemble(channel.geometry, solver.us_params, solver.ds_params, args[5],
                                  prev, solver.h0, solver.Q0, 1)
     x = pcr_kernel.pcr_solve(L, D, U, b)
     x_plain = pcr_kernel.pcr_solve_plain(L, D, U, b)
@@ -670,6 +1059,13 @@ def main() -> int:
          best_n=float(n_grid[best]), rmse_at_best=float(rmse[best]), rmse_min_max=[float(rmse.min()), float(rmse.max())],
          rmse_neighbours=[float(rmse[best - 1]), float(rmse[best + 1])])
 
+    # -- phase 9: the long reach, one tiled SPIKE launch per Newton iteration --
+    long_records, tiled = drive_long_reach(dev, launches)
+    emit("long_reach_tiled", linear_solver="cuda_tiled", against="pcr", sizes=long_records)
+
+    # -- phase 10: the reservoir example ---------------------------------------
+    emit("reservoir", **drive_reservoir(dev))
+
     # -- the kernel table ----------------------------------------------------
     n_it = cmp["iterations"]          # iterations of the run that ms/plain_ms time
     n_par = fused_newton._N_PARAMS
@@ -718,6 +1114,18 @@ def main() -> int:
              ms=pcr_ms, plain_ms=pcr_plain_ms, bound_ms=pb, bound_by=pby, library_ms=pcr_lib_ms,
              shape=dict(n_nodes=n, systems=1),
              tolerance=dict(relative=1e-10)),
+        # ms is the whole solve (the kernel's stage A plus the torch stages B
+        # and C); the bound is that of the kernel's own traffic.  No single
+        # PyTorch call solves a banded system of 2e6 unknowns: library_ms null
+        dict(name="tiled_spike_solve", route="cuda",
+             source="flowsim_tpu_torch/ops/cuda/csrc/tiled_pcr.cu",
+             replaces="flowsim_tpu/ops/pallas/tiled_pcr.py:139",
+             launches=launches["tiled_spike_solve"], max_abs_err=tiled["max_abs_err"],
+             ms=tiled["solve_ms"], plain_ms=tiled["plain_solve_ms"], bound_ms=tiled["bound_ms"],
+             bound_by=tiled["bound_by"], library_ms=None,
+             stage_a_ms=tiled["stage_a_ms"], stage_b_ms=tiled["stage_b_ms"], stage_c_ms=tiled["stage_c_ms"],
+             shape=dict(n_nodes=tiled["n_nodes"], tile=tiled["tile"], tiles=tiled["tiles"]),
+             tolerance=dict(relative=TILED_REL_TOL)),
     ]
     for kern in kernels:
         if kern["launches"] < 1:

@@ -1,10 +1,10 @@
 """High-level user API of the port.
 
 Counterpart of ``flowsim_tpu/api.py`` for the single-reach Preissmann path:
-``Hydrograph`` / ``RatingCurve`` / ``Boundary`` / ``Channel`` /
-``PreissmannSolver``.  Host objects collect configuration; the solver lowers
-them to (geometry, boundary params, settings) tensors on its device and runs
-one of two engines:
+``Hydrograph`` / ``RatingCurve`` / ``LumpedStorage`` / ``Boundary`` /
+``Channel`` / ``PreissmannSolver``.  Host objects collect configuration; the
+solver lowers them to (geometry, boundary params, settings) tensors on its
+device and runs one of two engines:
 
 * ``engine="plain"`` — the eager scan-of-Newton of ``ops/preissmann.py`` (the
   counterpart of the JAX package's ``"xla"`` engine);
@@ -18,12 +18,13 @@ scope; here ``FusedUnsupported`` reaches the caller.
 ``device`` defaults to ``"cuda"`` and raises when there is no CUDA device;
 pass ``device="cpu"`` explicitly to run on the host.
 
-Not ported yet: ``LumpedStorage``, ``Junction``, ``NetworkSolver``,
-``LaxSolver``, result export (``prepare_results`` / ``save_results``).
+Not ported yet: ``Junction``, ``NetworkSolver``, ``LaxSolver``, result export
+(``prepare_results`` / ``save_results``).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Optional
 
 import numpy as np
@@ -37,6 +38,7 @@ from flowsim_tpu_torch.ops import initial_conditions as ic
 from flowsim_tpu_torch.ops import preissmann as prs
 from flowsim_tpu_torch.ops import rating_curve as rcurve
 from flowsim_tpu_torch.ops import sections as sec
+from flowsim_tpu_torch.ops import storage as storage_mod
 
 
 class Hydrograph:
@@ -109,6 +111,43 @@ class RatingCurve:
         return float(rcurve.dQ_dz(self.params, self._stage(stage)))
 
 
+class LumpedStorage:
+    """0-D reservoir config (ref: lumped_storage.py:7-23)."""
+
+    def __init__(self, solution_boundaries=(0.0, 200.0), surface_area=None, min_stage=None,
+                 rating_curve: Optional[RatingCurve] = None):
+        self.solution_boundaries = solution_boundaries
+        self.surface_area = surface_area
+        self.min_stage = -math.inf if min_stage is None else min_stage
+        self.rating_curve = rating_curve
+        self.area_curve = None
+        self.alpha = 1.0
+        self.beta = 0.0
+        self.capture_losses = False
+        self.reservoir_length = 0.0
+        self.K_q = 0.0
+
+    def set_area_curve(self, table, alpha=1.0, beta=0.0):
+        self.area_curve = np.asarray(table, dtype=np.float64)
+        self.alpha = alpha
+        self.beta = beta
+
+    def build(self, device=DEFAULT_DEVICE) -> storage_mod.StorageParams:
+        return storage_mod.make_storage(
+            surface_area=self.surface_area,
+            min_stage=self.min_stage,
+            solution_boundaries=self.solution_boundaries,
+            area_curve=self.area_curve,
+            alpha=self.alpha,
+            beta=self.beta,
+            rating=None if self.rating_curve is None else self.rating_curve.params,
+            capture_losses=self.capture_losses,
+            reservoir_length=self.reservoir_length,
+            K_q=self.K_q,
+            device=device,
+        )
+
+
 class Boundary:
     """Channel boundary (ref: boundary.py:7-54)."""
 
@@ -130,10 +169,10 @@ class Boundary:
         self.initial_stage = None if initial_depth is None or bed_level is None else bed_level + initial_depth
         self.rating_curve = rating_curve
         self.hydrograph = hydrograph
-        self.lumped_storage = None
+        self.lumped_storage: Optional[LumpedStorage] = None
 
-    def set_lumped_storage(self, lumped_storage):
-        raise NotImplementedError(bnd._STORAGE_MESSAGE)
+    def set_lumped_storage(self, lumped_storage: LumpedStorage):
+        self.lumped_storage = lumped_storage
 
     def condition_type(self) -> bool:
         return self.condition in bnd.Q_TYPE_KINDS
@@ -150,6 +189,7 @@ class Boundary:
             if self.rating_curve is None:
                 raise ValueError("rating_curve boundary needs a rating curve")
             rating = self.rating_curve.params if isinstance(self.rating_curve, RatingCurve) else self.rating_curve
+        storage = None if self.lumped_storage is None else self.lumped_storage.build(device=device)
         return bnd.make_boundary(
             kind=self.condition,
             bed_level=bed_level,
@@ -157,6 +197,7 @@ class Boundary:
             initial_depth=np.nan if self.initial_depth is None else self.initial_depth,
             target_series=series,
             rating=rating,
+            storage=storage,
             device=device,
         )
 
@@ -393,8 +434,9 @@ class PreissmannSolver(_SolverBase):
         ``"fused"`` runs the whole simulation as one CUDA kernel.  A
         configuration outside the kernel's scope raises ``FusedUnsupported``
         (no fallback to the plain engine).  Returns the ``SimOutput`` of
-        tensors on the device; ``self.depth`` / ``self.flow`` hold NumPy
-        copies for the accessors.
+        tensors on the device (``reservoir_stage`` / ``reservoir_stage_us``
+        hold the lumped-storage stage series, NaN without storage);
+        ``self.depth`` / ``self.flow`` hold NumPy copies for the accessors.
 
         ``lateral_inflow``: distributed source q [m^2/s per unit length] —
         scalar (uniform), per node [N], or per level and node [nt, N]; both
@@ -433,6 +475,28 @@ class PreissmannSolver(_SolverBase):
                 raise ValueError(
                     "Jacobian is ill-conditioned (rcond too small)"
                 )  # ref preissmann.py:143
+        # storage-bracket saturation: the bisection clamps to [y_min, y_max]
+        # where a bracketing root finder would raise when the root leaves the
+        # solution_boundaries — surface that here (checked before the
+        # convergence error: saturation is the root cause when both trip)
+        us_only = self.ds_params.storage is None
+        for bc, series in ((self.us_params, out.reservoir_stage if us_only else out.reservoir_stage_us),
+                           (self.ds_params, out.reservoir_stage)):
+            sp = bc.storage
+            if sp is None:
+                continue
+            stages = series.cpu().numpy()
+            stages = stages[np.isfinite(stages)]
+            if stages.size == 0:
+                continue
+            ymin, ymax = float(sp.y_min), float(sp.y_max)
+            tol = 1e-6 * max(ymax - ymin, 1.0)
+            if (stages >= ymax - tol).any() or (
+                    ymin > float(sp.min_stage) and (stages <= ymin + tol).any()):
+                raise ValueError(
+                    "Lumped-storage stage hit the solution_boundaries "
+                    f"bracket [{ymin}, {ymax}] — the mass-balance root lies "
+                    "outside it; widen solution_boundaries")
         converged = out.converged.cpu().numpy()
         if not bool(converged.all()):
             bad = int(np.argmin(converged))

@@ -1,16 +1,17 @@
 """Carry state across from NumPy: plain dicts -> the port's parameter trees.
 
 ``from_numpy(kind, tree, device)`` builds a ``TrapezoidGeometry``,
-``RatingCurveParams``, ``BoundaryParams``, ``PreissmannSettings`` or an
-``(h0, Q0)`` state from a dict of NumPy arrays / floats / strings whose keys
-are the field names of the JAX package's dataclasses — what
+``RatingCurveParams``, ``StorageParams`` (kind ``"storage"``),
+``BoundaryParams``, ``PreissmannSettings`` or an ``(h0, Q0)`` state from a
+dict of NumPy arrays / floats / strings whose keys are the field names of the JAX package's dataclasses — what
 ``dataclasses.fields`` + ``np.asarray`` give for one of its trees.  Array
 values may carry a leading member axis (a batched geometry, stacked
 boundaries, a ``[B, N]`` state): the result is then the batched tree that
 ``parallel.ensemble`` takes.  This
 module never sees a JAX object: whoever holds one turns it into such a dict
-first.  Fields the port does not have (TPU-only settings) are ignored;
-a boundary that carries lumped storage is refused.
+first.  Fields the port does not have (TPU-only settings) are ignored.  A
+boundary's ``"rating"`` and ``"storage"`` entries are nested dicts (a storage
+may nest a rating of its own).
 """
 
 from __future__ import annotations
@@ -22,11 +23,12 @@ import torch
 
 from flowsim_tpu_torch.config import DEFAULT_DEVICE, DEFAULT_DTYPE, resolve_device
 from flowsim_tpu_torch.geometry import TrapezoidGeometry
-from flowsim_tpu_torch.ops.boundary import _STORAGE_MESSAGE, BoundaryParams
+from flowsim_tpu_torch.ops.boundary import BoundaryParams
 from flowsim_tpu_torch.ops.preissmann import PreissmannSettings
 from flowsim_tpu_torch.ops.rating_curve import RatingCurveParams
+from flowsim_tpu_torch.ops.storage import StorageParams
 
-KINDS = ("TrapezoidGeometry", "RatingCurveParams", "BoundaryParams", "PreissmannSettings", "state")
+KINDS = ("TrapezoidGeometry", "RatingCurveParams", "storage", "BoundaryParams", "PreissmannSettings", "state")
 
 
 def _f64(v, device):
@@ -54,10 +56,22 @@ def _rating(tree, device):
     return RatingCurveParams(**out)
 
 
+def _storage(tree, device):
+    out = {}
+    for f in dataclasses.fields(StorageParams):
+        v = tree.get(f.name)
+        if f.name == "rating":
+            out[f.name] = None if v is None else _rating(v, device)
+        elif f.name in ("has_area_curve", "has_rating", "capture_losses"):
+            out[f.name] = bool(v)
+        else:
+            out[f.name] = _f64(v, device)
+    return StorageParams(**out)
+
+
 def _boundary(tree, device):
-    if tree.get("storage") is not None:
-        raise NotImplementedError(_STORAGE_MESSAGE)
     rating = tree.get("rating")
+    storage = tree.get("storage")
     return BoundaryParams(
         kind=str(tree["kind"]),
         bed_level=_f64(tree["bed_level"], device),
@@ -65,6 +79,7 @@ def _boundary(tree, device):
         initial_depth=_f64(tree["initial_depth"], device),
         target_series=_f64(tree["target_series"], device),
         rating=None if rating is None else _rating(rating, device),
+        storage=None if storage is None else _storage(storage, device),
     )
 
 
@@ -77,7 +92,7 @@ def _state(tree, device):
     return _f64(tree["h0"], device), _f64(tree["Q0"], device)
 
 
-_MAKERS = dict(zip(KINDS, (_geometry, _rating, _boundary, _settings, _state)))
+_MAKERS = dict(zip(KINDS, (_geometry, _rating, _storage, _boundary, _settings, _state)))
 
 
 def from_numpy(kind: str, tree: dict, device=DEFAULT_DEVICE):

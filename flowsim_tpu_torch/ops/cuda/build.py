@@ -31,7 +31,7 @@ NVCC_FLAGS = (
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-SOURCES = ("pcr_kernel", "fused_newton")
+SOURCES = ("pcr_kernel", "fused_newton", "tiled_pcr")
 
 _libs: dict[str, ctypes.CDLL] = {}
 # per source: {"seconds": build time (0 when reused), "ptxas": [per-kernel
@@ -66,21 +66,27 @@ def _source_hash(name: str) -> str:
 
 def parse_ptxas(log: str) -> list[dict]:
     """Per-kernel registers / spills / static shared memory from the
-    ``-Xptxas -v`` log."""
+    ``-Xptxas -v`` log.  A device function that is not inlined has function
+    properties of its own; they go under the kernel's ``device_functions``."""
     out = []
-    cur = None
+    cur = target = None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            cur = dict(kernel=m.group(1))
+            cur = target = dict(kernel=m.group(1))
             out.append(cur)
             continue
         if cur is None:
             continue
+        m = re.search(r"Function properties for (\w+)", line)
+        if m:
+            name = m.group(1)
+            target = cur if name == cur["kernel"] else cur.setdefault("device_functions", {}).setdefault(name, {})
+            continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m:
-            cur.update(stack_bytes=int(m.group(1)), spill_store_bytes=int(m.group(2)),
-                       spill_load_bytes=int(m.group(3)))
+            target.update(stack_bytes=int(m.group(1)), spill_store_bytes=int(m.group(2)),
+                          spill_load_bytes=int(m.group(3)))
         m = re.search(r"Used (\d+) registers", line)
         if m:
             cur["registers"] = int(m.group(1))

@@ -50,6 +50,21 @@
 // engine's association), store_boundaries (write nodes 0 and N-1 only,
 // [S, nt, 2]), and an upstream rating curve with its own coefficient block.
 //
+// Lumped storage (a reservoir behind a fixed_depth boundary, at either end or
+// both): the boundary row is one thread's work, so that thread runs the SAME
+// 80-step bracketed bisection as ops/storage.py::mass_balance, with the
+// stage-volume and stage-area tables read from device memory (two tables of
+// 4096 doubles stay in L2) and the same table interpolation, operation for
+// operation — the per-level Newton counts match the plain engine exactly.
+// The TPU kernel instead inverts a monotone stage grid with a sign count and
+// one-hot masks and resamples the tables to a 1024-point grid: a workaround
+// for a vector unit without loops or gathers, not carried over.  The storage
+// row is a separate, non-inlined device function fed from its own parameter
+// block ([S, 2, SP_COUNT], upstream then downstream) by the boundary thread
+// alone, and the carried reservoir stage lives in the output array
+// ([S, nt, 2]: the stage of level k-1 is read back by the thread that wrote
+// it), so the other threads hold no storage state in registers.
+//
 // Everything is float64 (native on this card): no double-single pairs and no
 // f32 Jacobian as on the TPU.  The arithmetic mirrors ops/sections.py,
 // ops/hydraulics.py, ops/rating_curve.py, ops/boundary.py and
@@ -65,7 +80,9 @@
 // are resident two to an SM (registers), 264 on the card: 132 members take
 // 81 ms, 264 take 91 ms, and beyond that the time grows with the member count
 // (10 240 members, nodes 0 and N-1 stored: 2.85 s, 12.6 times the bound by
-// FP64 operations).  PERF.md keeps the readings.
+// FP64 operations).  With a lumped storage the boundary thread's bisection
+// sets the pace: the 21-node reservoir example runs at 40 us per iteration
+// (3.5 ms for 87).  PERF.md keeps the readings.
 //
 // C interface (ctypes): launches on the given stream, allocates nothing,
 // does not synchronise, returns cudaGetLastError().
@@ -91,6 +108,15 @@ enum { P_THETA, P_DT, P_DX, P_TOL,
        // the upstream rating curve (polynomial or blended_poly; never gated)
        P_URC_LOW0, P_URC_LOW1, P_URC_LOW2, P_URC_HIGH0, P_URC_HIGH1, P_URC_HIGH2,
        P_URC_SHIFT, P_URC_PIVOT, P_URC_BUFFER, P_URC_FD, P_COUNT };
+
+// slots of one boundary's storage block, [S, 2, SP_COUNT] (0: upstream, 1: downstream)
+enum { SP_SURFACE_AREA, SP_MIN_STAGE, SP_Y_MIN, SP_Y_MAX, SP_BETA, SP_LRES, SP_KQ,
+       SP_RC_LOW0, SP_RC_LOW1, SP_RC_LOW2, SP_RC_HIGH0, SP_RC_HIGH1, SP_RC_HIGH2,
+       SP_RC_SHIFT, SP_RC_PIVOT, SP_RC_BUFFER, SP_RC_FD, SP_COUNT };
+// bits of a boundary's storage flags; bits 4.. hold the storage rating's kind
+enum { ST_ON = 1, ST_AREA_CURVE = 2, ST_RATING = 4, ST_LOSSES = 8, ST_RC_SHIFT = 4 };
+constexpr int BISECT_ITERS = 80;          // ops/storage.py
+constexpr double INTERP_EPS = 4.930380657631324e-32;  // spacing(eps), as jnp.interp guards dx
 
 enum { BC_FLOW = 0, BC_STAGE = 1, BC_FIXED = 2, BC_NORMAL = 3, BC_RATING = 4 };
 enum { RC_POLY = 0, RC_BLEND = 1, RC_GATED = 2 };
@@ -316,6 +342,102 @@ __device__ __forceinline__ double rating_dq_dz(const Rating& r, double stage, do
     return (rating_q(r, stage + r.fd, gate_open) - rating_q(r, stage - r.fd, gate_open)) / (2.0 * r.fd);
 }
 
+// -- ops/storage.py ---------------------------------------------------------
+
+// ops/storage.py::interp: linear interpolation, the end values held outside
+__device__ __forceinline__ double interp_table(double x, const double* __restrict__ xp,
+                                               const double* __restrict__ fp, int n) {
+    // searchsorted(right=True): the number of entries <= x, by bisection
+    int lo = 0, hi = n;
+    while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (xp[mid] <= x) lo = mid + 1; else hi = mid;
+    }
+    const int i = lo < 1 ? 1 : (lo > n - 1 ? n - 1 : lo);
+    const double df = fp[i] - fp[i - 1];
+    const double dx = xp[i] - xp[i - 1];
+    const double delta = x - xp[i - 1];
+    double val = fabs(dx) <= INTERP_EPS ? fp[i - 1] : fp[i - 1] + (delta / dx) * df;
+    if (x < xp[0]) val = fp[0];
+    if (x > xp[n - 1]) val = fp[n - 1];
+    return val;
+}
+
+__device__ __forceinline__ int sign_of(double x) { return (x > 0.0) - (x < 0.0); }
+
+// The fixed_depth + storage boundary row (ops/boundary.py::evaluate, storage
+// branch).  sp: this boundary's SP_* block; tab: its tables
+// [vol_stage(nv) | vol_table(nv) | area_stage(na) | area_table(na)].
+// Writes df_dh, df_dQ, -residual and the new stage where the caller points;
+// returns the residual.  Not inlined: one thread of the block runs it, and
+// its registers should not count against the other threads' budget.
+__device__ __noinline__ double storage_row(const double* __restrict__ sp,
+                                           const double* __restrict__ tab, int flags, int nv, int na,
+                                           double sign, double bed_level, double dt, double Q_prev,
+                                           double Y_old, double A, double R, double n_eq,
+                                           double dR_dA, double dA_dh, double h, double Q,
+                                           double* p_df_dh, double* p_df_dQ, double* p_neg_res,
+                                           double* p_stage) {
+    const bool curve = flags & ST_AREA_CURVE, rated = flags & ST_RATING, losses = flags & ST_LOSSES;
+    const double* vol_stage = tab;
+    const double* vol_table = tab + nv;
+    const double* area_stage = tab + 2 * nv;
+    const double* area_table = area_stage + na;
+    const double SA = sp[SP_SURFACE_AREA], min_stage = sp[SP_MIN_STAGE];
+    Rating rat{};
+    if (rated)
+        rat = Rating{sp[SP_RC_LOW0], sp[SP_RC_LOW1], sp[SP_RC_LOW2], sp[SP_RC_HIGH0], sp[SP_RC_HIGH1],
+                     sp[SP_RC_HIGH2], sp[SP_RC_SHIFT], sp[SP_RC_PIVOT], sp[SP_RC_BUFFER], sp[SP_RC_FD],
+                     0.0, flags >> ST_RC_SHIFT};
+
+    const double vol_in = sign * 0.5 * (Q_prev + Q) * dt;
+
+    // mass_balance: 80 halvings of [y_min, y_max] on
+    //   g(Y) = net_vol_change(Y_old, Y) - (vol_in - 0.5 (q(Y_old) + q(Y)) dt)
+    const double v_old = curve ? interp_table(Y_old, vol_stage, vol_table, nv) : 0.0;
+    const double q_old = rated ? rating_q(rat, Y_old, 0.0) : 0.0;
+    auto g_of = [&](double Y) {
+        const double q_new = rated ? rating_q(rat, Y, 0.0) : 0.0;
+        const double target_vol = vol_in - 0.5 * (q_old + q_new) * dt;
+        const double dv = curve ? interp_table(Y, vol_stage, vol_table, nv) - v_old : (Y - Y_old) * SA;
+        return dv - target_vol;
+    };
+    double lo = sp[SP_Y_MIN], hi = sp[SP_Y_MAX];
+    double f_lo = g_of(lo);
+    for (int b = 0; b < BISECT_ITERS; ++b) {
+        const double mid = 0.5 * (lo + hi);
+        const double f_mid = g_of(mid);
+        // torch.sign(f_mid) == torch.sign(f_lo): false when either is NaN
+        const bool go_right = f_mid == f_mid && f_lo == f_lo && sign_of(f_mid) == sign_of(f_lo);
+        if (go_right) { lo = mid; f_lo = f_mid; } else { hi = mid; }
+    }
+    double Y_new = 0.5 * (lo + hi);
+    if (Y_new < min_stage) Y_new = min_stage;
+
+    // entrance losses: friction over the reservoir length + K_q V^2 / 2g
+    double head_loss = 0.0, d_hl_dA = 0.0, d_hl_dQ = 0.0;
+    if (losses) {
+        const double Lres = sp[SP_LRES], K_q = sp[SP_KQ];
+        const double K = conveyance(A, n_eq, R);
+        const double dK = hyd_dK_dA(A, n_eq, R, dR_dA);
+        const double V = Q / A;
+        head_loss = friction_slope(Q, K) * Lres + K_q * V * V / (2.0 * G);
+        const double dV_dA = -Q / (A * A);
+        d_hl_dA = hyd_dSf_dA(Q, K, dK) * Lres + K_q * 2.0 * V * dV_dA / (2.0 * G);
+        const double dV_dQ = 1.0 / A;
+        d_hl_dQ = hyd_dSf_dQ(Q, K) * Lres + K_q * 2.0 * V * dV_dQ / (2.0 * G);
+    }
+    const double target = (Y_new + sign * head_loss) - bed_level;
+    const double area = curve ? interp_table(Y_new + sp[SP_BETA], area_stage, area_table, na) : SA;
+    const double dY_dvol = Y_new <= min_stage ? 0.0 : 1.0 / area;
+    const double res = h - target;
+    *p_df_dh = 1.0 - sign * d_hl_dA * dA_dh;
+    *p_df_dQ = -sign * (dY_dvol * 0.5 * dt + d_hl_dQ);
+    *p_neg_res = -res;
+    *p_stage = Y_new;
+    return res;
+}
+
 // -- ops/boundary.py --------------------------------------------------------
 
 struct Bc { double bed_level, bed_slope, init_depth; int kind; };
@@ -364,7 +486,10 @@ __device__ __forceinline__ double block_sum(double v, double* warp_part) {
     return total;
 }
 
-template <int BLOCK>
+// STORAGE selects the build with the lumped-storage rows: a run without
+// storage takes the build that has no call to storage_row in it, so its
+// register allocation is what it was before storage existed.
+template <int BLOCK, bool STORAGE>
 __global__ void __launch_bounds__(BLOCK)
 fused_simulate_kernel(const double* __restrict__ geo_all,   // [S, 13, N]
                       const double* __restrict__ h0_all,    // [S, N]
@@ -379,9 +504,14 @@ fused_simulate_kernel(const double* __restrict__ geo_all,   // [S, 13, N]
                       double* __restrict__ err_all,         // [S, nt]
                       int* __restrict__ conv_all,           // [S, nt]
                       double* __restrict__ gate_all,        // [S, nt]
+                      double* stage_all,                    // [S, nt, 2]: ds (or us-only), us; NaN-filled
+                      const double* __restrict__ stor_all,  // [S, 2, SP_COUNT] / null
+                      const double* __restrict__ stab_all,  // storage tables, us then ds / null
+                      long long stab_stride,                // doubles per member (0: shared)
                       int n, int nt, int max_iter, int sweeps,
                       int us_kind, int ds_kind, int rc_kind, int us_rc_kind,
-                      int store_boundaries, int qlat_mode) {
+                      int store_boundaries, int qlat_mode,
+                      int us_sflags, int ds_sflags, int us_nv, int us_na, int ds_nv, int ds_na) {
     extern __shared__ double smem[];
     __shared__ double warp_part[2][32];
 
@@ -399,6 +529,9 @@ fused_simulate_kernel(const double* __restrict__ geo_all,   // [S, 13, N]
     double* errs = err_all + sim * (size_t)nt;
     int* conv = conv_all + sim * (size_t)nt;
     double* gate = gate_all + sim * (size_t)nt;
+    double* stage = stage_all + sim * (size_t)nt * 2;
+    const bool us_stor = STORAGE && (us_kind == BC_FIXED) && (us_sflags & ST_ON);
+    const bool ds_stor = STORAGE && (ds_kind == BC_FIXED) && (ds_sflags & ST_ON);
 
     double* buf0 = smem;                   // the assembled system / PCR ping
     double* buf1 = buf0 + (size_t)COMP * n;  // neighbour exchange / PCR pong
@@ -573,18 +706,43 @@ fused_simulate_kernel(const double* __restrict__ geo_all,   // [S, 13, N]
                                     par[P_URC_HIGH0], par[P_URC_HIGH1], par[P_URC_HIGH2],
                                     par[P_URC_SHIFT], par[P_URC_PIVOT], par[P_URC_BUFFER],
                                     par[P_URC_FD], 0.0, us_rc_kind};
-                boundary_row(us_bc, us_rat, s, h, Q, us_target, gate_open, res, df_dh, df_dQ);
                 buf0[0 * n + i] = 0.0;   buf0[1 * n + i] = 0.0;
-                buf0[4 * n + i] = df_dh; buf0[5 * n + i] = df_dQ;
-                buf0[12 * n + i] = -res;
+                if (us_stor) {
+                    // positive Q drains an upstream reservoir (sign -1); level 1
+                    // anchors on the previous level's surface, later levels on
+                    // the stage this thread stored for level k-1
+                    const double Y_old = k == 1 ? hp0 + us_bc.bed_level : stage[(size_t)(k - 1) * 2 + 1];
+                    res = storage_row(stor_all + sim * (size_t)(2 * SP_COUNT),
+                                      stab_all + sim * (size_t)stab_stride, us_sflags, us_nv, us_na,
+                                      -1.0, us_bc.bed_level, dt, Qp0, Y_old, s.A, s.R, s.n_eq, s.dR_dA,
+                                      s.dA_dh, h, Q, &buf0[4 * n + i], &buf0[5 * n + i],
+                                      &buf0[12 * n + i], &stage[(size_t)k * 2 + 1]);
+                    // with no downstream storage the upstream stage is the run's reservoir_stage
+                    if (!ds_stor) stage[(size_t)k * 2] = stage[(size_t)k * 2 + 1];
+                } else {
+                    boundary_row(us_bc, us_rat, s, h, Q, us_target, gate_open, res, df_dh, df_dQ);
+                    buf0[4 * n + i] = df_dh; buf0[5 * n + i] = df_dQ;
+                    buf0[12 * n + i] = -res;
+                }
                 sq += res * res;
             }
             if (node && last) {   // downstream row: D row 1 of node N-1
                 double res, df_dh, df_dQ;
-                boundary_row(ds_bc, rat, s, h, Q, ds_target, gate_open, res, df_dh, df_dQ);
-                buf0[6 * n + i] = df_dh;  buf0[7 * n + i] = df_dQ;
                 buf0[10 * n + i] = 0.0;   buf0[11 * n + i] = 0.0;
-                buf0[13 * n + i] = -res;
+                if (ds_stor) {
+                    // level 1 anchors on the current trial stage (the reference
+                    // model's bootstrap), later levels on the stored stage
+                    const double Y_old = k == 1 ? h + ds_bc.bed_level : stage[(size_t)(k - 1) * 2];
+                    res = storage_row(stor_all + sim * (size_t)(2 * SP_COUNT) + SP_COUNT,
+                                      stab_all + sim * (size_t)stab_stride + 2 * (us_nv + us_na),
+                                      ds_sflags, ds_nv, ds_na, 1.0, ds_bc.bed_level, dt, Qp0, Y_old,
+                                      s.A, s.R, s.n_eq, s.dR_dA, s.dA_dh, h, Q, &buf0[6 * n + i],
+                                      &buf0[7 * n + i], &buf0[13 * n + i], &stage[(size_t)k * 2]);
+                } else {
+                    boundary_row(ds_bc, rat, s, h, Q, ds_target, gate_open, res, df_dh, df_dQ);
+                    buf0[6 * n + i] = df_dh;  buf0[7 * n + i] = df_dQ;
+                    buf0[13 * n + i] = -res;
+                }
                 sq += res * res;
             }
             // the barrier inside also publishes buf0 and retires every read
@@ -624,21 +782,22 @@ fused_simulate_kernel(const double* __restrict__ geo_all,   // [S, 13, N]
 #undef STORE_LEVEL
 }
 
-template <int BLOCK>
+template <int BLOCK, bool STORAGE>
 int launch(const double* geo, const double* h0, const double* Q0, const double* us,
            const double* ds, const double* par, const double* qlat, double* depth, double* flow,
-           int* iters, double* err, int* conv, double* gate, int n_sims, int n, int nt,
+           int* iters, double* err, int* conv, double* gate, double* stage, const double* stor,
+           const double* stab, long long stab_stride, int n_sims, int n, int nt,
            int max_iter, int us_kind, int ds_kind, int rc_kind, int us_rc_kind,
-           int store_boundaries, int qlat_mode, cudaStream_t stream) {
+           int store_boundaries, int qlat_mode, const int* st, cudaStream_t stream) {
     const int threads = ((n + 31) / 32) * 32;
     const size_t smem = (size_t)SMEM_DOUBLES_PER_NODE * n * sizeof(double);
-    cudaError_t e = cudaFuncSetAttribute(fused_simulate_kernel<BLOCK>,
+    cudaError_t e = cudaFuncSetAttribute(fused_simulate_kernel<BLOCK, STORAGE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
-    fused_simulate_kernel<BLOCK><<<n_sims, threads, smem, stream>>>(
-        geo, h0, Q0, us, ds, par, qlat, depth, flow, iters, err, conv, gate,
-        n, nt, max_iter, pcr::n_sweeps(n), us_kind, ds_kind, rc_kind, us_rc_kind,
-        store_boundaries, qlat_mode);
+    fused_simulate_kernel<BLOCK, STORAGE><<<n_sims, threads, smem, stream>>>(
+        geo, h0, Q0, us, ds, par, qlat, depth, flow, iters, err, conv, gate, stage, stor, stab,
+        stab_stride, n, nt, max_iter, pcr::n_sweeps(n), us_kind, ds_kind, rc_kind, us_rc_kind,
+        store_boundaries, qlat_mode, st[0], st[1], st[2], st[3], st[4], st[5]);
     return (int)cudaGetLastError();
 }
 
@@ -646,24 +805,36 @@ int launch(const double* geo, const double* h0, const double* Q0, const double* 
 
 extern "C" int flowsim_fused_param_count() { return P_COUNT; }
 extern "C" int flowsim_fused_smem_bytes_per_node() { return SMEM_DOUBLES_PER_NODE * (int)sizeof(double); }
+extern "C" int flowsim_fused_storage_param_count() { return SP_COUNT; }
 
 // One block per simulation: n_sims = 1 is fused_simulate, n_sims = B is
-// fused_simulate_batched.  Every array carries a leading n_sims axis.
+// fused_simulate_batched.  Every array carries a leading n_sims axis (the
+// storage tables only when stab_stride != 0).  st: the six storage ints
+// {us flags, ds flags, us nv, us na, ds nv, ds na}; stage [n_sims, nt, 2] is
+// filled with NaN by the caller.
 extern "C" int flowsim_fused_simulate(const void* geo, const void* h0, const void* Q0,
                                       const void* us, const void* ds, const void* par,
                                       const void* qlat, void* depth, void* flow, void* iters,
-                                      void* err, void* conv, void* gate, int n_sims, int n,
+                                      void* err, void* conv, void* gate, void* stage,
+                                      const void* stor, const void* stab, long long stab_stride,
+                                      int n_sims, int n,
                                       int nt, int max_iter, int us_kind, int ds_kind,
                                       int rc_kind, int us_rc_kind, int store_boundaries,
-                                      int qlat_mode, void* stream) {
+                                      int qlat_mode, const int* st, void* stream) {
     if (n_sims <= 0 || n <= 1 || n > 1024 || nt <= 0) return (int)cudaErrorInvalidValue;
     if (qlat_mode < QLAT_NONE || qlat_mode > QLAT_LEVELS) return (int)cudaErrorInvalidValue;
     if ((qlat_mode != QLAT_NONE) != (qlat != nullptr)) return (int)cudaErrorInvalidValue;
-#define FLOWSIM_LAUNCH(B) launch<B>((const double*)geo, (const double*)h0, (const double*)Q0, \
+    if (st == nullptr || stage == nullptr) return (int)cudaErrorInvalidValue;
+    if (((st[0] | st[1]) & ST_ON) && stor == nullptr) return (int)cudaErrorInvalidValue;
+    if (((st[0] | st[1]) & ST_AREA_CURVE) && stab == nullptr) return (int)cudaErrorInvalidValue;
+    const bool storage = (st[0] | st[1]) & ST_ON;
+#define FLOWSIM_LAUNCH(B) (storage ? FLOWSIM_LAUNCH_AS(B, true) : FLOWSIM_LAUNCH_AS(B, false))
+#define FLOWSIM_LAUNCH_AS(B, S) launch<B, S>((const double*)geo, (const double*)h0, (const double*)Q0, \
         (const double*)us, (const double*)ds, (const double*)par, (const double*)qlat, \
         (double*)depth, (double*)flow, (int*)iters, (double*)err, (int*)conv, (double*)gate, \
+        (double*)stage, (const double*)stor, (const double*)stab, stab_stride, \
         n_sims, n, nt, max_iter, us_kind, ds_kind, rc_kind, us_rc_kind, store_boundaries, \
-        qlat_mode, (cudaStream_t)stream)
+        qlat_mode, st, (cudaStream_t)stream)
     // the block size is a launch bound, so a small reach gets the full
     // register budget and only a long one is squeezed to 64 registers
     if (n <= 128) return FLOWSIM_LAUNCH(128);
@@ -671,4 +842,5 @@ extern "C" int flowsim_fused_simulate(const void* geo, const void* h0, const voi
     if (n <= 512) return FLOWSIM_LAUNCH(512);
     return FLOWSIM_LAUNCH(1024);
 #undef FLOWSIM_LAUNCH
+#undef FLOWSIM_LAUNCH_AS
 }

@@ -3,7 +3,8 @@
 // Replaces flowsim_tpu/ops/pallas/pcr_common.py (pcr_reduce / pcr_backsolve),
 // the sweep shared by every TPU kernel of the JAX package.  One source of
 // truth for the PCR algebra of the CUDA kernels: pcr_kernel.cu (one system
-// per block) and fused_newton.cu (the in-simulation Newton solve).
+// per block), fused_newton.cu (the in-simulation Newton solve) and
+// tiled_pcr.cu (one tile per block, five right-hand-side pairs).
 //
 // The TPU version holds the system as rows of a [16, lanes] vector buffer and
 // reaches neighbours i-s / i+s with lane rolls; being functional, each sweep

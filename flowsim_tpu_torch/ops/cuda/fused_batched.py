@@ -120,13 +120,17 @@ def fused_simulate_batched(geo_batch, us_bc, ds_bc, h0, Q0, settings, us_batched
     ``us_bc`` / ``ds_bc``: shared BoundaryParams, or (with ``us_batched`` /
     ``ds_batched``) the stacked per-member params of
     ``ensemble.batch_boundaries`` — per-member target series, initial depth,
-    bed level, rating coefficients, pivots and gate cooldown; the kinds are
-    shared.  ``h0`` / ``Q0``: ``[N]`` shared or ``[B, N]`` per member.
+    bed level, rating coefficients, pivots, gate cooldown and lumped storage
+    (surface area, bracket, loss coefficients, storage rating, and the
+    members' own stage-area tables); the kinds, the storage options and the
+    table lengths are shared.  ``h0`` / ``Q0``: ``[N]`` shared or ``[B, N]``
+    per member.
     ``lateral_inflow``: see :func:`batched_lateral_inflow`.
 
     Returns a SimOutput whose fields carry a leading member axis: depth/flow
     ``[B, nt, N]`` (``[B, nt, 2]`` with ``settings.store="boundaries"``),
-    iterations / error / converged / gate_open / reservoir_stage ``[B, nt]``.
+    iterations / error / converged / gate_open / reservoir_stage /
+    reservoir_stage_us ``[B, nt]``.
 
     Raises :class:`FusedUnsupported` outside the kernel's scope and
     ``MemoryError`` when the outputs would not fit the card's free memory.
@@ -157,10 +161,11 @@ def fused_simulate_batched(geo_batch, us_bc, ds_bc, h0, Q0, settings, us_batched
 
     lead = (n_members,)
     par, rc_kind, us_rc_kind = fn.pack_params(us_bc, ds_bc, settings, batch_shape=lead)
+    storage = fn.pack_storage(us_bc, ds_bc, batch_shape=lead)
     out = fn.launch(fn.pack_geometry(geo_batch), h0.expand(n_members, n).contiguous(),
                     Q0.expand(n_members, n).contiguous(), fn.series(us_bc, nt, dev, lead),
                     fn.series(ds_bc, nt, dev, lead), par,
                     None if qlat is None else qlat.contiguous(), settings,
-                    us_bc.kind, ds_bc.kind, rc_kind, us_rc_kind)
+                    us_bc.kind, ds_bc.kind, rc_kind, us_rc_kind, storage)
     launch_count += 1
     return out

@@ -42,6 +42,11 @@ _BC_KINDS = {"flow_hydrograph": 0, "stage_hydrograph": 1, "fixed_depth": 2,
 _RC_KINDS = {"polynomial": 0, "blended_poly": 1, "gated_blend": 2}
 _US_RC_KINDS = ("polynomial", "blended_poly")   # the gate controller is downstream-only
 _N_PARAMS = 32
+# one boundary's storage block: surface area, min stage, bracket, beta,
+# reservoir length, K_q and a 10-slot rating block
+_N_STORAGE_PARAMS = 17
+_ST_ON, _ST_AREA_CURVE, _ST_RATING, _ST_LOSSES, _ST_RC_SHIFT = 1, 2, 4, 8, 4
+_STORAGE_RC_KINDS = ("polynomial", "blended_poly")
 
 # number of kernel launches made by fused_simulate (not by its plain version)
 launch_count = 0
@@ -68,9 +73,16 @@ def _check_supported(geo, us_bc, ds_bc, settings):
     for name, bc in (("upstream", us_bc), ("downstream", ds_bc)):
         if bc.kind not in _BC_KINDS:
             raise FusedUnsupported(f"unknown {name} BC kind {bc.kind!r}")
-        if bc.storage is not None:
-            raise FusedUnsupported(
-                "lumped storage is not in the fused kernel yet (ROADMAP.md Queue 1 item 8)")
+        if bc.kind == "fixed_depth" and bc.storage is not None and bc.storage.has_rating:
+            kind = bc.storage.rating.kind
+            if kind == "gated_blend":
+                raise FusedUnsupported(
+                    f"a gated_blend rating on the {name} storage itself is unsupported "
+                    "(the plain mass balance cannot evaluate it either)")
+            if kind not in _STORAGE_RC_KINDS or bc.storage.rating.coeffs.shape[-1] != 3:
+                raise FusedUnsupported(
+                    f"unsupported rating kind {kind!r} on the {name} storage; the kernel "
+                    f"evaluates {_STORAGE_RC_KINDS} quadratics there (ROADMAP.md Queue 1 item 8)")
         if bc.kind == "normal_depth":
             s0 = float(bc.bed_slope.reshape(-1)[0])
             if not math.isfinite(s0) or s0 <= 0.0:
@@ -103,12 +115,15 @@ def _lib():
     lib = build.load("fused_newton")
     fn = lib.flowsim_fused_simulate
     if not getattr(fn, "_typed", False):
-        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_longlong] + [ctypes.c_int] * 10
+                       + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        for aux in (lib.flowsim_fused_param_count, lib.flowsim_fused_smem_bytes_per_node):
+        for aux in (lib.flowsim_fused_param_count, lib.flowsim_fused_smem_bytes_per_node,
+                    lib.flowsim_fused_storage_param_count):
             aux.argtypes = []
             aux.restype = ctypes.c_int
-        if lib.flowsim_fused_param_count() != _N_PARAMS:
+        if lib.flowsim_fused_param_count() != _N_PARAMS \
+                or lib.flowsim_fused_storage_param_count() != _N_STORAGE_PARAMS:
             raise RuntimeError("parameter layout of fused_newton.cu and its wrapper differ")
         if lib.flowsim_fused_smem_bytes_per_node() != SMEM_BYTES_PER_NODE:
             raise RuntimeError("shared-memory layout of fused_newton.cu and its wrapper differ")
@@ -134,6 +149,21 @@ def _rating_slots(rc, gated):
     return slots, (rc.max_cooldown if gated else None)
 
 
+def _cat_slots(slots, batch_shape, dev):
+    """Concatenate (tensor or None, width) slots into ``[*batch_shape, sum of
+    widths]``; ``None`` gives zeros, a width-1 slot is a scalar leaf (0-d when
+    shared, ``[B]`` per member)."""
+    dt = torch.float64
+    parts = []
+    for t, width in slots:
+        if t is None:
+            t = torch.zeros((width,), dtype=dt, device=dev)
+        elif width == 1:
+            t = t.unsqueeze(-1)
+        parts.append(t.to(dt).expand(*batch_shape, width))
+    return torch.cat(parts, dim=-1).contiguous()
+
+
 def pack_params(us_bc, ds_bc, settings, batch_shape=()) -> tuple[torch.Tensor, int, int]:
     """The 32 scalar parameters the kernel reads — ``[32]``, or ``[B, 32]``
     with ``batch_shape=(B,)`` where any boundary leaf may carry a leading
@@ -150,24 +180,61 @@ def pack_params(us_bc, ds_bc, settings, batch_shape=()) -> tuple[torch.Tensor, i
     slots = [(host, 4), (us_bc.bed_level, 1), (us_bc.bed_slope, 1), (us_bc.initial_depth, 1),
              (ds_bc.bed_level, 1), (ds_bc.bed_slope, 1), (ds_bc.initial_depth, 1),
              *ds_slots, (cooldown, 1), (gate_init, 1), *us_slots]
-    parts = []
-    for t, width in slots:
-        if t is None:
-            t = torch.zeros((width,), dtype=dt, device=dev)
-        elif width == 1:
-            t = t.unsqueeze(-1)    # a scalar leaf: 0-d when shared, [B] per member
-        parts.append(t.to(dt).expand(*batch_shape, width))
-    par = torch.cat(parts, dim=-1).contiguous()
+    par = _cat_slots(slots, batch_shape, dev)
     if par.shape[-1] != _N_PARAMS:
         raise RuntimeError(f"packed {par.shape[-1]} parameters, the kernel reads {_N_PARAMS}")
     return par, (_RC_KINDS[rc.kind] if rc is not None else 0), (_RC_KINDS[urc.kind] if urc is not None else 0)
 
 
+def _storage_of(bc):
+    return bc.storage if bc.kind == "fixed_depth" else None
+
+
+def pack_storage(us_bc, ds_bc, batch_shape=()):
+    """The storage inputs of the kernel: the scalar blocks ``[*batch, 2, 17]``
+    (upstream, downstream), the tables ``[*batch, L]`` or shared ``[L]`` — per
+    end ``vol_stage | vol_table | area_stage | area_table`` — and the six
+    ints {us flags, ds flags, us nv, us na, ds nv, ds na}.  A boundary without
+    storage gives a zero block, no tables and flags 0."""
+    dev, dt = us_bc.bed_level.device, torch.float64
+    blocks, tables, flags, lens = [], [], [], []
+    for sp in (_storage_of(us_bc), _storage_of(ds_bc)):
+        if sp is None:
+            blocks.append(torch.zeros((*batch_shape, _N_STORAGE_PARAMS), dtype=dt, device=dev))
+            flags.append(0)
+            lens += [0, 0]
+            continue
+        rc_slots, _ = _rating_slots(sp.rating, False)
+        slots = [(t, 1) for t in (sp.surface_area, sp.min_stage, sp.y_min, sp.y_max, sp.beta,
+                                  sp.reservoir_length, sp.K_q)] + rc_slots
+        blocks.append(_cat_slots(slots, batch_shape, dev))
+        flag = _ST_ON | (_ST_AREA_CURVE if sp.has_area_curve else 0) \
+            | (_ST_RATING if sp.has_rating else 0) | (_ST_LOSSES if sp.capture_losses else 0)
+        if sp.has_rating:
+            flag |= _RC_KINDS[sp.rating.kind] << _ST_RC_SHIFT
+        flags.append(flag)
+        if sp.has_area_curve:
+            lens += [sp.vol_stage.shape[-1], sp.area_stage.shape[-1]]
+            tables += [sp.vol_stage, sp.vol_table, sp.area_stage, sp.area_table]
+        else:
+            lens += [0, 0]
+    stor = torch.stack(blocks, dim=-2).contiguous()
+    if not tables:
+        stab = torch.zeros((1,), dtype=dt, device=dev)
+    else:
+        # tables of a stacked boundary carry the member axis; a shared
+        # boundary's are expanded only when the other end's are per member
+        lead = batch_shape if any(t.dim() > 1 for t in tables) else ()
+        stab = torch.cat([t.to(dt).expand(*lead, t.shape[-1]) for t in tables], dim=-1).contiguous()
+    return stor, stab, (flags[0], flags[1], lens[0], lens[1], lens[2], lens[3])
+
+
 def output_bytes(n_sims: int, n: int, nt: int, store: str) -> int:
     """Bytes of the kernel's outputs: depth and flow (float64, N or 2 nodes
-    per level) plus error, gate, iterations and converged per level."""
+    per level) plus error, gate, the two reservoir stages, iterations and
+    converged per level."""
     width = n if store == "full" else 2
-    return n_sims * nt * (2 * width * 8 + 2 * 8 + 2 * 4)
+    return n_sims * nt * (2 * width * 8 + 4 * 8 + 2 * 4)
 
 
 def check_output_memory(n_sims: int, n: int, nt: int, store: str, free_bytes: int) -> None:
@@ -182,17 +249,25 @@ def check_output_memory(n_sims: int, n: int, nt: int, store: str, free_bytes: in
 
 
 def launch(geo_rows, h0, Q0, us_series, ds_series, par, qlat, settings, us_kind, ds_kind,
-           rc_kind, us_rc_kind) -> prs.SimOutput:
+           rc_kind, us_rc_kind, storage) -> prs.SimOutput:
     """Launch the kernel on a grid of ``S = geo_rows.shape[0]`` blocks, one per
     simulation.  Every input carries the leading ``S`` axis and lies on one
-    CUDA device; ``qlat`` is ``None``, ``[S, N]`` or ``[S, nt, N]``.  Returns a
-    SimOutput whose fields carry the ``S`` axis."""
+    CUDA device; ``qlat`` is ``None``, ``[S, N]`` or ``[S, nt, N]``;
+    ``storage`` is what :func:`pack_storage` returns (blocks ``[S, 2, 17]``,
+    tables ``[S, L]`` or shared ``[L]``).  Returns a SimOutput whose fields
+    carry the ``S`` axis."""
     dev = geo_rows.device
     n_sims, _, n = geo_rows.shape
     nt = settings.n_time_levels
     expect = dict(geo_rows=(n_sims, len(_GEO_ROWS), n), h0=(n_sims, n), Q0=(n_sims, n),
                   us_series=(n_sims, nt), ds_series=(n_sims, nt), par=(n_sims, _N_PARAMS))
     given = dict(geo_rows=geo_rows, h0=h0, Q0=Q0, us_series=us_series, ds_series=ds_series, par=par)
+    stor, stab, st_ints = storage
+    expect["storage blocks"] = (n_sims, 2, _N_STORAGE_PARAMS)
+    given["storage blocks"] = stor
+    tab_len = max(1, 2 * sum(st_ints[2:]))
+    expect["storage tables"] = (n_sims, tab_len) if stab.dim() == 2 else (tab_len,)
+    given["storage tables"] = stab
     if qlat is not None:
         expect["qlat"] = (n_sims, n) if qlat.dim() == 2 else (n_sims, nt, n)
         given["qlat"] = qlat
@@ -212,20 +287,22 @@ def launch(geo_rows, h0, Q0, us_series, ds_series, par, qlat, settings, us_kind,
         gate = torch.empty((n_sims, nt), **f64)
         iters = torch.empty((n_sims, nt), dtype=torch.int32, device=dev)
         conv = torch.empty((n_sims, nt), dtype=torch.int32, device=dev)
+        stage = torch.full((n_sims, nt, 2), float("nan"), **f64)
         rc = _lib().flowsim_fused_simulate(
             geo_rows.data_ptr(), h0.data_ptr(), Q0.data_ptr(), us_series.data_ptr(),
             ds_series.data_ptr(), par.data_ptr(), None if qlat is None else qlat.data_ptr(),
             depth.data_ptr(), flow.data_ptr(), iters.data_ptr(), error.data_ptr(),
-            conv.data_ptr(), gate.data_ptr(), n_sims, n, nt, int(settings.max_iter),
+            conv.data_ptr(), gate.data_ptr(), stage.data_ptr(), stor.data_ptr(), stab.data_ptr(),
+            tab_len if stab.dim() == 2 else 0, n_sims, n, nt, int(settings.max_iter),
             _BC_KINDS[us_kind], _BC_KINDS[ds_kind], rc_kind, us_rc_kind,
             int(settings.store == "boundaries"), 0 if qlat is None else qlat.dim() - 1,
-            torch.cuda.current_stream().cuda_stream)
+            (ctypes.c_int * 6)(*st_ints), torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_simulate launch failed: CUDA error {rc}")
     return prs.SimOutput(
         depth=depth, flow=flow, iterations=iters, error=error, converged=conv.bool(),
-        reservoir_stage=torch.full((n_sims, nt), float("nan"), **f64), gate_open=gate,
-        rcond=None,
+        reservoir_stage=stage[..., 0], gate_open=gate, rcond=None,
+        reservoir_stage_us=stage[..., 1],
     )
 
 
@@ -265,9 +342,11 @@ def fused_simulate(geo, us_bc, ds_bc, h0, Q0, settings, lateral_inflow=None) -> 
 
     nt = settings.n_time_levels
     par, rc_kind, us_rc_kind = pack_params(us_bc, ds_bc, settings)
+    stor, stab, st_ints = pack_storage(us_bc, ds_bc)
     one = lambda t: t.unsqueeze(0).contiguous()
     out = launch(one(pack_geometry(geo)), one(h0), one(Q0), one(series(us_bc, nt, dev)),
                  one(series(ds_bc, nt, dev)), one(par), None if qlat is None else one(qlat),
-                 settings, us_bc.kind, ds_bc.kind, rc_kind, us_rc_kind)
+                 settings, us_bc.kind, ds_bc.kind, rc_kind, us_rc_kind,
+                 (one(stor), stab, st_ints))
     launch_count += 1
     return prs.SimOutput(*(None if f is None else f[0] for f in out))

@@ -52,7 +52,9 @@ def _check(L, D, U, b):
         raise ValueError(f"b must be {tuple(L.shape[:-1])}; got {tuple(b.shape)}")
     N = L.shape[-3]
     if N > MAX_N:
-        raise ValueError(f"N={N} exceeds the single-block kernel limit {MAX_N}")
+        raise ValueError(
+            f"N={N} exceeds the single-block kernel limit {MAX_N}; use "
+            'linear_solver="cuda_tiled" (ops.cuda.tiled_pcr) for longer reaches')
     if N < 1:
         raise ValueError("empty system")
     return N

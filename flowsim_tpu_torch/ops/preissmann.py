@@ -22,10 +22,13 @@ Numerical semantics replicated exactly:
 * convergence on the L2 norm of the *pre-update* residual, with the final
   Newton increment still applied;
 * the gate controller of a ``gated_blend`` downstream curve steps once per
-  level, before Newton, on the previous level's downstream stage.
+  level, before Newton, on the previous level's downstream stage;
+* the storage volume of a lumped reservoir is 0.5 (Q^{k-1} + Q^k) dt at its
+  boundary node, and the stage recorded for a level is that of the level's
+  last assembly.
 
-Not ported yet (ROADMAP.md Queue 1): ``newton="fixed"`` / ``"implicit"`` and
-lumped storage.  The TPU-only
+Not ported yet (ROADMAP.md Queue 1): ``newton="fixed"`` / ``"implicit"``.
+The TPU-only
 settings ``out_memory`` and ``fused_unroll`` of the JAX package have no
 counterpart: they steer VMEM placement and a loop-overhead trick of the
 Pallas kernel.
@@ -79,9 +82,10 @@ class SimOutput(NamedTuple):
     iterations: torch.Tensor   # [nt] Newton iterations (0 at level 0)
     error: torch.Tensor        # [nt] final pre-update residual norm
     converged: torch.Tensor    # [nt] bool
-    reservoir_stage: torch.Tensor  # [nt] NaN (no storage boundary yet)
+    reservoir_stage: torch.Tensor  # [nt] NaN unless a storage BC (ds, or us-only)
     gate_open: torch.Tensor    # [nt] gate flag (gated_blend downstream curve)
     rcond: Optional[torch.Tensor] = None  # [nt] min pivot-rcond proxy (diagnos)
+    reservoir_stage_us: Optional[torch.Tensor] = None  # [nt] upstream storage stage
 
 
 STORES = ("full", "boundaries")
@@ -184,8 +188,12 @@ def assemble(geo, us_bc, ds_bc, settings: PreissmannSettings, prev: PrevLevel, h
              qlat_cur=None, qlat_prev=None):
     """Residuals + block-tridiagonal Jacobian at the current Newton iterate.
 
-    Returns (L, D, U, b, err_norm): the 2x2 block system J delta = b
-    (b = -R grouped per node) and the L2 norm of R.
+    Returns (L, D, U, b, err_norm, reservoir_stage, reservoir_stage_us):
+    the 2x2 block system J delta = b (b = -R grouped per node), the L2 norm
+    of R, and the two boundaries' new storage stages (each boundary reads its
+    own previous stage from ``bc_state``).  ``reservoir_stage`` is the
+    downstream stage, or the upstream one when only that end has storage;
+    ``reservoir_stage_us`` is NaN unless the upstream boundary has storage.
     """
     theta = settings.theta
     dt = settings.time_step
@@ -202,8 +210,14 @@ def assemble(geo, us_bc, ds_bc, settings: PreissmannSettings, prev: PrevLevel, h
     th_dx = theta / dx
 
     # -- boundary rows -----------------------------------------------------
-    us = bnd.evaluate(us_bc, _node_section(st, 0), h[0], Q[0], k, dt, bc_state=bc_state)
-    ds = bnd.evaluate(ds_bc, _node_section(st, -1), h[-1], Q[-1], k, dt, bc_state=bc_state)
+    rs_prev = None if bc_state is None else bc_state.reservoir_stage
+    rs_prev_us = None if bc_state is None else bc_state.reservoir_stage_us
+    us = bnd.evaluate(us_bc, _node_section(st, 0), h[0], Q[0], k, dt,
+                      Q_prev=prev.Q[0], reservoir_stage_prev=rs_prev_us,
+                      bc_state=bc_state, upstream=True, h_prev=prev.h[0])
+    ds = bnd.evaluate(ds_bc, _node_section(st, -1), h[-1], Q[-1], k, dt,
+                      Q_prev=prev.Q[-1], reservoir_stage_prev=rs_prev, bc_state=bc_state)
+    reservoir_stage = torch.where(torch.isnan(ds.reservoir_stage), us.reservoir_stage, ds.reservoir_stage)
 
     # -- norm of the full residual vector ----------------------------------
     err = torch.sqrt(us.residual**2 + ds.residual**2 + torch.sum(Rc**2) + torch.sum(Rm**2))
@@ -234,7 +248,7 @@ def assemble(geo, us_bc, ds_bc, settings: PreissmannSettings, prev: PrevLevel, h
     b[1:, 0] = -Rm
     b[:-1, 1] = -Rc
     b[-1, 1] = -ds.residual
-    return L, D, U, b, err
+    return L, D, U, b, err, reservoir_stage, us.reservoir_stage
 
 
 def _solve_with_diag(L, D, U, b, settings):
@@ -253,27 +267,29 @@ def newton_solve(geo, us_bc, ds_bc, settings, prev: PrevLevel, h, Q, k, bc_state
                  qlat_cur=None, qlat_prev=None):
     """One time level: Newton-iterate to tolerance.
 
-    Returns ``(h, Q, err, iters, rcond)``; the loop condition is on the
-    residual computed *before* the update, and the update of that iteration
-    is still applied.  ``rcond`` is the minimum pivot-rcond proxy across the
-    level's iterations (1.0 when ``settings.diagnos`` is off).
+    Returns ``(h, Q, err, iters, reservoir_stage, reservoir_stage_us,
+    rcond)``; the loop condition is on the residual computed *before* the
+    update, and the update of that iteration is still applied.  ``rcond`` is
+    the minimum pivot-rcond proxy across the level's iterations (1.0 when
+    ``settings.diagnos`` is off).
     """
     tol = settings.tolerance
     err = torch.full((), float("inf"), dtype=h.dtype, device=h.device)
     rcond = torch.ones((), dtype=h.dtype, device=h.device)
+    res_stage = res_stage_us = torch.full((), float("nan"), dtype=h.dtype, device=h.device)
     it = 0
     # one host read of the residual norm per iteration: the loop is data
     # dependent, as lax.while_loop is in the JAX package
     while float(err) >= tol and it < settings.max_iter:
-        L, D, U, b, err = assemble(geo, us_bc, ds_bc, settings, prev, h, Q, k, bc_state,
-                                   qlat_cur=qlat_cur, qlat_prev=qlat_prev)
+        L, D, U, b, err, res_stage, res_stage_us = assemble(
+            geo, us_bc, ds_bc, settings, prev, h, Q, k, bc_state, qlat_cur=qlat_cur, qlat_prev=qlat_prev)
         delta, rc = _solve_with_diag(L, D, U, b, settings)
         h = h + delta[:, 0]
         Q = Q + delta[:, 1]
         if rc is not None:
             rcond = torch.minimum(rcond, rc)
         it += 1
-    return h, Q, err, it, rcond
+    return h, Q, err, it, res_stage, res_stage_us, rcond
 
 
 def _initial_state(ds_bc, h0, settings):
@@ -336,6 +352,8 @@ def simulate(geo, us_bc, ds_bc, h0, Q0, settings: PreissmannSettings, lateral_in
     errs = torch.zeros((nt,), dtype=dtype, device=dev)
     gates = torch.full((nt,), gate_open0, dtype=dtype, device=dev)
     rconds = torch.ones((nt,), dtype=dtype, device=dev)
+    stages = torch.full((nt,), float("nan"), dtype=dtype, device=dev)
+    stages_us = torch.full((nt,), float("nan"), dtype=dtype, device=dev)
 
     h, Q = h0, Q0
     for k in range(1, nt):
@@ -344,9 +362,11 @@ def simulate(geo, us_bc, ds_bc, h0, Q0, settings: PreissmannSettings, lateral_in
         prev = prev_level_state(geo, h, Q)
         qlat_cur = None if lateral_inflow is None else lateral_inflow[k]
         qlat_prev = None if lateral_inflow is None else lateral_inflow[k - 1]
-        h, Q, err, it, rcond = newton_solve(geo, us_bc, ds_bc, settings, prev, h, Q, k, bc_state,
-                                            qlat_cur=qlat_cur, qlat_prev=qlat_prev)
-        bc_state = bc_state._replace(gate_stage=ds_bed + h[-1])
+        h, Q, err, it, res_stage, res_stage_us, rcond = newton_solve(
+            geo, us_bc, ds_bc, settings, prev, h, Q, k, bc_state, qlat_cur=qlat_cur, qlat_prev=qlat_prev)
+        bc_state = bc_state._replace(reservoir_stage=res_stage, gate_stage=ds_bed + h[-1],
+                                     reservoir_stage_us=res_stage_us)
+        stages[k], stages_us[k] = res_stage, res_stage_us
         depth[k], flow[k] = h[keep], Q[keep]
         iters[k] = it
         errs[k] = err
@@ -361,9 +381,10 @@ def simulate(geo, us_bc, ds_bc, h0, Q0, settings: PreissmannSettings, lateral_in
         iterations=iters.to(dev),
         error=errs,
         converged=converged,
-        reservoir_stage=torch.full((nt,), float("nan"), dtype=dtype, device=dev),
+        reservoir_stage=stages,
         gate_open=gates,
         rcond=rconds,
+        reservoir_stage_us=stages_us,
     )
 
 
@@ -379,7 +400,8 @@ def single_step(geo, us_bc, ds_bc, h, Q, k, settings: PreissmannSettings, bc_sta
         _, bc_state = _initial_state(ds_bc, h, settings)
     bc_state = bnd.update_gate_level_start(ds_bc, bc_state, float(k) * settings.time_step)
     prev = prev_level_state(geo, h, Q)
-    h2, Q2, err, iters, _ = newton_solve(geo, us_bc, ds_bc, settings, prev, h, Q, k, bc_state,
-                                         qlat_cur=qlat_cur, qlat_prev=qlat_prev)
-    bc_state = bc_state._replace(gate_stage=ds_bc.bed_level + h2[-1])
+    h2, Q2, err, iters, res_stage, res_stage_us, _ = newton_solve(
+        geo, us_bc, ds_bc, settings, prev, h, Q, k, bc_state, qlat_cur=qlat_cur, qlat_prev=qlat_prev)
+    bc_state = bc_state._replace(reservoir_stage=res_stage, gate_stage=ds_bc.bed_level + h2[-1],
+                                 reservoir_stage_us=res_stage_us)
     return h2, Q2, err, iters, bc_state

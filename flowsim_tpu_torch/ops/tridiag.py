@@ -13,8 +13,12 @@ with 2x2 blocks, ``L_0 = U_{N-1} = 0``.
 * :func:`block_pcr` — parallel cyclic reduction: ceil(log2 N) sweeps of
   elementwise 2x2 algebra over all nodes; the plain version that the CUDA
   kernel ``ops.cuda.pcr_kernel.pcr_solve`` is held against.
+* :func:`block_thomas_factor` / :func:`block_thomas_apply` — the same block LU
+  with the factorization kept for later right-hand sides.
+* :func:`dense_block_thomas` — Thomas with dense m x m blocks, for the small
+  reduced systems of the SPIKE substructuring (``ops.cuda.tiled_pcr``).
 
-Both take leading batch dims.  All 2x2 inverses are closed form; the PCR
+The 2x2 solvers take leading batch dims.  All 2x2 inverses are closed form; the PCR
 paths apply a tiny-pivot guard by default (:data:`PIVOT_EPS`) so a singular
 system yields large-but-finite deltas instead of inf/NaN.
 """
@@ -85,6 +89,63 @@ def block_thomas(L, D, U, b):
     return out if multi else out[..., 0]
 
 
+def block_thomas_factor(L, D, U):
+    """Forward block-LU sweep; returns reusable factors ``(C, Dhat_inv, L)``,
+    each with the node axis leading.
+
+    With C_i = Dhat_i^{-1} U_i and Dhat_i = D_i - L_i C_{i-1}, a later RHS is
+    solved by d_i = Dhat_i^{-1} (b_i - L_i d_{i-1}) then back-substitution —
+    the factorization is shared across right-hand sides (the SPIKE
+    domain-decomposed solve needs 5 per local system).
+    """
+    L_ = torch.movedim(L, -3, 0)
+    D_ = torch.movedim(D, -3, 0)
+    U_ = torch.movedim(U, -3, 0)
+    Cprev = torch.zeros_like(D_[0])
+    C, Dhat_inv = [], []
+    for i in range(L_.shape[0]):
+        Dinv = _inv2(D_[i] - _mm(L_[i], Cprev))
+        Cprev = _mm(Dinv, U_[i])
+        C.append(Cprev)
+        Dhat_inv.append(Dinv)
+    return torch.stack(C), torch.stack(Dhat_inv), L_
+
+
+def block_thomas_apply(factor, b):
+    """Solve with a precomputed factorization (:func:`block_thomas_factor`).
+
+    ``b``: vector RHS ``[N, 2]`` (optionally with leading batch axes
+    ``[..., N, 2]``), or multi-RHS ``[N, 2, m]`` (trailing column axis).
+    The ambiguous ``[2, 2, 2]`` shape is read as multi-RHS.
+    """
+    C, Dhat_inv, L_ = factor
+    N = C.shape[0]
+    if b.ndim == 2:  # vector RHS [N, 2]
+        mv = lambda A, v: _mm(A, v.unsqueeze(-1))[..., 0]
+        d = torch.zeros_like(b[0])
+        ds = []
+        for i in range(N):
+            d = mv(Dhat_inv[i], b[i] - mv(L_[i], d))
+            ds.append(d)
+        x = torch.zeros_like(b[0])
+        xs = [None] * N
+        for i in range(N - 1, -1, -1):
+            x = ds[i] - mv(C[i], x)
+            xs[i] = x
+        return torch.stack(xs)
+    if b.shape[-3] == N and b.shape[-2] == 2:
+        # multi-RHS [..., N, 2, m]: one column at a time
+        return torch.stack([block_thomas_apply(factor, b[..., j]) for j in range(b.shape[-1])], dim=-1)
+    if b.shape[-2] == N and b.shape[-1] == 2:
+        # leading batch axes over vector RHS (a batch must not be read as the
+        # node axis: silently wrong answers when B == N)
+        flat = b.reshape((-1,) + b.shape[-2:])
+        return torch.stack([block_thomas_apply(factor, bb) for bb in flat]).reshape(b.shape)
+    raise ValueError(
+        f"RHS shape {tuple(b.shape)} matches neither [..., {N}, 2] nor "
+        f"[..., {N}, 2, m]")
+
+
 def _shift(arr, s, node_axis):
     """arr shifted so index i reads i+s; out-of-range rows give zeros."""
     N = arr.shape[node_axis]
@@ -130,23 +191,27 @@ def _pcr_core(L, D, U, b, pivot_eps: float | None = None):
     idx = torch.arange(N, device=D.device)
     m = b_mat.shape[-1]
     cL, cD, cU, cb = slice(0, 2), slice(2, 4), slice(4, 6), slice(6, 6 + m)
+    lead = (1,) * node_axis
 
-    # one packed tensor [..., N, 2, 6 + m] = [L | D | U | b]: a sweep shifts
-    # it once per direction and multiplies it once by a and once by c — the
-    # same scalar operations as block by block, in fewer tensor calls
+    # one packed tensor [..., N, 2, 6 + m] = [L | D | U | b], and the two
+    # neighbours i-s / i+s stacked on a leading axis: a sweep inverts both
+    # neighbour pivots in one call and multiplies both neighbour rows by
+    # (a, c) in one call — the same scalar operations as block by block, in
+    # far fewer tensor calls
     X = torch.cat([L, D, U, b_mat], dim=-1)
     s = 1
     n_sweeps = max(1, (N - 1).bit_length())
     for _ in range(n_sweeps):
-        Xm = _shift(X, -s, node_axis)
-        Xp = _shift(X, +s, node_axis)
+        # rows shifted by -s and +s, zeros out of range: two views of one padding
+        pad = X.new_zeros(X.shape[:node_axis] + (s,) + X.shape[node_axis + 1:])
+        Xpad = torch.cat([pad, X, pad], dim=node_axis)
+        XX = torch.stack([Xpad.narrow(node_axis, 0, N), Xpad.narrow(node_axis, 2 * s, N)])
         # out-of-range neighbour D must be invertible: use identity there
-        valid_m = (idx - s >= 0).reshape(N, 1, 1)
-        valid_p = (idx + s < N).reshape(N, 1, 1)
-        a = -_mm(X[..., cL], _inv2(torch.where(valid_m, Xm[..., cD], eye), pivot_eps))
-        c = -_mm(X[..., cU], _inv2(torch.where(valid_p, Xp[..., cD], eye), pivot_eps))
-        aXm = _mm(a, Xm)
-        cXp = _mm(c, Xp)
+        valid = torch.stack([idx - s >= 0, idx + s < N]).reshape((2,) + lead + (N, 1, 1))
+        inv = _inv2(torch.where(valid, XX[..., cD], eye), pivot_eps)
+        # a = -L inv(D[i-s]), c = -U inv(D[i+s])
+        ac = -_mm(torch.stack([X[..., cL], X[..., cU]]), inv)
+        aXm, cXp = _mm(ac, XX).unbind(0)
         X = torch.cat([
             aXm[..., cL],                               # L' = a L[i-s]
             X[..., cD] + aXm[..., cU] + cXp[..., cL],   # D' = D + a U[i-s] + c L[i+s]
@@ -188,6 +253,53 @@ def block_pcr_diag(L, D, U, b, pivot_eps: float | None = None):
     return x, rcond
 
 
+def dense_block_thomas(L, D, U, b):
+    """Sequential Thomas solve with dense m x m blocks.
+
+    Shapes: L, D, U [S, m, m]; b [S, m].  Used for the small *reduced* systems
+    of the SPIKE substructuring (S = number of tiles, m = 4).  A Python loop
+    over S with one small dense solve per step (``[U_i | b_i]`` share it):
+    exact, and sequential by nature.
+    """
+    S, m = D.shape[0], D.shape[-1]
+    C = torch.zeros((m, m), dtype=D.dtype, device=D.device)
+    d = torch.zeros((m, 1), dtype=D.dtype, device=D.device)
+    rhs = torch.cat([U, b.unsqueeze(-1)], dim=-1)  # [S, m, m + 1]
+    Cd = []
+    for i in range(S):
+        Dh = D[i] - L[i] @ C
+        r = rhs[i].clone()
+        r[:, m:] -= L[i] @ d
+        # solve_ex: no host read of the LAPACK status per step
+        sol = torch.linalg.solve_ex(Dh, r).result
+        C, d = sol[:, :m], sol[:, m:]
+        Cd.append(sol)
+    x = torch.zeros((m, 1), dtype=D.dtype, device=D.device)
+    xs = [None] * S
+    for i in range(S - 1, -1, -1):
+        x = Cd[i][:, m:] - Cd[i][:, :m] @ x
+        xs[i] = x[:, 0]
+    return torch.stack(xs)
+
+
+def interleave_to_blocks(A):
+    """Inverse of :func:`blocks_to_dense`: split a dense 2N x 2N banded
+    matrix into its (L, D, U) 2x2 block diagonals (tests / diagnostics)."""
+    twoN = A.shape[-1]
+    if A.shape[-2] != twoN or twoN % 2:
+        raise ValueError("expected a square 2N x 2N matrix")
+    N = twoN // 2
+    A4 = A.reshape(*A.shape[:-2], N, 2, N, 2).transpose(-3, -2)  # [..., N(row), N(col), 2, 2]
+    idx = torch.arange(N, device=A.device)
+    D = A4[..., idx, idx, :, :]
+    L = torch.zeros_like(D)
+    U = torch.zeros_like(D)
+    if N > 1:
+        L[..., 1:, :, :] = A4[..., idx[1:], idx[:-1], :, :]
+        U[..., :-1, :, :] = A4[..., idx[:-1], idx[1:], :, :]
+    return L, D, U
+
+
 def blocks_to_dense(L, D, U):
     """Assemble the dense 2N x 2N matrix from block-tridiagonal form (tests)."""
     N = L.shape[0]
@@ -201,15 +313,15 @@ def blocks_to_dense(L, D, U):
     return A
 
 
-METHODS = ("thomas", "pcr", "pcr_f32", "cuda_pcr")
+METHODS = ("thomas", "pcr", "pcr_f32", "cuda_pcr", "cuda_tiled")
 
 
 def solve_block_tridiag(L, D, U, b, method: str = "pcr"):
     """Solve the 2x2 block-tridiagonal system.
 
     ``b``: [..., N, 2] vector RHS, or [..., N, 2, m] multi-RHS (thomas / pcr /
-    pcr_f32 share the reduction work across the m columns; the CUDA kernel
-    solves the columns independently).
+    pcr_f32 share the reduction work across the m columns; the CUDA kernels
+    solve the columns independently).
     """
     if method == "thomas":
         return block_thomas(L, D, U, b)
@@ -220,11 +332,16 @@ def solve_block_tridiag(L, D, U, b, method: str = "pcr"):
         # digits for Newton to keep its convergence behavior
         f32 = torch.float32
         return block_pcr(L.to(f32), D.to(f32), U.to(f32), b.to(f32)).to(b.dtype)
-    if method == "cuda_pcr":
-        # hand-written Hopper kernel, system resident in shared memory
-        from flowsim_tpu_torch.ops.cuda.pcr_kernel import pcr_solve
+    if method in ("cuda_pcr", "cuda_tiled"):
+        if method == "cuda_pcr":
+            # hand-written Hopper kernel, one system resident in one block
+            from flowsim_tpu_torch.ops.cuda.pcr_kernel import pcr_solve as solve
+        else:
+            # two-level SPIKE solve, hand-written per-tile kernel: any N (the
+            # long-reach solver)
+            from flowsim_tpu_torch.ops.cuda.tiled_pcr import tiled_spike_solve as solve
 
         if b.ndim == L.ndim:
-            return torch.stack([pcr_solve(L, D, U, b[..., j]) for j in range(b.shape[-1])], dim=-1)
-        return pcr_solve(L, D, U, b)
+            return torch.stack([solve(L, D, U, b[..., j]) for j in range(b.shape[-1])], dim=-1)
+        return solve(L, D, U, b)
     raise ValueError(f"unknown method {method!r}")

@@ -58,3 +58,33 @@ def assert_trees_equal(port_tree, jax_tree, rtol=RTOL):
             assert_trees_equal(a, b, rtol)
         else:
             assert_close(a, b, rtol, what=f.name)
+
+
+def to_jax(tree):
+    """A parameter tree of the port -> the JAX package's dataclass of the same
+    name, field by field (tensors become JAX arrays; fields only the JAX
+    class has keep their defaults): the way back from :func:`to_port`, for
+    cases that are built once with the port's own functions."""
+    import jax.numpy as jnp
+
+    from flowsim_tpu import geometry as jgeom
+    from flowsim_tpu.ops import boundary as jbnd
+    from flowsim_tpu.ops import preissmann as jprs
+    from flowsim_tpu.ops import rating_curve as jrc
+    from flowsim_tpu.ops import storage as jstg
+
+    classes = {c.__name__: c for c in (jgeom.TrapezoidGeometry, jbnd.BoundaryParams, jstg.StorageParams,
+                                       jrc.RatingCurveParams, jprs.PreissmannSettings)}
+    cls = classes[type(tree).__name__]
+    kw = {}
+    for f in dataclasses.fields(cls):
+        if not hasattr(tree, f.name):
+            continue
+        v = getattr(tree, f.name)
+        if isinstance(v, torch.Tensor):
+            kw[f.name] = jnp.asarray(v.detach().cpu().numpy())
+        elif dataclasses.is_dataclass(v):
+            kw[f.name] = to_jax(v)
+        else:
+            kw[f.name] = v
+    return cls(**kw)

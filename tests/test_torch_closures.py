@@ -252,7 +252,12 @@ def test_gate_update_level_start_and_storage_refused():
     for f in ("gate_open", "gate_cooldown", "gate_prev_time", "gate_stage"):
         assert float(getattr(ps, f)) == float(getattr(js, f))
     assert float(ps.gate_open) == 1.0
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        bnd.make_boundary("fixed_depth", initial_depth=3.0, storage=object(), device="cpu")
+    # lumped storage rides on a fixed_depth boundary, and on no other kind
+    from flowsim_tpu_torch.ops import storage as stg
+    sp = stg.make_storage(surface_area=1e6, min_stage=3.0, device="cpu")
+    with_storage = bnd.make_boundary("fixed_depth", initial_depth=3.0, storage=sp, device="cpu")
+    assert float(with_storage.storage.surface_area) == 1e6 and float(with_storage.storage.min_stage) == 3.0
+    with pytest.raises(ValueError, match="fixed_depth"):
+        bnd.make_boundary("normal_depth", bed_slope=1e-4, storage=sp, device="cpu")
     with pytest.raises(ValueError):
         bnd.make_boundary("rating_curve", device="cpu")

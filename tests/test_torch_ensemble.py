@@ -274,8 +274,8 @@ def test_packing_carries_every_member_parameter(small):
 
 def test_output_memory_is_reckoned_before_anything_is_allocated():
     full = fused_newton.output_bytes(10240, 121, 385, "full")
-    assert full == 10240 * 385 * (2 * 121 * 8 + 24) and 7.6e9 < full < 7.8e9
-    assert fused_newton.output_bytes(10240, 121, 385, "boundaries") == 10240 * 385 * 56
+    assert full == 10240 * 385 * (2 * 121 * 8 + 40) and 7.6e9 < full < 7.8e9
+    assert fused_newton.output_bytes(10240, 121, 385, "boundaries") == 10240 * 385 * 72
     fused_newton.check_output_memory(10240, 121, 385, "full", free_bytes=80e9)
     with pytest.raises(MemoryError, match="chunk_size"):
         fused_newton.check_output_memory(10240, 121, 385, "full", free_bytes=4e9)

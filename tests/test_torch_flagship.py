@@ -73,8 +73,15 @@ def test_convert_carries_the_jax_trees_across(pair):
     assert isinstance(to_port("RatingCurveParams", js.ds_params.rating), rc.RatingCurveParams)
     with pytest.raises(ValueError):
         convert.from_numpy("LumpedStorage", {}, device="cpu")
-    with pytest.raises(NotImplementedError):
-        convert.from_numpy("BoundaryParams", dict(tree_to_numpy(js.ds_params), storage={"x": 1}), device="cpu")
+    # a boundary's lumped storage is carried as a nested tree
+    from flowsim_tpu.ops import storage as jstg
+    from flowsim_tpu_torch.ops import storage as stg
+    jsp = jstg.make_storage(surface_area=1.25e6, min_stage=5.0)
+    with_storage = convert.from_numpy(
+        "BoundaryParams", dict(tree_to_numpy(js.ds_params), kind="fixed_depth", storage=tree_to_numpy(jsp)),
+        device="cpu")
+    assert isinstance(with_storage.storage, stg.StorageParams)
+    assert_trees_equal(with_storage.storage, jsp)
 
 
 def test_full_flagship_run_matches_jax_f64(pair):

@@ -18,20 +18,43 @@ PORT = os.path.join(REPO, "flowsim_tpu_torch")
 torch.set_num_threads(1)
 
 
-@pytest.mark.parametrize("module", ["flowsim_tpu_torch", "flowsim_tpu_torch.models.gerd_roseires.model",
-                                    "flowsim_tpu_torch.ops.cuda.fused_newton",
-                                    "flowsim_tpu_torch.ops.cuda.pcr_kernel", "flowsim_tpu_torch.convert",
-                                    "flowsim_tpu_torch.ops.cuda.fused_batched",
-                                    "flowsim_tpu_torch.parallel.ensemble",
-                                    "flowsim_tpu_torch.models.calibrate"])
-def test_import_leaves_other_frameworks_out(module):
-    code = (f"import sys, {module}\n"
-            "bad = [m for m in ('jax', 'jaxlib', 'flowsim_tpu', 'pandas', 'triton') if m in sys.modules]\n"
-            "assert not bad, bad\n"
-            "import torch; assert 'torch' in sys.modules")
+IMPORTED_ALONE = ["flowsim_tpu_torch", "flowsim_tpu_torch.models.gerd_roseires.model",
+                  "flowsim_tpu_torch.ops.cuda.fused_newton",
+                  "flowsim_tpu_torch.ops.cuda.pcr_kernel", "flowsim_tpu_torch.convert",
+                  "flowsim_tpu_torch.ops.cuda.fused_batched",
+                  "flowsim_tpu_torch.parallel.ensemble",
+                  "flowsim_tpu_torch.models.calibrate",
+                  "flowsim_tpu_torch.ops.cuda.tiled_pcr",
+                  "flowsim_tpu_torch.ops.storage",
+                  "flowsim_tpu_torch.models.example"]
+
+
+@pytest.fixture(scope="module")
+def fresh_imports():
+    """Every module of IMPORTED_ALONE imported in an interpreter of its own;
+    the interpreters are started together (each spends seconds importing
+    torch) and a test waits for its own."""
     env = dict(os.environ, PYTHONPATH=REPO)
-    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True)
-    assert res.returncode == 0, res.stderr
+    procs = {}
+    for module in IMPORTED_ALONE:
+        code = (f"import sys, {module}\n"
+                "bad = [m for m in ('jax', 'jaxlib', 'flowsim_tpu', 'pandas', 'triton') if m in sys.modules]\n"
+                "assert not bad, bad\n"
+                "import torch; assert 'torch' in sys.modules")
+        procs[module] = subprocess.Popen([sys.executable, "-c", code], cwd=REPO, env=env,
+                                         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    yield procs
+    for p in procs.values():
+        if p.poll() is None:
+            p.kill()
+            p.communicate()
+
+
+@pytest.mark.parametrize("module", IMPORTED_ALONE)
+def test_import_leaves_other_frameworks_out(fresh_imports, module):
+    proc = fresh_imports[module]
+    _, err = proc.communicate(timeout=300)
+    assert proc.returncode == 0, err
 
 
 def _port_sources():
@@ -53,7 +76,7 @@ def test_sources_import_no_jax_no_jax_package_no_pandas():
 
 def test_kernel_sources_have_their_notes_and_no_library_calls():
     for name, replaced in (("pcr_kernel.cu", "pcr_kernel.py"), ("fused_newton.cu", "fused_newton.py"),
-                           ("pcr_common.cuh", "pcr_common.py")):
+                           ("pcr_common.cuh", "pcr_common.py"), ("tiled_pcr.cu", "tiled_pcr.py")):
         with open(os.path.join(PORT, "ops", "cuda", "csrc", name)) as f:
             text = f.read()
         assert "Replaces flowsim_tpu/ops/pallas/" + replaced in text
@@ -130,7 +153,14 @@ def test_check_supported_raises_fused_unsupported(flagship, case):
             n_nodes = 121
         geo = TableGeometry()
     elif case == "storage":
-        ds = dataclasses.replace(ds, kind="fixed_depth", storage=object())
+        # lumped storage is in the kernel; what stays refused, as in the TPU
+        # kernel, is a gated rating on the storage itself
+        from flowsim_tpu_torch.ops import storage as stg
+        gated = rc.make_gated_blend([0.0, 50.0, 0.0], [0.0, 80.0, 0.0], 480.0, device="cpu")
+        plain = stg.make_storage(surface_area=1e6, device="cpu")
+        _check_supported(geo, us, dataclasses.replace(ds, kind="fixed_depth", storage=plain), sset)
+        ds = dataclasses.replace(ds, kind="fixed_depth", storage=stg.make_storage(
+            surface_area=1e6, rating=gated, device="cpu"))
     elif case == "newton_fixed":
         sset = dataclasses.replace(sset, newton="fixed")
     elif case == "store_boundaries":
@@ -162,6 +192,27 @@ def test_check_supported_raises_fused_unsupported(flagship, case):
     # and the entry point lets it reach the caller: no fallback to the plain engine
     with pytest.raises(FusedUnsupported):
         fused_simulate(geo, us, ds, solver.h0, solver.Q0, sset)
+
+
+def test_long_reach_solver_is_named_and_runs_plain_on_cpu_tensors():
+    """``cuda_pcr`` stops at 8192 nodes and says which solver goes on;
+    ``tiled_spike_solve`` takes its plain version for CPU tensors (no nvcc,
+    no launch) and is what ``linear_solver="cuda_tiled"`` reaches."""
+    from flowsim_tpu_torch.ops import tridiag
+    from flowsim_tpu_torch.ops.cuda import build, tiled_pcr
+
+    n = 8193
+    eye = torch.eye(2, dtype=torch.float64).expand(n, 2, 2)
+    zero = torch.zeros((n, 2, 2), dtype=torch.float64)
+    b = torch.ones((n, 2), dtype=torch.float64)
+    with pytest.raises(ValueError, match="cuda_tiled"):
+        tridiag.solve_block_tridiag(zero, eye, zero, b, method="cuda_pcr")
+    before = tiled_pcr.launch_count
+    x = tridiag.solve_block_tridiag(zero, eye, zero, b, method="cuda_tiled")
+    assert torch.equal(x, b) and tiled_pcr.launch_count == before
+    assert "tiled_pcr" in build.SOURCES and "cuda_tiled" in tridiag.METHODS
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        tiled_pcr.tiled_spike_solve(*(t.to("meta") for t in (zero, eye, zero, b)))
 
 
 def test_api_fused_engine_does_not_fall_back(flagship):

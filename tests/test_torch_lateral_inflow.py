@@ -115,8 +115,8 @@ def test_single_step_and_cell_stencil_take_the_inflow(case):
     assert_close(h, np.asarray(jouts["level"].depth)[1], rtol=1e-10)
     # the source enters continuity as the theta-weighted cell average, only
     prev = prs.prev_level_state(geo, h0, Q0)
-    _, _, _, b0, _ = prs.assemble(geo, us, ds, sset, prev, h0, Q0, 1, None)
-    _, _, _, b1, _ = prs.assemble(geo, us, ds, sset, prev, h0, Q0, 1, None, qlat_cur=qc, qlat_prev=qp)
+    _, _, _, b0, *_ = prs.assemble(geo, us, ds, sset, prev, h0, Q0, 1, None)
+    _, _, _, b1, *_ = prs.assemble(geo, us, ds, sset, prev, h0, Q0, 1, None, qlat_cur=qc, qlat_prev=qp)
     th = sset.theta
     cavg = 0.5 * th * (qc[1:] + qc[:-1]) + 0.5 * (1.0 - th) * (qp[1:] + qp[:-1])
     assert_close(b1[:-1, 1] - b0[:-1, 1], cavg, rtol=1e-9)

@@ -53,7 +53,7 @@ def test_prev_level_state_and_assemble(pair, seed):
     jL, jD, jU, jb, jerr, _, _ = jprs.assemble(
         jc.geometry, js.us_params, js.ds_params, jset, jprev, jnp.asarray(h), jnp.asarray(Q), k,
         jnp.asarray(np.nan), jbnd.initial_bc_state(jnp.float64))
-    L, D, U, b, err = prs.assemble(
+    L, D, U, b, err, *_ = prs.assemble(
         c.geometry, s.us_params, s.ds_params, pset, prev, torch.tensor(h), torch.tensor(Q), k,
         bnd.initial_bc_state(torch.float64, "cpu"))
     for got, want, what in ((L, jL, "L"), (D, jD, "D"), (U, jU, "U"), (b, jb, "b")):

@@ -8,6 +8,7 @@ tensors and is held against the TPU kernel in Pallas interpret mode, which is
 float32 only (rtol 2e-4).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -37,6 +38,11 @@ def system(n, seed=0, batch=(), m=None):
     return L, D, U, b
 
 
+# the JAX references compiled as one program each: run op by op they spend
+# seconds compiling every sweep's shifted shapes one primitive at a time
+jit_block_pcr = jax.jit(jtri.block_pcr)
+jit_block_pcr_diag = jax.jit(jtri.block_pcr_diag)
+
 T = lambda xs: [torch.tensor(x) for x in xs]
 J = lambda xs: [jnp.asarray(x) for x in xs]
 
@@ -56,7 +62,7 @@ def test_block_thomas(n):
 def test_block_pcr(n):
     s = system(n)
     x = tri.block_pcr(*T(s))
-    close(x, jtri.block_pcr(*J(s)))
+    close(x, jit_block_pcr(*J(s)))
     # and it solves the system: residual of the dense 2N x 2N matrix
     if n <= 128:
         L, D, U, b = T(s)
@@ -69,7 +75,7 @@ def test_block_pcr(n):
 def test_block_pcr_diag(n):
     s = system(n)
     x, rcond = tri.block_pcr_diag(*T(s))
-    jx, jrcond = jtri.block_pcr_diag(*J(s))
+    jx, jrcond = jit_block_pcr_diag(*J(s))
     close(x, jx)
     np.testing.assert_allclose(float(rcond), float(jrcond), rtol=1e-10)
 
@@ -77,14 +83,14 @@ def test_block_pcr_diag(n):
 @pytest.mark.parametrize("method", ["thomas", "pcr"])
 def test_batched_and_multi_rhs(method):
     s = system(37, batch=(3,), m=4)
-    fn = dict(thomas=(tri.block_thomas, jtri.block_thomas), pcr=(tri.block_pcr, jtri.block_pcr))[method]
+    fn = dict(thomas=(tri.block_thomas, jtri.block_thomas), pcr=(tri.block_pcr, jit_block_pcr))[method]
     close(fn[0](*T(s)), fn[1](*J(s)))
 
 
 def test_singular_pivot_guard_gives_finite_delta():
     L, D, U, b = system(8)
     D[3] = 0.0
-    x, jx = tri.block_pcr(*T((L, D, U, b))), jtri.block_pcr(*J((L, D, U, b)))
+    x, jx = tri.block_pcr(*T((L, D, U, b))), jit_block_pcr(*J((L, D, U, b)))
     assert bool(torch.isfinite(x).all()) and bool(jnp.isfinite(jx).all())
 
 
@@ -115,7 +121,7 @@ def test_pcr_solve_wrapper_cpu_vs_tpu_kernel_interpret(n):
     # batched systems map to the leading dimension
     sb = system(n, seed=10, batch=(2,))
     xb = pcr_kernel.pcr_solve(*T(sb))
-    close(xb[1], jtri.block_pcr(*[a[1] for a in J(sb)]))
+    close(xb[1], jit_block_pcr(*[a[1] for a in J(sb)]))
 
 
 def test_pcr_solve_rejects_oversize_and_bad_shapes():

@@ -7,7 +7,7 @@ Run from the repository root, no arguments, one card::
 
 It builds the CUDA kernels of ``flowsim_tpu_torch/ops/cuda/csrc`` with
 ``nvcc``, holds each against its plain PyTorch version on the card, and drives
-four main paths through the user entry points:
+six main paths through the user entry points:
 
 * one forecast: the GERD->Roseires flagship end to end (``model.build`` ->
   ``PreissmannSolver.run``), checked by the repository's own means (all levels
@@ -22,7 +22,16 @@ four main paths through the user entry points:
   launch of the tiled SPIKE kernel per Newton iteration — against the same
   run with the plain ``"pcr"`` solve;
 * the reservoir: ``models.example.build()`` (a flood wave routed into a lumped
-  storage) with ``engine="fused"`` against ``engine="plain"``.
+  storage) with ``engine="fused"`` against ``engine="plain"``;
+* river networks: the flagship with a tributary confluence
+  (``models.gerd_tributary``: 3 branches, 385 levels) through
+  ``ops.network.simulate_network(engine="fused")`` and
+  ``api.NetworkSolver.run(engine="fused")``, one launch of the network kernel
+  each, and the 127-branch basin of ``models.basin`` through the stacked engine
+  with ``linear_solver="cuda_pcr"`` (one PCR launch per Newton iteration);
+* the network Monte-Carlo: 1024 tributary members (per-member inflow scale)
+  through ``parallel.ensemble.batched_simulate_network(engine="fused")`` in
+  one launch of the batched network kernel.
 
 Any mismatch raises: no phase's failure is caught.  Every phase prints one
 JSON line; the last line of the output is
@@ -85,6 +94,22 @@ ENSEMBLE_INFLOW_RANGE = (0.8, 1.2)
 ENSEMBLE_SEED = 42
 SCALING_MEMBERS = (1, 66, 132, 264, 528, 2048)
 SWEEP_CANDIDATES = 64
+
+# river networks: the tributary confluence on the flagship (3 branches, one
+# junction, 385 levels) and the dendritic basin of models/basin.py
+NETWORK_SPLIT_NODE = 60
+NETWORK_COMPARED_LEVELS = 49      # the stacked plain engine on the card, first levels
+NETWORK_Y_TOL = 1e-9              # m: junction stages
+# the network Monte-Carlo of the JAX package's scripts/bench_network_mc.py:
+# inflow scale 0.9 + 0.2 * default_rng(0).random(M) on every external
+# flow-hydrograph end
+NETWORK_MC_MEMBERS = 1024
+NETWORK_MC_SEED = 0
+NETWORK_SCALING_MEMBERS = (1, 132, 264, 1024)
+BASIN_MC_MEMBERS = 256
+# scripts/bench_basin_large.py at levels=7: 127 branches of 45 nodes, 6 hours
+LARGE_BASIN = dict(levels=7, link_nodes=45, sim_hours=6)
+JUNCTION_RATING_KINDS = ("polynomial", "blended_poly", "poly_n", "power", "table")
 
 
 def emit(phase: str, **fields) -> None:
@@ -636,6 +661,488 @@ def drive_reservoir(dev) -> dict:
                 peak_flow_into_reservoir=float(out_k.flow[:, -1].max()), **cmp)
 
 
+def compare_networks(kernel_out, ref_out, what: str, exact: bool = False) -> dict:
+    """A network run against a reference run: identical per-level iteration
+    counts and gate series; depths, flows, junction stages and reservoir
+    stages within H_TOL / Q_TOL / NETWORK_Y_TOL / STAGE_TOL, or bit-identical
+    (``exact``: the same kernel launched another way)."""
+    it_k, it_r = kernel_out.iterations.cpu().tolist(), ref_out.iterations.cpu().tolist()
+    if it_k != it_r:
+        raise AssertionError(f"{what}: per-level iteration counts differ: {it_k} vs {it_r}")
+    if not torch.equal(kernel_out.gate_open, ref_out.gate_open):
+        raise AssertionError(f"{what}: gate series differ")
+    pairs = list(zip(kernel_out.depth, ref_out.depth)) + list(zip(kernel_out.flow, ref_out.flow)) + [
+        (kernel_out.junction_stage, ref_out.junction_stage), (kernel_out.error, ref_out.error)]
+    if exact:
+        same = lambda a, b: torch.equal(a.isnan(), b.isnan()) and torch.equal(a.nan_to_num(), b.nan_to_num())
+        if not all(same(a, b) for a, b in pairs + [(kernel_out.reservoir_stage, ref_out.reservoir_stage)]):
+            raise AssertionError(f"{what}: the fields are not bit-identical")
+    dh = max(float((a - b).abs().max()) for a, b in zip(kernel_out.depth, ref_out.depth))
+    dq = max(float((a - b).abs().max()) for a, b in zip(kernel_out.flow, ref_out.flow))
+    dy = float((kernel_out.junction_stage - ref_out.junction_stage).abs().max())
+    dst = stage_diff(kernel_out.reservoir_stage, ref_out.reservoir_stage, what)
+    if not (dh <= H_TOL and dq <= Q_TOL and dy <= NETWORK_Y_TOL and dst <= STAGE_TOL):
+        raise AssertionError(f"{what}: max|dh|={dh} (tol {H_TOL}), max|dQ|={dq} (tol {Q_TOL}), "
+                             f"max|dY|={dy} (tol {NETWORK_Y_TOL}), max|d stage|={dst} (tol {STAGE_TOL})")
+    if not bool(kernel_out.converged.all()) or not all(bool(torch.isfinite(h).all()) for h in kernel_out.depth):
+        raise AssertionError(f"{what}: kernel run not converged / not finite")
+    return dict(levels=len(it_k), iterations=int(sum(it_k)), max_abs_dh=dh, max_abs_dQ=dq, max_abs_dY=dy,
+                max_abs_dstage=dst, bit_identical=exact)
+
+
+def network_setup_ms(branches, n_junctions, settings) -> float:
+    """Host time of what ``fused_simulate_network`` does before its launch:
+    the input checks and the packing of every branch (median of 3)."""
+    from flowsim_tpu_torch.ops import network as net
+    from flowsim_tpu_torch.ops.cuda import fused_network as fnet
+
+    def setup():
+        net._check_supported(branches, n_junctions, settings)
+        topo = fnet.check_supported(branches, n_junctions, settings)
+        fnet._pack(branches, n_junctions, settings, [dict() for _ in branches], 1, None, None, None, topo)
+
+    return statistics.median(wall_ms(setup) for _ in range(3))
+
+
+def network_member(out, m):
+    """Member ``m`` of a batched NetworkOutput."""
+    return type(out)(*(tuple(x[m] for x in f) if isinstance(f, tuple) else f[m] for f in out))
+
+
+def scale_inflows(branches, scales) -> list:
+    """Per-branch overrides of a network ensemble: every external
+    flow-hydrograph upstream end gets its series times the member's scale
+    (the ``_scale_us`` of the JAX package's scripts/bench_network_mc.py)."""
+    from flowsim_tpu_torch.ops import network as net
+
+    return [dict(us=scaled_inflow(br.us, scales))
+            if not net._is_junction(br.us) and br.us.kind == "flow_hydrograph" else dict()
+            for br in branches]
+
+
+NETWORK_CASES = tuple("reservoir_" + k for k in JUNCTION_RATING_KINDS) + (
+    "withdrawal", "gated_outlet", "storage_outlet", "lateral_inflow_per_node", "lateral_inflow_per_level")
+
+
+def build_network_case(name: str, device, sim_hours: float = 2.0):
+    """The 7-branch basin of models/basin.py (levels=3: junction 0 drains
+    into the outlet reach, junctions 1 and 2 join two headwaters each; 13
+    nodes a reach, dt = 900 s) with one of NETWORK_CASES: a junction
+    reservoir at junction 1 with a rated release of each junction rating
+    kind; a rated withdrawal at the plain junction 0; the outlet through a
+    gated rating whose controller opens at level 1, or into a lumped storage;
+    lateral inflow per node, or per level and node.  Returns
+    (branches, n_junctions, settings, simulate_network keywords)."""
+    from flowsim_tpu_torch.models import basin
+    from flowsim_tpu_torch.ops import boundary as bnd
+    from flowsim_tpu_torch.ops import rating_curve as rcurve
+    from flowsim_tpu_torch.ops import storage as stg
+
+    branches, nj, sset = basin.build(levels=3, sim_hours=sim_hours, device=device)
+    nt = sset.n_time_levels
+    stage_at = lambda b, i: float(branches[b].geo.z_bed[i] + branches[b].h0[i])
+    mk = dict(device=device)
+    kw = {}
+    if name.startswith("reservoir_"):
+        y1, z1 = stage_at(1, 0), float(branches[1].geo.z_bed[0])
+        rating = {
+            "polynomial": lambda: rcurve.make_polynomial(2.0, 15.0, 20.0, stage_shift=-y1, **mk),
+            "blended_poly": lambda: rcurve.make_blended_poly([0.0, 10.0, 20.0 - 10.0 * y1],
+                                                             [0.0, 14.0, 20.0 - 14.0 * y1],
+                                                             pivot_stage=y1 + 0.1, buffer=0.3, **mk),
+            "poly_n": lambda: rcurve.make_polynomial_general([20.0, 12.0, 1.5, -0.1], stage_shift=-y1, **mk),
+            "power": lambda: rcurve.make_power(20.0, 1.5, stage_shift=-z1, **mk),
+            "table": lambda: rcurve.make_table([y1 - 2.0, y1 - 0.5, y1 + 0.5, y1 + 3.0], [0.0, 12.0, 30.0, 90.0],
+                                               **mk),
+        }[name[len("reservoir_"):]]()
+        kw = dict(junction_area=[0.0, 4.0e4, 0.0], junction_rating=[None, rating, None])
+    elif name == "withdrawal":
+        y0 = stage_at(0, 0)
+        kw = dict(junction_rating=[rcurve.make_polynomial(0.0, 5.0, 5.0, stage_shift=-y0, **mk), None, None])
+    elif name in ("gated_outlet", "storage_outlet"):
+        outlet = branches[0]
+        z_ds, y_ds, q_ds = float(outlet.geo.z_bed[-1]), stage_at(0, -1), float(outlet.Q0[-1])
+        if name == "gated_outlet":
+            gated = rcurve.make_gated_blend([0.0, 150.0, q_ds - 150.0 * y_ds], [0.0, 200.0, q_ds - 200.0 * y_ds],
+                                            pivot_stage=y_ds - 0.6, max_cooldown=1800.0, **mk)
+            ds = bnd.make_boundary("rating_curve", bed_level=z_ds, rating=gated, **mk)
+        else:
+            ds = bnd.make_boundary("fixed_depth", bed_level=z_ds, storage=stg.make_storage(
+                surface_area=1.0e6, min_stage=y_ds, solution_boundaries=(0.0, 100.0), **mk), **mk)
+        branches[0] = dataclasses.replace(outlet, ds=ds)
+    elif name.startswith("lateral_inflow"):
+        rng = np.random.default_rng(3)
+        q = lambda *shape: torch.tensor(rng.uniform(0.0, 2e-3, shape), dtype=torch.float64, device=device)
+        n = int(branches[1].h0.shape[0])
+        per_level = name.endswith("per_level")
+        for b in (1, 3, 6):
+            branches[b] = dataclasses.replace(branches[b], qlat=q(nt, n) if per_level and b != 6 else q(n))
+    else:
+        raise ValueError(f"unknown network case {name!r}; expected one of {NETWORK_CASES}")
+    return branches, nj, sset, kw
+
+
+def split_flagship(solver, channel):
+    """The flagship cut at NETWORK_SPLIT_NODE into two branches joined at one
+    junction: the same nonlinear system as the single reach."""
+    from flowsim_tpu_torch import trees
+    from flowsim_tpu_torch.ops import network as net
+
+    cut, geo, dx = NETWORK_SPLIT_NODE, channel.geometry, solver.spatial_step
+    return [net.BranchDef(geo=trees.tree_map(lambda v: v[: cut + 1], geo), dx=dx, us=solver.us_params, ds=0,
+                          h0=solver.h0[: cut + 1], Q0=solver.Q0[: cut + 1]),
+            net.BranchDef(geo=trees.tree_map(lambda v: v[cut:], geo), dx=dx, us=0, ds=solver.ds_params,
+                          h0=solver.h0[cut:], Q0=solver.Q0[cut:])]
+
+
+def check_network_kernels(dev) -> dict:
+    """Kernel 5 against its plain version (the stacked engine with the "pcr"
+    solve, on the card) and against kernel 1 on the serial split; kernel 6
+    against its plain version and against single launches of kernel 5; every
+    refusal by its message."""
+    from flowsim_tpu_torch import trees
+    from flowsim_tpu_torch.models import basin, gerd_tributary
+    from flowsim_tpu_torch.models.gerd_roseires import model
+    from flowsim_tpu_torch.ops import network as net
+    from flowsim_tpu_torch.ops import rating_curve as rcurve
+    from flowsim_tpu_torch.ops import storage as stg
+    from flowsim_tpu_torch.ops.cuda import fused_network as fnet
+    from flowsim_tpu_torch.ops.cuda.fused_newton import FusedUnsupported, fused_simulate
+    from flowsim_tpu_torch.parallel import ensemble
+
+    out = {}
+    # (i) the serial split against kernel 1 on the single reach
+    solver, channel = model.build(device=dev, sim_duration=3600 * 24)
+    sset = solver.settings(tolerance=1e-6, max_iter=100)
+    single = fused_simulate(channel.geometry, solver.us_params, solver.ds_params, solver.h0, solver.Q0, sset)
+    split = fnet.fused_simulate_network(split_flagship(solver, channel), 1, sset)
+    cut = NETWORK_SPLIT_NODE
+    if split.iterations.tolist() != single.iterations.tolist():
+        raise AssertionError(f"serial split: counts {split.iterations.tolist()} vs kernel 1 "
+                             f"{single.iterations.tolist()}")
+    dh = max(float((split.depth[0] - single.depth[:, : cut + 1]).abs().max()),
+             float((split.depth[1] - single.depth[:, cut:]).abs().max()))
+    dq = max(float((split.flow[0] - single.flow[:, : cut + 1]).abs().max()),
+             float((split.flow[1] - single.flow[:, cut:]).abs().max()))
+    dy = float((split.junction_stage[:, 0] - (single.depth[:, cut] + channel.geometry.z_bed[cut])).abs().max())
+    if not (dh <= H_TOL and dq <= Q_TOL and dy <= NETWORK_Y_TOL):
+        raise AssertionError(f"serial split vs kernel 1: max|dh|={dh}, max|dQ|={dq}, max|dY|={dy}")
+    out["serial_split_vs_fused_simulate_25"] = dict(levels=len(single.iterations), iterations=int(single.iterations.sum()),
+                                                    max_abs_dh=dh, max_abs_dQ=dq, max_abs_dY=dy)
+
+    # (ii) the tributary against the stacked plain engine is the network
+    # phase's comparison over its first NETWORK_COMPARED_LEVELS levels
+    br, nj, sset_t, _ = gerd_tributary.build(sim_duration=3600 * 24, device=dev)
+
+    # (iii) junction reservoirs with each rating kind, a withdrawal, a gated
+    # and a storage outlet, lateral inflow: the 7-branch basin over 9 levels
+    for name in NETWORK_CASES:
+        b7, n7, s7, kw = build_network_case(name, dev)
+        o_k = fnet.fused_simulate_network(b7, n7, s7, **kw)
+        rec = compare_networks(o_k, fnet.fused_simulate_network_plain(b7, n7, s7, **kw), name)
+        if "junction_rating" in kw:
+            rec["junction_outflow_first_last"] = [float(o_k.junction_outflow[1].max()),
+                                                  float(o_k.junction_outflow[-1].max())]
+        if name == "gated_outlet":
+            rec["gate_switches"] = int((o_k.gate_open[1:, 0, 1] != o_k.gate_open[:-1, 0, 1]).sum())
+            if rec["gate_switches"] < 1:
+                raise AssertionError("gated outlet: the gate never switched")
+        if name == "storage_outlet":
+            stage = o_k.reservoir_stage[1:, 0, 1]
+            if not bool(torch.isfinite(stage).all()):
+                raise AssertionError("storage outlet: the reservoir stage is not finite")
+            rec["stage_first_last"] = [float(stage[0]), float(stage[-1])]
+        out[name] = rec
+    # (iv) the 15-branch basin over 25 levels
+    b4, n4, s4 = basin.build(levels=4, sim_hours=6, device=dev)
+    out["basin_levels4_25"] = compare_networks(fnet.fused_simulate_network(b4, n4, s4),
+                                               fnet.fused_simulate_network_plain(b4, n4, s4), "basin levels=4")
+
+    # (v) kernel 6 against its plain version: 4 members x 25 levels with
+    # per-member inflows, tributary roughness and lateral inflow
+    batch = scale_inflows(br, [0.9, 1.0, 1.1, 1.2])
+    batch[1]["geo"] = ensemble.roughness_ensemble(br[1].geo, [0.028, 0.032, 0.036, 0.040])
+    rng = np.random.default_rng(4)
+    batch[2]["qlat"] = torch.tensor(rng.uniform(0.0, 1e-3, (4, int(br[2].h0.shape[0]))), dtype=torch.float64,
+                                    device=dev)
+    ob = fnet.fused_simulate_network_batched(br, nj, sset_t, batch)
+    t0 = time.perf_counter()
+    op = fnet.fused_simulate_network_batched_plain(br, nj, sset_t, batch)
+    torch.cuda.synchronize()
+    batched_plain_ms = (time.perf_counter() - t0) * 1e3
+    recs = [compare_networks(network_member(ob, m), network_member(op, m), f"batched member {m}") for m in range(4)]
+    out["batched_4x25"] = dict(members=4, levels=25, iterations=sum(r["iterations"] for r in recs),
+                               max_abs_dh=max(r["max_abs_dh"] for r in recs),
+                               max_abs_dQ=max(r["max_abs_dQ"] for r in recs),
+                               max_abs_dY=max(r["max_abs_dY"] for r in recs), plain_ms=batched_plain_ms)
+
+    # (vi) 8 members x 385 levels against 8 single launches: bit-identical
+    br385, nj, s385, _ = gerd_tributary.build(device=dev)
+    batch8 = scale_inflows(br385, np.linspace(0.8, 1.2, 8))
+    batch8[0]["geo"] = expand_members(br385[0].geo, 8)
+    ob8 = fnet.fused_simulate_network_batched(br385, nj, s385, batch8)
+    singles = [fnet.fused_simulate_network(net.member_branches(br385, batch8, m), nj, s385) for m in range(8)]
+    recs = [compare_networks(network_member(ob8, m), singles[m], f"8x385 member {m}", exact=True)
+            for m in range(8)]
+    out["batched_bit_identity_8x385"] = dict(members=8, levels=s385.n_time_levels,
+                                             iterations=sum(r["iterations"] for r in recs), bit_identical=True)
+    # (vii) one member made to diverge (main-channel roughness 1e-6 on the
+    # upper stem) beside seven sound ones
+    bad = 3
+    n_main = batch8[0]["geo"].n_main.clone()
+    n_main[bad] = 1e-6
+    batch_d = [dict(d) for d in batch8]
+    batch_d[0]["geo"] = dataclasses.replace(batch8[0]["geo"], n_main=n_main)
+    od = fnet.fused_simulate_network_batched(br385, nj, s385, batch_d)
+    for m in range(8):
+        if m != bad:
+            compare_networks(network_member(od, m), singles[m], f"sound member {m} beside a diverged one",
+                             exact=True)
+    if bool(od.converged[bad].all()):
+        raise AssertionError("the diverging member converged at every level")
+    out["diverged_member"] = dict(bad_member=bad, bad_member_levels_converged=int(od.converged[bad].sum()),
+                                  sound_members_bit_identical=True)
+
+    # (viii) what the kernel refuses reaches the caller by name
+    b_ext = [dataclasses.replace(br[0], ds=br[2].ds)]
+    b7, n7, s7, _ = build_network_case("storage_outlet", dev)
+    power_storage = stg.make_storage(surface_area=1.0e6, min_stage=float(b7[0].ds.storage.min_stage),
+                                     rating=rcurve.make_power(20.0, 1.5, device=dev), device=dev)
+    b7_power = [dataclasses.replace(b7[0], ds=dataclasses.replace(b7[0].ds, storage=power_storage)), *b7[1:]]
+    gated_us = dataclasses.replace(
+        br[0], us=dataclasses.replace(br[2].ds, rating=rcurve.make_gated_blend(
+            [0.0, 5.0, 0.0], [0.0, 6.0, 0.0], 480.0, device=dev)))
+    poly4 = dataclasses.replace(rcurve.make_polynomial(1.0, 2.0, 3.0, device=dev),
+                                coeffs=torch.ones(4, dtype=torch.float64, device=dev))
+    b6, n6, s6 = basin.build(levels=6, sim_hours=0.5, device=dev)
+    refused = {}
+    for name, call in (
+            ("not_a_network", lambda: fnet.fused_simulate_network(b_ext, 0, sset_t)),
+            ("diagnos", lambda: fnet.fused_simulate_network(br, nj, dataclasses.replace(sset_t, diagnos=True))),
+            ("newton_fixed", lambda: fnet.fused_simulate_network(br, nj, dataclasses.replace(sset_t, newton="fixed"))),
+            ("upstream_gated_rating", lambda: fnet.fused_simulate_network([gated_us, *br[1:]], nj, sset_t)),
+            ("power_rating_on_storage", lambda: fnet.fused_simulate_network(b7_power, n7, s7)),
+            ("junction_rating_quartic_polynomial",
+             lambda: fnet.fused_simulate_network(br, nj, sset_t, junction_rating=[poly4])),
+            ("slots_beyond_shared_memory", lambda: fnet.fused_simulate_network(b6, n6, s6)),
+            ("batched_slots_beyond_shared_memory", lambda: fnet.fused_simulate_network_batched(
+                b6, n6, s6, scale_inflows(b6, [1.0, 1.1])))):
+        try:
+            call()
+        except FusedUnsupported as e:
+            refused[name] = str(e)
+        else:
+            raise AssertionError(f"the network kernel accepted {name}")
+    out["refuses"] = refused
+    return out
+
+
+def drive_network(dev, launches: dict) -> tuple[dict, dict]:
+    """The network main path through the user entry points: the tributary
+    at full width (385 levels) with ``simulate_network(engine="fused")`` and
+    ``NetworkSolver.run(engine="fused")``, one launch of kernel 5 each, and
+    the large basin of scripts/bench_basin_large.py through the stacked
+    engine with ``linear_solver="cuda_pcr"`` (one kernel-2 launch per Newton
+    iteration).  Then the timings and the comparisons with the stacked plain
+    engine.  Returns the phase record and the figures for the kernel table."""
+    from flowsim_tpu_torch.models import basin, gerd_tributary
+    from flowsim_tpu_torch.ops import network as net
+    from flowsim_tpu_torch.ops.cuda import fused_network as fnet
+    from flowsim_tpu_torch.ops.cuda import pcr_kernel
+
+    ns, br = gerd_tributary.network_solver(device=dev)
+    nj = ns.n_junctions
+    sset = ns.settings(1e-6, 100)
+    bl, njl, sl = basin.build(device=dev, **LARGE_BASIN)
+    sl = dataclasses.replace(sl, linear_solver="cuda_pcr")
+    fnet.launch_count = 0
+    pcr_kernel.launch_count = 0
+    t0 = time.perf_counter()
+    out = net.simulate_network(br, nj, sset, engine="fused")
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    out_ns = ns.run(tolerance=1e-6, verbose=0, engine="fused")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out_l = net.simulate_network(bl, njl, sl, engine="stacked")
+    torch.cuda.synchronize()
+    large_ms = (time.perf_counter() - t0) * 1e3
+    launches["fused_simulate_network"] = fnet.launch_count
+    large_launches = pcr_kernel.launch_count
+
+    nt = sset.n_time_levels
+    total_it = int(out.iterations.sum())
+    slots = sum(int(b.h0.shape[0]) for b in br)
+    if (len(br), nt, sset.theta) != (3, 385, 0.6) or [int(b.h0.shape[0]) for b in br] != [61, 10, 61]:
+        raise AssertionError(f"the tributary is not at full width: {[b.h0.shape for b in br]}, nt={nt}")
+    if launches["fused_simulate_network"] != 2:
+        raise AssertionError(f"simulate_network and NetworkSolver.run took {fnet.launch_count} launches, expected 2")
+    for o, what in ((out, "simulate_network"), (out_ns, "NetworkSolver.run")):
+        if not bool(o.converged.all()) or not all(bool(torch.isfinite(h).all()) for h in o.depth) \
+                or o.junction_stage.shape != (nt, 1):
+            raise AssertionError(f"tributary via {what}: not converged, not finite or of the wrong shape")
+    via_solver = dict(iterations=int(out_ns.iterations.sum()),
+                      max_abs_dh_vs_simulate_network=max(float((a - b).abs().max())
+                                                         for a, b in zip(out_ns.depth, out.depth)))
+    # the junction balances: what enters leaves (levels 1+)
+    q_in = out.flow[0][1:, -1] + out.flow[1][1:, -1]
+    imbalance = float((q_in - out.flow[2][1:, 0]).abs().max())
+    large_it = int(out_l.iterations.sum())
+    if large_launches != large_it or large_it == 0 or not bool(out_l.converged.all()):
+        raise AssertionError(f"large basin: {large_launches} kernel-2 launches for {large_it} iterations")
+    large = dict(branches=len(bl), junctions=njl, nodes=sum(int(b.h0.shape[0]) for b in bl),
+                 n_time_levels=sl.n_time_levels, linear_solver="cuda_pcr", wall_ms=large_ms,
+                 iterations=large_it, pcr_solve_launches=large_launches, ms_per_iteration=large_ms / large_it,
+                 all_converged=True)
+    del out_l
+
+    runs = [wall_ms(lambda: fnet.fused_simulate_network(br, nj, sset)) for _ in range(6)][1:]
+    launch_ms = statistics.median(runs)
+    setup_ms = network_setup_ms(br, nj, sset)
+    # against the stacked plain engine over the first levels
+    cmp_levels = NETWORK_COMPARED_LEVELS
+    bc, _, sc, _ = gerd_tributary.build(sim_duration=3600 * (cmp_levels - 1), device=dev)
+    out_c = fnet.fused_simulate_network(bc, nj, sc)
+    cmp_ms = statistics.median(wall_ms(lambda: fnet.fused_simulate_network(bc, nj, sc)) for _ in range(3))
+    t0 = time.perf_counter()
+    out_p = fnet.fused_simulate_network_plain(bc, nj, sc)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    cmp = compare_networks(out_c, out_p, "tributary fused vs stacked plain")
+    # the basin at levels=5 (31 branches, 15 junctions, 97 levels): fused
+    # against the stacked engine with the cuda_pcr solve
+    b5, n5, s5 = basin.build(levels=5, device=dev)
+    out_b5 = fnet.fused_simulate_network(b5, n5, s5)
+    b5_ms = statistics.median(wall_ms(lambda: fnet.fused_simulate_network(b5, n5, s5)) for _ in range(3))
+    b5_setup_ms = network_setup_ms(b5, n5, s5)
+    t0 = time.perf_counter()
+    out_b5s = net.simulate_network(b5, n5, dataclasses.replace(s5, linear_solver="cuda_pcr"), engine="stacked")
+    torch.cuda.synchronize()
+    b5_stacked_ms = (time.perf_counter() - t0) * 1e3
+    b5_cmp = compare_networks(out_b5, out_b5s, "basin levels=5 fused vs stacked")
+    fnet.launch_count = launches["fused_simulate_network"]   # the timing launches are not the main path's
+    record = dict(
+        branches=len(br), junctions=nj, nodes_per_branch=[int(b.h0.shape[0]) for b in br], n_time_levels=nt,
+        theta=sset.theta, tolerance=sset.tolerance, launches=launches["fused_simulate_network"],
+        all_converged=True, total_iterations=total_it, max_iterations_in_a_level=int(out.iterations.max()),
+        first_launch_ms=first_ms, launch_ms_runs=runs, launch_ms_median=launch_ms, setup_ms=setup_ms,
+        us_per_newton_iteration=launch_ms * 1e3 / total_it,
+        newton_node_updates_per_s=slots * total_it / (launch_ms * 1e-3),
+        max_junction_imbalance_m3s=imbalance, peak_flow_lower_stem=float(out.flow[2].max()),
+        via_network_solver=via_solver,
+        stacked_plain=dict(kernel_ms=cmp_ms, plain_ms=plain_ms,
+                           plain_ms_per_iteration=plain_ms / cmp["iterations"], speedup=plain_ms / cmp_ms, **cmp),
+        basin_levels5=dict(branches=len(b5), junctions=n5, n_time_levels=s5.n_time_levels, kernel_ms=b5_ms,
+                           setup_ms=b5_setup_ms, stacked_cuda_pcr_ms=b5_stacked_ms,
+                           us_per_newton_iteration=b5_ms * 1e3 / b5_cmp["iterations"],
+                           **b5_cmp),
+        large_basin_stacked=large)
+    topo = net.stacked_topology(bc)
+    table = dict(cmp, ms=cmp_ms, plain_ms=plain_ms, n_junctions=nj, topo=topo, n_max=topo.n_max,
+                 n_branches=len(bc))
+    return record, table
+
+
+def drive_network_ensemble(dev, launches: dict, batched_plain_ms: float) -> tuple[dict, dict]:
+    """The network Monte-Carlo main path: the tributary with per-member inflow
+    scales through ``batched_simulate_network(engine="fused")``, NETWORK_MC_MEMBERS
+    members in one launch of kernel 6; then the scaling curve and the basin
+    (levels=4, 25 levels) at BASIN_MC_MEMBERS members."""
+    from flowsim_tpu_torch.models import basin, gerd_tributary
+    from flowsim_tpu_torch.ops import network as net
+    from flowsim_tpu_torch.ops.cuda import fused_network as fnet
+    from flowsim_tpu_torch.parallel import ensemble
+
+    br, nj, sset, _ = gerd_tributary.build(device=dev)
+    M = NETWORK_MC_MEMBERS
+    scales = 0.9 + 0.2 * np.random.default_rng(NETWORK_MC_SEED).random(M)
+    batch = scale_inflows(br, scales)
+    fnet.launch_count = 0
+    fnet.batched_launch_count = 0
+    t0 = time.perf_counter()
+    out = ensemble.batched_simulate_network(br, nj, sset, batch, engine="fused")
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    launches["fused_simulate_network_batched"] = fnet.batched_launch_count
+    if fnet.batched_launch_count != 1 or fnet.launch_count != 0:
+        raise AssertionError(f"the network ensemble took {fnet.batched_launch_count} batched and "
+                             f"{fnet.launch_count} single launches, expected 1 and 0")
+    nt = sset.n_time_levels
+    if out.depth[0].shape != (M, nt, 61) or out.junction_stage.shape != (M, nt, 1) \
+            or not all(bool(torch.isfinite(h).all()) for h in out.depth):
+        raise AssertionError("network ensemble output has the wrong shape or is not finite")
+    if not bool(out.converged.all()):
+        raise AssertionError(f"network ensemble: {int((~out.converged.all(dim=1)).sum())} of {M} members "
+                             "did not converge at every level")
+    per_member = out.iterations.sum(dim=1)
+    iters = int(per_member.sum())
+    peak = out.flow[2][:, :, -1].max(dim=1).values.cpu().numpy()
+    del out
+    runs = [wall_ms(lambda: ensemble.batched_simulate_network(br, nj, sset, batch, engine="fused"))
+            for _ in range(3)]
+    ms = statistics.median(runs)
+    scaling = []
+    for members in NETWORK_SCALING_MEMBERS:
+        part = [{k: trees_slice(v, members) for k, v in d.items()} for d in batch]
+        its = fnet.fused_simulate_network_batched(br, nj, sset, part).iterations.sum(dim=1)
+        ms_m = wall_ms(lambda: fnet.fused_simulate_network_batched(br, nj, sset, part))
+        scaling.append(dict(members=members, ms=ms_m, sims_per_s=members / (ms_m * 1e-3),
+                            newton_iterations=int(its.sum()), most_in_a_member=int(its.max())))
+    # the basin at levels=4, 25 levels, BASIN_MC_MEMBERS members
+    b4, n4, s4 = basin.build(levels=4, sim_hours=6, device=dev)
+    scales4 = 0.9 + 0.2 * np.random.default_rng(NETWORK_MC_SEED).random(BASIN_MC_MEMBERS)
+    batch4 = scale_inflows(b4, scales4)
+    out4 = fnet.fused_simulate_network_batched(b4, n4, s4, batch4)
+    if not bool(out4.converged.all()):
+        raise AssertionError("basin ensemble: a member did not converge")
+    ms4 = wall_ms(lambda: fnet.fused_simulate_network_batched(b4, n4, s4, batch4))
+    fnet.batched_launch_count = launches["fused_simulate_network_batched"]
+    record = dict(
+        members=M, branches=len(br), n_time_levels=nt, store="full", launches=1, all_converged=True,
+        first_launch_ms=first_ms, wall_ms_runs=runs, wall_ms_median=ms, network_simulations_per_s=M / (ms * 1e-3),
+        total_newton_iterations=iters, min_max_iterations_per_member=[int(per_member.min()), int(per_member.max())],
+        newton_node_updates_per_s=sum(int(b.h0.shape[0]) for b in br) * iters / (ms * 1e-3),
+        output_bytes=fnet.output_bytes(M, len(br), 61, nj, nt),
+        outlet_peak_flow_quantiles_5_50_95=np.percentile(peak, [5, 50, 95]).tolist(), scaling=scaling,
+        basin_levels4=dict(members=BASIN_MC_MEMBERS, branches=len(b4), n_time_levels=s4.n_time_levels, ms=ms4,
+                           network_simulations_per_s=BASIN_MC_MEMBERS / (ms4 * 1e-3),
+                           total_newton_iterations=int(out4.iterations.sum())))
+    table = dict(ms=ms, plain_ms=batched_plain_ms, members=M, iterations=iters, n_time_levels=nt,
+                 n_branches=len(br), topo=net.stacked_topology(br), n_junctions=nj)
+    return record, table
+
+
+def trees_slice(v, members: int):
+    """The first ``members`` members of a batched override (a tree or a tensor)."""
+    from flowsim_tpu_torch import trees
+
+    return v[:members] if isinstance(v, torch.Tensor) else trees.slice_members(v, 0, members)
+
+
+def network_bound(n_iterations: int, topo, n_junctions: int, n_time_levels: int,
+                  members: int = 1) -> tuple[float, str, dict]:
+    """The least time of a network run, over the real nodes of its branches
+    (``topo``: ``ops.network.stacked_topology``; the kernel's edge pads are
+    its own overhead, not work the function needs): its inputs read once (13
+    geometry rows, h0, Q0 per node; two boundary series per branch) and its
+    outputs written once (depth and flow of every node, junction stages, two
+    reservoir stages and gate flags per branch, error, iterations and
+    converged, per level), against its FP64 operations (per iteration and
+    node of branch b: the assembly, ceil(log2 N_b) PCR sweeps and the
+    back-substitution with 1 + couplings_b right-hand-side pairs; per
+    iteration the J x J Gauss-Jordan solve, 2 J^3 / 3 + 2 J^2)."""
+    n_b, B, J = topo.n_b, len(topo.n_b), n_junctions
+    nodes = sum(n_b)
+    nbytes = members * (8 * (15 * nodes + 2 * B * n_time_levels)
+                        + n_time_levels * (8 * (2 * nodes + J + 4 * B + 1) + 2 * 4))
+    per_iteration = sum(n * (FLOPS_ASSEMBLY + sweeps(n) * (FLOPS_PCR_SWEEP + len(c) * 16)
+                             + FLOPS_PCR_BACKSOLVE + len(c) * 6)
+                        for n, c in zip(n_b, topo.couplings))
+    flops = n_iterations * (per_iteration + 2 * J ** 3 / 3 + 2 * J ** 2)
+    tb, tf = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_F64_FLOPS * 1e3
+    return max(tb, tf), ("bytes" if tb >= tf else "operations"), dict(bytes=nbytes, flops=flops)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device (torch.cuda.is_available() is False)",
@@ -833,10 +1340,12 @@ def main() -> int:
     batched_checks["diverged_member"] = dict(
         bad_member=bad, bad_member_levels_converged=int(out_d.converged[bad].sum()),
         sound_members_bit_identical=True)
+    t0 = time.perf_counter()
+    network_checks = dict(check_network_kernels(dev), seconds=time.perf_counter() - t0)
     emit("kernels", pcr_solve=pcr_checks, pcr_solve_oversize_raises=oversize,
          fused_simulate=fused_checks, fused_simulate_refuses=refused,
          fused_simulate_batched=batched_checks, tiled_spike_solve=check_tiled_kernel(dev),
-         storage=check_storage_kernels(dev))
+         storage=check_storage_kernels(dev), network=network_checks)
 
     # -- phases 4 + 5: the main path, through the user entry points ----------
     # counts to 0, drive, read the counts; comparisons and timings come after
@@ -1066,6 +1575,16 @@ def main() -> int:
     # -- phase 10: the reservoir example ---------------------------------------
     emit("reservoir", **drive_reservoir(dev))
 
+    # -- phase 11: river networks, one launch of kernel 5 per simulation ------
+    t0 = time.perf_counter()
+    network, net_table = drive_network(dev, launches)
+    emit("network", **network, seconds=time.perf_counter() - t0)
+
+    # -- phase 12: the network Monte-Carlo, one launch of kernel 6 ------------
+    t0 = time.perf_counter()
+    network_ens, ens_table = drive_network_ensemble(dev, launches, network_checks["batched_4x25"]["plain_ms"])
+    emit("network_ensemble", **network_ens, seconds=time.perf_counter() - t0)
+
     # -- the kernel table ----------------------------------------------------
     n_it = cmp["iterations"]          # iterations of the run that ms/plain_ms time
     n_par = fused_newton._N_PARAMS
@@ -1126,6 +1645,38 @@ def main() -> int:
              stage_a_ms=tiled["stage_a_ms"], stage_b_ms=tiled["stage_b_ms"], stage_c_ms=tiled["stage_c_ms"],
              shape=dict(n_nodes=tiled["n_nodes"], tile=tiled["tile"], tiles=tiled["tiles"]),
              tolerance=dict(relative=TILED_REL_TOL)),
+    ]
+    # the network kernels: the same work per slot and iteration as kernel 1
+    # with 1 + couplings right-hand-side pairs, plus the junction solve
+    nb, nby, _ = network_bound(net_table["iterations"], net_table["topo"], net_table["n_junctions"],
+                               net_table["levels"])
+    eb, eby, _ = network_bound(ens_table["iterations"], ens_table["topo"], ens_table["n_junctions"],
+                               ens_table["n_time_levels"], members=ens_table["members"])
+    batched4 = network_checks["batched_4x25"]
+    kernels += [
+        dict(name="fused_simulate_network", route="cuda",
+             source="flowsim_tpu_torch/ops/cuda/csrc/fused_network.cu",
+             replaces="flowsim_tpu/ops/pallas/fused_network.py:887",
+             launches=launches["fused_simulate_network"], max_abs_err=net_table["max_abs_dh"],
+             ms=net_table["ms"], plain_ms=net_table["plain_ms"], bound_ms=nb, bound_by=nby, library_ms=None,
+             shape=dict(branches=net_table["n_branches"], n_max=net_table["n_max"],
+                        junctions=net_table["n_junctions"], n_time_levels=net_table["levels"],
+                        newton_iterations=net_table["iterations"]),
+             tolerance=dict(depth_m=H_TOL, flow_m3s=Q_TOL, junction_stage_m=NETWORK_Y_TOL,
+                            iteration_counts="identical")),
+        dict(name="fused_simulate_network_batched", route="cuda",
+             source="flowsim_tpu_torch/ops/cuda/csrc/fused_network.cu",
+             replaces="flowsim_tpu/ops/pallas/fused_network.py:1904",
+             launches=launches["fused_simulate_network_batched"], max_abs_err=batched4["max_abs_dh"],
+             ms=ens_table["ms"], plain_ms=ens_table["plain_ms"], bound_ms=eb, bound_by=eby, library_ms=None,
+             ms_over_bound=ens_table["ms"] / eb,
+             shape=dict(members=ens_table["members"], branches=ens_table["n_branches"],
+                        n_time_levels=ens_table["n_time_levels"], newton_iterations=ens_table["iterations"],
+                        store="full"),
+             plain_shape=dict(members=batched4["members"], n_time_levels=batched4["levels"],
+                              newton_iterations=batched4["iterations"]),
+             tolerance=dict(depth_m=H_TOL, flow_m3s=Q_TOL, junction_stage_m=NETWORK_Y_TOL,
+                            iteration_counts="identical", against_single_launches="bit-identical")),
     ]
     for kern in kernels:
         if kern["launches"] < 1:

@@ -18,8 +18,13 @@ scope; here ``FusedUnsupported`` reaches the caller.
 ``device`` defaults to ``"cuda"`` and raises when there is no CUDA device;
 pass ``device="cpu"`` explicitly to run on the host.
 
-Not ported yet: ``Junction``, ``NetworkSolver``, ``LaxSolver``, result export
-(``prepare_results`` / ``save_results``).
+River networks: ``Junction`` marks a channel end that meets a junction and
+``NetworkSolver`` runs the network engines of ``ops/network.py`` (``"loop"``,
+``"stacked"``, ``"fused"``); here too ``FusedUnsupported`` reaches the caller.
+
+Not ported yet: ``LaxSolver``, result export (``prepare_results`` /
+``save_results``, and the per-branch ``NetworkSolver.branch`` / ``summary`` /
+``save_results`` that need it; ROADMAP.md Queue 1 items 12 and 14).
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from flowsim_tpu_torch.config import DEFAULT_DEVICE, DEFAULT_DTYPE, resolve_devi
 from flowsim_tpu_torch.ops import boundary as bnd
 from flowsim_tpu_torch.ops import hydraulics as hyd
 from flowsim_tpu_torch.ops import initial_conditions as ic
+from flowsim_tpu_torch.ops import network as net
 from flowsim_tpu_torch.ops import preissmann as prs
 from flowsim_tpu_torch.ops import rating_curve as rcurve
 from flowsim_tpu_torch.ops import sections as sec
@@ -532,3 +538,146 @@ class PreissmannSolver(_SolverBase):
         if not fail:
             print("Flow is subcritical.")
         return fail
+
+
+class Junction:
+    """Marker for a channel end that meets network junction ``id``, used in
+    place of a :class:`Boundary` when assembling a :class:`NetworkSolver`.
+    ``bed_level`` / ``initial_depth`` play a boundary's roles for the
+    provisional geometry and the initial conditions."""
+
+    condition = "junction"
+
+    def __init__(self, id: int, chainage, bed_level=None, initial_depth=None):
+        self.id = int(id)
+        self.chainage = chainage
+        self.bed_level = bed_level
+        self.initial_depth = initial_depth
+        self.lumped_storage = None
+
+
+_RESULTS_MESSAGE = ("per-branch results need utils/results.py, which is not ported yet "
+                    "(ROADMAP.md Queue 1 item 14); read NetworkSolver.output instead")
+
+
+class NetworkSolver:
+    """Implicit Preissmann solve over a river network of channels joined at
+    junctions (see :mod:`flowsim_tpu_torch.ops.network`).
+
+    ``channels``: :class:`Channel` objects whose boundaries may be
+    :class:`Junction` markers; flow runs upstream -> downstream per channel.
+    ``junction_area``: per-junction reservoir areas; ``junction_rating``: per
+    junction a :class:`RatingCurve`, its params or ``None`` (a rated outflow
+    leaving the network).  ``initial_conditions``: optional per-channel
+    ``(h0, Q0)``; ``None`` entries use the channel's own generator.
+    ``spatial_step``: one value or one per channel.
+    """
+
+    _type = "network"
+
+    def __init__(self, channels, theta, time_step, spatial_step, simulation_time, junction_area=None,
+                 junction_rating=None, fit_spatial_step=True, linear_solver="pcr", newton="while",
+                 initial_conditions=None, device=DEFAULT_DEVICE):
+        self.device = resolve_device(device)
+        self.channels = list(channels)
+        self.theta = float(theta)
+        self.time_step = float(time_step)
+        self.simulation_time = float(simulation_time)
+        self.linear_solver = linear_solver
+        self.newton = newton
+        self.junction_area = junction_area
+        self.number_of_time_levels = int(simulation_time // self.time_step + 1)
+        times = np.arange(self.number_of_time_levels) * self.time_step
+        self.junction_rating = None if junction_rating is None else [
+            None if rc is None else (rc.params if isinstance(rc, RatingCurve) else rc).to(self.device)
+            for rc in junction_rating]
+
+        if np.ndim(spatial_step) == 0:
+            spatial_step = [spatial_step] * len(self.channels)
+        if len(spatial_step) != len(self.channels):
+            raise ValueError(f"spatial_step has {len(spatial_step)} entries for {len(self.channels)} channels")
+        ics = initial_conditions or [None] * len(self.channels)
+        if len(ics) != len(self.channels):
+            raise ValueError(f"initial_conditions has {len(ics)} entries for {len(self.channels)} channels")
+
+        self.branches = []
+        self.branch_dx = []
+        junction_ids = set()
+        for ch, dx, ic_pair in zip(self.channels, spatial_step, ics):
+            dx = float(dx)
+            n_nodes = int(ch.length // dx + 1)
+            if fit_spatial_step:  # ref solver.py:53-55
+                n_nodes = round(ch.length / dx) + 1
+                dx = ch.length / (n_nodes - 1)
+            self.branch_dx.append(dx)
+            geo = ch.build_geometry(n_nodes, device=self.device)
+            if ic_pair is None:
+                h0, Q0 = ch.initialize_conditions(n_nodes, dx, device=self.device)
+            else:
+                h0, Q0 = (torch.as_tensor(v, dtype=DEFAULT_DTYPE, device=self.device) for v in ic_pair)
+            z, s0 = geo.z_bed.cpu(), geo.bed_slope.cpu()
+
+            def lower(b, node):
+                if isinstance(b, Junction):
+                    junction_ids.add(b.id)
+                    return b.id
+                return b.build(times, z[node], s0[node], device=self.device)
+
+            self.branches.append(net.BranchDef(geo=geo, dx=dx, us=lower(ch.upstream_boundary, 0),
+                                               ds=lower(ch.downstream_boundary, -1), h0=h0, Q0=Q0))
+        self.n_junctions = (max(junction_ids) + 1) if junction_ids else 0
+        self.output = None
+
+    def settings(self, tolerance, max_iter, **kw) -> prs.PreissmannSettings:
+        return prs.PreissmannSettings(
+            theta=self.theta, time_step=self.time_step, spatial_step=self.branch_dx[0],
+            n_time_levels=self.number_of_time_levels, tolerance=float(tolerance), max_iter=int(max_iter),
+            linear_solver=self.linear_solver, newton=self.newton, **kw)
+
+    def run(self, tolerance=1e-4, verbose=1, max_iter=100, engine="loop"):
+        """Run the network on the solver's device with ``engine`` ``"loop"``,
+        ``"stacked"`` or ``"fused"`` (one kernel launch).  ``"fused"`` raises
+        ``FusedUnsupported`` outside the kernel's scope: unlike the JAX api,
+        nothing falls back to ``"stacked"``.  Returns the NetworkOutput
+        (tensors on the device), also kept as ``self.output``."""
+        out = net.simulate_network(self.branches, self.n_junctions, self.settings(tolerance, max_iter),
+                                   junction_area=self.junction_area, junction_rating=self.junction_rating,
+                                   engine=engine)
+        self.output = out
+        converged = out.converged.cpu().numpy()
+        if not bool(converged.all()):
+            bad = int(np.argmin(converged))
+            self.check_criticality(level=bad)  # ref preissmann.py:124-125
+            raise ValueError(f"Convergence within {int(out.iterations[bad])} iterations couldn't be achieved.")
+        if verbose >= 1:
+            print("Simulation completed successfully.")
+        return out
+
+    def check_criticality(self, level=-1):
+        """Per-branch Froude scan with the reference's warning lines
+        (ref preissmann.py:179-198), prefixed by the branch index."""
+        fail = False
+        for bi, (ch, br) in enumerate(zip(self.channels, self.branches)):
+            h, Q = self.output.depth[bi][level], self.output.flow[bi][level]
+            st = sec.section_state(br.geo, h)
+            fr = hyd.froude(st.T, st.A, Q).cpu().numpy()
+            for i, f in enumerate(fr):
+                x = ch.ch_at_node[i]
+                if f == 1.0:
+                    fail = True
+                    print(f"WARNING: [branch {bi}] Flow goes critical at x = {x} m. Fr = {f}.")
+                elif f > 1.0:
+                    fail = True
+                    print(f"WARNING: [branch {bi}] Flow goes supercritical at x = {x} m. Fr = {f}.")
+        if not fail:
+            print("Flow is subcritical.")
+        return fail
+
+    def branch(self, i):
+        raise NotImplementedError(_RESULTS_MESSAGE)
+
+    def summary(self) -> dict:
+        raise NotImplementedError(_RESULTS_MESSAGE)
+
+    def save_results(self, folder_path: str):
+        raise NotImplementedError(_RESULTS_MESSAGE)

@@ -2,7 +2,8 @@
 
 ``from_numpy(kind, tree, device)`` builds a ``TrapezoidGeometry``,
 ``RatingCurveParams``, ``StorageParams`` (kind ``"storage"``),
-``BoundaryParams``, ``PreissmannSettings`` or an ``(h0, Q0)`` state from a
+``BoundaryParams``, ``PreissmannSettings``, an ``(h0, Q0)`` state or a network
+``BranchDef`` (kind ``"branch"``) from a
 dict of NumPy arrays / floats / strings whose keys are the field names of the JAX package's dataclasses — what
 ``dataclasses.fields`` + ``np.asarray`` give for one of its trees.  Array
 values may carry a leading member axis (a batched geometry, stacked
@@ -11,7 +12,9 @@ boundaries, a ``[B, N]`` state): the result is then the batched tree that
 module never sees a JAX object: whoever holds one turns it into such a dict
 first.  Fields the port does not have (TPU-only settings) are ignored.  A
 boundary's ``"rating"`` and ``"storage"`` entries are nested dicts (a storage
-may nest a rating of its own).
+may nest a rating of its own).  A branch's ``"geo"`` is a geometry dict, its
+``"us"`` / ``"ds"`` either a boundary dict or an ``int`` junction id, and its
+``"qlat"`` an array or ``None``.
 """
 
 from __future__ import annotations
@@ -24,11 +27,13 @@ import torch
 from flowsim_tpu_torch.config import DEFAULT_DEVICE, DEFAULT_DTYPE, resolve_device
 from flowsim_tpu_torch.geometry import TrapezoidGeometry
 from flowsim_tpu_torch.ops.boundary import BoundaryParams
+from flowsim_tpu_torch.ops.network import BranchDef, _is_junction
 from flowsim_tpu_torch.ops.preissmann import PreissmannSettings
 from flowsim_tpu_torch.ops.rating_curve import RatingCurveParams
 from flowsim_tpu_torch.ops.storage import StorageParams
 
-KINDS = ("TrapezoidGeometry", "RatingCurveParams", "storage", "BoundaryParams", "PreissmannSettings", "state")
+KINDS = ("TrapezoidGeometry", "RatingCurveParams", "storage", "BoundaryParams", "PreissmannSettings", "state",
+         "branch")
 
 
 def _f64(v, device):
@@ -92,7 +97,15 @@ def _state(tree, device):
     return _f64(tree["h0"], device), _f64(tree["Q0"], device)
 
 
-_MAKERS = dict(zip(KINDS, (_geometry, _rating, _storage, _boundary, _settings, _state)))
+def _branch(tree, device):
+    end = lambda e: int(e) if _is_junction(e) else _boundary(e, device)
+    h0, Q0 = _state(tree, device)
+    qlat = tree.get("qlat")
+    return BranchDef(geo=_geometry(tree["geo"], device), dx=float(tree["dx"]), us=end(tree["us"]),
+                     ds=end(tree["ds"]), h0=h0, Q0=Q0, qlat=None if qlat is None else _f64(qlat, device))
+
+
+_MAKERS = dict(zip(KINDS, (_geometry, _rating, _storage, _boundary, _settings, _state, _branch)))
 
 
 def from_numpy(kind: str, tree: dict, device=DEFAULT_DEVICE):

@@ -31,7 +31,7 @@ NVCC_FLAGS = (
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-SOURCES = ("pcr_kernel", "fused_newton", "tiled_pcr")
+SOURCES = ("pcr_kernel", "fused_newton", "tiled_pcr", "fused_network")
 
 _libs: dict[str, ctypes.CDLL] = {}
 # per source: {"seconds": build time (0 when reused), "ptxas": [per-kernel

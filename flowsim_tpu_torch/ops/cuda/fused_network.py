@@ -1,0 +1,386 @@
+"""``fused_simulate_network``: the whole-network CUDA kernel, single and batched.
+
+Counterpart of ``flowsim_tpu/ops/pallas/fused_network.py``
+(``fused_simulate_network`` and ``fused_simulate_network_batched``).  The
+kernel (``csrc/fused_network.cu``) runs every time level and every Newton
+iteration of one river network inside one thread block, in float64, and
+computes what the stacked engine of ``ops/network.py`` computes; on a grid of
+M blocks it runs M networks (ensemble members) in one launch.  This module
+checks that a network is inside the kernel's scope (:class:`FusedUnsupported`
+otherwise — nothing is re-routed to another engine), validates the inputs the
+kernel would otherwise read out of range, packs the branches into the flat
+edge-padded buffers the kernel reads, launches, and unpacks a
+:class:`~flowsim_tpu_torch.ops.network.NetworkOutput`.
+
+The external ends of a branch are packed with the single-reach kernel's own
+functions (``fused_newton.pack_params`` / ``pack_storage`` /
+``pack_geometry``), one parameter block per branch.
+
+On CUDA tensors the wrappers launch the kernel or raise.  The plain versions —
+:func:`fused_simulate_network_plain` (the stacked engine with the ``"pcr"``
+solve) and :func:`fused_simulate_network_batched_plain` (a member loop over
+it) — run only for tensors that lie on the CPU.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+
+import torch
+
+from flowsim_tpu_torch.config import farray
+from flowsim_tpu_torch.geometry import TrapezoidGeometry
+from flowsim_tpu_torch.ops import boundary as bnd
+from flowsim_tpu_torch.ops import network as net
+from flowsim_tpu_torch.ops.cuda import build
+from flowsim_tpu_torch.ops.cuda import fused_newton as fn
+from flowsim_tpu_torch.ops.cuda.fused_newton import FusedUnsupported
+
+MAX_THREADS = 256
+# dynamic shared memory a block may take: 227 KB less the static reduction area
+SMEM_LIMIT = 232448 - 512
+_BI_COUNT = 14
+_JP_COUNT = 14
+_JR_KINDS = {"polynomial": 0, "blended_poly": 1, "poly_n": 2, "power": 3, "table": 4}
+_JP_AREA, _JP_KIND, _JP_SHIFT, _JP_PIVOT, _JP_BUFFER, _JP_FD, _JP_C0, _JP_H0, _JP_NCOEF, _JP_OFF = \
+    0, 1, 2, 3, 4, 5, 6, 9, 12, 13
+
+# kernel launches made by fused_simulate_network and by
+# fused_simulate_network_batched (not by their plain versions)
+launch_count = 0
+batched_launch_count = 0
+
+
+def smem_bytes(slots: int, n_branches: int, n_junctions: int, m_rhs: int) -> int:
+    """Dynamic shared memory of one block: per (branch, node) slot two PCR
+    buffers of 12 + 2 m_rhs doubles and 8 doubles of state; the J x J Schur
+    matrix and six junction columns; four gate-state doubles per branch."""
+    return 8 * (slots * (2 * (12 + 2 * m_rhs) + 8) + n_junctions * (n_junctions + 6) + 4 * n_branches)
+
+
+def fused_simulate_network_plain(branches, n_junctions, settings, Y0=None, junction_area=None,
+                                 junction_rating=None) -> net.NetworkOutput:
+    """The plain PyTorch version of the kernel: the stacked engine with the
+    PCR inner solve."""
+    sset = dataclasses.replace(settings, linear_solver="pcr")
+    return net.simulate_network(branches, n_junctions, sset, Y0=Y0, junction_area=junction_area,
+                                junction_rating=junction_rating, engine="stacked")
+
+
+def _lib():
+    lib = build.load("fused_network")
+    f = lib.flowsim_fused_network
+    if not getattr(f, "_typed", False):
+        f.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong] + [ctypes.c_void_p] * 12
+                      + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+        f.restype = ctypes.c_int
+        for aux in (lib.flowsim_fused_network_branch_ints, lib.flowsim_fused_network_junction_params):
+            aux.argtypes = []
+            aux.restype = ctypes.c_int
+        lib.flowsim_fused_network_smem_bytes.argtypes = [ctypes.c_int] * 4
+        lib.flowsim_fused_network_smem_bytes.restype = ctypes.c_longlong
+        if lib.flowsim_fused_network_branch_ints() != _BI_COUNT \
+                or lib.flowsim_fused_network_junction_params() != _JP_COUNT:
+            raise RuntimeError("parameter layout of fused_network.cu and its wrapper differ")
+        if any(lib.flowsim_fused_network_smem_bytes(*a) != smem_bytes(*a) for a in ((183, 3, 1, 2), (403, 31, 15, 3))):
+            raise RuntimeError("shared-memory layout of fused_network.cu and its wrapper differ")
+        f._typed = True
+    return lib
+
+
+def _dummy_end(nt, like):
+    """A stand-in external end for a junction end, so the single-reach
+    packing functions can fill a branch's parameter block (the kernel never
+    reads it)."""
+    f64 = dict(dtype=torch.float64, device=like.device)
+    return bnd.BoundaryParams(kind="flow_hydrograph", bed_level=torch.zeros((), **f64),
+                              bed_slope=torch.full((), float("nan"), **f64),
+                              initial_depth=torch.full((), float("nan"), **f64),
+                              target_series=torch.zeros((nt,), **f64))
+
+
+def _ends(br, nt, like):
+    return tuple(_dummy_end(nt, like) if net._is_junction(e) else e for e in (br.us, br.ds))
+
+
+def check_supported(branches, n_junctions, settings, junction_rating=None):
+    """Raise :class:`FusedUnsupported` outside the kernel's scope: no
+    junction, table geometry, an external end kernel 1 refuses, a junction
+    rating kind the kernel does not evaluate, or a network whose slots do
+    not fit one block's shared memory (a batch: its member 0, since the
+    members share every kind)."""
+    if n_junctions < 1:
+        raise FusedUnsupported("not a network (no junctions): run the single reach with "
+                               "ops.cuda.fused_newton.fused_simulate")
+    nt = settings.n_time_levels
+    for i, br in enumerate(branches):
+        if not isinstance(br.geo, TrapezoidGeometry):
+            raise FusedUnsupported(
+                f"branch {i}: the fused network kernel supports TrapezoidGeometry only (table "
+                "geometry is still to be ported, ROADMAP.md Queue 1 item 8)")
+        try:
+            fn._check_supported(br.geo, *_ends(br, nt, br.h0), settings)
+        except FusedUnsupported as e:
+            raise FusedUnsupported(f"branch {i}: {e}") from None
+    for j, rc in enumerate(junction_rating or ()):
+        if rc is None:
+            continue
+        if rc.kind not in _JR_KINDS:
+            raise FusedUnsupported(f"junction {j} rating kind {rc.kind!r}; the kernel has {tuple(_JR_KINDS)}")
+        if rc.kind in ("polynomial", "blended_poly") and rc.coeffs.shape[-1] != 3:
+            raise FusedUnsupported(f"junction {j}: a {rc.kind} rating packs a quadratic (3 coefficients); "
+                                   "use poly_n for another degree")
+    topo = net.stacked_topology(branches)
+    slots = len(branches) * topo.n_max
+    need = smem_bytes(slots, len(branches), n_junctions, topo.m_rhs)
+    if need > SMEM_LIMIT:
+        raise FusedUnsupported(
+            f"{len(branches)} branches x {topo.n_max} padded nodes = {slots} slots take {need} B of shared "
+            f"memory, the block has {SMEM_LIMIT} B: run this network with engine=\"stacked\" and "
+            f"linear_solver=\"cuda_pcr\"")
+    return topo
+
+
+def _edge_pad_last(x, n_max):
+    n = x.shape[-1]
+    return x if n == n_max else torch.cat([x, x[..., -1:].expand(*x.shape[:-1], n_max - n)], dim=-1)
+
+
+def _junction_block(junction_area, junction_rating, J, dev):
+    """The shared junction inputs: ``jpar [J, 14]`` and ``jtab`` (poly_n
+    coefficients, table stages and discharges)."""
+    f64 = dict(dtype=torch.float64, device=dev)
+    jpar = torch.zeros((J, _JP_COUNT), **f64)
+    jpar[:, _JP_KIND] = -1.0
+    if junction_area is not None:
+        jpar[:, _JP_AREA] = farray(junction_area, dev)
+    tab = [torch.zeros((1,), **f64)]
+    off = 1
+    for j, rc in enumerate(junction_rating or ()):
+        if rc is None:
+            continue
+        jpar[j, _JP_KIND] = _JR_KINDS[rc.kind]
+        for slot, v in ((_JP_SHIFT, rc.stage_shift), (_JP_PIVOT, rc.pivot_stage), (_JP_BUFFER, rc.buffer),
+                        (_JP_FD, rc.fd_step)):
+            jpar[j, slot] = v.to(**f64)
+        if rc.kind in ("polynomial", "blended_poly", "power"):
+            c = rc.coeffs.to(**f64)
+            jpar[j, _JP_C0:_JP_C0 + c.shape[0]] = c
+            if rc.kind == "blended_poly":
+                jpar[j, _JP_H0:_JP_H0 + 3] = rc.coeffs_high.to(**f64)
+        else:
+            parts = [rc.coeffs] if rc.kind == "poly_n" else [rc.table_stage, rc.table_q]
+            jpar[j, _JP_NCOEF] = parts[0].shape[0]
+            jpar[j, _JP_OFF] = off
+            for p in parts:
+                tab.append(p.to(**f64))
+                off += p.shape[0]
+    return jpar.contiguous(), torch.cat(tab).contiguous()
+
+
+def output_bytes(n_members, n_branches, n_max, n_junctions, nt) -> int:
+    """Bytes of the kernel's outputs: depth and flow of every padded slot,
+    the junction stages, two reservoir stages and two gate flags per branch,
+    error, iterations and converged, per level and member."""
+    return n_members * nt * (2 * n_branches * n_max * 8 + n_junctions * 8 + 4 * n_branches * 8 + 8 + 2 * 4)
+
+
+def check_output_memory(n_members, n_branches, n_max, n_junctions, nt, free_bytes) -> None:
+    """Refuse, before anything is allocated, a launch whose outputs exceed
+    the card's free memory."""
+    need = output_bytes(n_members, n_branches, n_max, n_junctions, nt)
+    if need > free_bytes:
+        raise MemoryError(
+            f"the outputs of {n_members} network simulations ({n_branches} branches x {n_max} nodes, "
+            f"nt={nt}) take {need / 1e9:.2f} GB but the card has {free_bytes / 1e9:.2f} GB free: run the "
+            f"ensemble in chunks (batched_simulate_network(..., chunk_size=...))")
+
+
+def _pack(branches, J, settings, batch, M, Y0, junction_area, junction_rating, topo):
+    """The kernel's inputs with a leading member axis M (batch: per-branch
+    override dicts, or empty dicts)."""
+    nt, Nmax, B = settings.n_time_levels, topo.n_max, len(branches)
+    dev = branches[0].h0.device
+    f64 = dict(dtype=torch.float64, device=dev)
+    lead = (M,)
+    geo_rows, h0s, Q0s, sers, pars, stors, tabs, qlats = [], [], [], [], [], [], [], []
+    bint = torch.zeros((B, _BI_COUNT), dtype=torch.int32)
+    any_tab_member = False
+    tab_off = 0
+    for b, (br, d) in enumerate(zip(branches, batch)):
+        geo, us, ds = (d.get(k, getattr(br, k)) for k in ("geo", "us", "ds"))
+        h0 = d.get("h0", br.h0)
+        Q0 = d.get("Q0", br.Q0)
+        rows = fn.pack_geometry(geo)                                  # [13, N] or [M, 13, N]
+        geo_rows.append(_edge_pad_last(rows, Nmax).expand(M, -1, Nmax))
+        h0s.append(_edge_pad_last(h0.to(**f64), Nmax).expand(M, Nmax))
+        Q0s.append(_edge_pad_last(Q0.to(**f64), Nmax).expand(M, Nmax))
+        ends = [_dummy_end(nt, h0) if net._is_junction(e) else e for e in (us, ds)]
+        # a shared end gains the member axis inside the packing functions
+        sset = dataclasses.replace(settings, spatial_step=float(br.dx))
+        par, rc_kind, us_rc_kind = fn.pack_params(ends[0], ends[1], sset, batch_shape=lead)
+        pars.append(par)
+        sers.append(torch.stack([fn.series(e, nt, dev, lead) for e in ends], dim=1))
+        stor, stab, st = fn.pack_storage(ends[0], ends[1], batch_shape=lead)
+        stors.append(stor)
+        tab_len = 2 * sum(st[2:])
+        if tab_len:
+            tabs.append(stab)
+            any_tab_member |= stab.dim() == 2
+        kind = lambda e: -1 if net._is_junction(e) else fn._BC_KINDS[e.kind]
+        jid = lambda e: int(e) if net._is_junction(e) else -1
+        bint[b] = torch.tensor([topo.n_b[b], jid(br.us), jid(br.ds), max(kind(br.us), 0), max(kind(br.ds), 0),
+                                rc_kind, us_rc_kind, *st, tab_off], dtype=torch.int32)
+        tab_off += tab_len
+        q = d.get("qlat", None)
+        if q is not None:
+            q = torch.as_tensor(q, **f64)                              # [M, N] or [M, nt, N]
+        elif br.qlat is not None:
+            q = torch.as_tensor(br.qlat, **f64).expand(M, *br.qlat.shape)
+        qlats.append(q)
+    geo_all = torch.stack(geo_rows, dim=1).contiguous()               # [M, B, 13, Nmax]
+    h0_all = torch.stack(h0s, dim=1).contiguous()
+    Q0_all = torch.stack(Q0s, dim=1).contiguous()
+    ser_all = torch.stack(sers, dim=1).contiguous()                   # [M, B, 2, nt]
+    par_all = torch.stack(pars, dim=1).contiguous()                   # [M, B, 32]
+    stor_all = torch.stack(stors, dim=1).contiguous()                 # [M, B, 2, 17]
+    if not tabs:
+        stab_all, stride = torch.zeros((1,), **f64), 0
+    elif any_tab_member:
+        stab_all = torch.cat([t.expand(M, t.shape[-1]) for t in tabs], dim=-1).contiguous()
+        stride = stab_all.shape[-1]
+    else:
+        stab_all, stride = torch.cat(tabs).contiguous(), 0
+    if all(q is None for q in qlats):
+        qlat_all = None
+    else:
+        levels = any(q is not None and q.dim() == 3 for q in qlats)
+        per = []
+        for q, n in zip(qlats, topo.n_b):
+            q = torch.zeros((M, n), **f64) if q is None else q
+            if levels and q.dim() == 2:
+                q = q[:, None, :].expand(M, nt, n)
+            per.append(_edge_pad_last(q, Nmax))
+        qlat_all = torch.stack(per, dim=-2).contiguous()              # [M, B, Nmax] / [M, nt, B, Nmax]
+    if Y0 is None:
+        # default_initial_stages: the first connected end of each junction,
+        # downstream ends preferred, per member
+        found = {}
+        for b, br in enumerate(branches):
+            for end, idx in ((br.ds, topo.n_b[b] - 1), (br.us, 0)):
+                if net._is_junction(end) and int(end) not in found:
+                    found[int(end)] = geo_all[:, b, 0, idx] + h0_all[:, b, idx]
+        Y0_all = torch.stack([found[j] for j in range(J)], dim=-1)
+    else:
+        Y0_all = torch.as_tensor(Y0, **f64).expand(M, J)
+    jpar, jtab = _junction_block(junction_area, junction_rating, J, dev)
+    return dict(geo=geo_all, h0=h0_all, Q0=Q0_all, ser=ser_all, par=par_all, qlat=qlat_all, stor=stor_all,
+                stab=stab_all, stride=stride, Y0=Y0_all.contiguous(), bint=bint.to(dev), jpar=jpar, jtab=jtab)
+
+
+def _launch(p, M, B, J, settings, topo):
+    """One launch on a grid of M blocks; returns the raw output tensors."""
+    nt, Nmax = settings.n_time_levels, topo.n_max
+    dev = p["geo"].device
+    f64 = dict(dtype=torch.float64, device=dev)
+    with torch.cuda.device(dev):
+        check_output_memory(M, B, Nmax, J, nt, torch.cuda.mem_get_info()[0])
+        depth = torch.empty((M, nt, B, Nmax), **f64)
+        flow = torch.empty((M, nt, B, Nmax), **f64)
+        Y = torch.empty((M, nt, J), **f64)
+        err = torch.empty((M, nt), **f64)
+        iters = torch.empty((M, nt), dtype=torch.int32, device=dev)
+        conv = torch.empty((M, nt), dtype=torch.int32, device=dev)
+        stage = torch.full((M, nt, B, 2), float("nan"), **f64)
+        gate = torch.empty((M, nt, B, 2), **f64)
+        qlat = p["qlat"]
+        qmode = 0 if qlat is None else qlat.dim() - 2
+        rc = _lib().flowsim_fused_network(
+            p["geo"].data_ptr(), p["h0"].data_ptr(), p["Q0"].data_ptr(), p["ser"].data_ptr(),
+            p["par"].data_ptr(), None if qlat is None else qlat.data_ptr(), p["stor"].data_ptr(),
+            p["stab"].data_ptr(), p["stride"], p["Y0"].data_ptr(), p["bint"].data_ptr(), p["jpar"].data_ptr(),
+            p["jtab"].data_ptr(), depth.data_ptr(), flow.data_ptr(), Y.data_ptr(), iters.data_ptr(),
+            err.data_ptr(), conv.data_ptr(), stage.data_ptr(), gate.data_ptr(), M, B, Nmax, J, nt,
+            int(settings.max_iter), topo.m_rhs, qmode, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_simulate_network launch failed: CUDA error {rc}")
+    return depth, flow, Y, iters, err, conv, stage, gate
+
+
+def _output(raw, topo, junction_rating) -> net.NetworkOutput:
+    """NetworkOutput with a leading member axis on every field."""
+    depth, flow, Y, iters, err, conv, stage, gate = raw
+    return net.NetworkOutput(
+        depth=tuple(depth[:, :, b, :n] for b, n in enumerate(topo.n_b)),
+        flow=tuple(flow[:, :, b, :n] for b, n in enumerate(topo.n_b)),
+        junction_stage=Y, iterations=iters, error=err, converged=conv.bool(), reservoir_stage=stage,
+        gate_open=gate, junction_outflow=net.junction_outflow_series(junction_rating, Y))
+
+
+def _check_device(branches, dev, name):
+    if dev.type != "cuda":
+        raise ValueError(f"{name} needs CUDA or CPU tensors; got {dev}")
+    for br in branches:
+        us, ds = _ends(br, 1, br.h0)
+        fn.check_device(dev, br.h0, br.Q0, br.geo, us, ds, name)
+
+
+def fused_simulate_network(branches, n_junctions, settings, Y0=None, junction_area=None,
+                           junction_rating=None) -> net.NetworkOutput:
+    """Run a whole network simulation in ONE kernel launch.
+
+    Same arguments and :class:`~flowsim_tpu_torch.ops.network.NetworkOutput`
+    as :func:`~flowsim_tpu_torch.ops.network.simulate_network`.  Raises
+    :class:`FusedUnsupported` outside the kernel's scope (:func:`check_supported`)
+    and ``ValueError`` for inputs of the wrong shape, before any launch.  CPU
+    tensors take the plain version."""
+    global launch_count
+    net._check_supported(branches, n_junctions, settings)
+    net.check_junction_inputs(junction_area, junction_rating, n_junctions)
+    topo = check_supported(branches, n_junctions, settings, junction_rating)
+    dev = branches[0].h0.device
+    if dev.type == "cpu":
+        return fused_simulate_network_plain(branches, n_junctions, settings, Y0, junction_area, junction_rating)
+    _check_device(branches, dev, "fused_simulate_network")
+    p = _pack(branches, n_junctions, settings, [dict() for _ in branches], 1, Y0, junction_area,
+              junction_rating, topo)
+    raw = _launch(p, 1, len(branches), n_junctions, settings, topo)
+    launch_count += 1
+    out = _output(raw, topo, junction_rating)
+    return net.NetworkOutput(depth=tuple(d[0] for d in out.depth), flow=tuple(f[0] for f in out.flow),
+                             **{k: getattr(out, k)[0] for k in net.NetworkOutput._fields if k not in ("depth", "flow")})
+
+
+def fused_simulate_network_batched_plain(branches, n_junctions, settings, batch, Y0=None,
+                                         junction_area=None, junction_rating=None) -> net.NetworkOutput:
+    """The plain PyTorch version of the batched kernel: every member through
+    :func:`fused_simulate_network_plain`, stacked on a leading member axis."""
+    return net.simulate_members(branches, n_junctions, dataclasses.replace(settings, linear_solver="pcr"), batch,
+                                Y0=Y0, junction_area=junction_area, junction_rating=junction_rating)
+
+
+def fused_simulate_network_batched(branches, n_junctions, settings, batch, Y0=None, junction_area=None,
+                                   junction_rating=None) -> net.NetworkOutput:
+    """M network simulations in ONE kernel launch, one block per member.
+
+    ``batch``: one dict per branch of per-member overrides (:func:`~flowsim_tpu_torch.ops.network.check_batch`);
+    the branch layout, boundary kinds and junction configuration are shared.
+    Returns a NetworkOutput whose fields carry a leading member axis (depth
+    and flow ``[M, nt, N_b]`` per branch).  Raises :class:`FusedUnsupported`
+    outside the kernel's scope and ``MemoryError`` when the outputs would not
+    fit the card.  CPU tensors take the plain version."""
+    global batched_launch_count
+    M = net.check_batch(branches, batch, settings)
+    net._check_supported(branches, n_junctions, settings)
+    net.check_junction_inputs(junction_area, junction_rating, n_junctions)
+    topo = check_supported(net.member_branches(branches, batch, 0), n_junctions, settings, junction_rating)
+    dev = branches[0].h0.device
+    if dev.type == "cpu":
+        return fused_simulate_network_batched_plain(branches, n_junctions, settings, batch, Y0, junction_area,
+                                                    junction_rating)
+    _check_device(branches, dev, "fused_simulate_network_batched")
+    p = _pack(branches, n_junctions, settings, batch, M, Y0, junction_area, junction_rating, topo)
+    raw = _launch(p, M, len(branches), n_junctions, settings, topo)
+    batched_launch_count += 1
+    return _output(raw, topo, junction_rating)

@@ -53,9 +53,14 @@ def _inv2(M, eps=0.0):
 
 
 def _mm(A, B):
-    """[..., 2, 2] @ [..., 2, m] as one broadcast product and a 2-term sum
-    (entry = A[i,0] B[0,j] + A[i,1] B[1,j]; no library matmul)."""
-    return (A.unsqueeze(-1) * B.unsqueeze(-3)).sum(-2)
+    """[..., 2, 2] @ [..., 2, m]: entry = A[i,0] B[0,j] + A[i,1] B[1,j], no
+    library matmul.  Both forms below give the same bits.  A block at a time
+    (block-Thomas) one broadcast product and a 2-term sum take the fewest
+    calls; on whole systems (the PCR sweeps) that reduction call is the
+    slowest step, and two products and one addition take a third less."""
+    if B.numel() <= 64:
+        return (A.unsqueeze(-1) * B.unsqueeze(-3)).sum(-2)
+    return A[..., :, 0:1] * B[..., 0:1, :] + A[..., :, 1:2] * B[..., 1:2, :]
 
 
 def block_thomas(L, D, U, b):
@@ -70,20 +75,20 @@ def block_thomas(L, D, U, b):
     N = L.shape[-3]
     Ls, Ds, Us, bs = (X.unbind(-3) for X in (L, D, U, b_mat))
 
-    C = torch.zeros_like(Ds[0])
-    d = torch.zeros_like(bs[0])
-    Cs, ds = [], []
+    # Cd = [C | d] side by side: one product with L_i and one with Dhat_i^-1
+    # a node, entry by entry the same operations as C and d apart
+    Cd = b_mat.new_zeros(b_mat.shape[:-3] + (2, 2 + b_mat.shape[-1]))
+    Cds = []
     for i in range(N):
-        Dhat_inv = _inv2(Ds[i] - _mm(Ls[i], C))
-        d = _mm(Dhat_inv, bs[i] - _mm(Ls[i], d))
-        C = _mm(Dhat_inv, Us[i])
-        Cs.append(C)
-        ds.append(d)
+        LCd = _mm(Ls[i], Cd)
+        Dhat_inv = _inv2(Ds[i] - LCd[..., :2])
+        Cd = _mm(Dhat_inv, torch.cat([Us[i], bs[i] - LCd[..., 2:]], dim=-1))
+        Cds.append(Cd)
 
     x = torch.zeros_like(bs[0])
     xs = [None] * N
     for i in range(N - 1, -1, -1):
-        x = ds[i] - _mm(Cs[i], x)
+        x = Cds[i][..., 2:] - _mm(Cds[i][..., :2], x)
         xs[i] = x
     out = torch.stack(xs, dim=-3)
     return out if multi else out[..., 0]
@@ -187,11 +192,8 @@ def _pcr_core(L, D, U, b, pivot_eps: float | None = None):
     multi = b.ndim == L.ndim  # [..., N, 2, m]
     b_mat = b if multi else b.unsqueeze(-1)
 
-    eye = torch.eye(2, dtype=D.dtype, device=D.device)
-    idx = torch.arange(N, device=D.device)
     m = b_mat.shape[-1]
     cL, cD, cU, cb = slice(0, 2), slice(2, 4), slice(4, 6), slice(6, 6 + m)
-    lead = (1,) * node_axis
 
     # one packed tensor [..., N, 2, 6 + m] = [L | D | U | b], and the two
     # neighbours i-s / i+s stacked on a leading axis: a sweep inverts both
@@ -199,16 +201,19 @@ def _pcr_core(L, D, U, b, pivot_eps: float | None = None):
     # (a, c) in one call — the same scalar operations as block by block, in
     # far fewer tensor calls
     X = torch.cat([L, D, U, b_mat], dim=-1)
+    # the row an out-of-range neighbour reads: identity D (invertible), zero
+    # L, U and b (the update is a no-op there)
+    out_row = X.new_zeros(X.shape[:node_axis] + (1,) + X.shape[node_axis + 1:])
+    out_row[..., cD] = torch.eye(2, dtype=D.dtype, device=D.device)
     s = 1
     n_sweeps = max(1, (N - 1).bit_length())
     for _ in range(n_sweeps):
-        # rows shifted by -s and +s, zeros out of range: two views of one padding
-        pad = X.new_zeros(X.shape[:node_axis] + (s,) + X.shape[node_axis + 1:])
+        # rows shifted by -s and +s, out-of-range rows out_row: two views of
+        # one padding
+        pad = out_row.expand(X.shape[:node_axis] + (s,) + X.shape[node_axis + 1:])
         Xpad = torch.cat([pad, X, pad], dim=node_axis)
         XX = torch.stack([Xpad.narrow(node_axis, 0, N), Xpad.narrow(node_axis, 2 * s, N)])
-        # out-of-range neighbour D must be invertible: use identity there
-        valid = torch.stack([idx - s >= 0, idx + s < N]).reshape((2,) + lead + (N, 1, 1))
-        inv = _inv2(torch.where(valid, XX[..., cD], eye), pivot_eps)
+        inv = _inv2(XX[..., cD], pivot_eps)
         # a = -L inv(D[i-s]), c = -U inv(D[i+s])
         ac = -_mm(torch.stack([X[..., cL], X[..., cU]]), inv)
         aXm, cXp = _mm(ac, XX).unbind(0)
@@ -321,7 +326,8 @@ def solve_block_tridiag(L, D, U, b, method: str = "pcr"):
 
     ``b``: [..., N, 2] vector RHS, or [..., N, 2, m] multi-RHS (thomas / pcr /
     pcr_f32 share the reduction work across the m columns; the CUDA kernels
-    solve the columns independently).
+    solve the columns independently: ``cuda_pcr`` as systems of one batch in
+    one launch, ``cuda_tiled`` one after the other).
     """
     if method == "thomas":
         return block_thomas(L, D, U, b)
@@ -341,6 +347,12 @@ def solve_block_tridiag(L, D, U, b, method: str = "pcr"):
             # long-reach solver)
             from flowsim_tpu_torch.ops.cuda.tiled_pcr import tiled_spike_solve as solve
 
+        if b.ndim == L.ndim and method == "cuda_pcr":
+            # the m columns of every system become m systems of one batch
+            m, lead, nb = b.shape[-1], L.shape[:-3], b.shape[-3:-1]
+            Lm, Dm, Um = (t.unsqueeze(0).expand(m, *t.shape).reshape(-1, *t.shape[-3:]) for t in (L, D, U))
+            x = solve(Lm, Dm, Um, torch.movedim(b, -1, 0).reshape(-1, *nb))
+            return torch.movedim(x.reshape(m, *lead, *nb), 0, -1)
         if b.ndim == L.ndim:
             return torch.stack([solve(L, D, U, b[..., j]) for j in range(b.shape[-1])], dim=-1)
         return solve(L, D, U, b)

@@ -15,9 +15,13 @@ Two engines:
   per member (``ops/cuda/fused_batched.py``); ``chunk_size`` splits the batch
   into sequential launches when the outputs of one would not fit the card.
 
+River networks: :func:`batched_simulate_network` runs per-member branch
+overrides with ``engine="plain"`` (a member loop through the stacked network
+engine) or ``engine="fused"`` (all members in one launch of the network
+kernel, ``ops/cuda/fused_network.py``).
+
 Not ported yet: ``shard`` / ``mesh`` (a batch spread over several cards,
-ROADMAP.md Queue 1 item 13), ``table_roughness_ensemble`` (Queue 1 item 8) and
-``batched_simulate_network`` (Queue 1 item 10).
+ROADMAP.md Queue 1 item 13) and ``table_roughness_ensemble`` (Queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -29,7 +33,8 @@ import torch
 
 from flowsim_tpu_torch import trees
 from flowsim_tpu_torch.ops import preissmann as prs
-from flowsim_tpu_torch.ops.cuda import fused_batched
+from flowsim_tpu_torch.ops import network as net
+from flowsim_tpu_torch.ops.cuda import fused_batched, fused_network
 
 ENGINES = ("plain", "fused")
 
@@ -128,3 +133,44 @@ def batched_simulate(geo_batch, us_bc, ds_bc, h0, Q0, settings: prs.PreissmannSe
     if len(outs) == 1:
         return outs[0]
     return prs.SimOutput(*(None if f[0] is None else torch.cat(f, dim=0) for f in zip(*outs)))
+
+
+def batched_simulate_network(branches, n_junctions, settings: prs.PreissmannSettings, batch, Y0=None,
+                             junction_area=None, junction_rating=None, mesh=None, shard: bool = False,
+                             engine: str = "plain", chunk_size: Optional[int] = None) -> net.NetworkOutput:
+    """Monte-Carlo over a river network: per-member branch overrides.
+
+    ``batch``: one dict per branch, keyed by ``geo``, ``us``, ``ds``, ``h0``,
+    ``Q0``, ``qlat``, each value with a leading member axis (a batched tree of
+    :func:`roughness_ensemble` / :func:`batch_boundaries`, or a stacked
+    tensor); absent keys are shared.  Junction ends and ``dx`` cannot be
+    overridden; the junction configuration (``Y0``, ``junction_area``,
+    ``junction_rating``) is shared (``Y0=None`` takes each member's own
+    default stages).
+
+    ``engine="plain"``: every member through ``simulate_network(engine=
+    "stacked")`` with ``settings.linear_solver``; ``engine="fused"``: one
+    kernel launch per chunk, raising ``FusedUnsupported`` outside the
+    kernel's scope (nothing falls back) and ``MemoryError`` when the outputs
+    would not fit the card.  ``chunk_size`` splits the members into
+    sequential runs (it must divide the member count).  Returns a
+    NetworkOutput with a leading member axis on every field.
+    """
+    if shard or mesh is not None:
+        raise NotImplementedError(_SHARD_MESSAGE)
+    if engine not in ENGINES:
+        raise ValueError(f"unknown engine {engine!r}; expected one of {ENGINES}")
+    M = net.check_batch(branches, batch, settings)
+    if chunk_size is not None and M > chunk_size and M % chunk_size:
+        raise ValueError(f"batch {M} not divisible by chunk_size {chunk_size}")
+    kw = dict(Y0=Y0, junction_area=junction_area, junction_rating=junction_rating)
+    step = M if chunk_size is None else min(chunk_size, M)
+    outs = []
+    for s in range(0, M, step):
+        part = [{k: (trees.slice_members(v, s, s + step) if k in ("geo", "us", "ds") else v[s:s + step])
+                 for k, v in d.items()} for d in batch]
+        if engine == "fused":
+            outs.append(fused_network.fused_simulate_network_batched(branches, n_junctions, settings, part, **kw))
+        else:
+            outs.append(net.simulate_members(branches, n_junctions, settings, part, **kw))
+    return outs[0] if len(outs) == 1 else net.join_outputs(outs, torch.cat)

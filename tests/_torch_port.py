@@ -1,15 +1,28 @@
 """Shared helpers of the ``test_torch_*`` files: turn a tree of the JAX
 package into the plain NumPy dict that ``flowsim_tpu_torch.convert`` takes,
-and compare arrays at the parity tolerance."""
+compare arrays at the parity tolerance, and run a file's tests without
+autograd (:func:`without_autograd`)."""
 
 import dataclasses
 
 import numpy as np
+import pytest
 import torch
 
 from flowsim_tpu_torch import convert
 
 RTOL = 1e-12
+
+
+@pytest.fixture(scope="module", autouse=True)
+def without_autograd():
+    """Autouse in every test file that imports it: the file's tests run in
+    ``torch.inference_mode()``.  The plain engines make ~600 small tensor
+    calls a Newton iteration and no test differentiates them; inference mode
+    drops autograd's bookkeeping from every call (the same results, about a
+    sixth less time)."""
+    with torch.inference_mode():
+        yield
 
 
 def tree_to_numpy(obj):

@@ -17,7 +17,7 @@ from flowsim_tpu_torch.ops import hydraulics as hyd
 from flowsim_tpu_torch.ops import rating_curve as rc
 from flowsim_tpu_torch.ops import sections as sec
 
-from tests._torch_port import assert_close, to_port
+from tests._torch_port import assert_close, to_port, without_autograd  # noqa: F401 (without_autograd is an autouse fixture)
 
 torch.set_num_threads(1)
 

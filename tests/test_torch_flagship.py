@@ -21,7 +21,8 @@ from flowsim_tpu_torch.models.gerd_roseires import model
 from flowsim_tpu_torch.ops import rating_curve as rc
 from flowsim_tpu_torch.ops.cuda import fused_newton
 
-from tests._torch_port import assert_close, assert_trees_equal, to_port, tree_to_numpy
+from tests._torch_port import (  # noqa: F401 (without_autograd is an autouse fixture)
+    assert_close, assert_trees_equal, to_port, tree_to_numpy, without_autograd)
 
 torch.set_num_threads(1)
 

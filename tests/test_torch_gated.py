@@ -24,6 +24,8 @@ from flowsim_tpu_torch.ops import boundary as bnd
 from flowsim_tpu_torch.ops import rating_curve as rc
 from flowsim_tpu_torch.ops.cuda import fused_newton
 
+from tests._torch_port import without_autograd  # noqa: F401 (without_autograd is an autouse fixture)
+
 torch.set_num_threads(1)
 
 H_TOL = 1e-9   # m

@@ -17,7 +17,8 @@ from flowsim_tpu_torch.models.gerd_roseires import settings
 from flowsim_tpu_torch.ops import initial_conditions as ic
 from flowsim_tpu_torch.utils import io
 
-from tests._torch_port import assert_close, assert_trees_equal
+from tests._torch_port import (  # noqa: F401 (without_autograd is an autouse fixture)
+    assert_close, assert_trees_equal, without_autograd)
 
 torch.set_num_threads(1)
 

@@ -26,7 +26,11 @@ IMPORTED_ALONE = ["flowsim_tpu_torch", "flowsim_tpu_torch.models.gerd_roseires.m
                   "flowsim_tpu_torch.models.calibrate",
                   "flowsim_tpu_torch.ops.cuda.tiled_pcr",
                   "flowsim_tpu_torch.ops.storage",
-                  "flowsim_tpu_torch.models.example"]
+                  "flowsim_tpu_torch.models.example",
+                  "flowsim_tpu_torch.ops.network",
+                  "flowsim_tpu_torch.ops.cuda.fused_network",
+                  "flowsim_tpu_torch.models.gerd_tributary",
+                  "flowsim_tpu_torch.models.basin"]
 
 
 @pytest.fixture(scope="module")
@@ -76,7 +80,8 @@ def test_sources_import_no_jax_no_jax_package_no_pandas():
 
 def test_kernel_sources_have_their_notes_and_no_library_calls():
     for name, replaced in (("pcr_kernel.cu", "pcr_kernel.py"), ("fused_newton.cu", "fused_newton.py"),
-                           ("pcr_common.cuh", "pcr_common.py"), ("tiled_pcr.cu", "tiled_pcr.py")):
+                           ("pcr_common.cuh", "pcr_common.py"), ("tiled_pcr.cu", "tiled_pcr.py"),
+                           ("fused_network.cu", "fused_network.py")):
         with open(os.path.join(PORT, "ops", "cuda", "csrc", name)) as f:
             text = f.read()
         assert "Replaces flowsim_tpu/ops/pallas/" + replaced in text
@@ -87,12 +92,14 @@ def test_kernel_sources_have_their_notes_and_no_library_calls():
 def test_cuda_entry_points_raise_clearly_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device works here")
-    from flowsim_tpu_torch import build_trapezoid_geometry, resolve_device
+    from flowsim_tpu_torch import api, build_trapezoid_geometry, resolve_device
+    from flowsim_tpu_torch.models import basin, gerd_tributary
     from flowsim_tpu_torch.models.gerd_roseires import model
     from flowsim_tpu_torch.ops import boundary, rating_curve
 
     for call in (lambda: resolve_device(), lambda: resolve_device("cuda:0"),
-                 lambda: model.build(),
+                 lambda: model.build(), lambda: gerd_tributary.build(sim_duration=3600),
+                 lambda: basin.build(levels=2), lambda: api.NetworkSolver([], 0.6, 60.0, 100.0, 600.0),
                  lambda: build_trapezoid_geometry(5, 100.0, 1.0, 0.0, 10.0, 0.03),
                  lambda: rating_curve.make_polynomial(1.0, 2.0, 3.0),
                  lambda: boundary.make_boundary("fixed_depth", initial_depth=1.0)):

@@ -28,7 +28,7 @@ from flowsim_tpu_torch.models.gerd_roseires import model
 from flowsim_tpu_torch.ops import preissmann as prs
 from flowsim_tpu_torch.ops.cuda import fused_newton
 
-from tests._torch_port import assert_close
+from tests._torch_port import assert_close, without_autograd  # noqa: F401 (without_autograd is an autouse fixture)
 
 torch.set_num_threads(1)
 

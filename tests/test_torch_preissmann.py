@@ -18,7 +18,7 @@ from flowsim_tpu_torch.models.gerd_roseires import model
 from flowsim_tpu_torch.ops import boundary as bnd
 from flowsim_tpu_torch.ops import preissmann as prs
 
-from tests._torch_port import assert_close
+from tests._torch_port import assert_close, without_autograd  # noqa: F401 (without_autograd is an autouse fixture)
 
 torch.set_num_threads(1)
 

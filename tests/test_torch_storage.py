@@ -40,7 +40,8 @@ from flowsim_tpu_torch.ops import storage as stg
 from flowsim_tpu_torch.ops.cuda import fused_batched, fused_newton
 from flowsim_tpu_torch.parallel import ensemble as ens
 
-from tests._torch_port import assert_close, assert_trees_equal, to_jax, to_port, tree_to_numpy
+from tests._torch_port import (  # noqa: F401 (without_autograd is an autouse fixture)
+    assert_close, assert_trees_equal, to_jax, to_port, tree_to_numpy, without_autograd)
 
 torch.set_num_threads(1)
 

@@ -28,7 +28,7 @@ from flowsim_tpu_torch.ops import preissmann as prs
 from flowsim_tpu_torch.ops import tridiag as tri
 from flowsim_tpu_torch.ops.cuda import tiled_pcr
 
-from tests._torch_port import to_jax
+from tests._torch_port import to_jax, without_autograd  # noqa: F401 (without_autograd is an autouse fixture)
 
 torch.set_num_threads(1)
 

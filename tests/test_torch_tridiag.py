@@ -19,7 +19,7 @@ from flowsim_tpu.ops.pallas.pcr_kernel import pcr_pallas
 from flowsim_tpu_torch.ops import tridiag as tri
 from flowsim_tpu_torch.ops.cuda import pcr_kernel
 
-from tests._torch_port import assert_close
+from tests._torch_port import assert_close, without_autograd  # noqa: F401 (without_autograd is an autouse fixture)
 
 torch.set_num_threads(1)
 
@@ -136,3 +136,28 @@ def test_pcr_solve_rejects_oversize_and_bad_shapes():
         pcr_kernel.pcr_solve(L[:, 0], D, U, b)
     # shared memory holds both buffers up to SMEM_MAX_N nodes (227 KB per block)
     assert 2 * 14 * 8 * pcr_kernel.SMEM_MAX_N <= 232448 < 2 * 14 * 8 * (pcr_kernel.SMEM_MAX_N + 38)
+
+
+@pytest.mark.parametrize("solver", ["block_thomas", "block_pcr"])
+def test_multi_rhs_columns_are_the_vector_solves(solver):
+    """A multi-RHS solve shares the reduction across its columns: each column
+    is the vector solve of that right-hand side, to the bit, batched too."""
+    fn = getattr(tri, solver)
+    for n, batch, m in ((1, (), 2), (121, (), 3), (37, (2,), 2)):
+        L, D, U, b = T(system(n, seed=5, batch=batch, m=m))
+        x = fn(L, D, U, b)
+        for j in range(m):
+            assert torch.equal(x[..., j], fn(L, D, U, b[..., j])), (n, batch, m, j)
+
+
+def test_cuda_pcr_solves_every_column_of_every_system_in_one_batch():
+    """The stacked network engine's shape, [B, N, 2, m]: ``cuda_pcr`` hands
+    the B x m systems to the kernel as one batch (on CPU tensors its plain
+    version, column by column), and each column is the PCR solve of that
+    system."""
+    L, D, U, b = T(system(37, seed=2, batch=(3,), m=3))
+    before = pcr_kernel.launch_count
+    x = tri.solve_block_tridiag(L, D, U, b, method="cuda_pcr")
+    assert x.shape == b.shape and pcr_kernel.launch_count == before
+    for j in range(3):
+        assert torch.equal(x[..., j], tri.block_pcr(L, D, U, b[..., j]))

@@ -19,8 +19,9 @@ six main paths through the user entry points:
   ``models.calibrate.rmse_sweep(engine="fused")``;
 * the long reach: a synthetic prismatic reach of 10 000, 100 000 and 1 000 000
   nodes through ``ops.preissmann.simulate(linear_solver="cuda_tiled")`` — one
-  launch of the tiled SPIKE kernel per Newton iteration — against the same
-  run with the plain ``"pcr"`` solve;
+  launch each of the tiled SPIKE solve's three kernels (local tile solves,
+  reduced system, substitution) per Newton iteration — against the same run
+  with the plain ``"pcr"`` solve, and each stage timed at two tiles;
 * the reservoir: ``models.example.build()`` (a flood wave routed into a lumped
   storage) with ``engine="fused"`` against ``engine="plain"``;
 * river networks: the flagship with a tributary confluence
@@ -47,6 +48,7 @@ import dataclasses
 import inspect
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -61,26 +63,40 @@ import torch
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F64_FLOPS = 33.5e12
 
-# Floating-point operations per node, counted by hand from the kernels'
-# expressions (a division, sqrt or cbrt counts as one):
-#   one PCR sweep of one node   2 inverses (9 each) + a, c (16 each)
-#                               + L', U' (12 each) + D' (32) + b' (12)
-#   the PCR back-substitution   inverse (9) + 2x2 product (6)
+# Floating-point operations per node, counted by hand (a division, sqrt or
+# cbrt counts as one).  A bound charges the least work of the function, not
+# the kernel's algorithm: the kernels solve their block-tridiagonal systems
+# by PCR (n log n), but block Thomas solves the same system in O(n), so
+# every linear solve is charged as block Thomas on 2x2 blocks:
+#   forward, one node           D' = D - L C_prev (12 + 4), its inverse
+#                               (determinant 3, reciprocal 1, 4 products),
+#                               C = D'^-1 U (12), d = D'^-1 (b - L d_prev)
+#                               (6 + 2 + 6)
+#   back-substitution, one node x = d - C x_next (6 + 2)
+#   each further RHS pair       6 + 2 + 6 forward, 6 + 2 back
 #   one Newton assembly         section state + energy slope with curvature
 #                               (~420) + cell stencil and Jacobian (~110)
-FLOPS_PCR_SWEEP = 118
-FLOPS_PCR_BACKSOLVE = 15
-# the same with five right-hand-side pairs (the tiled SPIKE kernel): each
-# further pair adds 16 to a sweep and 6 to the back-substitution
-FLOPS_PCR_SWEEP_5 = FLOPS_PCR_SWEEP + 4 * 16
-FLOPS_PCR_BACKSOLVE_5 = FLOPS_PCR_BACKSOLVE + 4 * 6
+FLOPS_THOMAS = 12 + 4 + 8 + 12 + 14 + 8
+FLOPS_THOMAS_PAIR = 14 + 8
 FLOPS_ASSEMBLY = 530
+# the tiled solve's stages B and C (csrc/tiled_pcr.cu), per reduced row and
+# per node:
+#   one cyclic-reduction row update   D' and the five right-hand-side columns
+#                                     (160) + a 4x4 elimination with partial
+#                                     pivoting over five columns: 4
+#                                     reciprocals, 94 forward, 80 back
+#   one back-substituted reduced row  4 rows x (two 2x2 products + 2)
+#   stage C, one node                 2 rows x (two 2-term products + 2)
+FLOPS_CR_ROW = 160 + 4 + 94 + 80
+FLOPS_CR_BACK = 32
+FLOPS_SUBSTITUTE = 16
 
 H_TOL = 1e-9      # m: kernel vs plain engine, same arithmetic up to rounding
 Q_TOL = 1e-6      # m^3/s on flows of ~1e4
 STAGE_TOL = 1e-9  # m: reservoir stage of a lumped storage
 TILED_REL_TOL = 1e-11   # tiled SPIKE kernel vs its plain version, relative
 LONG_REACH_NODES = (10_000, 100_000, 1_000_000)
+TILED_TILES = (256, 512)   # the tiles of the tiled solve timed against each other
 FLAGSHIP_ITERATIONS = 4803
 # the plain engine on the card is a Python loop of small launches (~12 ms per
 # Newton iteration): the flagship is held against it over its first levels
@@ -92,7 +108,7 @@ ENSEMBLE_MEMBERS = 10240
 ENSEMBLE_N_RANGE = (0.025, 0.045)
 ENSEMBLE_INFLOW_RANGE = (0.8, 1.2)
 ENSEMBLE_SEED = 42
-SCALING_MEMBERS = (1, 66, 132, 264, 528, 2048)
+SCALING_MEMBERS = (1, 66, 132, 264, 265, 528, 1056, 2048)
 SWEEP_CANDIDATES = 64
 
 # river networks: the tributary confluence on the flagship (3 branches, one
@@ -411,6 +427,35 @@ def compare_members(batched_out, member_outs, what: str, exact: bool) -> dict:
                 max_abs_dstage=dstage, bit_identical=exact)
 
 
+def batched_launch(geob, us_b, ds_bc, h0, Q0, sset, build_id):
+    """What ``fused_simulate_batched(..., us_batched=True)`` launches, with the
+    kernel build forced instead of chosen by the member count: the register
+    build on a batch that the wrapper gives the residency build, to time the
+    two on the same members.  Counts no launch."""
+    from flowsim_tpu_torch.ops.cuda import fused_newton as fn
+
+    n_members, n = geob.z_bed.shape
+    nt, lead = sset.n_time_levels, (geob.z_bed.shape[0],)
+    par, rc_kind, us_rc_kind = fn.pack_params(us_b, ds_bc, sset, batch_shape=lead)
+    return fn.launch(fn.pack_geometry(geob), h0.expand(n_members, n).contiguous(),
+                     Q0.expand(n_members, n).contiguous(), fn.series(us_b, nt, h0.device, lead),
+                     fn.series(ds_bc, nt, h0.device, lead), par, None, sset, us_b.kind, ds_bc.kind,
+                     rc_kind, us_rc_kind, fn.pack_storage(us_b, ds_bc, batch_shape=lead), build_id=build_id)
+
+
+def kernel_builds(ptxas: list) -> list:
+    """Registers and spills of fused_newton.cu's builds, by template
+    arguments (block size, storage rows, blocks an SM in the launch bound)."""
+    out = []
+    for rec in ptxas:
+        m = re.search(r"fused_simulate_kernelILi(\d+)ELb([01])ELi(\d+)E", rec["kernel"])
+        if m:
+            out.append(dict(block=int(m.group(1)), storage=m.group(2) == "1", min_blocks=int(m.group(3)),
+                            **{k: rec.get(k) for k in ("registers", "stack_bytes", "spill_store_bytes",
+                                                       "spill_load_bytes")}))
+    return out
+
+
 def prs_out_member(out, m):
     """Member(s) ``m`` of a batched SimOutput."""
     return type(out)(*(None if f is None else f[m] for f in out))
@@ -560,70 +605,155 @@ def check_storage_kernels(dev) -> dict:
     return out
 
 
+TILED_COUNTERS = ("launch_count", "stage_b_launch_count", "stage_c_launch_count")
+
+
+def reduced_cr_flops(rows: int) -> int:
+    """Operations of stage B's cyclic reduction over ``rows`` reduced rows:
+    one row update per row eliminated on the way up, one back-substitution
+    per row solved on the way down."""
+    updates, s = 0, 1
+    while 2 * s <= rows:
+        updates += rows // (2 * s)
+        s *= 2
+    return updates * FLOPS_CR_ROW + (rows - 1) * FLOPS_CR_BACK
+
+
+def tiled_bounds(n: int, T: int) -> dict:
+    """The least time of the whole solve and of stages B and C at N = n, tile
+    T: (bound ms, "bytes" / "operations") each.  The whole function reads L,
+    D, U, b once and writes x once (16 doubles a node); its operations are
+    those of block Thomas on the same system (stage A's PCR sweeps are the
+    algorithm's work, not the function's).  Stage B reads the reduced rows
+    once and writes y once; stage C reads G, V, W and y once and writes x
+    once."""
+    tiles = -(-n // T)
+    b_flops, c_flops = reduced_cr_flops(tiles), FLOPS_SUBSTITUTE * n
+
+    def bound(nbytes, flops):
+        tb, tf = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_F64_FLOPS * 1e3
+        return max(tb, tf), "bytes" if tb >= tf else "operations"
+
+    return dict(whole=bound(8 * 16 * n, FLOPS_THOMAS * n),
+                stage_b=bound(8 * 24 * tiles, b_flops),
+                stage_c=bound(8 * (12 * n + 4 * tiles), c_flops))
+
+
+def dense_reduced_system(Lc, Uc, r):
+    """The reduced system of ``tiled_pcr.reduced_rows`` as one dense
+    ``[4 n, 4 n]`` matrix and its right-hand side ``[4 n]``."""
+    m = r.shape[0]
+    A = torch.eye(4 * m, dtype=r.dtype, device=r.device)
+    t = torch.arange(m, device=r.device)
+    rows = (4 * t[:, None] + torch.arange(4, device=r.device))[:, :, None]   # [m, 4, 1]
+    two = torch.arange(2, device=r.device)
+    A[rows[1:], (4 * (t[1:] - 1) + 2)[:, None, None] + two] = Lc[1:]      # x_last of tile t-1
+    A[rows[:-1], (4 * (t[:-1] + 1))[:, None, None] + two] = Uc[:-1]       # x_first of tile t+1
+    return A, r.reshape(-1)
+
+
 def drive_long_reach(dev, launches: dict) -> tuple[list, dict]:
     """The long-reach main path: ``simulate(linear_solver="cuda_tiled")`` at
-    each of LONG_REACH_NODES against the same run with ``"pcr"``, with the
-    stage times of one solve.  Returns the per-size records and the figures of
-    the largest size for the kernel table."""
+    each of LONG_REACH_NODES against the same run with ``"pcr"`` (in turns:
+    tiled, pcr, tiled, pcr -- the host's clock moves them by tens of per
+    cent), and one solve stage by stage, each stage's kernel against its
+    plain version and timed with CUDA events, at each tile of TILED_TILES.
+    Returns the per-size records and the figures of the largest size for the
+    kernel table."""
     from flowsim_tpu_torch.ops import preissmann as prs
     from flowsim_tpu_torch.ops.cuda import tiled_pcr
 
     records, table = [], {}
     for n in LONG_REACH_NODES:
         geo, us, ds, h0, Q0, sset = build_long_reach(n, dev, levels=8, linear_solver="cuda_tiled")
-        sset_pcr = dataclasses.replace(sset, linear_solver="pcr")
-        tiled_pcr.launch_count = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out_t = prs.simulate(geo, us, ds, h0, Q0, sset)
-        torch.cuda.synchronize()
-        tiled_ms = (time.perf_counter() - t0) * 1e3
-        count = tiled_pcr.launch_count
-        t0 = time.perf_counter()
-        out_p = prs.simulate(geo, us, ds, h0, Q0, sset_pcr)
-        torch.cuda.synchronize()
-        pcr_ms = (time.perf_counter() - t0) * 1e3
+        runs = {"cuda_tiled": [], "pcr": []}
+        for solver in ("cuda_tiled", "pcr", "cuda_tiled", "pcr"):
+            for c in TILED_COUNTERS:
+                setattr(tiled_pcr, c, 0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = prs.simulate(geo, us, ds, h0, Q0, dataclasses.replace(sset, linear_solver=solver))
+            torch.cuda.synchronize()
+            runs[solver].append((time.perf_counter() - t0) * 1e3)
+            if solver == "cuda_tiled":
+                out_t, counts = out, {c: getattr(tiled_pcr, c) for c in TILED_COUNTERS}
+            else:
+                out_p = out
         cmp = compare_runs(out_t, out_p, f"long reach N={n}, cuda_tiled vs pcr")
-        if count != cmp["iterations"] or count == 0:
-            raise AssertionError(f"long reach N={n}: {count} launches for {cmp['iterations']} iterations")
+        if any(v != cmp["iterations"] for v in counts.values()) or cmp["iterations"] == 0:
+            raise AssertionError(f"long reach N={n}: launches {counts} for {cmp['iterations']} iterations")
         if out_t.depth.shape != (sset.n_time_levels, n):
             raise AssertionError(f"long reach N={n}: depth has shape {tuple(out_t.depth.shape)}")
+        tiled_ms, pcr_ms = min(runs["cuda_tiled"]), min(runs["pcr"])
 
         # one solve, stage by stage, on the first Newton system of level 1
         prev = prs.prev_level_state(geo, h0, Q0)
         L, D, U, b, *_ = prs.assemble(geo, us, ds, sset, prev, h0, Q0, 1)
-        T, n_tiles = tiled_pcr._tiling(n, tiled_pcr.DEFAULT_TILE)
-        G, V, W = tiled_pcr.stage_a(L, D, U, b, T)
-        y = tiled_pcr.stage_b(G, V, W, T)
-        x = tiled_pcr.stage_c(G, V, W, y, T)
         x_plain = tiled_pcr.tiled_spike_plain(L, D, U, b)
-        err = float((x - x_plain).abs().max())
-        if not err <= TILED_REL_TOL * float(x_plain.abs().max()):
-            raise AssertionError(f"long reach N={n}: the staged solve differs from the plain one by {err}")
-        a_ms = time_cuda(lambda: tiled_pcr.stage_a(L, D, U, b, T), reps=20)
-        b_ms = statistics.median(wall_ms(lambda: tiled_pcr.stage_b(G, V, W, T)) for _ in range(3))
-        c_ms = time_cuda(lambda: tiled_pcr.stage_c(G, V, W, y, T), reps=10)
-        solve_ms = statistics.median(wall_ms(lambda: tiled_pcr.tiled_spike_solve(L, D, U, b)) for _ in range(3))
+        scale = float(x_plain.abs().max())
+        per_tile = {}
+        for tile in TILED_TILES:
+            T, n_tiles = tiled_pcr._tiling(n, tile)
+            G, V, W, R = tiled_pcr.stage_a(L, D, U, b, T)
+            R0 = R.clone()
+            y = tiled_pcr.stage_b(R)
+            y_plain = tiled_pcr.stage_b_plain(G, V, W, T)
+            x = tiled_pcr.stage_c(G, V, W, y, T)
+            x_c_plain = tiled_pcr.stage_c_plain(G, V, W, y, T)
+            x_solve = tiled_pcr.tiled_spike_solve(L, D, U, b, tile=T)
+            x_tile_plain = tiled_pcr.tiled_spike_plain(L, D, U, b, tile=T)
+            errs = dict(stage_b=float((y - y_plain).abs().max()),
+                        stage_c=float((x - x_c_plain).abs().max()),
+                        whole=float((x_solve - x_tile_plain).abs().max()),
+                        whole_vs_default_tile=float((x_solve - x_plain).abs().max()))
+            y_scale, x_scale = float(y_plain.abs().max()), float(x_c_plain.abs().max())
+            if not (errs["stage_b"] <= TILED_REL_TOL * y_scale and errs["stage_c"] <= TILED_REL_TOL * x_scale
+                    and errs["whole"] <= TILED_REL_TOL * scale and errs["whole_vs_default_tile"] <= 1e-9 * scale):
+                raise AssertionError(f"long reach N={n}, tile {T}: kernels differ from their plain versions: {errs}")
+            Rw = torch.empty_like(R0)
+            a_ms = time_cuda(lambda: tiled_pcr.stage_a(L, D, U, b, T), reps=50)
+            # stage B overwrites its rows: a fresh copy each time, its own time taken off
+            copy_ms = time_cuda(lambda: Rw.copy_(R0), reps=50)
+            b_ms = time_cuda(lambda: tiled_pcr.stage_b(Rw.copy_(R0)), reps=50) - copy_ms
+            c_ms = time_cuda(lambda: tiled_pcr.stage_c(G, V, W, y, T), reps=50)
+            solve_ms = time_cuda(lambda: tiled_pcr.tiled_spike_solve(L, D, U, b, tile=T), reps=50)
+            per_tile[T] = dict(tile=T, tiles=n_tiles, solve_ms=solve_ms, stage_a_ms=a_ms, stage_b_ms=b_ms,
+                               stage_c_ms=c_ms, max_abs_err=errs,
+                               bounds={k: v[0] for k, v in tiled_bounds(n, T).items()})
+            if T == tiled_pcr._tiling(n, tiled_pcr.DEFAULT_TILE)[0]:
+                main = dict(per_tile[T], y=y, G=G, V=V, W=W, T=T)
+        T = main["T"]
         plain_ms = statistics.median(wall_ms(lambda: tiled_pcr.tiled_spike_plain(L, D, U, b)) for _ in range(2))
+        G, V, W, y = main["G"], main["V"], main["W"], main["y"]
+        b_plain_ms = statistics.median(wall_ms(lambda: tiled_pcr.stage_b_plain(G, V, W, T)) for _ in range(3))
+        c_plain_ms = time_cuda(lambda: tiled_pcr.stage_c_plain(G, V, W, y, T), reps=10)
+        # stage B's yardstick: one dense torch.linalg.solve of the reduced system
+        A_red, r_red = dense_reduced_system(*tiled_pcr.reduced_rows(G, V, W, T))
+        b_lib_ms = time_cuda(lambda: torch.linalg.solve(A_red, r_red), reps=3, warmup=1)
+        b_lib_err = float((torch.linalg.solve(A_red, r_red).reshape(-1, 4) - y).abs().max())
+        del A_red
         pcr_solve_ms = time_cuda(lambda: prs.tridiag.block_pcr(L, D, U, b), reps=3, warmup=1)
-        tiled_pcr.launch_count = count   # the timing launches above are not the main path's
-        # the kernel's own traffic: L, D, U, b read once (14 doubles a node),
-        # G, V, W written once (10); operations: ceil(log2 T) sweeps + back-solve
-        nbytes = 8 * (14 + 10) * n
-        flops = n_tiles * T * (sweeps(T) * FLOPS_PCR_SWEEP_5 + FLOPS_PCR_BACKSOLVE_5)
-        tb, tf = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_F64_FLOPS * 1e3
-        rec = dict(n_nodes=n, tile=T, tiles=n_tiles, launches=count,
+        for c, v in counts.items():   # the timing launches above are not the main path's
+            setattr(tiled_pcr, c, v)
+        bounds = tiled_bounds(n, T)
+        rec = dict(n_nodes=n, tile=T, tiles=main["tiles"], launches=counts,
                    iterations_per_level=out_t.iterations.tolist(), wall_ms=tiled_ms, wall_ms_pcr=pcr_ms,
+                   wall_ms_runs=runs["cuda_tiled"], wall_ms_runs_pcr=runs["pcr"],
                    newton_node_updates_per_s=n * cmp["iterations"] / (tiled_ms * 1e-3),
                    newton_node_updates_per_s_pcr=n * cmp["iterations"] / (pcr_ms * 1e-3),
-                   solve_ms=solve_ms, stage_a_ms=a_ms, stage_b_ms=b_ms, stage_c_ms=c_ms,
-                   plain_solve_ms=plain_ms, block_pcr_solve_ms=pcr_solve_ms,
-                   bound_ms=max(tb, tf), bound_bytes_ms=tb, bound_operations_ms=tf, **cmp)
+                   solve_ms=main["solve_ms"], stage_a_ms=main["stage_a_ms"], stage_b_ms=main["stage_b_ms"],
+                   stage_c_ms=main["stage_c_ms"], plain_solve_ms=plain_ms, stage_b_plain_ms=b_plain_ms,
+                   stage_c_plain_ms=c_plain_ms, block_pcr_solve_ms=pcr_solve_ms,
+                   stage_b_library_ms=b_lib_ms, stage_b_library_max_abs_diff=b_lib_err,
+                   bound_ms=bounds["whole"][0], bound_by=bounds["whole"][1],
+                   tiles_tried=list(per_tile.values()), **cmp)
         records.append(rec)
-        table = dict(rec, max_abs_err=err, bound_by="bytes" if tb >= tf else "operations")
-        del out_t, out_p, L, D, U, b, G, V, W, x, x_plain
+        table = dict(rec, max_abs_err=main["max_abs_err"], bounds=bounds)
+        del out_t, out_p, out, L, D, U, b, G, V, W, R, R0, Rw, y, x, x_plain, main, per_tile
         torch.cuda.empty_cache()
-    launches["tiled_spike_solve"] = table["launches"]
+    launches["tiled_spike_solve"] = table["launches"]["launch_count"]
+    launches["tiled_spike_reduced"] = table["launches"]["stage_b_launch_count"]
+    launches["tiled_spike_substitute"] = table["launches"]["stage_c_launch_count"]
     return records, table
 
 
@@ -1128,15 +1258,14 @@ def network_bound(n_iterations: int, topo, n_junctions: int, n_time_levels: int,
     outputs written once (depth and flow of every node, junction stages, two
     reservoir stages and gate flags per branch, error, iterations and
     converged, per level), against its FP64 operations (per iteration and
-    node of branch b: the assembly, ceil(log2 N_b) PCR sweeps and the
-    back-substitution with 1 + couplings_b right-hand-side pairs; per
-    iteration the J x J Gauss-Jordan solve, 2 J^3 / 3 + 2 J^2)."""
+    node of branch b: the assembly and a block-Thomas solve with 1 +
+    couplings_b right-hand-side pairs; per iteration the J x J Gauss-Jordan
+    solve, 2 J^3 / 3 + 2 J^2)."""
     n_b, B, J = topo.n_b, len(topo.n_b), n_junctions
     nodes = sum(n_b)
     nbytes = members * (8 * (15 * nodes + 2 * B * n_time_levels)
                         + n_time_levels * (8 * (2 * nodes + J + 4 * B + 1) + 2 * 4))
-    per_iteration = sum(n * (FLOPS_ASSEMBLY + sweeps(n) * (FLOPS_PCR_SWEEP + len(c) * 16)
-                             + FLOPS_PCR_BACKSOLVE + len(c) * 6)
+    per_iteration = sum(n * (FLOPS_ASSEMBLY + FLOPS_THOMAS + len(c) * FLOPS_THOMAS_PAIR)
                         for n, c in zip(n_b, topo.couplings))
     flops = n_iterations * (per_iteration + 2 * J ** 3 / 3 + 2 * J ** 2)
     tb, tf = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_F64_FLOPS * 1e3
@@ -1340,6 +1469,33 @@ def main() -> int:
     batched_checks["diverged_member"] = dict(
         bad_member=bad, bad_member_levels_converged=int(out_d.converged[bad].sum()),
         sound_members_bit_identical=True)
+    # (iv) the same two batches, repeated until the batch is larger than the
+    # card holds in the register build, through the wrapper: its C entry
+    # then takes the residency build (what the 10 240-member ensemble runs),
+    # which must give every copy the bits of the single launches
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n121 = channel.geometry.z_bed.shape[0]
+    reg_bps = fused_newton.resident_blocks(n121, False, fused_newton.REGISTER_BUILD)
+    res_bps = fused_newton.resident_blocks(n121, False, fused_newton.RESIDENCY_BUILD)
+    copies = reg_bps * sms // 8 + 1
+    if res_bps <= reg_bps:
+        raise AssertionError(f"the residency build holds {res_bps} blocks an SM, the register build {reg_bps}")
+    us_r = scaled_inflow(solver.us_params, np.tile(s8, copies))
+    out_r = fused_simulate_batched(ensemble.roughness_ensemble(channel.geometry, np.tile(n8, copies)), us_r,
+                                   solver.ds_params, solver.h0, solver.Q0, sset, us_batched=True)
+    compare_members(out_r, [singles[m % 8] for m in range(8 * copies)], "residency build vs single launches",
+                    exact=True)
+    out_rd = fused_simulate_batched(ensemble.roughness_ensemble(channel.geometry, np.tile(n_bad, copies)),
+                                    us_r, solver.ds_params, solver.h0, solver.Q0, sset, us_batched=True)
+    sound_r = [m for m in range(8 * copies) if m % 8 != bad]
+    compare_members(prs_out_member(out_rd, sound_r), [singles[m % 8] for m in sound_r],
+                    "residency build: sound members beside diverged ones", exact=True)
+    if not torch.equal(out_rd.converged, out_d.converged.repeat(copies, 1)):
+        raise AssertionError("residency build: the converged flags differ from the register build's")
+    batched_checks["residency_build_bit_identity_8x385"] = dict(
+        members=8 * copies, distinct_members=8, levels=sset.n_time_levels,
+        register_build_holds=reg_bps * sms, sound_members_beside_diverged_ones_bit_identical=True)
+    del out_r, out_rd
     t0 = time.perf_counter()
     network_checks = dict(check_network_kernels(dev), seconds=time.perf_counter() - t0)
     emit("kernels", pcr_solve=pcr_checks, pcr_solve_oversize_raises=oversize,
@@ -1520,6 +1676,33 @@ def main() -> int:
         ms_b = wall_ms(lambda: run_ensemble(geob, us_b, members))
         scaling.append(dict(members=members, ms=ms_b, sims_per_s=members / (ms_b * 1e-3),
                             newton_iterations=int(its.sum()), most_in_a_member=int(its.max())))
+    scaling.append(dict(members=B, ms=ens_ms, sims_per_s=B / (ens_ms * 1e-3), newton_iterations=ens_iters,
+                        most_in_a_member=int(per_member.max())))
+    # the two builds of the kernel: what the occupancy calculator puts on an
+    # SM, what ptxas gave each, and the whole ensemble in the register build
+    # (the main run above took the residency build: B is more than the card
+    # holds in the register build), which must give the same bits
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    builds = dict(multiprocessors=sms)
+    for name, bid in (("register_build", fused_newton.REGISTER_BUILD),
+                      ("residency_build", fused_newton.RESIDENCY_BUILD)):
+        bps = fused_newton.resident_blocks(n, False, bid)
+        builds[name] = dict(build_id=bid, resident_blocks_per_sm=bps, members_in_flight=bps * sms)
+    kernels_128 = [k for k in kernel_builds(build.build_info["fused_newton"]["ptxas"])
+                   if k["block"] == 128 and not k["storage"]]
+    for k in kernels_128:
+        builds["register_build" if k["min_blocks"] == 1 else "residency_build"]["ptxas"] = k
+    out_reg = batched_launch(geob, us_b, solver.ds_params, solver.h0, solver.Q0, sset_b,
+                             fused_newton.REGISTER_BUILD)
+    if not (torch.equal(out_reg.depth, out_e.depth) and torch.equal(out_reg.flow, out_e.flow)
+            and torch.equal(out_reg.iterations, out_e.iterations)):
+        raise AssertionError("the register and residency builds disagree on the ensemble")
+    builds["register_build"]["ensemble_ms"] = wall_ms(lambda: batched_launch(
+        geob, us_b, solver.ds_params, solver.h0, solver.Q0, sset_b, fused_newton.REGISTER_BUILD))
+    builds["residency_build"]["ensemble_ms"] = ens_ms
+    del out_reg
+    if builds["residency_build"]["resident_blocks_per_sm"] < 3:
+        raise AssertionError(f"the residency build holds {builds['residency_build']} blocks an SM")
     sset_full = dataclasses.replace(sset_b, store="full")
     out_f = run_ensemble(geob, us_b, 1024, sset_full)
     if out_f.depth.shape != (1024, nt, n) or not bool(out_f.converged.all()) \
@@ -1537,7 +1720,7 @@ def main() -> int:
          newton_node_updates_per_s=n * ens_iters / (ens_ms * 1e-3),
          ensemble_build_ms=build_ms, packing_ms=pack_ms,
          downstream_peak_flow_quantiles_5_50_95=np.percentile(peak, [5, 50, 95]).tolist(),
-         scaling=scaling, store_full_1024=dict(members=1024, ms=full_ms, ms_store_boundaries=ends_ms,
+         scaling=scaling, builds=builds, store_full_1024=dict(members=1024, ms=full_ms, ms_store_boundaries=ends_ms,
                                                sims_per_s=1024 / (full_ms * 1e-3),
                                                output_bytes=fused_newton.output_bytes(1024, n, nt, "full")))
 
@@ -1568,7 +1751,7 @@ def main() -> int:
          best_n=float(n_grid[best]), rmse_at_best=float(rmse[best]), rmse_min_max=[float(rmse.min()), float(rmse.max())],
          rmse_neighbours=[float(rmse[best - 1]), float(rmse[best + 1])])
 
-    # -- phase 9: the long reach, one tiled SPIKE launch per Newton iteration --
+    # -- phase 9: the long reach, the tiled solve's three kernels per Newton iteration
     long_records, tiled = drive_long_reach(dev, launches)
     emit("long_reach_tiled", linear_solver="cuda_tiled", against="pcr", sizes=long_records)
 
@@ -1590,9 +1773,9 @@ def main() -> int:
     n_par = fused_newton._N_PARAMS
     fused_bytes = 8 * (13 * n + 2 * n + 2 * cmp_levels + n_par) \
         + fused_newton.output_bytes(1, n, cmp_levels, "full")
-    fused_flops = n_it * n * (FLOPS_ASSEMBLY + sweeps(n) * FLOPS_PCR_SWEEP + FLOPS_PCR_BACKSOLVE)
+    fused_flops = n_it * n * (FLOPS_ASSEMBLY + FLOPS_THOMAS)
     pcr_bytes = 8 * (14 * n + 2 * n)
-    pcr_flops = n * (sweeps(n) * FLOPS_PCR_SWEEP + FLOPS_PCR_BACKSOLVE)
+    pcr_flops = n * FLOPS_THOMAS
 
     def bound(nbytes, flops):
         tb, tf = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_F64_FLOPS * 1e3
@@ -1604,7 +1787,7 @@ def main() -> int:
     # iterations this ensemble's data needed; store="boundaries" outputs
     per_member_in = 8 * (13 * n + 2 * n + 2 * nt + n_par)
     bb, bby = bound(B * per_member_in + fused_newton.output_bytes(B, n, nt, "boundaries"),
-                    ens_iters * n * (FLOPS_ASSEMBLY + sweeps(n) * FLOPS_PCR_SWEEP + FLOPS_PCR_BACKSOLVE))
+                    ens_iters * n * (FLOPS_ASSEMBLY + FLOPS_THOMAS))
     kernels = [
         dict(name="fused_simulate", route="cuda",
              source="flowsim_tpu_torch/ops/cuda/csrc/fused_newton.cu",
@@ -1619,6 +1802,8 @@ def main() -> int:
              launches=launches["fused_simulate_batched"], max_abs_err=batched_cmp["max_abs_dh"],
              ms=ens_ms, plain_ms=plain_batched_ms, bound_ms=bb, bound_by=bby, library_ms=None,
              ms_at_plain_shape=kernel_batched_cmp_ms, ms_over_bound=ens_ms / bb,
+             resident_blocks_per_sm=builds["residency_build"]["resident_blocks_per_sm"],
+             register_build_ms=builds["register_build"]["ensemble_ms"],
              shape=dict(members=B, n_nodes=n, n_time_levels=nt, newton_iterations=ens_iters,
                         store="boundaries"),
              plain_shape=dict(members=batched_cmp["members"], n_nodes=n,
@@ -1633,16 +1818,36 @@ def main() -> int:
              ms=pcr_ms, plain_ms=pcr_plain_ms, bound_ms=pb, bound_by=pby, library_ms=pcr_lib_ms,
              shape=dict(n_nodes=n, systems=1),
              tolerance=dict(relative=1e-10)),
-        # ms is the whole solve (the kernel's stage A plus the torch stages B
-        # and C); the bound is that of the kernel's own traffic.  No single
+        # ms is the whole solve: stage A (this row's source) and the stage-B
+        # and stage-C kernels below, launched back to back.  No single
         # PyTorch call solves a banded system of 2e6 unknowns: library_ms null
         dict(name="tiled_spike_solve", route="cuda",
              source="flowsim_tpu_torch/ops/cuda/csrc/tiled_pcr.cu",
              replaces="flowsim_tpu/ops/pallas/tiled_pcr.py:139",
-             launches=launches["tiled_spike_solve"], max_abs_err=tiled["max_abs_err"],
+             launches=launches["tiled_spike_solve"], max_abs_err=tiled["max_abs_err"]["whole"],
              ms=tiled["solve_ms"], plain_ms=tiled["plain_solve_ms"], bound_ms=tiled["bound_ms"],
              bound_by=tiled["bound_by"], library_ms=None,
              stage_a_ms=tiled["stage_a_ms"], stage_b_ms=tiled["stage_b_ms"], stage_c_ms=tiled["stage_c_ms"],
+             shape=dict(n_nodes=tiled["n_nodes"], tile=tiled["tile"], tiles=tiled["tiles"]),
+             tolerance=dict(relative=TILED_REL_TOL)),
+        # stage B, the reduced solve over the tile boundaries (the JAX
+        # package's dense_block_thomas scan in the same jitted function)
+        dict(name="tiled_spike_reduced", route="cuda",
+             source="flowsim_tpu_torch/ops/cuda/csrc/tiled_pcr.cu",
+             replaces="flowsim_tpu/ops/pallas/tiled_pcr.py:179",
+             launches=launches["tiled_spike_reduced"], max_abs_err=tiled["max_abs_err"]["stage_b"],
+             ms=tiled["stage_b_ms"], plain_ms=tiled["stage_b_plain_ms"], bound_ms=tiled["bounds"]["stage_b"][0],
+             bound_by=tiled["bounds"]["stage_b"][1], library_ms=tiled["stage_b_library_ms"],
+             library_call="torch.linalg.solve, the dense 4 n_tiles system",
+             shape=dict(reduced_rows=tiled["tiles"], n_nodes=tiled["n_nodes"]),
+             tolerance=dict(relative=TILED_REL_TOL)),
+        # stage C, the substitution of the boundary values into every node
+        dict(name="tiled_spike_substitute", route="cuda",
+             source="flowsim_tpu_torch/ops/cuda/csrc/tiled_pcr.cu",
+             replaces="flowsim_tpu/ops/pallas/tiled_pcr.py:184",
+             launches=launches["tiled_spike_substitute"], max_abs_err=tiled["max_abs_err"]["stage_c"],
+             ms=tiled["stage_c_ms"], plain_ms=tiled["stage_c_plain_ms"], bound_ms=tiled["bounds"]["stage_c"][0],
+             bound_by=tiled["bounds"]["stage_c"][1], library_ms=None,
              shape=dict(n_nodes=tiled["n_nodes"], tile=tiled["tile"], tiles=tiled["tiles"]),
              tolerance=dict(relative=TILED_REL_TOL)),
     ]

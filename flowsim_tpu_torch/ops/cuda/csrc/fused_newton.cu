@@ -73,16 +73,27 @@
 // rating-curve basis, central-difference dQ/dz); built with --fmad=false the
 // trajectory matches the plain PyTorch engine to rounding.
 //
+// Members in flight.  As a batch the flagship's 128-thread blocks are
+// limited by registers, not shared memory (30 doubles a node, 29 KB a
+// block).  The register build takes 250 registers with no spills, two
+// blocks an SM, 264 members on the card.  A batch larger than that takes the
+// residency build, __launch_bounds__(128, 4): 128 registers with a few
+// hundred bytes spilled, four blocks an SM, 528 members in flight, the same
+// arithmetic and the same bits (choose_build picks it by the member count
+// from the occupancy calculator; a single simulation keeps the register
+// build).  Five or six blocks an SM ran no faster, and neither did keeping
+// the geometry and the previous level's state in shared memory to spill
+// less: at four blocks the SM's issue and shared-memory traffic, not
+// latency, set the pace.
+//
 // Reached on an NVIDIA H100 80GB HBM3 at a 700 W power limit (chip_smoke.py):
 // 15.2 us per Newton iteration at N = 121 (the flagship: 73.1 ms for 4803
-// iterations, 250 registers, no spills) and 45 us at N = 964 (the 1024-thread
-// build, 64 registers, spilling).  As a batch the flagship's 128-thread blocks
-// are resident two to an SM (registers), 264 on the card: 132 members take
-// 81 ms, 264 take 91 ms, and beyond that the time grows with the member count
-// (10 240 members, nodes 0 and N-1 stored: 2.85 s, 12.6 times the bound by
-// FP64 operations).  With a lumped storage the boundary thread's bisection
-// sets the pace: the 21-node reservoir example runs at 40 us per iteration
-// (3.5 ms for 87).  PERF.md keeps the readings.
+// iterations) and 45 us at N = 964 (the 1024-thread build, 64 registers,
+// spilling); 10 240 flagship members, nodes 0 and N-1 stored, about 2.0 s
+// in the residency build against 2.84 s in the register build.  With a
+// lumped storage the boundary thread's bisection sets the pace: the 21-node
+// reservoir example runs at 40 us per iteration (3.5 ms for 87).  PERF.md
+// keeps the readings.
 //
 // C interface (ctypes): launches on the given stream, allocates nothing,
 // does not synchronise, returns cudaGetLastError().
@@ -99,9 +110,12 @@ constexpr int SMEM_DOUBLES_PER_NODE = 2 * COMP + 2;
 
 // STORAGE selects the build with the lumped-storage rows: a run without
 // storage takes the build that has no call to storage_row in it, so its
-// register allocation is what it was before storage existed.
-template <int BLOCK, bool STORAGE>
-__global__ void __launch_bounds__(BLOCK)
+// register allocation is what it was before storage existed.  MINB is the
+// number of blocks an SM must hold: the launch bound caps the registers at
+// 65536 / (MINB * BLOCK), and what does not fit spills.  No build changes an
+// operation, so every build gives the same bits.
+template <int BLOCK, bool STORAGE, int MINB>
+__global__ void __launch_bounds__(BLOCK, MINB)
 fused_simulate_kernel(const double* __restrict__ geo_all,   // [S, 13, N]
                       const double* __restrict__ h0_all,    // [S, N]
                       const double* __restrict__ Q0_all,    // [S, N]
@@ -393,23 +407,62 @@ fused_simulate_kernel(const double* __restrict__ geo_all,   // [S, 13, N]
 #undef STORE_LEVEL
 }
 
-template <int BLOCK, bool STORAGE>
-int launch(const double* geo, const double* h0, const double* Q0, const double* us,
-           const double* ds, const double* par, const double* qlat, double* depth, double* flow,
-           int* iters, double* err, int* conv, double* gate, double* stage, const double* stor,
-           const double* stab, long long stab_stride, int n_sims, int n, int nt,
-           int max_iter, int us_kind, int ds_kind, int rc_kind, int us_rc_kind,
-           int store_boundaries, int qlat_mode, const int* st, cudaStream_t stream) {
-    const int threads = ((n + 31) / 32) * 32;
-    const size_t smem = (size_t)SMEM_DOUBLES_PER_NODE * n * sizeof(double);
-    cudaError_t e = cudaFuncSetAttribute(fused_simulate_kernel<BLOCK, STORAGE>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// Every build has one signature: a build is a kernel pointer.
+using KernelFn = decltype(&fused_simulate_kernel<128, false, 1>);
+
+enum { REGISTER_BUILD = 0, RESIDENCY_BUILD = 1 };
+
+template <int BLOCK>
+KernelFn register_build(bool storage) {
+    return storage ? &fused_simulate_kernel<BLOCK, true, 1> : &fused_simulate_kernel<BLOCK, false, 1>;
+}
+
+// REGISTER_BUILD: the block size alone is the launch bound, so a small reach
+// gets the full register budget (250 registers at N <= 128: two blocks an SM)
+// and only a long one is squeezed to 64.  RESIDENCY_BUILD (N <= 128 without
+// storage only): four blocks an SM, 128 registers, the rest spilled.
+int pick_build(int n, bool storage, int build, KernelFn* out) {
+    if (build == RESIDENCY_BUILD) {
+        if (n > 128 || storage) return (int)cudaErrorInvalidValue;
+        *out = &fused_simulate_kernel<128, false, 4>;
+        return 0;
+    }
+    if (build != REGISTER_BUILD) return (int)cudaErrorInvalidValue;
+    if (n <= 128) *out = register_build<128>(storage);
+    else if (n <= 256) *out = register_build<256>(storage);
+    else if (n <= 512) *out = register_build<512>(storage);
+    else *out = register_build<1024>(storage);
+    return 0;
+}
+
+int threads_for(int n) { return ((n + 31) / 32) * 32; }
+size_t smem_for(int n) { return (size_t)SMEM_DOUBLES_PER_NODE * n * sizeof(double); }
+
+// blocks of this build the occupancy calculator puts on one SM
+int resident_blocks(KernelFn fn, int n, int* blocks) {
+    cudaError_t e = cudaFuncSetAttribute((const void*)fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem_for(n));
     if (e != cudaSuccess) return (int)e;
-    fused_simulate_kernel<BLOCK, STORAGE><<<n_sims, threads, smem, stream>>>(
-        geo, h0, Q0, us, ds, par, qlat, depth, flow, iters, err, conv, gate, stage, stor, stab,
-        stab_stride, n, nt, max_iter, pcr::n_sweeps(n), us_kind, ds_kind, rc_kind, us_rc_kind,
-        store_boundaries, qlat_mode, st[0], st[1], st[2], st[3], st[4], st[5]);
-    return (int)cudaGetLastError();
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, (const void*)fn, threads_for(n),
+                                                              smem_for(n));
+}
+
+// The build a launch of n_sims simulations takes: the register build is the
+// faster per member, so it runs every batch the card holds at once; a larger
+// batch takes the residency build when that holds more members.
+int choose_build(int n_sims, int n, bool storage, KernelFn* out) {
+    int rc = pick_build(n, storage, REGISTER_BUILD, out);
+    if (rc || n > 128 || storage) return rc;
+    int dev, sms, regs_bps, res_bps;
+    KernelFn res;
+    if ((rc = (int)cudaGetDevice(&dev))) return rc;
+    if ((rc = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))) return rc;
+    if (n_sims <= sms) return 0;
+    if ((rc = resident_blocks(*out, n, &regs_bps))) return rc;
+    if ((rc = pick_build(n, false, RESIDENCY_BUILD, &res))) return rc;
+    if ((rc = resident_blocks(res, n, &res_bps))) return rc;
+    if (n_sims > regs_bps * sms && res_bps > regs_bps) *out = res;
+    return 0;
 }
 
 }  // namespace
@@ -422,7 +475,9 @@ extern "C" int flowsim_fused_storage_param_count() { return SP_COUNT; }
 // fused_simulate_batched.  Every array carries a leading n_sims axis (the
 // storage tables only when stab_stride != 0).  st: the six storage ints
 // {us flags, ds flags, us nv, us na, ds nv, ds na}; stage [n_sims, nt, 2] is
-// filled with NaN by the caller.
+// filled with NaN by the caller.  build: -1 chooses by the member count
+// (choose_build: what the wrappers do); 0 or 1 forces a build, so that
+// chip_smoke.py can time the two against each other.
 extern "C" int flowsim_fused_simulate(const void* geo, const void* h0, const void* Q0,
                                       const void* us, const void* ds, const void* par,
                                       const void* qlat, void* depth, void* flow, void* iters,
@@ -431,7 +486,7 @@ extern "C" int flowsim_fused_simulate(const void* geo, const void* h0, const voi
                                       int n_sims, int n,
                                       int nt, int max_iter, int us_kind, int ds_kind,
                                       int rc_kind, int us_rc_kind, int store_boundaries,
-                                      int qlat_mode, const int* st, void* stream) {
+                                      int qlat_mode, const int* st, int build, void* stream) {
     if (n_sims <= 0 || n <= 1 || n > 1024 || nt <= 0) return (int)cudaErrorInvalidValue;
     if (qlat_mode < QLAT_NONE || qlat_mode > QLAT_LEVELS) return (int)cudaErrorInvalidValue;
     if ((qlat_mode != QLAT_NONE) != (qlat != nullptr)) return (int)cudaErrorInvalidValue;
@@ -439,19 +494,27 @@ extern "C" int flowsim_fused_simulate(const void* geo, const void* h0, const voi
     if (((st[0] | st[1]) & ST_ON) && stor == nullptr) return (int)cudaErrorInvalidValue;
     if (((st[0] | st[1]) & ST_AREA_CURVE) && stab == nullptr) return (int)cudaErrorInvalidValue;
     const bool storage = (st[0] | st[1]) & ST_ON;
-#define FLOWSIM_LAUNCH(B) (storage ? FLOWSIM_LAUNCH_AS(B, true) : FLOWSIM_LAUNCH_AS(B, false))
-#define FLOWSIM_LAUNCH_AS(B, S) launch<B, S>((const double*)geo, (const double*)h0, (const double*)Q0, \
-        (const double*)us, (const double*)ds, (const double*)par, (const double*)qlat, \
-        (double*)depth, (double*)flow, (int*)iters, (double*)err, (int*)conv, (double*)gate, \
-        (double*)stage, (const double*)stor, (const double*)stab, stab_stride, \
-        n_sims, n, nt, max_iter, us_kind, ds_kind, rc_kind, us_rc_kind, store_boundaries, \
-        qlat_mode, st, (cudaStream_t)stream)
-    // the block size is a launch bound, so a small reach gets the full
-    // register budget and only a long one is squeezed to 64 registers
-    if (n <= 128) return FLOWSIM_LAUNCH(128);
-    if (n <= 256) return FLOWSIM_LAUNCH(256);
-    if (n <= 512) return FLOWSIM_LAUNCH(512);
-    return FLOWSIM_LAUNCH(1024);
-#undef FLOWSIM_LAUNCH
-#undef FLOWSIM_LAUNCH_AS
+    KernelFn fn;
+    const int rc = build < 0 ? choose_build(n_sims, n, storage, &fn) : pick_build(n, storage, build, &fn);
+    if (rc) return rc;
+    const size_t smem = smem_for(n);
+    cudaError_t e = cudaFuncSetAttribute((const void*)fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    fn<<<n_sims, threads_for(n), smem, (cudaStream_t)stream>>>(
+        (const double*)geo, (const double*)h0, (const double*)Q0, (const double*)us,
+        (const double*)ds, (const double*)par, (const double*)qlat, (double*)depth, (double*)flow,
+        (int*)iters, (double*)err, (int*)conv, (double*)gate, (double*)stage, (const double*)stor,
+        (const double*)stab, stab_stride, n, nt, max_iter, pcr::n_sweeps(n), us_kind, ds_kind,
+        rc_kind, us_rc_kind, store_boundaries, qlat_mode, st[0], st[1], st[2], st[3], st[4], st[5]);
+    return (int)cudaGetLastError();
+}
+
+// Resident blocks per SM of a build (0: the register build, 1: the residency
+// build) at N nodes, from the CUDA occupancy calculator.
+extern "C" int flowsim_fused_resident_blocks(int n, int storage, int build, int* blocks) {
+    if (n <= 1 || n > 1024 || blocks == nullptr) return (int)cudaErrorInvalidValue;
+    KernelFn fn;
+    const int rc = pick_build(n, storage != 0, build, &fn);
+    return rc ? rc : resident_blocks(fn, n, blocks);
 }

@@ -14,10 +14,12 @@ counterpart: a grid larger than what the card holds at once is queued by the
 hardware scheduler.
 
 What bounds it on an H100: at a few members, the latency chain of one
-simulation (see ``csrc/fused_newton.cu``); at many, FP64 operations — but the
-flagship's 128-thread block takes 250 registers per thread, so only two blocks
-are resident per SM (264 members on the card) and the ensemble runs at about
-a twelfth of that bound (PERF.md keeps the readings).
+simulation (see ``csrc/fused_newton.cu``); at many, the members in flight.
+The flagship's 128-thread block takes 250 registers per thread, so two blocks
+are resident per SM (264 members on the card).  A larger batch takes the
+kernel's residency build (128 registers, four blocks an SM, 528 members in
+flight, the same bits), chosen by the C entry from the member count; PERF.md
+keeps the readings.
 
 The boundary *kinds* and the settings are shared by all members; everything
 else may differ.  Packing is done with tensor ops on the members' device

@@ -48,6 +48,11 @@ _N_STORAGE_PARAMS = 17
 _ST_ON, _ST_AREA_CURVE, _ST_RATING, _ST_LOSSES, _ST_RC_SHIFT = 1, 2, 4, 8, 4
 _STORAGE_RC_KINDS = ("polynomial", "blended_poly")
 
+# the kernel's builds (csrc/fused_newton.cu): every shape has the register
+# build; a batch of N <= 128 reaches without storage that is larger than the
+# card holds in it takes the residency build (four blocks an SM, not two)
+REGISTER_BUILD, RESIDENCY_BUILD = 0, 1
+
 # number of kernel launches made by fused_simulate (not by its plain version)
 launch_count = 0
 
@@ -116,8 +121,10 @@ def _lib():
     fn = lib.flowsim_fused_simulate
     if not getattr(fn, "_typed", False):
         fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_longlong] + [ctypes.c_int] * 10
-                       + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
+                       + [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        lib.flowsim_fused_resident_blocks.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+        lib.flowsim_fused_resident_blocks.restype = ctypes.c_int
         for aux in (lib.flowsim_fused_param_count, lib.flowsim_fused_smem_bytes_per_node,
                     lib.flowsim_fused_storage_param_count):
             aux.argtypes = []
@@ -248,14 +255,28 @@ def check_output_memory(n_sims: int, n: int, nt: int, store: str, free_bytes: in
             f"ensemble in chunks (batched_simulate(..., chunk_size=...)) or use store='boundaries'")
 
 
+def resident_blocks(n: int, storage: bool = False, build_id: int = REGISTER_BUILD) -> int:
+    """Blocks of a kernel build that one SM holds at N nodes, from the CUDA
+    occupancy calculator (:data:`REGISTER_BUILD`, every shape;
+    :data:`RESIDENCY_BUILD`, N <= 128 without storage)."""
+    out = ctypes.c_int(0)
+    rc = _lib().flowsim_fused_resident_blocks(n, int(storage), build_id, ctypes.byref(out))
+    if rc != 0:
+        raise RuntimeError(f"occupancy query failed: CUDA error {rc}")
+    return out.value
+
+
 def launch(geo_rows, h0, Q0, us_series, ds_series, par, qlat, settings, us_kind, ds_kind,
-           rc_kind, us_rc_kind, storage) -> prs.SimOutput:
+           rc_kind, us_rc_kind, storage, build_id: int = -1) -> prs.SimOutput:
     """Launch the kernel on a grid of ``S = geo_rows.shape[0]`` blocks, one per
     simulation.  Every input carries the leading ``S`` axis and lies on one
     CUDA device; ``qlat`` is ``None``, ``[S, N]`` or ``[S, nt, N]``;
     ``storage`` is what :func:`pack_storage` returns (blocks ``[S, 2, 17]``,
-    tables ``[S, L]`` or shared ``[L]``).  Returns a SimOutput whose fields
-    carry the ``S`` axis."""
+    tables ``[S, L]`` or shared ``[L]``).  ``build_id`` -1 lets the kernel's C
+    entry choose its build by the member count (what every wrapper does);
+    :data:`REGISTER_BUILD` or :data:`RESIDENCY_BUILD` forces one, for timing
+    the two against each other.  Returns a SimOutput whose fields carry the
+    ``S`` axis."""
     dev = geo_rows.device
     n_sims, _, n = geo_rows.shape
     nt = settings.n_time_levels
@@ -296,7 +317,7 @@ def launch(geo_rows, h0, Q0, us_series, ds_series, par, qlat, settings, us_kind,
             tab_len if stab.dim() == 2 else 0, n_sims, n, nt, int(settings.max_iter),
             _BC_KINDS[us_kind], _BC_KINDS[ds_kind], rc_kind, us_rc_kind,
             int(settings.store == "boundaries"), 0 if qlat is None else qlat.dim() - 1,
-            (ctypes.c_int * 6)(*st_ints), torch.cuda.current_stream().cuda_stream)
+            (ctypes.c_int * 6)(*st_ints), build_id, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_simulate launch failed: CUDA error {rc}")
     return prs.SimOutput(

@@ -4,13 +4,20 @@
   ``block_thomas_factor`` / ``block_thomas_apply``, ``interleave_to_blocks``)
   against ``flowsim_tpu.ops.tridiag`` in float64, rtol 1e-11 (the same
   algorithm on both sides; a dense 4x4 solve may pivot differently);
+* the plain stage B, ``reduced_cr_plain`` (block cyclic reduction over the
+  normalised reduced rows, the algorithm of the stage-B kernel), against the
+  JAX ``dense_block_thomas`` on reduced systems drawn from a seed and on the
+  one the 2048-node long-reach Newton system gives, rtol 1e-11 of the
+  solution's scale;
 * ``tiled_spike_plain`` — what ``tiled_spike_solve`` runs for CPU tensors —
   against the JAX ``block_thomas`` in float64 at rtol 1e-11 of the solution's
   scale, and against the TPU kernel in Pallas interpret mode, which is
   float32, at its own bar of 5e-6 x scale;
 * a 2048-node long reach, 2 levels, ``linear_solver="cuda_tiled"`` against the
   JAX scan with ``"pcr"``: the same iteration count at every level,
-  max|dh| <= 1e-9 m, max|dQ| <= 1e-6 m^3/s.
+  max|dh| <= 1e-9 m, max|dQ| <= 1e-6 m^3/s;
+* the wrappers' 16-byte alignment of a view, and the whole solve's bound as
+  ``chip_smoke.py`` reckons it (the function's own bytes).
 """
 
 import dataclasses
@@ -73,6 +80,33 @@ def test_dense_block_thomas(S, m):
         if i < S - 1:
             A[i * m:(i + 1) * m, (i + 1) * m:(i + 2) * m] = U[i]
     np.testing.assert_allclose(A @ x.numpy().reshape(-1), b.reshape(-1), atol=1e-12)
+
+
+def dense_reduced(Lc, Uc, r):
+    """The reduced rows of ``tiled_pcr.reduced_rows`` as the dense 4x4 blocks
+    L = [0 | Lc], D = I, U = [Uc | 0] that the JAX stage B solves."""
+    S = r.shape[0]
+    Z = np.zeros((S, 4, 2))
+    return np.concatenate([Z, Lc], -1), np.broadcast_to(np.eye(4), (S, 4, 4)), np.concatenate([Uc, Z], -1), r
+
+
+def close_scaled(port, ref, rtol=RTOL):
+    ref = np.asarray(ref, dtype=np.float64)
+    assert float(np.abs(port.numpy() - ref).max()) <= rtol * float(np.abs(ref).max())
+
+
+@pytest.mark.parametrize("S", [1, 2, 37])
+def test_reduced_cr_matches_jax_dense_block_thomas(S):
+    """One tile's row, two tiles and a few dozen: spikes that decay into the
+    tile (V_last, W_first small), as a diagonally dominant reach gives."""
+    rng = np.random.default_rng(S)
+    Lc, Uc = rng.uniform(-0.5, 0.5, (2, S, 4, 2))
+    Lc[:, 2:] *= 1e-3
+    Uc[:, :2] *= 1e-3
+    r = rng.uniform(-1, 1, (S, 4))
+    y = tiled_pcr.reduced_cr_plain(*T((Lc, Uc, r)))
+    assert y.shape == (S, 4)
+    close_scaled(y, jtri.dense_block_thomas(*J(dense_reduced(Lc, Uc, r))))
 
 
 @pytest.mark.parametrize("layout", ["vector", "multi_rhs", "batched_vectors", "batch_equal_to_n"])
@@ -153,6 +187,28 @@ def test_stage_a_spikes_and_single_tile():
     assert 2 * 22 * 8 * tiled_pcr.MAX_TILE <= 232448 < 2 * 22 * 8 * (tiled_pcr.MAX_TILE + 32)
 
 
+def test_vector_aligned_copies_only_a_misaligned_view():
+    """Stages A and C read 16-byte vectors: a view at an odd double offset
+    is copied to an aligned tensor; an aligned contiguous one is passed on."""
+    base = torch.arange(18, dtype=torch.float64)
+    odd = base[1:17].view(8, 2)
+    assert odd.data_ptr() % 16 == 8
+    fixed = tiled_pcr._vector_aligned(odd)
+    assert fixed.data_ptr() % 16 == 0 and torch.equal(fixed, odd)
+    even = base[2:18].view(8, 2)
+    assert tiled_pcr._vector_aligned(even).data_ptr() == even.data_ptr()
+
+
+def test_whole_solve_bound_is_the_functions_bytes():
+    """The bound of the whole solve charges the function's least work: its
+    16 doubles a node of traffic outweigh block Thomas's operations, so at
+    N = 1e6 it is bound by bytes at 128 MB over 3.35 TB/s, whatever the
+    tile."""
+    for T in (256, 512):
+        ms, by = chip_smoke.tiled_bounds(10**6, T)["whole"]
+        assert by == "bytes" and ms == pytest.approx(8 * 16 * 1e6 / 3.35e12 * 1e3, rel=1e-12)
+
+
 @pytest.mark.parametrize("method", ["cuda_tiled"])
 def test_solve_block_tridiag_cuda_tiled_multi_rhs(method):
     s = system(700, seed=6)
@@ -188,3 +244,16 @@ def test_long_reach_newton_system_through_the_tiles(long_reach):
     L, D, U, b, *_ = prs.assemble(geo, us, ds, sset, prev, h0, Q0, 1)
     x = tiled_pcr.tiled_spike_plain(L, D, U, b, tile=256)
     close(x, jtri.block_thomas(*J([a.numpy() for a in (L, D, U, b)])), rtol=1e-9)
+
+
+def test_reduced_cr_on_the_long_reach_newton_system(long_reach):
+    """Stage B of the first Newton system of the long reach (eight 256-node
+    tiles): the reduced rows solved by cyclic reduction against the JAX
+    dense block-Thomas."""
+    (geo, us, ds, h0, Q0, sset), _ = long_reach
+    prev = prs.prev_level_state(geo, h0, Q0)
+    L, D, U, b, *_ = prs.assemble(geo, us, ds, sset, prev, h0, Q0, 1)
+    rows = tiled_pcr.reduced_rows(*tiled_pcr.stage_a_plain(L, D, U, b, 256), 256)
+    assert rows[2].shape == (8, 4)
+    y = tiled_pcr.reduced_cr_plain(*rows)
+    close_scaled(y, jtri.dense_block_thomas(*J(dense_reduced(*(a.numpy() for a in rows)))))

@@ -32,7 +32,12 @@ six main paths through the user entry points:
   with ``linear_solver="cuda_pcr"`` (one PCR launch per Newton iteration);
 * the network Monte-Carlo: 1024 tributary members (per-member inflow scale)
   through ``parallel.ensemble.batched_simulate_network(engine="fused")`` in
-  one launch of the batched network kernel.
+  one launch of the batched network kernel, and each build of the network
+  kernel timed on the same members.
+
+Before the main path, the ``probe`` phase splits a Newton iteration of
+kernels 5 and 1 into its phases (the probe builds: thread 0 reads the SM
+clock after each barrier) and prints microseconds per iteration for each.
 
 Any mismatch raises: no phase's failure is caught.  Every phase prints one
 JSON line; the last line of the output is
@@ -40,6 +45,10 @@ JSON line; the last line of the output is
     {"ok": true, "device": {"platform": "gpu", "kind": "<card>", "count": 1}}
 
 Without a CUDA device the script exits non-zero and prints no result.
+
+``python3 chip_smoke.py --kernel1-times`` times kernel 1 alone (CUDA events,
+packing outside: the flagship at 97 and 385 levels, the reservoir example)
+and prints only that, to compare two checkouts on one card.
 """
 
 from __future__ import annotations
@@ -157,6 +166,40 @@ def wall_ms(fn) -> float:
     fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3
+
+
+def kernel1_times(dev, rounds: int = 5) -> dict:
+    """Kernel 1 alone by CUDA events: each case packed once, as
+    ``fused_simulate`` packs it, then 5 back-to-back ``fused_newton.launch``
+    calls a reading, the cases in turns: the flagship at 97 and 385 levels
+    and the reservoir example.  ``python3 chip_smoke.py --kernel1-times``
+    prints only this, so that two checkouts can be compared on one card."""
+    from flowsim_tpu_torch.models import example
+    from flowsim_tpu_torch.models.gerd_roseires import model
+    from flowsim_tpu_torch.ops.cuda import fused_newton as fn
+
+    def packed(geo, us, ds, h0, Q0, sset):
+        nt = sset.n_time_levels
+        par, rc_kind, us_rc_kind = fn.pack_params(us, ds, sset)
+        stor, stab, st_ints = fn.pack_storage(us, ds)
+        one = lambda t: t.unsqueeze(0).contiguous()
+        return (one(fn.pack_geometry(geo)), one(h0), one(Q0), one(fn.series(us, nt, dev)),
+                one(fn.series(ds, nt, dev)), one(par), None, sset, us.kind, ds.kind, rc_kind, us_rc_kind,
+                (one(stor), stab, st_ints))
+
+    cases = {}
+    for name, kw in (("flagship_97_levels", dict(sim_duration=3600 * (PLAIN_COMPARED_LEVELS - 1))),
+                     ("flagship_385_levels", {})):
+        s, c = model.build(device=dev, **kw)
+        cases[name] = packed(c.geometry, s.us_params, s.ds_params, s.h0, s.Q0,
+                             s.settings(tolerance=1e-6, max_iter=100))
+    r, _ = example.build("preissmann", device=dev)
+    cases["reservoir"] = packed(r.channel.geometry, r.us_params, r.ds_params, r.h0, r.Q0, r.settings(1e-4, 100))
+    runs = {k: [] for k in cases}
+    for _ in range(rounds):
+        for k, a in cases.items():
+            runs[k].append(time_cuda(lambda: fn.launch(*a), reps=5, warmup=1))
+    return {k: dict(ms=statistics.median(v), ms_runs=v) for k, v in runs.items()}
 
 
 def random_system(n: int, seed: int, device):
@@ -445,15 +488,58 @@ def batched_launch(geob, us_b, ds_bc, h0, Q0, sset, build_id):
 
 def kernel_builds(ptxas: list) -> list:
     """Registers and spills of fused_newton.cu's builds, by template
-    arguments (block size, storage rows, blocks an SM in the launch bound)."""
+    arguments (block size, storage rows, blocks an SM in the launch bound);
+    the probe build is left out."""
     out = []
     for rec in ptxas:
-        m = re.search(r"fused_simulate_kernelILi(\d+)ELb([01])ELi(\d+)E", rec["kernel"])
+        m = re.search(r"fused_simulate_kernelILi(\d+)ELb([01])ELi(\d+)ELb0E", rec["kernel"])
         if m:
             out.append(dict(block=int(m.group(1)), storage=m.group(2) == "1", min_blocks=int(m.group(3)),
                             **{k: rec.get(k) for k in ("registers", "stack_bytes", "spill_store_bytes",
                                                        "spill_load_bytes")}))
     return out
+
+
+def network_kernel_builds(ptxas: list) -> list:
+    """Registers and spills of fused_network.cu's builds, by template
+    arguments (RHS pairs, launch-bound block, blocks an SM, one slot a
+    thread, probe)."""
+    out = []
+    for rec in ptxas:
+        m = re.search(r"fused_network_kernelILi(\d+)ELi(\d+)ELi(\d+)ELb([01])ELb([01])E", rec["kernel"])
+        if m:
+            out.append(dict(rhs=int(m.group(1)), block=int(m.group(2)), min_blocks=int(m.group(3)),
+                            one_slot=m.group(4) == "1", probe=m.group(5) == "1",
+                            **{k: rec.get(k) for k in ("registers", "stack_bytes", "spill_store_bytes",
+                                                       "spill_load_bytes")}))
+    return out
+
+
+def network_packed(branches, n_junctions, settings, batch=None):
+    """The network kernel's packed inputs (``batch`` None: one member) and a
+    function that launches them in a given build (the C entry's test hook;
+    -1 chooses by the member count as the wrappers do) and returns the raw
+    outputs.  Counts no launch."""
+    from flowsim_tpu_torch.ops import network as net
+    from flowsim_tpu_torch.ops.cuda import fused_network as fnet
+
+    M = 1 if batch is None else net.check_batch(branches, batch, settings)
+    topo = fnet.check_supported(branches if batch is None else net.member_branches(branches, batch, 0),
+                                n_junctions, settings)
+    p = fnet._pack(branches, n_junctions, settings, batch or [dict() for _ in branches], M, None, None, None, topo)
+    return topo, lambda build_id=-1: fnet._launch(p, M, len(branches), n_junctions, settings, topo,
+                                                  build_id=build_id)
+
+
+def network_launch(branches, n_junctions, settings, batch=None, build_id=-1):
+    """What ``fused_simulate_network`` (``batch`` None) or
+    ``fused_simulate_network_batched`` launches, with the kernel build forced
+    instead of chosen by the member count.  Counts no launch."""
+    from flowsim_tpu_torch.ops.cuda import fused_network as fnet
+
+    topo, launch = network_packed(branches, n_junctions, settings, batch)
+    out = fnet._output(launch(build_id), topo, None)
+    return out if batch is not None else fnet._single(out)
 
 
 def prs_out_member(out, m):
@@ -1032,6 +1118,52 @@ def check_network_kernels(dev) -> dict:
         raise AssertionError("the diverging member converged at every level")
     out["diverged_member"] = dict(bad_member=bad, bad_member_levels_converged=int(od.converged[bad].sum()),
                                   sound_members_bit_identical=True)
+    # (vii-b) the same 8 members (and the diverging one) repeated until the
+    # batch is larger than the card holds in the fast build: through the
+    # wrapper the C entry then takes the residency build itself, which must
+    # give every copy the bits of the single launches
+    topo = net.stacked_topology(br385)
+    shape = (len(br385) * topo.n_max, len(br385), nj, topo.m_rhs)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    fast = fnet.chosen_build(1, *shape)
+    copies = fnet.resident_blocks(*shape, fast) * sms // 8 + 1
+    chosen = fnet.chosen_build(8 * copies, *shape)
+    if chosen != fnet.RESIDENCY_BUILD:
+        raise AssertionError(f"{8 * copies} members take build {chosen}, not a residency build")
+
+    def tiled(batch):
+        t = scale_inflows(br385, np.tile(np.linspace(0.8, 1.2, 8), copies))
+        t[0]["geo"] = dataclasses.replace(expand_members(br385[0].geo, 8 * copies),
+                                          n_main=batch[0]["geo"].n_main.repeat(copies, 1))
+        return t
+
+    ort = fnet.fused_simulate_network_batched(br385, nj, s385, tiled(batch8))
+    for m in range(8 * copies):
+        compare_networks(network_member(ort, m), singles[m % 8], f"residency build member {m}", exact=True)
+    del ort
+    ord_ = fnet.fused_simulate_network_batched(br385, nj, s385, tiled(batch_d))
+    for m in range(8 * copies):
+        if m % 8 != bad:
+            compare_networks(network_member(ord_, m), singles[m % 8], f"residency build: sound member {m}",
+                             exact=True)
+    if not torch.equal(ord_.converged, od.converged.repeat(copies, 1)):
+        raise AssertionError("residency build: the converged flags differ from the fast build's")
+    del ord_
+    out["residency_build_bit_identity_8x385"] = dict(
+        members=8 * copies, distinct_members=8, levels=s385.n_time_levels, fast_build=fast, chosen_build=chosen,
+        fast_build_holds=fnet.resident_blocks(*shape, fast) * sms,
+        sound_members_beside_diverged_ones_bit_identical=True)
+    # (vii-c) the latency build against the loop build: the tributary (385
+    # levels) and the basin at levels=4 (25 levels), bits and counts
+    b4, n4, s4 = basin.build(levels=4, sim_hours=6, device=dev)
+    lat = {}
+    for name, (b, j, st) in (("tributary_385", (br385, nj, s385)), ("basin_levels4_25", (b4, n4, s4))):
+        o_loop = network_launch(b, j, st, build_id=fnet.LOOP_BUILD)
+        o_lat = network_launch(b, j, st, build_id=fnet.LATENCY_BUILD)
+        lat[name] = dict(compare_networks(o_lat, o_loop, f"{name}: latency vs loop build", exact=True),
+                         wrapper_build=fnet.chosen_build(1, len(b) * net.stacked_topology(b).n_max, len(b), j,
+                                                         net.stacked_topology(b).m_rhs))
+    out["latency_vs_loop_build"] = lat
 
     # (viii) what the kernel refuses reaches the caller by name
     b_ext = [dataclasses.replace(br[0], ds=br[2].ds)]
@@ -1064,6 +1196,58 @@ def check_network_kernels(dev) -> dict:
         else:
             raise AssertionError(f"the network kernel accepted {name}")
     out["refuses"] = refused
+    return out
+
+
+def probe_record(cycles: dict, clock_khz: int, iterations: int, launch_ms: float) -> dict:
+    """Microseconds per Newton iteration of each probe phase (cycles at the
+    SM clock the device reports), and their sum against the launch's time
+    by CUDA events."""
+    us = {ph: c / clock_khz * 1e3 / iterations for ph, c in cycles.items()}
+    total_ms = sum(cycles.values()) / clock_khz
+    return dict(us_per_iteration=us, us_per_iteration_sum=sum(us.values()), iterations=iterations,
+                cycles=cycles, clock_khz=clock_khz, probe_ms=total_ms, launch_ms=launch_ms,
+                probe_ms_over_launch_ms=total_ms / launch_ms)
+
+
+def drive_probe(dev, tributary_builds=(0, 1)) -> dict:
+    """The probe builds inside an iteration: kernel 5 on the tributary (385
+    levels; each of ``tributary_builds``: 0 the loop build, 1 the latency
+    build) and on the basin at levels=5 (the loop build: 403 slots), kernel 1
+    on the flagship.  Each probe launch must give the production launch's
+    bits; the production launch is timed by CUDA events (no launch counted)."""
+    from flowsim_tpu_torch.models import basin, gerd_tributary
+    from flowsim_tpu_torch.models.gerd_roseires import model
+    from flowsim_tpu_torch.ops.cuda import fused_network as fnet
+    from flowsim_tpu_torch.ops.cuda import fused_newton
+
+    out = {}
+    br, nj, sset, _ = gerd_tributary.build(device=dev)
+    b5, n5, s5 = basin.build(levels=5, device=dev)
+    for name, (b, j, st), builds in (("tributary", (br, nj, sset), tributary_builds),
+                                     ("basin_levels5", (b5, n5, s5), (0,))):
+        topo, launch = network_packed(b, j, st)
+        rec = {}
+        for bid in builds:
+            prod = fnet._single(fnet._output(launch(bid), topo, None))
+            ms = time_cuda(lambda: launch(bid), reps=3, warmup=1)
+            probed, cycles, clock = fnet.fused_simulate_network_probe(b, j, st, build_id=bid)
+            compare_networks(probed, prod, f"probe of {name}, build {bid}", exact=True)
+            rec[{0: "loop_build", 1: "latency_build"}[bid]] = dict(
+                probe_record(cycles, clock, int(prod.iterations.sum()), ms), bit_identical_to_production=True)
+        out[name] = dict(branches=len(b), junctions=j, slots=len(b) * topo.n_max, n_time_levels=st.n_time_levels,
+                         rhs_pairs=topo.m_rhs, **rec)
+    solver, channel = model.build(device=dev)
+    args = (channel.geometry, solver.us_params, solver.ds_params, solver.h0, solver.Q0,
+            solver.settings(tolerance=1e-6, max_iter=100))
+    prod = fused_newton._launch_one(*args, None)
+    ms = time_cuda(lambda: fused_newton._launch_one(*args, None), reps=3, warmup=1)
+    probed, cycles, clock = fused_newton.fused_simulate_probe(*args)
+    if not all(torch.equal(getattr(probed, f), getattr(prod, f)) for f in ("depth", "flow", "error", "iterations")):
+        raise AssertionError("probe of the flagship: not the production launch's bits")
+    out["flagship_kernel1"] = dict(n_nodes=int(solver.h0.shape[0]), n_time_levels=args[5].n_time_levels,
+                                   **probe_record(cycles, clock, int(prod.iterations.sum()), ms),
+                                   bit_identical_to_production=True)
     return out
 
 
@@ -1180,6 +1364,7 @@ def drive_network_ensemble(dev, launches: dict, batched_plain_ms: float) -> tupl
     (levels=4, 25 levels) at BASIN_MC_MEMBERS members."""
     from flowsim_tpu_torch.models import basin, gerd_tributary
     from flowsim_tpu_torch.ops import network as net
+    from flowsim_tpu_torch.ops.cuda import build
     from flowsim_tpu_torch.ops.cuda import fused_network as fnet
     from flowsim_tpu_torch.parallel import ensemble
 
@@ -1207,10 +1392,37 @@ def drive_network_ensemble(dev, launches: dict, batched_plain_ms: float) -> tupl
     per_member = out.iterations.sum(dim=1)
     iters = int(per_member.sum())
     peak = out.flow[2][:, :, -1].max(dim=1).values.cpu().numpy()
-    del out
     runs = [wall_ms(lambda: ensemble.batched_simulate_network(br, nj, sset, batch, engine="fused"))
             for _ in range(3)]
     ms = statistics.median(runs)
+    # every build of the kernel on the same members, in turns with the
+    # wrapper's choice: what the occupancy calculator puts on an SM, what
+    # ptxas gave each, its time, and its bits (equal to the main run's)
+    topo = net.stacked_topology(br)
+    shape = (len(br) * topo.n_max, len(br), nj, topo.m_rhs)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    chosen = fnet.chosen_build(M, *shape)
+    _, launch = network_packed(br, nj, sset, batch)
+    ptxas = [k for k in network_kernel_builds(build.build_info["fused_network"]["ptxas"])
+             if k["rhs"] == topo.m_rhs and not k["probe"]]
+    # (launch-bound block, blocks an SM, one slot a thread) of each build at these slots
+    bounds = {fnet.LOOP_BUILD: (256, 1, False), fnet.LATENCY_BUILD: (256, 1, True),
+              fnet.RESIDENCY_BUILD: (192 if shape[0] <= 192 else 256, 2, True)}
+    builds = dict(multiprocessors=sms, chosen_build=chosen)
+    for name, bid in (("loop_build", fnet.LOOP_BUILD), ("latency_build", fnet.LATENCY_BUILD),
+                      ("residency_build", fnet.RESIDENCY_BUILD)):
+        bps = fnet.resident_blocks(*shape, bid)
+        ob = fnet._output(launch(bid), topo, None)
+        for a, b in zip((*ob.depth, *ob.flow, ob.junction_stage, ob.error, ob.iterations),
+                        (*out.depth, *out.flow, out.junction_stage, out.error, out.iterations)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"network ensemble: the {name} disagrees with the wrapper's build")
+        del ob
+        blk, minb, one = bounds[bid]
+        builds[name] = dict(build_id=bid, resident_blocks_per_sm=bps, members_in_flight=bps * sms,
+                            ms=time_cuda(lambda: launch(bid), reps=2, warmup=1),
+                            ptxas=[k for k in ptxas if (k["block"], k["min_blocks"], k["one_slot"]) == (blk, minb, one)])
+    del out
     scaling = []
     for members in NETWORK_SCALING_MEMBERS:
         part = [{k: trees_slice(v, members) for k, v in d.items()} for d in batch]
@@ -1225,20 +1437,39 @@ def drive_network_ensemble(dev, launches: dict, batched_plain_ms: float) -> tupl
     out4 = fnet.fused_simulate_network_batched(b4, n4, s4, batch4)
     if not bool(out4.converged.all()):
         raise AssertionError("basin ensemble: a member did not converge")
-    ms4 = wall_ms(lambda: fnet.fused_simulate_network_batched(b4, n4, s4, batch4))
+    ms4_runs = [wall_ms(lambda: fnet.fused_simulate_network_batched(b4, n4, s4, batch4)) for _ in range(3)]
+    ms4 = statistics.median(ms4_runs)
+    topo4 = net.stacked_topology(b4)
+    shape4 = (len(b4) * topo4.n_max, len(b4), n4, topo4.m_rhs)
+    # the kernel alone (CUDA events, packing outside) in each build, in
+    # turns: the loop build is the one-block-an-SM design the others replace
+    builds4 = dict(chosen_build=fnet.chosen_build(BASIN_MC_MEMBERS, *shape4))
+    _, launch4 = network_packed(b4, n4, s4, batch4)
+    for name, bid in (("loop_build", fnet.LOOP_BUILD), ("latency_build", fnet.LATENCY_BUILD),
+                      ("residency_build", fnet.RESIDENCY_BUILD)):
+        o4 = fnet._output(launch4(bid), topo4, None)
+        if not all(torch.equal(a, b) for a, b in zip((*o4.depth, o4.error), (*out4.depth, out4.error))):
+            raise AssertionError(f"basin ensemble: the {name} disagrees with the wrapper's build")
+        builds4[name] = dict(resident_blocks_per_sm=fnet.resident_blocks(*shape4, bid), ms_runs=[])
+    for _ in range(3):
+        for name, bid in (("loop_build", fnet.LOOP_BUILD), ("latency_build", fnet.LATENCY_BUILD),
+                          ("residency_build", fnet.RESIDENCY_BUILD)):
+            builds4[name]["ms_runs"].append(time_cuda(lambda: launch4(bid), reps=5, warmup=1))
     fnet.batched_launch_count = launches["fused_simulate_network_batched"]
     record = dict(
         members=M, branches=len(br), n_time_levels=nt, store="full", launches=1, all_converged=True,
         first_launch_ms=first_ms, wall_ms_runs=runs, wall_ms_median=ms, network_simulations_per_s=M / (ms * 1e-3),
+        builds=builds,
         total_newton_iterations=iters, min_max_iterations_per_member=[int(per_member.min()), int(per_member.max())],
         newton_node_updates_per_s=sum(int(b.h0.shape[0]) for b in br) * iters / (ms * 1e-3),
         output_bytes=fnet.output_bytes(M, len(br), 61, nj, nt),
         outlet_peak_flow_quantiles_5_50_95=np.percentile(peak, [5, 50, 95]).tolist(), scaling=scaling,
         basin_levels4=dict(members=BASIN_MC_MEMBERS, branches=len(b4), n_time_levels=s4.n_time_levels, ms=ms4,
+                           ms_runs=ms4_runs, builds=builds4,
                            network_simulations_per_s=BASIN_MC_MEMBERS / (ms4 * 1e-3),
                            total_newton_iterations=int(out4.iterations.sum())))
     table = dict(ms=ms, plain_ms=batched_plain_ms, members=M, iterations=iters, n_time_levels=nt,
-                 n_branches=len(br), topo=net.stacked_topology(br), n_junctions=nj)
+                 n_branches=len(br), topo=net.stacked_topology(br), n_junctions=nj, builds=builds)
     return record, table
 
 
@@ -1503,6 +1734,10 @@ def main() -> int:
          fused_simulate_batched=batched_checks, tiled_spike_solve=check_tiled_kernel(dev),
          storage=check_storage_kernels(dev), network=network_checks)
 
+    # -- phase 3b: inside an iteration, the probe builds -----------------------
+    t0 = time.perf_counter()
+    emit("probe", **drive_probe(dev), seconds=time.perf_counter() - t0)
+
     # -- phases 4 + 5: the main path, through the user entry points ----------
     # counts to 0, drive, read the counts; comparisons and timings come after
     solver, channel = model.build(device=dev)                       # N=121, nt=385, theta=0.6
@@ -1544,7 +1779,9 @@ def main() -> int:
     cmp_args = (c_cut.geometry, s_cut.us_params, s_cut.ds_params, s_cut.h0, s_cut.Q0,
                 s_cut.settings(tolerance=1e-6, max_iter=100))
     out_cmp = fused_simulate(*cmp_args)
-    fused_cmp_ms = statistics.median(wall_ms(lambda: fused_simulate(*cmp_args)) for _ in range(3))
+    fused_cmp_host_ms = statistics.median(wall_ms(lambda: fused_simulate(*cmp_args)) for _ in range(3))
+    k1_events = kernel1_times(dev)
+    fused_cmp_ms = k1_events["flagship_97_levels"]["ms"]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out_plain = fused_simulate_plain(*cmp_args)
@@ -1556,7 +1793,8 @@ def main() -> int:
          launches=launches["fused_simulate"], launch_ms_runs=fused_ms_runs, launch_ms_median=fused_ms,
          us_per_newton_iteration=fused_ms * 1e3 / total_it,
          newton_node_updates_per_s=n * total_it / (fused_ms * 1e-3),
-         plain_compared_levels=cmp_levels, plain_ms=plain_ms, **cmp)
+         plain_compared_levels=cmp_levels, plain_ms=plain_ms, plain_compared_levels_host_ms=fused_cmp_host_ms,
+         kernel_alone_cuda_events=k1_events, **cmp)
 
     # phase 5: the plain engine with the CUDA PCR solve against the "pcr" run
     ref_solver, _ = model.build(device=dev, sim_duration=3600 * 24, linear_solver="pcr")
@@ -1874,7 +2112,10 @@ def main() -> int:
              replaces="flowsim_tpu/ops/pallas/fused_network.py:1904",
              launches=launches["fused_simulate_network_batched"], max_abs_err=batched4["max_abs_dh"],
              ms=ens_table["ms"], plain_ms=ens_table["plain_ms"], bound_ms=eb, bound_by=eby, library_ms=None,
-             ms_over_bound=ens_table["ms"] / eb,
+             ms_over_bound=ens_table["ms"] / eb, chosen_build=ens_table["builds"]["chosen_build"],
+             build_ms={k: v["ms"] for k, v in ens_table["builds"].items() if isinstance(v, dict)},
+             resident_blocks_per_sm={k: v["resident_blocks_per_sm"] for k, v in ens_table["builds"].items()
+                                     if isinstance(v, dict)},
              shape=dict(members=ens_table["members"], branches=ens_table["n_branches"],
                         n_time_levels=ens_table["n_time_levels"], newton_iterations=ens_table["iterations"],
                         store="full"),
@@ -1899,5 +2140,18 @@ def main() -> int:
     return 0
 
 
+def kernel1_main() -> int:
+    """``--kernel1-times``: the card's name and power limit, then kernel 1's
+    times (:func:`kernel1_times`) as the last line."""
+    if not torch.cuda.is_available():
+        print("chip_smoke.py needs a CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
+        return 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    print(json.dumps({"kernel1_times": kernel1_times(torch.device("cuda"))}), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(kernel1_main() if sys.argv[1:] == ["--kernel1-times"] else main())

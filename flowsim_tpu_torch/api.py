@@ -272,7 +272,7 @@ class Channel:
         if kinds != {"TrapezoidStation"}:
             raise NotImplementedError(
                 "irregular (lookup-table) sections are not ported yet "
-                "(ROADMAP.md Queue 2: TableGeometry)")
+                "(ROADMAP.md Queue 1 item 8: TableGeometry; its kernel half Queue 2A items 1-2)")
         self.geometry = geom.interpolate_stations(
             self.input_stations,
             self.xs_chainages,

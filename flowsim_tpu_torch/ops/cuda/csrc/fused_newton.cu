@@ -92,7 +92,9 @@
 // spilling); 10 240 flagship members, nodes 0 and N-1 stored, about 2.0 s
 // in the residency build against 2.84 s in the register build.  With a
 // lumped storage the boundary thread's bisection sets the pace: the 21-node
-// reservoir example runs at 40 us per iteration (3.5 ms for 87).  PERF.md
+// reservoir example runs at 40 us per iteration (3.5 ms for 87).  The probe
+// build splits the flagship's 14.9 us: closures 8.5, assembly 1.7, seven
+// sweeps 4.2, back-substitution and update 0.2, level start 0.4.  PERF.md
 // keeps the readings.
 //
 // C interface (ctypes): launches on the given stream, allocates nothing,
@@ -113,8 +115,9 @@ constexpr int SMEM_DOUBLES_PER_NODE = 2 * COMP + 2;
 // register allocation is what it was before storage existed.  MINB is the
 // number of blocks an SM must hold: the launch bound caps the registers at
 // 65536 / (MINB * BLOCK), and what does not fit spills.  No build changes an
-// operation, so every build gives the same bits.
-template <int BLOCK, bool STORAGE, int MINB>
+// operation, so every build gives the same bits.  PROBE: the probe build
+// (reach_common.cuh, Probe) of the flagship's shape.
+template <int BLOCK, bool STORAGE, int MINB, bool PROBE>
 __global__ void __launch_bounds__(BLOCK, MINB)
 fused_simulate_kernel(const double* __restrict__ geo_all,   // [S, 13, N]
                       const double* __restrict__ h0_all,    // [S, N]
@@ -136,7 +139,8 @@ fused_simulate_kernel(const double* __restrict__ geo_all,   // [S, 13, N]
                       int n, int nt, int max_iter, int sweeps,
                       int us_kind, int ds_kind, int rc_kind, int us_rc_kind,
                       int store_boundaries, int qlat_mode,
-                      int us_sflags, int ds_sflags, int us_nv, int us_na, int ds_nv, int ds_na) {
+                      int us_sflags, int ds_sflags, int us_nv, int us_na, int ds_nv, int ds_na,
+                      long long* __restrict__ probe_out) {  // [PH_COUNT] cycles (probe build)
     extern __shared__ double smem[];
     __shared__ double warp_part[2][32];
 
@@ -206,6 +210,8 @@ fused_simulate_kernel(const double* __restrict__ geo_all,   // [S, 13, N]
     double gate_cooldown = 0.0, gate_prev_time = -1.0;
     if (first) { iters[0] = 0; errs[0] = 0.0; conv[0] = 1; gate[0] = gate_open; }
     __syncthreads();
+    Probe<PROBE> probe;
+    probe.start();
     double gate_stage = ds_bc.bed_level + sh[n - 1];
 
     const double th_dx = theta / dx;
@@ -241,6 +247,7 @@ fused_simulate_kernel(const double* __restrict__ geo_all,   // [S, 13, N]
             buf1[0 * n + i] = Ap0; buf1[1 * n + i] = Sep0; buf1[2 * n + i] = Q2Ap0;
         }
         __syncthreads();
+        probe.mark(PH_LEVEL);
         if (cell) {
             hp1 = sh[i + 1]; Qp1 = sQ[i + 1];
             Ap1 = buf1[0 * n + i + 1]; Sep1 = buf1[1 * n + i + 1]; Q2Ap1 = buf1[2 * n + i + 1];
@@ -254,6 +261,7 @@ fused_simulate_kernel(const double* __restrict__ geo_all,   // [S, 13, N]
             qavg = CAVG(qc[i + 1], qc[i], qp[i + 1], qp[i]);
         }
         __syncthreads();
+        probe.mark(PH_PREV);
 
         // -- while-Newton: the condition is on the residual computed BEFORE
         //    the update, and that iteration's update is still applied
@@ -275,6 +283,7 @@ fused_simulate_kernel(const double* __restrict__ geo_all,   // [S, 13, N]
                 buf1[6 * n + i] = QA0;
             }
             __syncthreads();
+            probe.mark(PH_CLOSURES);
 
             double sq = 0.0;
             if (node) {
@@ -373,6 +382,7 @@ fused_simulate_kernel(const double* __restrict__ geo_all,   // [S, 13, N]
             // the barrier inside also publishes buf0 and retires every read
             // of the exchange area before the first sweep overwrites it
             err = sqrt(block_sum(sq, warp_part[it & 1]));
+            probe.mark(PH_ASSEMBLY);
 
             double* src = buf0;
             double* dst = buf1;
@@ -380,6 +390,7 @@ fused_simulate_kernel(const double* __restrict__ geo_all,   // [S, 13, N]
             for (int sw = 0; sw < sweeps; ++sw, stride *= 2) {
                 if (node) pcr::sweep_node<1>(src, dst, n, n, stride, i);
                 __syncthreads();
+                probe.mark(PH_SWEEPS);
                 double* t = src; src = dst; dst = t;
             }
             if (node) {
@@ -390,6 +401,7 @@ fused_simulate_kernel(const double* __restrict__ geo_all,   // [S, 13, N]
             }
             ++it;
             __syncthreads();
+            probe.mark(PH_BACKSOLVE);   // back-substitution and update
         }
 
         STORE_LEVEL(k)
@@ -401,6 +413,7 @@ fused_simulate_kernel(const double* __restrict__ geo_all,   // [S, 13, N]
             gate[k] = gate_open;
         }
     }
+    probe.write(probe_out);
 #undef TDIFF
 #undef SDIFF
 #undef CAVG
@@ -408,13 +421,13 @@ fused_simulate_kernel(const double* __restrict__ geo_all,   // [S, 13, N]
 }
 
 // Every build has one signature: a build is a kernel pointer.
-using KernelFn = decltype(&fused_simulate_kernel<128, false, 1>);
+using KernelFn = decltype(&fused_simulate_kernel<128, false, 1, false>);
 
 enum { REGISTER_BUILD = 0, RESIDENCY_BUILD = 1 };
 
 template <int BLOCK>
 KernelFn register_build(bool storage) {
-    return storage ? &fused_simulate_kernel<BLOCK, true, 1> : &fused_simulate_kernel<BLOCK, false, 1>;
+    return storage ? &fused_simulate_kernel<BLOCK, true, 1, false> : &fused_simulate_kernel<BLOCK, false, 1, false>;
 }
 
 // REGISTER_BUILD: the block size alone is the launch bound, so a small reach
@@ -424,7 +437,7 @@ KernelFn register_build(bool storage) {
 int pick_build(int n, bool storage, int build, KernelFn* out) {
     if (build == RESIDENCY_BUILD) {
         if (n > 128 || storage) return (int)cudaErrorInvalidValue;
-        *out = &fused_simulate_kernel<128, false, 4>;
+        *out = &fused_simulate_kernel<128, false, 4, false>;
         return 0;
     }
     if (build != REGISTER_BUILD) return (int)cudaErrorInvalidValue;
@@ -468,35 +481,32 @@ int choose_build(int n_sims, int n, bool storage, KernelFn* out) {
 }  // namespace
 
 extern "C" int flowsim_fused_param_count() { return P_COUNT; }
+extern "C" int flowsim_fused_probe_phases() { return PH_COUNT; }
 extern "C" int flowsim_fused_smem_bytes_per_node() { return SMEM_DOUBLES_PER_NODE * (int)sizeof(double); }
 extern "C" int flowsim_fused_storage_param_count() { return SP_COUNT; }
 
-// One block per simulation: n_sims = 1 is fused_simulate, n_sims = B is
-// fused_simulate_batched.  Every array carries a leading n_sims axis (the
-// storage tables only when stab_stride != 0).  st: the six storage ints
-// {us flags, ds flags, us nv, us na, ds nv, ds na}; stage [n_sims, nt, 2] is
-// filled with NaN by the caller.  build: -1 chooses by the member count
-// (choose_build: what the wrappers do); 0 or 1 forces a build, so that
-// chip_smoke.py can time the two against each other.
-extern "C" int flowsim_fused_simulate(const void* geo, const void* h0, const void* Q0,
-                                      const void* us, const void* ds, const void* par,
-                                      const void* qlat, void* depth, void* flow, void* iters,
-                                      void* err, void* conv, void* gate, void* stage,
-                                      const void* stor, const void* stab, long long stab_stride,
-                                      int n_sims, int n,
-                                      int nt, int max_iter, int us_kind, int ds_kind,
-                                      int rc_kind, int us_rc_kind, int store_boundaries,
-                                      int qlat_mode, const int* st, int build, void* stream) {
+#define FLOWSIM_SIM_PARAMS const void* geo, const void* h0, const void* Q0, const void* us, const void* ds, \
+        const void* par, const void* qlat, void* depth, void* flow, void* iters, void* err, void* conv, \
+        void* gate, void* stage, const void* stor, const void* stab, long long stab_stride, int n_sims, int n, \
+        int nt, int max_iter, int us_kind, int ds_kind, int rc_kind, int us_rc_kind, int store_boundaries, \
+        int qlat_mode, const int* st
+#define FLOWSIM_SIM_ARGS geo, h0, Q0, us, ds, par, qlat, depth, flow, iters, err, conv, gate, stage, stor, stab, \
+        stab_stride, n_sims, n, nt, max_iter, us_kind, ds_kind, rc_kind, us_rc_kind, store_boundaries, qlat_mode, st
+
+namespace {
+
+int check_args(int n_sims, int n, int nt, int qlat_mode, const void* qlat, const int* st, const void* stage,
+               const void* stor, const void* stab) {
     if (n_sims <= 0 || n <= 1 || n > 1024 || nt <= 0) return (int)cudaErrorInvalidValue;
     if (qlat_mode < QLAT_NONE || qlat_mode > QLAT_LEVELS) return (int)cudaErrorInvalidValue;
     if ((qlat_mode != QLAT_NONE) != (qlat != nullptr)) return (int)cudaErrorInvalidValue;
     if (st == nullptr || stage == nullptr) return (int)cudaErrorInvalidValue;
     if (((st[0] | st[1]) & ST_ON) && stor == nullptr) return (int)cudaErrorInvalidValue;
     if (((st[0] | st[1]) & ST_AREA_CURVE) && stab == nullptr) return (int)cudaErrorInvalidValue;
-    const bool storage = (st[0] | st[1]) & ST_ON;
-    KernelFn fn;
-    const int rc = build < 0 ? choose_build(n_sims, n, storage, &fn) : pick_build(n, storage, build, &fn);
-    if (rc) return rc;
+    return 0;
+}
+
+int run(KernelFn fn, long long* probe, FLOWSIM_SIM_PARAMS, void* stream) {
     const size_t smem = smem_for(n);
     cudaError_t e = cudaFuncSetAttribute((const void*)fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
@@ -506,9 +516,44 @@ extern "C" int flowsim_fused_simulate(const void* geo, const void* h0, const voi
         (const double*)ds, (const double*)par, (const double*)qlat, (double*)depth, (double*)flow,
         (int*)iters, (double*)err, (int*)conv, (double*)gate, (double*)stage, (const double*)stor,
         (const double*)stab, stab_stride, n, nt, max_iter, pcr::n_sweeps(n), us_kind, ds_kind,
-        rc_kind, us_rc_kind, store_boundaries, qlat_mode, st[0], st[1], st[2], st[3], st[4], st[5]);
+        rc_kind, us_rc_kind, store_boundaries, qlat_mode, st[0], st[1], st[2], st[3], st[4], st[5], probe);
     return (int)cudaGetLastError();
 }
+
+}  // namespace
+
+// One block per simulation: n_sims = 1 is fused_simulate, n_sims = B is
+// fused_simulate_batched.  Every array carries a leading n_sims axis (the
+// storage tables only when stab_stride != 0).  st: the six storage ints
+// {us flags, ds flags, us nv, us na, ds nv, ds na}; stage [n_sims, nt, 2] is
+// filled with NaN by the caller.  build: -1 chooses by the member count
+// (choose_build: what the wrappers do); 0 or 1 forces a build, so that
+// chip_smoke.py can time the two against each other.
+extern "C" int flowsim_fused_simulate(FLOWSIM_SIM_PARAMS, int build, void* stream) {
+    int rc = check_args(n_sims, n, nt, qlat_mode, qlat, st, stage, stor, stab);
+    if (rc) return rc;
+    const bool storage = (st[0] | st[1]) & ST_ON;
+    KernelFn fn;
+    rc = build < 0 ? choose_build(n_sims, n, storage, &fn) : pick_build(n, storage, build, &fn);
+    return rc ? rc : run(fn, nullptr, FLOWSIM_SIM_ARGS, stream);
+}
+
+// The probe build of the register build at N <= 128 without storage (the
+// flagship's shape): the same launch, and the cycles of each phase of thread
+// 0 of block 0 summed over the run into probe [PH_COUNT] (device memory);
+// clock_khz receives the SM clock rate the cycles count at.
+extern "C" int flowsim_fused_simulate_probe(FLOWSIM_SIM_PARAMS, void* probe, int* clock_khz, void* stream) {
+    int rc = check_args(n_sims, n, nt, qlat_mode, qlat, st, stage, stor, stab);
+    if (rc) return rc;
+    if (n > 128 || ((st[0] | st[1]) & ST_ON) || probe == nullptr || clock_khz == nullptr)
+        return (int)cudaErrorInvalidValue;
+    int dev;
+    if ((rc = (int)cudaGetDevice(&dev))) return rc;
+    if ((rc = (int)cudaDeviceGetAttribute(clock_khz, cudaDevAttrClockRate, dev))) return rc;
+    return run(&fused_simulate_kernel<128, false, 1, true>, (long long*)probe, FLOWSIM_SIM_ARGS, stream);
+}
+#undef FLOWSIM_SIM_PARAMS
+#undef FLOWSIM_SIM_ARGS
 
 // Resident blocks per SM of a build (0: the register build, 1: the residency
 // build) at N nodes, from the CUDA occupancy calculator.

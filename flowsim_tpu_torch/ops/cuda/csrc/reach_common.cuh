@@ -391,6 +391,51 @@ __device__ __forceinline__ void boundary_row(const Bc& bc, const Rating& rat, co
     }
 }
 
+// -- the probe build ----------------------------------------------------------
+
+// Phases of an iteration, as the barriers the kernels already have bound
+// them: level start (pad re-sync, gate, the level's records), previous-level
+// state, closures, assembly with the end and junction rows and the residual
+// norm, the PCR sweeps, back-substitution, the Schur rows, the J x J solve and
+// the update.  A kernel without a barrier between two of them adds the first
+// to the next (kernel 1: back-substitution and update are one phase).
+enum { PH_LEVEL, PH_PREV, PH_CLOSURES, PH_ASSEMBLY, PH_SWEEPS, PH_BACKSOLVE, PH_SCHUR, PH_JSOLVE,
+       PH_UPDATE, PH_COUNT };
+
+// In a probe build (ON = true) thread 0 of block 0 reads the SM clock right
+// after each barrier and adds the cycles since its previous reading to the
+// phase that barrier ends; it adds no barrier and changes no operation of the
+// kernel, so the probe build gives the production build's bits.  With ON =
+// false nothing of it is compiled.
+template <bool ON>
+struct Probe {
+    long long t = 0, cycles[PH_COUNT] = {};
+    bool active = false;
+    __device__ __forceinline__ void start() {
+        if constexpr (ON) {
+            active = threadIdx.x == 0 && blockIdx.x == 0;
+            if (active) t = clock64();
+        }
+    }
+    __device__ __forceinline__ void mark(int phase) {
+        if constexpr (ON) {
+            if (active) {
+                const long long now = clock64();
+                cycles[phase] += now - t;
+                t = now;
+            }
+        }
+    }
+    __device__ __forceinline__ void write(long long* out) {
+        if constexpr (ON) {
+            if (active) {
+#pragma unroll
+                for (int p = 0; p < PH_COUNT; ++p) out[p] = cycles[p];
+            }
+        }
+    }
+};
+
 // Sum over the block; every thread returns the same value (each adds the same
 // per-warp partials in the same order), so a loop condition on it is uniform.
 __device__ __forceinline__ double block_sum(double v, double* warp_part) {

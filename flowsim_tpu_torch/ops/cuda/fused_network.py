@@ -16,6 +16,26 @@ The external ends of a branch are packed with the single-reach kernel's own
 functions (``fused_newton.pack_params`` / ``pack_storage`` /
 ``pack_geometry``), one parameter block per branch.
 
+The kernel has builds of one arithmetic, and the C entry picks one by the
+network's size and the member count (every build gives the same bits):
+
+* the **latency build** (:data:`LATENCY_BUILD`) when the slots (branches x
+  padded nodes) fit one block of at most 256 threads — the tributary, the
+  basin up to levels=4 — and the batch fits the card at once in it: a
+  thread owns one slot and keeps its geometry, indices, previous-level state
+  and closures in registers, for the shortest chain an iteration;
+* the **loop build** (:data:`LOOP_BUILD`) for a network with more slots than
+  threads (the basin at levels=5): the threads loop over the slots;
+* the **residency build** (:data:`RESIDENCY_BUILD`) for a network whose slots
+  fit the block and a batch larger than the card holds at once in the latency
+  build: the latency build's form with its registers capped so that two
+  blocks share an SM.  A network with more slots than threads has none.
+
+A forced ``build_id`` (``_launch``) is a test hook: ``chip_smoke.py`` times
+the builds against each other and holds them to the same bits.
+:func:`fused_simulate_network_probe` runs the probe build, which sums the
+cycles of each phase of an iteration.
+
 On CUDA tensors the wrappers launch the kernel or raise.  The plain versions —
 :func:`fused_simulate_network_plain` (the stacked engine with the ``"pcr"``
 solve) and :func:`fused_simulate_network_batched_plain` (a member loop over
@@ -38,6 +58,12 @@ from flowsim_tpu_torch.ops.cuda import fused_newton as fn
 from flowsim_tpu_torch.ops.cuda.fused_newton import FusedUnsupported
 
 MAX_THREADS = 256
+# the kernel's builds (csrc/fused_network.cu).  The C entry chooses by the
+# member count; a forced build id is a test hook for chip_smoke.py, which
+# times the builds against each other and holds them to the same bits.
+LOOP_BUILD, LATENCY_BUILD, RESIDENCY_BUILD = 0, 1, 2
+CHOOSE_BUILD = -1
+PROBE_PHASES = fn.PROBE_PHASES
 # dynamic shared memory a block may take: 227 KB less the static reduction area
 SMEM_LIMIT = 232448 - 512
 _BI_COUNT = 14
@@ -72,16 +98,25 @@ def _lib():
     lib = build.load("fused_network")
     f = lib.flowsim_fused_network
     if not getattr(f, "_typed", False):
-        f.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong] + [ctypes.c_void_p] * 12
-                      + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+        head = [ctypes.c_void_p] * 8 + [ctypes.c_longlong] + [ctypes.c_void_p] * 12
+        f.argtypes = head + [ctypes.c_int] * 9 + [ctypes.c_void_p]
         f.restype = ctypes.c_int
-        for aux in (lib.flowsim_fused_network_branch_ints, lib.flowsim_fused_network_junction_params):
+        lib.flowsim_fused_network_probe.argtypes = head + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)] \
+            + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        lib.flowsim_fused_network_probe.restype = ctypes.c_int
+        lib.flowsim_fused_network_resident_blocks.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+        lib.flowsim_fused_network_resident_blocks.restype = ctypes.c_int
+        lib.flowsim_fused_network_chosen_build.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+        lib.flowsim_fused_network_chosen_build.restype = ctypes.c_int
+        for aux in (lib.flowsim_fused_network_branch_ints, lib.flowsim_fused_network_junction_params,
+                    lib.flowsim_fused_network_probe_phases):
             aux.argtypes = []
             aux.restype = ctypes.c_int
         lib.flowsim_fused_network_smem_bytes.argtypes = [ctypes.c_int] * 4
         lib.flowsim_fused_network_smem_bytes.restype = ctypes.c_longlong
         if lib.flowsim_fused_network_branch_ints() != _BI_COUNT \
-                or lib.flowsim_fused_network_junction_params() != _JP_COUNT:
+                or lib.flowsim_fused_network_junction_params() != _JP_COUNT \
+                or lib.flowsim_fused_network_probe_phases() != len(PROBE_PHASES):
             raise RuntimeError("parameter layout of fused_network.cu and its wrapper differ")
         if any(lib.flowsim_fused_network_smem_bytes(*a) != smem_bytes(*a) for a in ((183, 3, 1, 2), (403, 31, 15, 3))):
             raise RuntimeError("shared-memory layout of fused_network.cu and its wrapper differ")
@@ -279,33 +314,74 @@ def _pack(branches, J, settings, batch, M, Y0, junction_area, junction_rating, t
                 stab=stab_all, stride=stride, Y0=Y0_all.contiguous(), bint=bint.to(dev), jpar=jpar, jtab=jtab)
 
 
-def _launch(p, M, B, J, settings, topo):
-    """One launch on a grid of M blocks; returns the raw output tensors."""
+def _outputs(M, B, J, nt, n_max, dev):
+    """The kernel's output tensors (stage NaN-filled: levels and ends without
+    storage keep NaN)."""
+    f64 = dict(dtype=torch.float64, device=dev)
+    return dict(depth=torch.empty((M, nt, B, n_max), **f64), flow=torch.empty((M, nt, B, n_max), **f64),
+                Y=torch.empty((M, nt, J), **f64), iters=torch.empty((M, nt), dtype=torch.int32, device=dev),
+                err=torch.empty((M, nt), **f64), conv=torch.empty((M, nt), dtype=torch.int32, device=dev),
+                stage=torch.full((M, nt, B, 2), float("nan"), **f64), gate=torch.empty((M, nt, B, 2), **f64))
+
+
+def _c_args(p, o):
+    """The pointer arguments of the C entries, in their order."""
+    qlat = p["qlat"]
+    return (p["geo"].data_ptr(), p["h0"].data_ptr(), p["Q0"].data_ptr(), p["ser"].data_ptr(), p["par"].data_ptr(),
+            None if qlat is None else qlat.data_ptr(), p["stor"].data_ptr(), p["stab"].data_ptr(), p["stride"],
+            p["Y0"].data_ptr(), p["bint"].data_ptr(), p["jpar"].data_ptr(), p["jtab"].data_ptr(),
+            *(o[k].data_ptr() for k in ("depth", "flow", "Y", "iters", "err", "conv", "stage", "gate")))
+
+
+def _launch(p, M, B, J, settings, topo, build_id=CHOOSE_BUILD, probe=None):
+    """One launch on a grid of M blocks; returns the raw output tensors.
+    ``build_id``: :data:`CHOOSE_BUILD` (the C entry chooses by the member
+    count) or a forced build, a test hook.  ``probe``: ``None``, or an int64
+    tensor ``[len(PROBE_PHASES)]`` on the device that the probe build of the
+    loop or latency build fills with cycles; the SM clock in kHz is then
+    returned after the outputs."""
     nt, Nmax = settings.n_time_levels, topo.n_max
     dev = p["geo"].device
-    f64 = dict(dtype=torch.float64, device=dev)
     with torch.cuda.device(dev):
         check_output_memory(M, B, Nmax, J, nt, torch.cuda.mem_get_info()[0])
-        depth = torch.empty((M, nt, B, Nmax), **f64)
-        flow = torch.empty((M, nt, B, Nmax), **f64)
-        Y = torch.empty((M, nt, J), **f64)
-        err = torch.empty((M, nt), **f64)
-        iters = torch.empty((M, nt), dtype=torch.int32, device=dev)
-        conv = torch.empty((M, nt), dtype=torch.int32, device=dev)
-        stage = torch.full((M, nt, B, 2), float("nan"), **f64)
-        gate = torch.empty((M, nt, B, 2), **f64)
+        o = _outputs(M, B, J, nt, Nmax, dev)
         qlat = p["qlat"]
-        qmode = 0 if qlat is None else qlat.dim() - 2
-        rc = _lib().flowsim_fused_network(
-            p["geo"].data_ptr(), p["h0"].data_ptr(), p["Q0"].data_ptr(), p["ser"].data_ptr(),
-            p["par"].data_ptr(), None if qlat is None else qlat.data_ptr(), p["stor"].data_ptr(),
-            p["stab"].data_ptr(), p["stride"], p["Y0"].data_ptr(), p["bint"].data_ptr(), p["jpar"].data_ptr(),
-            p["jtab"].data_ptr(), depth.data_ptr(), flow.data_ptr(), Y.data_ptr(), iters.data_ptr(),
-            err.data_ptr(), conv.data_ptr(), stage.data_ptr(), gate.data_ptr(), M, B, Nmax, J, nt,
-            int(settings.max_iter), topo.m_rhs, qmode, torch.cuda.current_stream().cuda_stream)
+        tail = (M, B, Nmax, J, nt, int(settings.max_iter), topo.m_rhs, 0 if qlat is None else qlat.dim() - 2,
+                build_id, torch.cuda.current_stream().cuda_stream)
+        lib = _lib()
+        clock = ctypes.c_int(0)
+        if probe is None:
+            rc = lib.flowsim_fused_network(*_c_args(p, o), *tail)
+        else:
+            rc = lib.flowsim_fused_network_probe(*_c_args(p, o), probe.data_ptr(), ctypes.byref(clock), *tail)
     if rc != 0:
         raise RuntimeError(f"fused_simulate_network launch failed: CUDA error {rc}")
-    return depth, flow, Y, iters, err, conv, stage, gate
+    raw = tuple(o[k] for k in ("depth", "flow", "Y", "iters", "err", "conv", "stage", "gate"))
+    return raw if probe is None else (*raw, clock.value)
+
+
+def chosen_build(n_members: int, slots: int, n_branches: int, n_junctions: int, m_rhs: int) -> int:
+    """The build the C entry takes for ``n_members`` members of a network of
+    this shape (the loop build for more slots than threads; else the latency
+    build, or the residency build for a batch larger than the card holds in
+    the latency one)."""
+    out = ctypes.c_int(0)
+    rc = _lib().flowsim_fused_network_chosen_build(n_members, slots, n_branches, n_junctions, m_rhs,
+                                                   ctypes.byref(out))
+    if rc != 0:
+        raise RuntimeError(f"build choice failed: CUDA error {rc}")
+    return out.value
+
+
+def resident_blocks(slots: int, n_branches: int, n_junctions: int, m_rhs: int, build_id: int) -> int:
+    """Blocks of a kernel build that one SM holds for this network's block
+    size and shared memory, from the CUDA occupancy calculator."""
+    out = ctypes.c_int(0)
+    rc = _lib().flowsim_fused_network_resident_blocks(slots, n_branches, n_junctions, m_rhs, build_id,
+                                                      ctypes.byref(out))
+    if rc != 0:
+        raise RuntimeError(f"occupancy query failed: CUDA error {rc}")
+    return out.value
 
 
 def _output(raw, topo, junction_rating) -> net.NetworkOutput:
@@ -347,9 +423,33 @@ def fused_simulate_network(branches, n_junctions, settings, Y0=None, junction_ar
               junction_rating, topo)
     raw = _launch(p, 1, len(branches), n_junctions, settings, topo)
     launch_count += 1
-    out = _output(raw, topo, junction_rating)
+    return _single(_output(raw, topo, junction_rating))
+
+
+def _single(out) -> net.NetworkOutput:
+    """Member 0 of a NetworkOutput with a leading member axis."""
     return net.NetworkOutput(depth=tuple(d[0] for d in out.depth), flow=tuple(f[0] for f in out.flow),
                              **{k: getattr(out, k)[0] for k in net.NetworkOutput._fields if k not in ("depth", "flow")})
+
+
+def fused_simulate_network_probe(branches, n_junctions, settings, build_id=LATENCY_BUILD, Y0=None,
+                                 junction_area=None, junction_rating=None):
+    """A measurement hook: one launch of the probe build of the loop
+    (:data:`LOOP_BUILD`) or latency (:data:`LATENCY_BUILD`) build on CUDA
+    tensors.  Returns ``(NetworkOutput, cycles, clock_khz)``: ``cycles`` maps
+    each of :data:`PROBE_PHASES` to the SM cycles thread 0 spent in it over
+    the run, ``clock_khz`` is the clock rate they count at.  Its outputs are
+    the production build's bits.  Counts no launch."""
+    net._check_supported(branches, n_junctions, settings)
+    net.check_junction_inputs(junction_area, junction_rating, n_junctions)
+    topo = check_supported(branches, n_junctions, settings, junction_rating)
+    dev = branches[0].h0.device
+    _check_device(branches, dev, "fused_simulate_network_probe")
+    p = _pack(branches, n_junctions, settings, [dict() for _ in branches], 1, Y0, junction_area,
+              junction_rating, topo)
+    probe = torch.zeros(len(PROBE_PHASES), dtype=torch.int64, device=dev)
+    *raw, clock_khz = _launch(p, 1, len(branches), n_junctions, settings, topo, build_id=build_id, probe=probe)
+    return _single(_output(raw, topo, junction_rating)), dict(zip(PROBE_PHASES, probe.tolist())), clock_khz
 
 
 def fused_simulate_network_batched_plain(branches, n_junctions, settings, batch, Y0=None,

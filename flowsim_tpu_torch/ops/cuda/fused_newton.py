@@ -53,6 +53,12 @@ _STORAGE_RC_KINDS = ("polynomial", "blended_poly")
 # card holds in it takes the residency build (four blocks an SM, not two)
 REGISTER_BUILD, RESIDENCY_BUILD = 0, 1
 
+# phases of an iteration in the probe build, as the network kernel's
+# (ops/cuda/fused_network.py): kernel 1 has no junction, and its
+# back-substitution and update are one phase
+PROBE_PHASES = ("level_start", "previous_level", "closures", "assembly", "sweeps", "back_substitution",
+                "schur_rows", "junction_solve", "update")
+
 # number of kernel launches made by fused_simulate (not by its plain version)
 launch_count = 0
 
@@ -120,17 +126,21 @@ def _lib():
     lib = build.load("fused_newton")
     fn = lib.flowsim_fused_simulate
     if not getattr(fn, "_typed", False):
-        fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_longlong] + [ctypes.c_int] * 10
-                       + [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_void_p])
+        head = [ctypes.c_void_p] * 16 + [ctypes.c_longlong] + [ctypes.c_int] * 10 + [ctypes.POINTER(ctypes.c_int)]
+        fn.argtypes = head + [ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        lib.flowsim_fused_simulate_probe.argtypes = head + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
+                                                            ctypes.c_void_p]
+        lib.flowsim_fused_simulate_probe.restype = ctypes.c_int
         lib.flowsim_fused_resident_blocks.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
         lib.flowsim_fused_resident_blocks.restype = ctypes.c_int
         for aux in (lib.flowsim_fused_param_count, lib.flowsim_fused_smem_bytes_per_node,
-                    lib.flowsim_fused_storage_param_count):
+                    lib.flowsim_fused_storage_param_count, lib.flowsim_fused_probe_phases):
             aux.argtypes = []
             aux.restype = ctypes.c_int
         if lib.flowsim_fused_param_count() != _N_PARAMS \
-                or lib.flowsim_fused_storage_param_count() != _N_STORAGE_PARAMS:
+                or lib.flowsim_fused_storage_param_count() != _N_STORAGE_PARAMS \
+                or lib.flowsim_fused_probe_phases() != len(PROBE_PHASES):
             raise RuntimeError("parameter layout of fused_newton.cu and its wrapper differ")
         if lib.flowsim_fused_smem_bytes_per_node() != SMEM_BYTES_PER_NODE:
             raise RuntimeError("shared-memory layout of fused_newton.cu and its wrapper differ")
@@ -267,7 +277,7 @@ def resident_blocks(n: int, storage: bool = False, build_id: int = REGISTER_BUIL
 
 
 def launch(geo_rows, h0, Q0, us_series, ds_series, par, qlat, settings, us_kind, ds_kind,
-           rc_kind, us_rc_kind, storage, build_id: int = -1) -> prs.SimOutput:
+           rc_kind, us_rc_kind, storage, build_id: int = -1, probe=None) -> prs.SimOutput:
     """Launch the kernel on a grid of ``S = geo_rows.shape[0]`` blocks, one per
     simulation.  Every input carries the leading ``S`` axis and lies on one
     CUDA device; ``qlat`` is ``None``, ``[S, N]`` or ``[S, nt, N]``;
@@ -275,8 +285,11 @@ def launch(geo_rows, h0, Q0, us_series, ds_series, par, qlat, settings, us_kind,
     tables ``[S, L]`` or shared ``[L]``).  ``build_id`` -1 lets the kernel's C
     entry choose its build by the member count (what every wrapper does);
     :data:`REGISTER_BUILD` or :data:`RESIDENCY_BUILD` forces one, for timing
-    the two against each other.  Returns a SimOutput whose fields carry the
-    ``S`` axis."""
+    the two against each other.  ``probe``: ``None``, or ``(cycles, clock)``
+    — an int64 tensor ``[len(PROBE_PHASES)]`` on the device and a
+    ``ctypes.c_int`` — for one launch of the probe build (N <= 128, no
+    storage), which fills them with the cycles of each phase and the SM
+    clock in kHz.  Returns a SimOutput whose fields carry the ``S`` axis."""
     dev = geo_rows.device
     n_sims, _, n = geo_rows.shape
     nt = settings.n_time_levels
@@ -309,15 +322,19 @@ def launch(geo_rows, h0, Q0, us_series, ds_series, par, qlat, settings, us_kind,
         iters = torch.empty((n_sims, nt), dtype=torch.int32, device=dev)
         conv = torch.empty((n_sims, nt), dtype=torch.int32, device=dev)
         stage = torch.full((n_sims, nt, 2), float("nan"), **f64)
-        rc = _lib().flowsim_fused_simulate(
-            geo_rows.data_ptr(), h0.data_ptr(), Q0.data_ptr(), us_series.data_ptr(),
-            ds_series.data_ptr(), par.data_ptr(), None if qlat is None else qlat.data_ptr(),
-            depth.data_ptr(), flow.data_ptr(), iters.data_ptr(), error.data_ptr(),
-            conv.data_ptr(), gate.data_ptr(), stage.data_ptr(), stor.data_ptr(), stab.data_ptr(),
-            tab_len if stab.dim() == 2 else 0, n_sims, n, nt, int(settings.max_iter),
-            _BC_KINDS[us_kind], _BC_KINDS[ds_kind], rc_kind, us_rc_kind,
-            int(settings.store == "boundaries"), 0 if qlat is None else qlat.dim() - 1,
-            (ctypes.c_int * 6)(*st_ints), build_id, torch.cuda.current_stream().cuda_stream)
+        args = (geo_rows.data_ptr(), h0.data_ptr(), Q0.data_ptr(), us_series.data_ptr(),
+                ds_series.data_ptr(), par.data_ptr(), None if qlat is None else qlat.data_ptr(),
+                depth.data_ptr(), flow.data_ptr(), iters.data_ptr(), error.data_ptr(),
+                conv.data_ptr(), gate.data_ptr(), stage.data_ptr(), stor.data_ptr(), stab.data_ptr(),
+                tab_len if stab.dim() == 2 else 0, n_sims, n, nt, int(settings.max_iter),
+                _BC_KINDS[us_kind], _BC_KINDS[ds_kind], rc_kind, us_rc_kind,
+                int(settings.store == "boundaries"), 0 if qlat is None else qlat.dim() - 1,
+                (ctypes.c_int * 6)(*st_ints))
+        stream = torch.cuda.current_stream().cuda_stream
+        if probe is None:
+            rc = _lib().flowsim_fused_simulate(*args, build_id, stream)
+        else:
+            rc = _lib().flowsim_fused_simulate_probe(*args, probe[0].data_ptr(), ctypes.byref(probe[1]), stream)
     if rc != 0:
         raise RuntimeError(f"fused_simulate launch failed: CUDA error {rc}")
     return prs.SimOutput(
@@ -345,6 +362,34 @@ def check_device(dev, h0, Q0, geo, us_bc, ds_bc, name):
         raise ValueError("geometry, boundaries and state must lie on the same device")
 
 
+def _launch_one(geo, us_bc, ds_bc, h0, Q0, settings, qlat, probe=None) -> prs.SimOutput:
+    """One simulation on a grid of one block."""
+    nt, dev = settings.n_time_levels, h0.device
+    par, rc_kind, us_rc_kind = pack_params(us_bc, ds_bc, settings)
+    stor, stab, st_ints = pack_storage(us_bc, ds_bc)
+    one = lambda t: t.unsqueeze(0).contiguous()
+    out = launch(one(pack_geometry(geo)), one(h0), one(Q0), one(series(us_bc, nt, dev)),
+                 one(series(ds_bc, nt, dev)), one(par), None if qlat is None else one(qlat),
+                 settings, us_bc.kind, ds_bc.kind, rc_kind, us_rc_kind,
+                 (one(stor), stab, st_ints), probe=probe)
+    return prs.SimOutput(*(None if f is None else f[0] for f in out))
+
+
+def fused_simulate_probe(geo, us_bc, ds_bc, h0, Q0, settings):
+    """A measurement hook: one launch of the probe build (N <= 128, no
+    storage) on CUDA tensors.  Returns ``(SimOutput, cycles, clock_khz)``:
+    ``cycles`` maps each of :data:`PROBE_PHASES` to the SM cycles thread 0
+    spent in it over the run.  Its outputs are the production build's bits.
+    Counts no launch."""
+    _check_supported(geo, us_bc, ds_bc, settings)
+    prs.check_shapes(geo, us_bc, ds_bc, h0, Q0, settings, None)
+    check_device(h0.device, h0, Q0, geo, us_bc, ds_bc, "fused_simulate_probe")
+    cycles = torch.zeros(len(PROBE_PHASES), dtype=torch.int64, device=h0.device)
+    clock = ctypes.c_int(0)
+    out = _launch_one(geo, us_bc, ds_bc, h0, Q0, settings, None, probe=(cycles, clock))
+    return out, dict(zip(PROBE_PHASES, cycles.tolist())), clock.value
+
+
 def fused_simulate(geo, us_bc, ds_bc, h0, Q0, settings, lateral_inflow=None) -> prs.SimOutput:
     """Run the full simulation in one CUDA kernel launch; returns a SimOutput.
 
@@ -360,14 +405,6 @@ def fused_simulate(geo, us_bc, ds_bc, h0, Q0, settings, lateral_inflow=None) -> 
     if dev.type == "cpu":
         return fused_simulate_plain(geo, us_bc, ds_bc, h0, Q0, settings, qlat)
     check_device(dev, h0, Q0, geo, us_bc, ds_bc, "fused_simulate")
-
-    nt = settings.n_time_levels
-    par, rc_kind, us_rc_kind = pack_params(us_bc, ds_bc, settings)
-    stor, stab, st_ints = pack_storage(us_bc, ds_bc)
-    one = lambda t: t.unsqueeze(0).contiguous()
-    out = launch(one(pack_geometry(geo)), one(h0), one(Q0), one(series(us_bc, nt, dev)),
-                 one(series(ds_bc, nt, dev)), one(par), None if qlat is None else one(qlat),
-                 settings, us_bc.kind, ds_bc.kind, rc_kind, us_rc_kind,
-                 (one(stor), stab, st_ints))
+    out = _launch_one(geo, us_bc, ds_bc, h0, Q0, settings, qlat)
     launch_count += 1
-    return prs.SimOutput(*(None if f is None else f[0] for f in out))
+    return out

@@ -298,6 +298,7 @@ def simulate_network(branches: List[BranchDef], n_junctions: int, settings: prs.
         raise ValueError(f"unknown engine {engine!r}; expected one of {ENGINES}")
     prs.check_settings(settings)
     _check_supported(branches, n_junctions, settings)
+    settings = prs.guard_f32_floor(settings)
     check_junction_inputs(junction_area, junction_rating, n_junctions)
     if engine == "fused":
         from flowsim_tpu_torch.ops.cuda.fused_network import fused_simulate_network

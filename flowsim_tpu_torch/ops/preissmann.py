@@ -36,6 +36,8 @@ Pallas kernel.
 
 from __future__ import annotations
 
+import dataclasses
+import warnings
 from dataclasses import dataclass
 from typing import NamedTuple, Optional
 
@@ -95,12 +97,33 @@ def check_settings(settings: PreissmannSettings) -> None:
     """Reject the options of the JAX package that are not ported yet."""
     if settings.newton != "while":
         raise NotImplementedError(
-            f"newton={settings.newton!r} is not ported yet (ROADMAP.md Queue 2); "
+            f"newton={settings.newton!r} is not ported yet (ROADMAP.md Queue 1 item 9); "
             "only the while-Newton is")
     if settings.store not in STORES:
         raise ValueError(f"unknown store {settings.store!r}; expected one of {STORES}")
     if settings.linear_solver not in tridiag.METHODS:
         raise ValueError(f"unknown linear_solver {settings.linear_solver!r}")
+
+
+def guard_f32_floor(settings: PreissmannSettings) -> PreissmannSettings:
+    """Guard the f32 inner-solve precision floor.
+
+    ``linear_solver="pcr_f32"`` computes Newton increments in f32: below
+    tolerance ~1e-6 the increment noise can stall the residual or NaN a
+    Monte-Carlo member.  For tighter tolerances this warns and returns the
+    settings with the f64 ``"pcr"`` solve; the solver entry points call it
+    before dispatch.
+    """
+    if settings.linear_solver == "pcr_f32" and settings.tolerance < 1e-6:
+        warnings.warn(
+            "tolerance < 1e-6 with linear_solver='pcr_f32' sits below the "
+            "f32 inner-solve precision floor (docs/PRECISION.md): the "
+            "residual can stall or a Monte-Carlo member can NaN. "
+            "Auto-selecting the f64 'pcr' solve; set linear_solver='pcr' "
+            "explicitly (or tolerance >= 1e-6) to silence this.",
+            stacklevel=3)
+        return dataclasses.replace(settings, linear_solver="pcr")
+    return settings
 
 
 def _node_section(st: sec.SectionState, i) -> bnd.NodeSection:
@@ -331,6 +354,7 @@ def simulate(geo, us_bc, ds_bc, h0, Q0, settings: PreissmannSettings, lateral_in
     ``lateral_inflow``: optional distributed source q [m^2/s], per node [N]
     (constant in time) or per level and node [nt, N] (see
     :func:`cell_stencil`)."""
+    settings = guard_f32_floor(settings)
     check_settings(settings)
     lateral_inflow = as_lateral_inflow(lateral_inflow, h0)
     check_shapes(geo, us_bc, ds_bc, h0, Q0, settings, lateral_inflow)

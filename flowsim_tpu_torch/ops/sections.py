@@ -144,7 +144,7 @@ def section_state(g: TrapezoidGeometry, depth) -> SectionState:
     if not isinstance(g, TrapezoidGeometry):
         raise NotImplementedError(
             "only TrapezoidGeometry is ported; the lookup-table geometry is a "
-            "later slice (ROADMAP.md Queue 2)")
+            "later slice (ROADMAP.md Queue 1 item 8; its kernel half Queue 2A items 1-2)")
     r = _trapz_regimes(g, depth)
     A, P, R, T = _properties(g, r)
     zero = torch.zeros_like(A)

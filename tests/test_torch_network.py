@@ -266,6 +266,20 @@ def test_batched_network_is_member_by_member(small_tributary, engine):
     assert not torch.equal(out.flow[2][0], out.flow[2][1])
 
 
+def test_stacked_network_switches_pcr_f32_below_the_floor(small_tributary):
+    """simulate_network with "pcr_f32" at tol 1e-8 warns and runs the "pcr"
+    solve, as the JAX package's guard does."""
+    br, nj, sset, _ = small_tributary
+    tight = dataclasses.replace(sset, tolerance=1e-8)
+    with pytest.warns(UserWarning, match="pcr_f32"):
+        out = net.simulate_network(br, nj, dataclasses.replace(tight, linear_solver="pcr_f32"), engine="stacked")
+    ref = net.simulate_network(br, nj, dataclasses.replace(tight, linear_solver="pcr"), engine="stacked")
+    assert out.iterations.tolist() == ref.iterations.tolist()
+    for a, b in zip((*out.depth, *out.flow, out.junction_stage, out.error),
+                    (*ref.depth, *ref.flow, ref.junction_stage, ref.error)):
+        assert torch.equal(a, b)
+
+
 def test_batched_network_validates_its_inputs(small_tributary):
     br, nj, sset, _ = small_tributary
     us2 = _scaled(br[0].us, [1.0, 1.1])

@@ -2,6 +2,7 @@
 24-level run of the flagship with both inner solvers; float64 on the CPU."""
 
 import dataclasses
+import warnings
 
 import jax.numpy as jnp
 import numpy as np
@@ -130,3 +131,65 @@ def test_settings_and_shape_checks(pair):
     with pytest.raises(ValueError, match="h0/Q0"):
         prs.simulate(c.geometry, s.us_params, s.ds_params, s.h0[:-1], s.Q0[:-1], pset)
     assert not hasattr(pset, "out_memory") and not hasattr(pset, "fused_unroll")
+
+
+def test_f32_floor_guard_matches_jax():
+    """The port's guard_f32_floor against the JAX one: the same warning and
+    the same switched settings below tol 1e-6, pass-through at 1e-6."""
+    for tol in (1e-8, 1e-7):
+        jset = jprs.PreissmannSettings(0.6, 3600.0, 1000.0, 4, tol, 30, linear_solver="pcr_f32")
+        pset = prs.PreissmannSettings(0.6, 3600.0, 1000.0, 4, tol, 30, linear_solver="pcr_f32")
+        with pytest.warns(UserWarning) as jw:
+            jout = jprs.guard_f32_floor(jset)
+        with pytest.warns(UserWarning) as pw:
+            out = prs.guard_f32_floor(pset)
+        assert [str(w.message) for w in pw] == [str(w.message) for w in jw]
+        assert dataclasses.asdict(out) == {k: v for k, v in dataclasses.asdict(jout).items()
+                                           if k in dataclasses.asdict(out)}
+        assert out.linear_solver == jout.linear_solver == "pcr"
+    for solver, tol in (("pcr_f32", 1e-6), ("pcr", 1e-8)):
+        pset = prs.PreissmannSettings(0.6, 3600.0, 1000.0, 4, tol, 30, linear_solver=solver)
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            assert prs.guard_f32_floor(pset) is pset
+
+
+def test_simulate_switches_pcr_f32_below_the_floor(pair):
+    """A 3-level flagship run with "pcr_f32" at tol 1e-8 warns and is the
+    "pcr" run, bit for bit."""
+    js, jc, s, c = pair
+    us = dataclasses.replace(s.us_params, target_series=s.us_params.target_series[:4])
+    pset = dataclasses.replace(s.settings(1e-8, 100), n_time_levels=4)
+    args = (c.geometry, us, s.ds_params, s.h0, s.Q0)
+    with pytest.warns(UserWarning, match="pcr_f32"):
+        out = prs.simulate(*args, dataclasses.replace(pset, linear_solver="pcr_f32"))
+    ref = prs.simulate(*args, dataclasses.replace(pset, linear_solver="pcr"))
+    assert out.iterations.tolist() == ref.iterations.tolist() and int(out.iterations.sum()) > 3
+    for field in ("depth", "flow", "error"):
+        assert torch.equal(getattr(out, field), getattr(ref, field)), field
+
+
+def test_not_ported_messages_name_their_queue_items(pair):
+    js, jc, s, c = pair
+    args = (c.geometry, s.us_params, s.ds_params, s.h0, s.Q0)
+    for newton in ("fixed", "implicit"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+            prs.simulate(*args, dataclasses.replace(s.settings(1e-6, 100), newton=newton))
+
+    class TableGeometry:  # anything that is not a TrapezoidGeometry
+        n_nodes = 3
+
+    from flowsim_tpu_torch.ops import sections as sec
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        sec.section_state(TableGeometry(), torch.ones(3, dtype=torch.float64))
+
+    class IrregularStation:  # a station that is not a TrapezoidStation
+        pass
+
+    flow = api.Hydrograph(function=lambda t: 100.0)
+    channel = api.Channel(api.Boundary(condition="flow_hydrograph", hydrograph=flow, chainage=0.0, bed_level=1.0),
+                          api.Boundary(condition="normal_depth", chainage=2000.0, bed_level=0.0),
+                          initial_flow=100.0)
+    channel.set_cross_sections([0.0, 2000.0], [IrregularStation(), IrregularStation()])
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        channel.build_geometry(3, device="cpu")

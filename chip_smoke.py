@@ -35,9 +35,11 @@ six main paths through the user entry points:
   one launch of the batched network kernel, and each build of the network
   kernel timed on the same members.
 
-Before the main path, the ``probe`` phase splits a Newton iteration of
-kernels 5 and 1 into its phases (the probe builds: thread 0 reads the SM
-clock after each barrier) and prints microseconds per iteration for each.
+Before the main path, the ``kernels`` phase also holds kernel 1's latency
+build (the one a single launch takes) against its register build bit for
+bit, and the ``probe`` phase splits a Newton iteration of kernels 5 and 1 into
+its phases (the probe builds, of every build of kernel 1: thread 0 reads the
+SM clock after each barrier) and prints microseconds per iteration for each.
 
 Any mismatch raises: no phase's failure is caught.  Every phase prints one
 JSON line; the last line of the output is
@@ -47,8 +49,11 @@ JSON line; the last line of the output is
 Without a CUDA device the script exits non-zero and prints no result.
 
 ``python3 chip_smoke.py --kernel1-times`` times kernel 1 alone (CUDA events,
-packing outside: the flagship at 97 and 385 levels, the reservoir example)
-and prints only that, to compare two checkouts on one card.
+packing outside: the flagship at 97 and 385 levels in every build, the
+reservoir example), ``--kernel2-times`` kernel 2 alone (the host's path and
+the device alone), ``--sass`` counts each kernel's float64 instructions
+between barriers; with any of them the script prints only those, to compare
+two checkouts on one card.
 """
 
 from __future__ import annotations
@@ -168,38 +173,238 @@ def wall_ms(fn) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
-def kernel1_times(dev, rounds: int = 5) -> dict:
+def pack_one(geo, us, ds, h0, Q0, sset, qlat=None) -> tuple:
+    """``fused_newton.launch``'s arguments for one simulation, packed as
+    ``fused_simulate`` packs them (``qlat``: ``None``, ``[N]`` or ``[nt, N]``)."""
+    from flowsim_tpu_torch.ops.cuda import fused_newton as fn
+
+    nt, dev = sset.n_time_levels, h0.device
+    par, rc_kind, us_rc_kind = fn.pack_params(us, ds, sset)
+    stor, stab, st_ints = fn.pack_storage(us, ds)
+    one = lambda t: t.unsqueeze(0).contiguous()
+    return (one(fn.pack_geometry(geo)), one(h0), one(Q0), one(fn.series(us, nt, dev)),
+            one(fn.series(ds, nt, dev)), one(par), None if qlat is None else one(qlat), sset, us.kind, ds.kind,
+            rc_kind, us_rc_kind, (one(stor), stab, st_ints))
+
+
+SIM_FIELDS = ("depth", "flow", "error", "iterations", "converged", "gate_open")
+
+
+def same_bits(a, b, what: str, fields=SIM_FIELDS) -> None:
+    for f in fields:
+        if not torch.equal(getattr(a, f), getattr(b, f)):
+            raise AssertionError(f"{what}: {f} is not bit-identical")
+
+
+def check_latency_build(dev) -> dict:
+    """Kernel 1's latency build against its register build, bit for bit
+    (depth, flow, error, iterations, converged, gate), on the 385-level
+    flagship, the 25- and 49-level smooth and gated_blend flagships, the
+    13-level flagship with lateral inflow (per node, per level) and
+    store="boundaries", and the 20 km rectangle's eight boundary pairs; and
+    the build the C entry chooses (``fused_newton.chosen_build``) at N = 121
+    for one, two and three waves of the card and 10 240 members.  Counts no
+    launch."""
+    from flowsim_tpu_torch import api
+    from flowsim_tpu_torch.models.gerd_roseires import model
+    from flowsim_tpu_torch.ops.cuda import fused_newton as fn
+
+    cases = {}
+    for name, levels, kw in (("flagship_385_levels", 385, {}), ("smooth_25_levels", 25, {}),
+                             ("smooth_49_levels", 49, {}), ("gated_blend_25_levels", 25, dict(smooth=False)),
+                             ("gated_blend_49_levels", 49, dict(smooth=False))):
+        s, c = model.build(device=dev, sim_duration=3600 * (levels - 1), **kw)
+        cases[name] = (c.geometry, s.us_params, s.ds_params, s.h0, s.Q0, s.settings(tolerance=1e-6, max_iter=100))
+    s13, c13 = model.build(device=dev, sim_duration=3600 * 12)
+    rng = np.random.default_rng(7)
+    n13, nt13 = s13.number_of_nodes, s13.number_of_time_levels
+    a13 = (c13.geometry, s13.us_params, s13.ds_params, s13.h0, s13.Q0, s13.settings(tolerance=1e-6, max_iter=100))
+    q_node = torch.tensor(rng.uniform(0.0, 2e-3, n13), dtype=torch.float64, device=dev)
+    q_level = torch.tensor(rng.uniform(0.0, 2e-3, (nt13, n13)), dtype=torch.float64, device=dev)
+    cases["lateral_inflow_per_node_13_levels"] = (*a13, q_node)
+    cases["lateral_inflow_per_level_13_levels"] = (*a13, q_level)
+    cases["store_boundaries_inflow_13_levels"] = (*a13[:5], dataclasses.replace(a13[5], store="boundaries"),
+                                                  q_level)
+    for name in BOUNDARY_CASES:
+        b = build_boundary_case(api, name, device=dev)
+        cases["boundary_" + name] = (b.channel.geometry, b.us_params, b.ds_params, b.h0, b.Q0,
+                                     b.settings(tolerance=1e-8, max_iter=100))
+    out = {}
+    for name, args in cases.items():
+        packed = pack_one(*args)
+        if fn.chosen_build(1, args[3].shape[0]) != fn.LATENCY_BUILD:
+            raise AssertionError(f"{name}: one launch does not take the latency build")
+        lat = fn.launch(*packed, build_id=-1)
+        reg = fn.launch(*packed, build_id=fn.REGISTER_BUILD)
+        same_bits(lat, reg, f"latency vs register build, {name}")
+        if not bool(lat.converged.all()):
+            raise AssertionError(f"{name}: not converged")
+        out[name] = dict(levels=int(lat.iterations.shape[1]), iterations=int(lat.iterations.sum()),
+                         bit_identical=True)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    choices = {n_sims: fn.chosen_build(n_sims, 121)
+               for n_sims in (1, sms, sms + 1, 2 * sms, 2 * sms + 1, ENSEMBLE_MEMBERS)}
+    for n, storage in ((121, True), (129, False), (964, False)):
+        if fn.chosen_build(1, n, storage) != fn.REGISTER_BUILD:
+            raise AssertionError(f"N={n}, storage={storage}: not the register build")
+    return dict(cases=out, chosen_build_at_n121=choices)
+
+
+KERNEL1_BUILD_NAMES = {0: "register_build", 1: "residency_build", 2: "latency_build"}
+
+
+def kernel1_build_ids(fn) -> list:
+    """Kernel 1's builds in this checkout that one simulation of the flagship
+    can take: the register build and, where it has one, the latency build."""
+    return [0] + ([fn.LATENCY_BUILD] if hasattr(fn, "LATENCY_BUILD") else [])
+
+
+def kernel1_builds(fn) -> dict:
+    """The builds of kernel 1 to time, by name: the one the wrapper takes (-1)
+    and each of :func:`kernel1_build_ids` forced."""
+    return dict(chosen=-1, **{KERNEL1_BUILD_NAMES[b]: b for b in kernel1_build_ids(fn)})
+
+
+def kernel1_probe_builds(fn) -> dict:
+    """Kernel 1's builds with a probe build, by the key of the probe phase:
+    ``flagship_kernel1`` the register build, then the latency build."""
+    return {("flagship_kernel1" if b == 0 else "flagship_kernel1_" + KERNEL1_BUILD_NAMES[b]): b
+            for b in kernel1_build_ids(fn)}
+
+
+def kernel1_times(dev, rounds: int = 5, builds: dict | None = None) -> dict:
     """Kernel 1 alone by CUDA events: each case packed once, as
     ``fused_simulate`` packs it, then 5 back-to-back ``fused_newton.launch``
-    calls a reading, the cases in turns: the flagship at 97 and 385 levels
-    and the reservoir example.  ``python3 chip_smoke.py --kernel1-times``
-    prints only this, so that two checkouts can be compared on one card."""
+    calls a reading, the cases and builds (:func:`kernel1_builds`: the one the
+    wrapper takes and each forced one; the reservoir, which has storage, the
+    wrapper's only) in turns: the flagship at 97 and 385 levels and the
+    reservoir example.  ``python3 chip_smoke.py --kernel1-times`` prints only
+    this, so that two checkouts can be compared on one card."""
     from flowsim_tpu_torch.models import example
     from flowsim_tpu_torch.models.gerd_roseires import model
     from flowsim_tpu_torch.ops.cuda import fused_newton as fn
 
-    def packed(geo, us, ds, h0, Q0, sset):
-        nt = sset.n_time_levels
-        par, rc_kind, us_rc_kind = fn.pack_params(us, ds, sset)
-        stor, stab, st_ints = fn.pack_storage(us, ds)
-        one = lambda t: t.unsqueeze(0).contiguous()
-        return (one(fn.pack_geometry(geo)), one(h0), one(Q0), one(fn.series(us, nt, dev)),
-                one(fn.series(ds, nt, dev)), one(par), None, sset, us.kind, ds.kind, rc_kind, us_rc_kind,
-                (one(stor), stab, st_ints))
-
+    builds = kernel1_builds(fn) if builds is None else builds
     cases = {}
     for name, kw in (("flagship_97_levels", dict(sim_duration=3600 * (PLAIN_COMPARED_LEVELS - 1))),
                      ("flagship_385_levels", {})):
         s, c = model.build(device=dev, **kw)
-        cases[name] = packed(c.geometry, s.us_params, s.ds_params, s.h0, s.Q0,
-                             s.settings(tolerance=1e-6, max_iter=100))
+        cases[name] = pack_one(c.geometry, s.us_params, s.ds_params, s.h0, s.Q0,
+                               s.settings(tolerance=1e-6, max_iter=100))
     r, _ = example.build("preissmann", device=dev)
-    cases["reservoir"] = packed(r.channel.geometry, r.us_params, r.ds_params, r.h0, r.Q0, r.settings(1e-4, 100))
-    runs = {k: [] for k in cases}
+    cases["reservoir"] = pack_one(r.channel.geometry, r.us_params, r.ds_params, r.h0, r.Q0, r.settings(1e-4, 100))
+    runs = {(k, b): [] for k in cases for b in builds if k != "reservoir" or b == "chosen"}
     for _ in range(rounds):
-        for k, a in cases.items():
-            runs[k].append(time_cuda(lambda: fn.launch(*a), reps=5, warmup=1))
-    return {k: dict(ms=statistics.median(v), ms_runs=v) for k, v in runs.items()}
+        for (k, b) in runs:
+            runs[(k, b)].append(time_cuda(lambda: fn.launch(*cases[k], build_id=builds[b]), reps=5, warmup=1))
+    out = {k: {} for k in cases}
+    for (k, b), v in runs.items():
+        out[k][b] = dict(ms=statistics.median(v), ms_runs=v)
+    for k, rec in out.items():   # the wrapper's figure at the top of each case
+        rec.update(ms=rec["chosen"]["ms"], ms_runs=rec["chosen"]["ms_runs"])
+    return out
+
+
+def graph_ms(fn, reps: int = 200) -> float:
+    """Device time per call of ``fn`` alone: ``reps`` calls captured in one
+    CUDA graph, the replay timed by CUDA events (least of 3 replays)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    best = math.inf
+    for _ in range(3):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        best = min(best, start.elapsed_time(end) / reps)
+    return best
+
+
+PCR_TIMED_NODES = (121, 512, 1000)
+
+
+def kernel2_times(dev) -> dict:
+    """Kernel 2 alone at N = 121, 512 and 1000 (one seeded system each; 121
+    is the main path's shape): the host path (CUDA events around 200
+    back-to-back ``pcr_solve`` calls, as the kernel table times it) and the
+    device alone (:func:`graph_ms`), for the path the wrapper takes and, where
+    this checkout has the ``path`` hook, each path forced.  ``python3
+    chip_smoke.py --kernel2-times`` prints only this, to compare two
+    checkouts."""
+    from flowsim_tpu_torch.ops.cuda import pcr_kernel
+
+    paths = {"chosen": None}
+    if hasattr(pcr_kernel, "PATH_CARRIED"):
+        paths.update(node_path=pcr_kernel.PATH_NODE, carried_path=pcr_kernel.PATH_CARRIED)
+    carried_max = getattr(pcr_kernel, "CARRIED_MAX_N", 0)
+    out = {}
+    for n in PCR_TIMED_NODES:
+        L, D, U, b = random_system(n, seed=n, device=dev)
+        rec = {}
+        for name, path in paths.items():
+            if name == "carried_path" and n > carried_max:
+                continue
+            call = (lambda: pcr_kernel.pcr_solve(L, D, U, b)) if path is None \
+                else (lambda: pcr_kernel.pcr_solve(L, D, U, b, path=path))
+            rec[name] = dict(host_path_ms=time_cuda(call, reps=200), device_alone_ms=graph_ms(call))
+        out[f"n_{n}"] = rec
+    return out
+
+
+SASS_OPS = ("DFMA", "DMUL", "DADD", "DSETP", "DMNMX", "MUFU.RCP64H", "MUFU.RSQ64H", "CALL", "SHFL", "BAR")
+
+
+def sass_counts(names=("fused_newton", "pcr_kernel"), out_dir="build/sass") -> dict:
+    """Float64 instructions of each kernel in the built libraries, from
+    ``cuobjdump -sass``: per kernel the totals of :data:`SASS_OPS` and the same
+    counts between consecutive barriers (``BAR.SYNC``) in program order, so
+    that the closures, the assembly and one sweep can be read apart.  The
+    dumps go to ``out_dir``."""
+    import os
+    from flowsim_tpu_torch.ops.cuda import build
+
+    os.makedirs(out_dir, exist_ok=True)
+    tool = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    op_re = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z0-9_.]+)")
+    out = {}
+    for name in names:
+        build.load(name)
+        lib_path = build.build_info[name]["path"]
+        text = subprocess.run([tool, "-sass", lib_path], check=True, capture_output=True, text=True).stdout
+        with open(os.path.join(out_dir, name + ".sass"), "w") as f:
+            f.write(text)
+        kernel, segs = None, None
+        for line in text.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                kernel = m.group(1)
+                segs = [dict.fromkeys(SASS_OPS, 0)]
+                out[kernel] = dict(total=dict.fromkeys(SASS_OPS, 0), segments=segs)
+                continue
+            m = op_re.search(line)
+            if kernel is None or not m:
+                continue
+            op = m.group(1)
+            key = next((k for k in SASS_OPS if op.startswith(k)), None)
+            if key is None:
+                continue
+            out[kernel]["total"][key] += 1
+            segs[-1][key] += 1
+            if key == "BAR" and op.startswith("BAR.SYNC"):
+                segs.append(dict.fromkeys(SASS_OPS, 0))
+    return out
 
 
 def random_system(n: int, seed: int, device):
@@ -495,6 +700,19 @@ def kernel_builds(ptxas: list) -> list:
         m = re.search(r"fused_simulate_kernelILi(\d+)ELb([01])ELi(\d+)ELb0E", rec["kernel"])
         if m:
             out.append(dict(block=int(m.group(1)), storage=m.group(2) == "1", min_blocks=int(m.group(3)),
+                            **{k: rec.get(k) for k in ("registers", "stack_bytes", "spill_store_bytes",
+                                                       "spill_load_bytes")}))
+    return out
+
+
+def latency_kernel_builds(ptxas: list) -> list:
+    """Registers and spills of fused_newton.cu's latency build and its probe
+    build, by template argument (probe)."""
+    out = []
+    for rec in ptxas:
+        m = re.search(r"fused_latency_kernelILb([01])E", rec["kernel"])
+        if m:
+            out.append(dict(probe=m.group(1) == "1",
                             **{k: rec.get(k) for k in ("registers", "stack_bytes", "spill_store_bytes",
                                                        "spill_load_bytes")}))
     return out
@@ -1214,8 +1432,10 @@ def drive_probe(dev, tributary_builds=(0, 1)) -> dict:
     """The probe builds inside an iteration: kernel 5 on the tributary (385
     levels; each of ``tributary_builds``: 0 the loop build, 1 the latency
     build) and on the basin at levels=5 (the loop build: 403 slots), kernel 1
-    on the flagship.  Each probe launch must give the production launch's
-    bits; the production launch is timed by CUDA events (no launch counted)."""
+    on the flagship in each of its builds that has a probe build
+    (:func:`kernel1_probe_builds`).  Each probe launch must give the
+    production launch's bits; the production launch is timed by CUDA events
+    (no launch counted)."""
     from flowsim_tpu_torch.models import basin, gerd_tributary
     from flowsim_tpu_torch.models.gerd_roseires import model
     from flowsim_tpu_torch.ops.cuda import fused_network as fnet
@@ -1240,14 +1460,14 @@ def drive_probe(dev, tributary_builds=(0, 1)) -> dict:
     solver, channel = model.build(device=dev)
     args = (channel.geometry, solver.us_params, solver.ds_params, solver.h0, solver.Q0,
             solver.settings(tolerance=1e-6, max_iter=100))
-    prod = fused_newton._launch_one(*args, None)
-    ms = time_cuda(lambda: fused_newton._launch_one(*args, None), reps=3, warmup=1)
-    probed, cycles, clock = fused_newton.fused_simulate_probe(*args)
-    if not all(torch.equal(getattr(probed, f), getattr(prod, f)) for f in ("depth", "flow", "error", "iterations")):
-        raise AssertionError("probe of the flagship: not the production launch's bits")
-    out["flagship_kernel1"] = dict(n_nodes=int(solver.h0.shape[0]), n_time_levels=args[5].n_time_levels,
-                                   **probe_record(cycles, clock, int(prod.iterations.sum()), ms),
-                                   bit_identical_to_production=True)
+    for key, bid in kernel1_probe_builds(fused_newton).items():
+        prod = fused_newton._launch_one(*args, None, build_id=bid)
+        ms = time_cuda(lambda: fused_newton._launch_one(*args, None, build_id=bid), reps=3, warmup=1)
+        probed, cycles, clock = fused_newton.fused_simulate_probe(*args, build_id=bid)
+        same_bits(probed, prod, f"probe of the flagship, build {bid}")
+        out[key] = dict(build_id=bid, n_nodes=int(solver.h0.shape[0]), n_time_levels=args[5].n_time_levels,
+                        **probe_record(cycles, clock, int(prod.iterations.sum()), ms),
+                        bit_identical_to_production=True)
     return out
 
 
@@ -1555,6 +1775,31 @@ def main() -> int:
     xb = pcr_kernel.pcr_solve(Lb, Db, Ub, bb)
     if float((xb - pcr_kernel.pcr_solve_plain(Lb, Db, Ub, bb)).abs().max()) > 1e-10:
         raise AssertionError("pcr_solve batched disagrees with the plain version")
+    # the carried path (up to CARRIED_MAX_N nodes) against the node path, bit for bit
+    pcr_paths = {}
+    for n in (2, 121, 128, pcr_kernel.CARRIED_MAX_N):
+        sys_n = random_system(n, seed=n, device=dev)
+        x_carried = pcr_kernel.pcr_solve(*sys_n, path=pcr_kernel.PATH_CARRIED)
+        x_node = pcr_kernel.pcr_solve(*sys_n, path=pcr_kernel.PATH_NODE)
+        if not torch.equal(x_carried, x_node):
+            raise AssertionError(f"pcr_solve N={n}: the carried path is not the node path's bits")
+        pcr_paths[f"n_{n}"] = "bit-identical"
+    if not torch.equal(pcr_kernel.pcr_solve(Lb, Db, Ub, bb, path=pcr_kernel.PATH_CARRIED),
+                       pcr_kernel.pcr_solve(Lb, Db, Ub, bb, path=pcr_kernel.PATH_NODE)):
+        raise AssertionError("pcr_solve batched: the carried path is not the node path's bits")
+    pcr_paths["batched_3x121"] = "bit-identical"
+    # the shared-memory attribute belongs to each device: where there is a
+    # second card, both paths above 48 KB launch there after the first card's
+    # launches, with the first card's bits
+    pcr_paths["second_device"] = "not run: one card"
+    if torch.cuda.device_count() > 1:
+        for n in (pcr_kernel.CARRIED_MAX_N, pcr_kernel.SMEM_MAX_N):
+            sys_n = random_system(n, seed=n, device=dev)
+            x0 = pcr_kernel.pcr_solve(*sys_n)
+            x1 = pcr_kernel.pcr_solve(*(t.to("cuda:1") for t in sys_n))
+            if not torch.equal(x1.cpu(), x0.cpu()):
+                raise AssertionError(f"pcr_solve N={n}: the second card's bits differ")
+        pcr_paths["second_device"] = "bit-identical"
     try:
         pcr_kernel.pcr_solve(*random_system(8193, seed=1, device=dev))
     except ValueError as e:
@@ -1684,6 +1929,12 @@ def main() -> int:
                               solver.h0, solver.Q0, sset) for m in range(8)]
     batched_checks["bit_identity_8x385"] = compare_members(out_k, singles, "batched vs single launches",
                                                           exact=True)
+    # the same batch forced into the register build: single launches take the
+    # latency build, so this holds the two builds to one another as kernel 3
+    out_kr = batched_launch(geob, us_b, solver.ds_params, solver.h0, solver.Q0, sset, fused_newton.REGISTER_BUILD)
+    batched_checks["register_build_bit_identity_8x385"] = compare_members(
+        out_kr, singles, "register build batch vs single launches", exact=True)
+    del out_kr
     if not bool(out_k.converged.all()):
         raise AssertionError("bit_identity_8x385: a member did not converge")
     # (iii) one member made to diverge (a roughness of 1e-6) among 7 sound ones
@@ -1729,8 +1980,11 @@ def main() -> int:
     del out_r, out_rd
     t0 = time.perf_counter()
     network_checks = dict(check_network_kernels(dev), seconds=time.perf_counter() - t0)
-    emit("kernels", pcr_solve=pcr_checks, pcr_solve_oversize_raises=oversize,
-         fused_simulate=fused_checks, fused_simulate_refuses=refused,
+    t0 = time.perf_counter()
+    latency_checks = dict(check_latency_build(dev), seconds=time.perf_counter() - t0)
+    emit("kernels", pcr_solve=pcr_checks, pcr_solve_paths=pcr_paths, pcr_solve_oversize_raises=oversize,
+         fused_simulate=fused_checks, fused_simulate_latency_vs_register=latency_checks,
+         fused_simulate_refuses=refused,
          fused_simulate_batched=batched_checks, tiled_spike_solve=check_tiled_kernel(dev),
          storage=check_storage_kernels(dev), network=network_checks)
 
@@ -1763,6 +2017,7 @@ def main() -> int:
         raise AssertionError(f"flagship: {total_it} Newton iterations, expected {FLAGSHIP_ITERATIONS}")
     if launches["fused_simulate"] != 1:
         raise AssertionError(f"fused_simulate launched {launches['fused_simulate']} times, expected 1")
+    flagship_build = KERNEL1_BUILD_NAMES[fused_newton.chosen_build(1, n)]
     pcr_it = int(out_pcr.iterations.sum())
     if launches["pcr_solve"] != pcr_it or pcr_it == 0:
         raise AssertionError(f"pcr_solve launched {launches['pcr_solve']} times for {pcr_it} iterations")
@@ -1788,7 +2043,8 @@ def main() -> int:
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     cmp = compare_runs(out_cmp, out_plain, "flagship fused vs plain")
-    emit("flagship", n_nodes=n, n_time_levels=nt, theta=solver.theta, total_iterations=total_it,
+    emit("flagship", build=flagship_build, n_nodes=n, n_time_levels=nt, theta=solver.theta,
+         total_iterations=total_it,
          max_iterations_in_a_level=int(out.iterations.max()), all_converged=True,
          launches=launches["fused_simulate"], launch_ms_runs=fused_ms_runs, launch_ms_median=fused_ms,
          us_per_newton_iteration=fused_ms * 1e3 / total_it,
@@ -1821,6 +2077,8 @@ def main() -> int:
             float((x - x_lib).abs().max()) > 1e-8 * float(x_lib.abs().max()):
         raise AssertionError("pcr_solve disagrees at the main path's shape")
     pcr_ms = time_cuda(lambda: pcr_kernel.pcr_solve(L, D, U, b), reps=200)
+    pcr_device_ms = graph_ms(lambda: pcr_kernel.pcr_solve(L, D, U, b))
+    k2_times = kernel2_times(dev)
     pcr_plain_ms = time_cuda(lambda: pcr_kernel.pcr_solve_plain(L, D, U, b), reps=10)
     pcr_lib_ms = time_cuda(lambda: torch.linalg.solve(dense, b.reshape(-1)), reps=20)
 
@@ -1923,13 +2181,21 @@ def main() -> int:
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     builds = dict(multiprocessors=sms)
     for name, bid in (("register_build", fused_newton.REGISTER_BUILD),
-                      ("residency_build", fused_newton.RESIDENCY_BUILD)):
+                      ("residency_build", fused_newton.RESIDENCY_BUILD),
+                      ("latency_build", fused_newton.LATENCY_BUILD)):
         bps = fused_newton.resident_blocks(n, False, bid)
         builds[name] = dict(build_id=bid, resident_blocks_per_sm=bps, members_in_flight=bps * sms)
+        # the first B members in this build alone, B = 1, one and two waves of SMs
+        builds[name]["batch_ms"] = {}
+        for members in (1, sms, 2 * sms):
+            gb, ub = trees.slice_members(geob, 0, members), trees.slice_members(us_b, 0, members)
+            builds[name]["batch_ms"][members] = time_cuda(lambda: batched_launch(
+                gb, ub, solver.ds_params, solver.h0, solver.Q0, sset_b, bid), reps=2, warmup=1)
     kernels_128 = [k for k in kernel_builds(build.build_info["fused_newton"]["ptxas"])
                    if k["block"] == 128 and not k["storage"]]
     for k in kernels_128:
         builds["register_build" if k["min_blocks"] == 1 else "residency_build"]["ptxas"] = k
+    builds["latency_build"]["ptxas"] = latency_kernel_builds(build.build_info["fused_newton"]["ptxas"])
     out_reg = batched_launch(geob, us_b, solver.ds_params, solver.h0, solver.Q0, sset_b,
                              fused_newton.REGISTER_BUILD)
     if not (torch.equal(out_reg.depth, out_e.depth) and torch.equal(out_reg.flow, out_e.flow)
@@ -2032,6 +2298,11 @@ def main() -> int:
              replaces="flowsim_tpu/ops/pallas/fused_newton.py:1413",
              launches=launches["fused_simulate"], max_abs_err=cmp["max_abs_dh"],
              ms=fused_cmp_ms, plain_ms=plain_ms, bound_ms=fb, bound_by=fby, library_ms=None,
+             # one launch of 10-20 ms: its CUDA-event time is the device's alone
+             build=flagship_build, device_alone_ms=fused_cmp_ms,
+             register_build_ms=k1_events["flagship_97_levels"]["register_build"]["ms"],
+             ms_385_levels=k1_events["flagship_385_levels"]["ms"],
+             register_build_ms_385_levels=k1_events["flagship_385_levels"]["register_build"]["ms"],
              shape=dict(n_nodes=n, n_time_levels=cmp_levels, newton_iterations=n_it),
              tolerance=dict(depth_m=H_TOL, flow_m3s=Q_TOL, iteration_counts="identical")),
         dict(name="fused_simulate_batched", route="cuda",
@@ -2054,6 +2325,8 @@ def main() -> int:
              replaces="flowsim_tpu/ops/pallas/pcr_kernel.py:79",
              launches=launches["pcr_solve"], max_abs_err=pcr_err,
              ms=pcr_ms, plain_ms=pcr_plain_ms, bound_ms=pb, bound_by=pby, library_ms=pcr_lib_ms,
+             device_alone_ms=pcr_device_ms, build="carried path" if n <= pcr_kernel.CARRIED_MAX_N else "node path",
+             times_by_path=k2_times,
              shape=dict(n_nodes=n, systems=1),
              tolerance=dict(relative=1e-10)),
         # ms is the whole solve: stage A (this row's source) and the stage-B
@@ -2140,18 +2413,30 @@ def main() -> int:
     return 0
 
 
-def kernel1_main() -> int:
-    """``--kernel1-times``: the card's name and power limit, then kernel 1's
-    times (:func:`kernel1_times`) as the last line."""
+# the measurement modes: the argument, the key of the printed JSON, the measurement
+MODES = {"--kernel1-times": ("kernel1_times", kernel1_times), "--kernel2-times": ("kernel2_times", kernel2_times),
+         "--sass": ("sass", lambda dev: sass_counts())}
+
+
+def modes_main(flags) -> int:
+    """``--kernel1-times`` / ``--kernel2-times`` / ``--sass`` (any of them):
+    the card's name and power limit, then one JSON line with each asked
+    measurement (:func:`kernel1_times`, :func:`kernel2_times`,
+    :func:`sass_counts`) as the last line."""
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
+    unknown = [f for f in flags if f not in MODES]
+    if unknown:
+        print(f"unknown arguments {unknown}; expected none or any of {list(MODES)}", file=sys.stderr)
+        return 2
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    print(json.dumps({"kernel1_times": kernel1_times(torch.device("cuda"))}), flush=True)
+    dev = torch.device("cuda")
+    print(json.dumps({MODES[f][0]: MODES[f][1](dev) for f in flags}), flush=True)
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(kernel1_main() if sys.argv[1:] == ["--kernel1-times"] else main())
+    sys.exit(modes_main(sys.argv[1:]) if sys.argv[1:] else main())

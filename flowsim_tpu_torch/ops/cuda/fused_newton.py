@@ -49,9 +49,12 @@ _ST_ON, _ST_AREA_CURVE, _ST_RATING, _ST_LOSSES, _ST_RC_SHIFT = 1, 2, 4, 8, 4
 _STORAGE_RC_KINDS = ("polynomial", "blended_poly")
 
 # the kernel's builds (csrc/fused_newton.cu): every shape has the register
-# build; a batch of N <= 128 reaches without storage that is larger than the
-# card holds in it takes the residency build (four blocks an SM, not two)
-REGISTER_BUILD, RESIDENCY_BUILD = 0, 1
+# build.  At N <= LATENCY_MAX_N without storage a launch that fits the card in
+# one wave of the latency build (two threads a node for the closures) takes
+# it; a larger batch the register build while one wave of that holds it, then
+# the residency build (four blocks an SM, not two).
+REGISTER_BUILD, RESIDENCY_BUILD, LATENCY_BUILD = 0, 1, 2
+LATENCY_MAX_N = 128
 
 # phases of an iteration in the probe build, as the network kernel's
 # (ops/cuda/fused_network.py): kernel 1 has no junction, and its
@@ -129,18 +132,22 @@ def _lib():
         head = [ctypes.c_void_p] * 16 + [ctypes.c_longlong] + [ctypes.c_int] * 10 + [ctypes.POINTER(ctypes.c_int)]
         fn.argtypes = head + [ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        lib.flowsim_fused_simulate_probe.argtypes = head + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
-                                                            ctypes.c_void_p]
+        lib.flowsim_fused_simulate_probe.argtypes = head + [ctypes.c_int, ctypes.c_void_p,
+                                                            ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
         lib.flowsim_fused_simulate_probe.restype = ctypes.c_int
         lib.flowsim_fused_resident_blocks.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
         lib.flowsim_fused_resident_blocks.restype = ctypes.c_int
+        lib.flowsim_fused_chosen_build.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+        lib.flowsim_fused_chosen_build.restype = ctypes.c_int
         for aux in (lib.flowsim_fused_param_count, lib.flowsim_fused_smem_bytes_per_node,
-                    lib.flowsim_fused_storage_param_count, lib.flowsim_fused_probe_phases):
+                    lib.flowsim_fused_storage_param_count, lib.flowsim_fused_probe_phases,
+                    lib.flowsim_fused_latency_max_n):
             aux.argtypes = []
             aux.restype = ctypes.c_int
         if lib.flowsim_fused_param_count() != _N_PARAMS \
                 or lib.flowsim_fused_storage_param_count() != _N_STORAGE_PARAMS \
-                or lib.flowsim_fused_probe_phases() != len(PROBE_PHASES):
+                or lib.flowsim_fused_probe_phases() != len(PROBE_PHASES) \
+                or lib.flowsim_fused_latency_max_n() != LATENCY_MAX_N:
             raise RuntimeError("parameter layout of fused_newton.cu and its wrapper differ")
         if lib.flowsim_fused_smem_bytes_per_node() != SMEM_BYTES_PER_NODE:
             raise RuntimeError("shared-memory layout of fused_newton.cu and its wrapper differ")
@@ -267,12 +274,26 @@ def check_output_memory(n_sims: int, n: int, nt: int, store: str, free_bytes: in
 
 def resident_blocks(n: int, storage: bool = False, build_id: int = REGISTER_BUILD) -> int:
     """Blocks of a kernel build that one SM holds at N nodes, from the CUDA
-    occupancy calculator (:data:`REGISTER_BUILD`, every shape;
-    :data:`RESIDENCY_BUILD`, N <= 128 without storage)."""
+    occupancy calculator (:data:`REGISTER_BUILD`, every shape; the others
+    N <= :data:`LATENCY_MAX_N` without storage)."""
     out = ctypes.c_int(0)
     rc = _lib().flowsim_fused_resident_blocks(n, int(storage), build_id, ctypes.byref(out))
     if rc != 0:
         raise RuntimeError(f"occupancy query failed: CUDA error {rc}")
+    return out.value
+
+
+def chosen_build(n_sims: int, n: int, storage: bool = False) -> int:
+    """The build the kernel's C entry takes for ``n_sims`` simulations of
+    ``n`` nodes (``choose_build_id`` in ``csrc/fused_newton.cu``): with
+    storage or N > :data:`LATENCY_MAX_N` the register build; else the
+    latency build while one wave of it holds the batch, the register build
+    while one wave of that does, then the residency build where it holds
+    more members an SM."""
+    out = ctypes.c_int(0)
+    rc = _lib().flowsim_fused_chosen_build(n_sims, n, int(storage), ctypes.byref(out))
+    if rc != 0:
+        raise RuntimeError(f"build choice failed: CUDA error {rc}")
     return out.value
 
 
@@ -283,13 +304,14 @@ def launch(geo_rows, h0, Q0, us_series, ds_series, par, qlat, settings, us_kind,
     CUDA device; ``qlat`` is ``None``, ``[S, N]`` or ``[S, nt, N]``;
     ``storage`` is what :func:`pack_storage` returns (blocks ``[S, 2, 17]``,
     tables ``[S, L]`` or shared ``[L]``).  ``build_id`` -1 lets the kernel's C
-    entry choose its build by the member count (what every wrapper does);
-    :data:`REGISTER_BUILD` or :data:`RESIDENCY_BUILD` forces one, for timing
-    the two against each other.  ``probe``: ``None``, or ``(cycles, clock)``
-    — an int64 tensor ``[len(PROBE_PHASES)]`` on the device and a
-    ``ctypes.c_int`` — for one launch of the probe build (N <= 128, no
-    storage), which fills them with the cycles of each phase and the SM
-    clock in kHz.  Returns a SimOutput whose fields carry the ``S`` axis."""
+    entry choose its build (:func:`chosen_build`: what every wrapper does); a
+    build id forces one, a test hook for timing the builds against each
+    other.  ``probe``: ``None``, or ``(cycles, clock)`` — an int64 tensor
+    ``[len(PROBE_PHASES)]`` on the device and a ``ctypes.c_int`` — for one
+    launch of the probe build of that build (the register or the latency build;
+    N <= 128, no storage), which fills them with the cycles of each phase and
+    the SM clock in kHz.  Returns a SimOutput whose fields carry the ``S``
+    axis."""
     dev = geo_rows.device
     n_sims, _, n = geo_rows.shape
     nt = settings.n_time_levels
@@ -334,7 +356,8 @@ def launch(geo_rows, h0, Q0, us_series, ds_series, par, qlat, settings, us_kind,
         if probe is None:
             rc = _lib().flowsim_fused_simulate(*args, build_id, stream)
         else:
-            rc = _lib().flowsim_fused_simulate_probe(*args, probe[0].data_ptr(), ctypes.byref(probe[1]), stream)
+            rc = _lib().flowsim_fused_simulate_probe(*args, build_id, probe[0].data_ptr(), ctypes.byref(probe[1]),
+                                                     stream)
     if rc != 0:
         raise RuntimeError(f"fused_simulate launch failed: CUDA error {rc}")
     return prs.SimOutput(
@@ -362,7 +385,7 @@ def check_device(dev, h0, Q0, geo, us_bc, ds_bc, name):
         raise ValueError("geometry, boundaries and state must lie on the same device")
 
 
-def _launch_one(geo, us_bc, ds_bc, h0, Q0, settings, qlat, probe=None) -> prs.SimOutput:
+def _launch_one(geo, us_bc, ds_bc, h0, Q0, settings, qlat, probe=None, build_id=-1) -> prs.SimOutput:
     """One simulation on a grid of one block."""
     nt, dev = settings.n_time_levels, h0.device
     par, rc_kind, us_rc_kind = pack_params(us_bc, ds_bc, settings)
@@ -371,13 +394,14 @@ def _launch_one(geo, us_bc, ds_bc, h0, Q0, settings, qlat, probe=None) -> prs.Si
     out = launch(one(pack_geometry(geo)), one(h0), one(Q0), one(series(us_bc, nt, dev)),
                  one(series(ds_bc, nt, dev)), one(par), None if qlat is None else one(qlat),
                  settings, us_bc.kind, ds_bc.kind, rc_kind, us_rc_kind,
-                 (one(stor), stab, st_ints), probe=probe)
+                 (one(stor), stab, st_ints), build_id=build_id, probe=probe)
     return prs.SimOutput(*(None if f is None else f[0] for f in out))
 
 
-def fused_simulate_probe(geo, us_bc, ds_bc, h0, Q0, settings):
+def fused_simulate_probe(geo, us_bc, ds_bc, h0, Q0, settings, build_id=-1):
     """A measurement hook: one launch of the probe build (N <= 128, no
-    storage) on CUDA tensors.  Returns ``(SimOutput, cycles, clock_khz)``:
+    storage) of the build the wrapper takes (``build_id`` -1) or of a forced
+    one, on CUDA tensors.  Returns ``(SimOutput, cycles, clock_khz)``:
     ``cycles`` maps each of :data:`PROBE_PHASES` to the SM cycles thread 0
     spent in it over the run.  Its outputs are the production build's bits.
     Counts no launch."""
@@ -386,7 +410,7 @@ def fused_simulate_probe(geo, us_bc, ds_bc, h0, Q0, settings):
     check_device(h0.device, h0, Q0, geo, us_bc, ds_bc, "fused_simulate_probe")
     cycles = torch.zeros(len(PROBE_PHASES), dtype=torch.int64, device=h0.device)
     clock = ctypes.c_int(0)
-    out = _launch_one(geo, us_bc, ds_bc, h0, Q0, settings, None, probe=(cycles, clock))
+    out = _launch_one(geo, us_bc, ds_bc, h0, Q0, settings, None, probe=(cycles, clock), build_id=build_id)
     return out, dict(zip(PROBE_PHASES, cycles.tolist())), clock.value
 
 

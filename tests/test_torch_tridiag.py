@@ -136,6 +136,8 @@ def test_pcr_solve_rejects_oversize_and_bad_shapes():
         pcr_kernel.pcr_solve(L[:, 0], D, U, b)
     # shared memory holds both buffers up to SMEM_MAX_N nodes (227 KB per block)
     assert 2 * 14 * 8 * pcr_kernel.SMEM_MAX_N <= 232448 < 2 * 14 * 8 * (pcr_kernel.SMEM_MAX_N + 38)
+    # and both buffers with the carried inverse (18 doubles a node) up to CARRIED_MAX_N
+    assert 2 * 18 * 8 * pcr_kernel.CARRIED_MAX_N <= 232448 and pcr_kernel.CARRIED_MAX_N <= pcr_kernel.SMEM_MAX_N
 
 
 @pytest.mark.parametrize("solver", ["block_thomas", "block_pcr"])

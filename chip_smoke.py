@@ -33,7 +33,16 @@ six main paths through the user entry points:
 * the network Monte-Carlo: 1024 tributary members (per-member inflow scale)
   through ``parallel.ensemble.batched_simulate_network(engine="fused")`` in
   one launch of the batched network kernel, and each build of the network
-  kernel timed on the same members.
+  kernel timed on the same members;
+* irregular sections (phase ``table``): the JAX package's hardware-validation
+  reach of two surveyed polylines (N = 121, M = 1024 depth samples, 193
+  levels) through ``api.PreissmannSolver.run(engine="fused")`` — the table
+  path of kernel 1 — and its 10 240-member roughness ensemble
+  (``table_roughness_ensemble`` -> ``batched_simulate(engine="fused")``, M =
+  96) — the table path of kernel 3 —, with a mixed-station reach, lateral
+  inflow, store="boundaries", the boundary pairs and storage rows on tables,
+  and batched launches bit-identical to single ones; the single run and 4
+  members of the ensemble are held against the plain engine on all 193 levels.
 
 Before the main path, the ``kernels`` phase also holds kernel 1's latency
 build (the one a single launch takes) against its register build bit for
@@ -93,6 +102,11 @@ PEAK_F64_FLOPS = 33.5e12
 FLOPS_THOMAS = 12 + 4 + 8 + 12 + 14 + 8
 FLOPS_THOMAS_PAIR = 14 + 8
 FLOPS_ASSEMBLY = 530
+# one Newton assembly on lookup tables (irregular sections): the section
+# state is 7 linear interpolations (3 each) in place of the trapezoid's
+# closed forms; the energy slope with curvature (~140 of the ~420 above) and
+# the cell stencil (~110) as in FLOPS_ASSEMBLY
+FLOPS_TABLE_ASSEMBLY = 7 * 3 + 140 + 110
 # the tiled solve's stages B and C (csrc/tiled_pcr.cu), per reduced row and
 # per node:
 #   one cyclic-reduction row update   D' and the five right-hand-side columns
@@ -139,6 +153,20 @@ NETWORK_SCALING_MEMBERS = (1, 132, 264, 1024)
 BASIN_MC_MEMBERS = 256
 # scripts/bench_basin_large.py at levels=7: 127 branches of 45 nodes, 6 hours
 LARGE_BASIN = dict(levels=7, link_nodes=45, sim_hours=6)
+
+# irregular sections: the JAX package's hardware-validation reach
+# (scripts/validate_fused_hw.py:55-90, "irregular_table"): 40 km at slope
+# 2e-4, two surveyed polylines of 21 points (n = 0.03), N = 121, M = 1024
+# depth samples, 193 levels of 1800 s, theta 0.7, tol 1e-8; its ensemble
+# ("batched_table", :330-362) rebuilt at M = 96, tol 1e-6, over
+# n in linspace(0.025, 0.04)
+TABLE_LENGTH, TABLE_SLOPE, TABLE_NODES = 40000.0, 2e-4, 121
+TABLE_LEVELS, TABLE_DT, TABLE_THETA, TABLE_TOL = 193, 1800.0, 0.7, 1e-8
+TABLE_BATCH_SAMPLES, TABLE_BATCH_TOL = 96, 1e-6
+TABLE_OPTION_LEVELS = 25       # lateral inflow with store="boundaries"
+TABLE_PLAIN_MEMBERS = 4        # members of the timed ensemble held against the plain engine
+TABLE_SMALL_BATCH = 16         # the JAX case's members
+TABLE_N_RANGE = (0.025, 0.04)
 JUNCTION_RATING_KINDS = ("polynomial", "blended_poly", "poly_n", "power", "table")
 
 
@@ -175,7 +203,8 @@ def wall_ms(fn) -> float:
 
 def pack_one(geo, us, ds, h0, Q0, sset, qlat=None) -> tuple:
     """``fused_newton.launch``'s arguments for one simulation, packed as
-    ``fused_simulate`` packs them (``qlat``: ``None``, ``[N]`` or ``[nt, N]``)."""
+    ``fused_simulate`` packs them (``qlat``: ``None``, ``[N]`` or ``[nt, N]``;
+    a TableGeometry's tables with them)."""
     from flowsim_tpu_torch.ops.cuda import fused_newton as fn
 
     nt, dev = sset.n_time_levels, h0.device
@@ -184,7 +213,7 @@ def pack_one(geo, us, ds, h0, Q0, sset, qlat=None) -> tuple:
     one = lambda t: t.unsqueeze(0).contiguous()
     return (one(fn.pack_geometry(geo)), one(h0), one(Q0), one(fn.series(us, nt, dev)),
             one(fn.series(ds, nt, dev)), one(par), None if qlat is None else one(qlat), sset, us.kind, ds.kind,
-            rc_kind, us_rc_kind, (one(stor), stab, st_ints))
+            rc_kind, us_rc_kind, (one(stor), stab, st_ints), fn.pack_tables(geo))
 
 
 SIM_FIELDS = ("depth", "flow", "error", "iterations", "converged", "gate_open")
@@ -676,10 +705,11 @@ def compare_members(batched_out, member_outs, what: str, exact: bool) -> dict:
 
 
 def batched_launch(geob, us_b, ds_bc, h0, Q0, sset, build_id):
-    """What ``fused_simulate_batched(..., us_batched=True)`` launches, with the
-    kernel build forced instead of chosen by the member count: the register
-    build on a batch that the wrapper gives the residency build, to time the
-    two on the same members.  Counts no launch."""
+    """What ``fused_simulate_batched(..., us_batched=True)`` launches (or with
+    ``us_b`` shared, what it launches without), with the kernel build forced
+    instead of chosen by the member count: the register build on a batch that
+    the wrapper gives the residency build, to time the two on the same
+    members.  Counts no launch."""
     from flowsim_tpu_torch.ops.cuda import fused_newton as fn
 
     n_members, n = geob.z_bed.shape
@@ -688,18 +718,20 @@ def batched_launch(geob, us_b, ds_bc, h0, Q0, sset, build_id):
     return fn.launch(fn.pack_geometry(geob), h0.expand(n_members, n).contiguous(),
                      Q0.expand(n_members, n).contiguous(), fn.series(us_b, nt, h0.device, lead),
                      fn.series(ds_bc, nt, h0.device, lead), par, None, sset, us_b.kind, ds_bc.kind,
-                     rc_kind, us_rc_kind, fn.pack_storage(us_b, ds_bc, batch_shape=lead), build_id=build_id)
+                     rc_kind, us_rc_kind, fn.pack_storage(us_b, ds_bc, batch_shape=lead),
+                     fn.pack_tables(geob, n_members), build_id=build_id)
 
 
 def kernel_builds(ptxas: list) -> list:
     """Registers and spills of fused_newton.cu's builds, by template
-    arguments (block size, storage rows, blocks an SM in the launch bound);
-    the probe build is left out."""
+    arguments (block size, storage rows, blocks an SM in the launch bound,
+    table geometry); the probe build is left out."""
     out = []
     for rec in ptxas:
-        m = re.search(r"fused_simulate_kernelILi(\d+)ELb([01])ELi(\d+)ELb0E", rec["kernel"])
+        m = re.search(r"fused_simulate_kernelILi(\d+)ELb([01])ELi(\d+)ELb0ELb([01])E", rec["kernel"])
         if m:
             out.append(dict(block=int(m.group(1)), storage=m.group(2) == "1", min_blocks=int(m.group(3)),
+                            table=m.group(4) == "1",
                             **{k: rec.get(k) for k in ("registers", "stack_bytes", "spill_store_bytes",
                                                        "spill_load_bytes")}))
     return out
@@ -1723,6 +1755,317 @@ def network_bound(n_iterations: int, topo, n_junctions: int, n_time_levels: int,
     return max(tb, tf), ("bytes" if tb >= tf else "operations"), dict(bytes=nbytes, flops=flops)
 
 
+def table_polyline(seed: int, z0: float):
+    """One surveyed section of the validation reach: 21 points over 220 m,
+    a parabola 8 m deep plus up to 0.5 m of noise from ``seed``."""
+    rng = np.random.default_rng(seed)
+    x = np.linspace(0.0, 220.0, 21)
+    return x, z0 + 8.0 * ((x - 110.0) / 110.0) ** 2 + rng.uniform(0.0, 0.5, x.size)
+
+
+def table_stations():
+    from flowsim_tpu_torch.geometry_tables import IrregularStation
+
+    (x1, z1), (x2, z2) = table_polyline(1, TABLE_SLOPE * TABLE_LENGTH), table_polyline(2, 0.0)
+    return [IrregularStation(x=x1, z=z1, n_main=0.03, bed_slope=TABLE_SLOPE),
+            IrregularStation(x=x2, z=z2, n_main=0.03, bed_slope=TABLE_SLOPE)]
+
+
+def table_channel(api, stations, chainages, length):
+    """A channel of the given stations: inflow rising from 400 to 1000 m^3/s
+    over 4 h upstream, normal depth downstream, steady state at 400 m^3/s."""
+    us = api.Boundary(condition="flow_hydrograph", chainage=0.0, hydrograph=api.Hydrograph(
+        function=lambda t: 400.0 + 600.0 * min(t / (4 * 3600.0), 1.0)))
+    ds = api.Boundary(condition="normal_depth", chainage=length)
+    channel = api.Channel(us, ds, initial_flow=400.0, interpolation_method="steady-state")
+    channel.set_cross_sections(chainages, stations)
+    return channel
+
+
+def table_reach_solver(dev):
+    """The validation reach through the port's api (``Channel`` of two
+    ``IrregularStation``s -> ``PreissmannSolver``): N = 121, M = 1024 (the
+    api's sampling), 193 levels.  Rasterizing its tables is host work of about
+    a minute."""
+    from flowsim_tpu_torch import api
+
+    channel = table_channel(api, table_stations(), [0.0, TABLE_LENGTH], TABLE_LENGTH)
+    return api.PreissmannSolver(channel=channel, theta=TABLE_THETA, time_step=TABLE_DT,
+                                spatial_step=TABLE_LENGTH / (TABLE_NODES - 1),
+                                simulation_time=TABLE_DT * (TABLE_LEVELS - 1), device=dev)
+
+
+def mixed_reach_solver(dev, levels: int = 13):
+    """A 20 km mixed reach through the api: trapezoids at 0 and 10 km, a
+    surveyed polyline at 15 km and a compound trapezoid at 20 km, N = 21, so
+    that nodes sample the analytic trapezoid (0-10 km) and the union-grid
+    blend (10-20 km)."""
+    from flowsim_tpu_torch import api
+    from flowsim_tpu_torch.geometry import TrapezoidStation
+    from flowsim_tpu_torch.geometry_tables import IrregularStation
+
+    length = 20000.0
+    x, z = table_polyline(3, 0.0)
+    stations = [TrapezoidStation(z_bed=length * TABLE_SLOPE, b_main=80.0, m_main=2.5, bed_slope=TABLE_SLOPE),
+                TrapezoidStation(z_bed=0.5 * length * TABLE_SLOPE, b_main=85.0, m_main=2.5, bed_slope=TABLE_SLOPE),
+                IrregularStation(x=x, z=z - z.min() + 0.25 * length * TABLE_SLOPE, n_main=0.035,
+                                 bed_slope=TABLE_SLOPE),
+                TrapezoidStation(z_bed=0.0, b_main=90.0, m_main=2.0, bed_slope=TABLE_SLOPE, h_bank=3.0,
+                                 b_fp_left=40.0, b_fp_right=30.0, m_fp=4.0, n_left=0.05, n_right=0.045)]
+    channel = table_channel(api, stations, [0.0, 0.5 * length, 0.75 * length, length], length)
+    return api.PreissmannSolver(channel=channel, theta=TABLE_THETA, time_step=TABLE_DT, spatial_step=1000.0,
+                                simulation_time=TABLE_DT * (levels - 1), device=dev)
+
+
+def as_table(geo, samples: int = 256, depth_max: float = 20.0):
+    """The lookup tables of a prismatic trapezoid reach (its two end sections,
+    interpolated), sampled from the closed forms: the same reach as a
+    TableGeometry, for the boundary and storage rows on tables."""
+    from flowsim_tpu_torch.geometry import TrapezoidStation
+    from flowsim_tpu_torch.geometry_tables import build_table_geometry
+
+    g = geo.to("cpu")
+    ends = [TrapezoidStation(z_bed=float(g.z_bed[i]), b_main=float(g.b_main[i]), m_main=float(g.m_main[i]),
+                             n_main=float(g.n_main[i]), bed_slope=float(g.bed_slope[i])) for i in (0, -1)]
+    n = g.n_nodes
+    return build_table_geometry(ends, [0.0, float(n - 1)], np.arange(n, dtype=np.float64), depth_max=depth_max,
+                                samples=samples, device=geo.device)
+
+
+def cut_levels(args, levels: int):
+    """A run's arguments cut to its first ``levels`` levels."""
+    geo, us, ds, h0, Q0, sset = args
+    cut = lambda bc: dataclasses.replace(bc, target_series=bc.target_series[..., :levels]) \
+        if bc.kind in ("flow_hydrograph", "stage_hydrograph") else bc
+    return geo, cut(us), cut(ds), h0, Q0, dataclasses.replace(sset, n_time_levels=levels)
+
+
+def drive_table(dev, launches: dict) -> tuple[dict, list]:
+    """Irregular sections on the card: kernel 1's and kernel 3's table paths.
+
+    The main path, counts at 0 before and read after: the validation reach
+    through ``api.PreissmannSolver.run(engine="fused")`` (one launch of kernel
+    1) and its 10 240-member roughness ensemble through
+    ``table_roughness_ensemble`` -> ``batched_simulate(engine="fused")`` (one
+    launch of kernel 3).  Then each held against its plain version on the
+    card (the single run and 4 of the 10 240 members, on all their levels)
+    and timed, a mixed-station reach through the api, lateral inflow
+    with store="boundaries", the boundary pairs and storage rows on tables,
+    B = 16 against 16 single launches bit for bit, and a NaN member beside
+    sound ones.  Returns the phase record and the kernel-table rows."""
+    from flowsim_tpu_torch import api, trees
+    from flowsim_tpu_torch.geometry_tables import build_table_geometry
+    from flowsim_tpu_torch.ops import initial_conditions as ic
+    from flowsim_tpu_torch.ops.cuda import build, fused_batched, fused_newton as fn
+    from flowsim_tpu_torch.ops.cuda.fused_batched import fused_simulate_batched, fused_simulate_batched_plain
+    from flowsim_tpu_torch.ops.cuda.fused_newton import fused_simulate, fused_simulate_plain
+    from flowsim_tpu_torch.parallel import ensemble
+
+    rec = {}
+    t0 = time.perf_counter()
+    solver = table_reach_solver(dev)
+    rec["api_build_seconds"] = time.perf_counter() - t0
+    geo = solver.channel.geometry
+    n, nt, M = geo.n_nodes, solver.number_of_time_levels, geo.area.shape[-1]
+    if (n, nt, M, solver.theta) != (TABLE_NODES, TABLE_LEVELS, 1024, TABLE_THETA):
+        raise AssertionError(f"table reach is not the validation case: N={n}, nt={nt}, M={M}")
+    t0 = time.perf_counter()
+    geo96 = build_table_geometry(table_stations(), [0.0, TABLE_LENGTH], np.linspace(0.0, TABLE_LENGTH, n),
+                                 samples=TABLE_BATCH_SAMPLES, device=dev)
+    h96, Q96 = ic.initial_conditions(geo96, "steady-state", 400.0, solver.spatial_step)
+    rec["batch_geometry_build_seconds"] = time.perf_counter() - t0
+    B = ENSEMBLE_MEMBERS
+    sset_b = dataclasses.replace(solver.settings(TABLE_BATCH_TOL, 100), store="boundaries")
+    geob = ensemble.table_roughness_ensemble(geo96, np.linspace(*TABLE_N_RANGE, B))
+
+    def run_ensemble():
+        return ensemble.batched_simulate(geob, solver.us_params, solver.ds_params, h96, Q96, sset_b,
+                                         engine="fused")
+
+    # -- the main path
+    fn.launch_count = 0
+    fused_batched.launch_count = 0
+    out = solver.run(engine="fused", tolerance=TABLE_TOL, max_iter=100, verbose=0)
+    torch.cuda.synchronize()
+    launches["fused_simulate_table"] = fn.launch_count
+    fn.launch_count = 0
+    out_e = run_ensemble()
+    torch.cuda.synchronize()
+    launches["fused_simulate_batched_table"] = fused_batched.launch_count
+    if launches["fused_simulate_table"] != 1 or launches["fused_simulate_batched_table"] != 1 \
+            or fn.launch_count != 0:
+        raise AssertionError(f"table main path: {launches['fused_simulate_table']} single and "
+                             f"{fused_batched.launch_count} batched launches, expected 1 and 1")
+    total_it = int(out.iterations.sum())
+    if out.depth.shape != (nt, n) or not bool(out.converged.all()) or not bool(torch.isfinite(out.depth).all()):
+        raise AssertionError("table reach: not converged or not finite")
+    if out_e.depth.shape != (B, nt, 2) or not bool(out_e.converged.all()) \
+            or not bool(torch.isfinite(out_e.flow).all()):
+        raise AssertionError(f"table ensemble: {int((~out_e.converged.all(dim=1)).sum())} of {B} members "
+                             "did not converge at every level")
+    ens_iters = int(out_e.iterations.sum())
+    rec["single"] = dict(build=KERNEL1_BUILD_NAMES[fn.chosen_build(1, n, table=True)], n_nodes=n,
+                         n_time_levels=nt, samples=M, total_iterations=total_it,
+                         max_iterations_in_a_level=int(out.iterations.max()), all_converged=True)
+
+    # -- kernel 1's table path: the main path's run against its plain version, every level
+    args = (geo, solver.us_params, solver.ds_params, solver.h0, solver.Q0, solver.settings(TABLE_TOL, 100))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out_plain = fused_simulate_plain(*args)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    cmp = compare_runs(out, out_plain, "table reach fused vs plain")
+    # kernel alone by CUDA events, packing outside: median of 5 readings
+    packed = pack_one(*args)
+    runs = [time_cuda(lambda: fn.launch(*packed), reps=1, warmup=int(not i)) for i in range(5)]
+    events = dict(ms=statistics.median(runs), ms_runs=runs,
+                  us_per_newton_iteration=statistics.median(runs) * 1e3 / total_it)
+    # the latency build's closures are the trapezoid's: tables take the register build
+    if fn.chosen_build(1, n, table=True) != fn.REGISTER_BUILD:
+        raise AssertionError("one table launch does not take the register build")
+    rec["single"].update(kernel_alone_cuda_events=events, plain_compared_levels=nt, plain_ms=plain_ms, **cmp)
+
+    # -- through the api: a mixed-station reach
+    mixed = mixed_reach_solver(dev)
+    if not isinstance(mixed.channel.geometry, type(geo)):
+        raise AssertionError("the mixed reach did not lower to tables")
+    out_mk = mixed.run(engine="fused", tolerance=TABLE_TOL, verbose=0)
+    out_mp = mixed.run(engine="plain", tolerance=TABLE_TOL, verbose=0)
+    checks = dict(mixed_stations_api=compare_runs(out_mk, out_mp, "mixed reach, api"))
+    # lateral inflow per level and node with store="boundaries", 25 levels
+    lo = TABLE_OPTION_LEVELS
+    a25 = cut_levels(args, lo)
+    q = torch.tensor(np.random.default_rng(5).uniform(0.0, 2e-3, (lo, n)), dtype=torch.float64, device=dev)
+    a25b = (*a25[:5], dataclasses.replace(a25[5], store="boundaries"))
+    out_q = fused_simulate(*a25b, lateral_inflow=q)
+    checks["lateral_inflow_store_boundaries"] = compare_runs(
+        out_q, fused_simulate_plain(*a25b, lateral_inflow=q), "table reach, lateral inflow, store=boundaries")
+    moved = float((out_q.flow[:, 1] - out.flow[:lo, -1]).abs().max())
+    if out_q.depth.shape != (lo, 2) or moved < 1e-3:
+        raise AssertionError(f"lateral inflow on tables: shape {tuple(out_q.depth.shape)}, moved {moved}")
+    checks["lateral_inflow_store_boundaries"]["moved_outflow_by"] = moved
+    # every boundary pair and the storage rows, on the tables of the same prismatic reaches
+    for name in BOUNDARY_CASES:
+        b = build_boundary_case(api, name, device=dev)
+        ba = (as_table(b.channel.geometry), b.us_params, b.ds_params, b.h0, b.Q0, b.settings(1e-8, 100))
+        checks["boundary_" + name] = compare_runs(fused_simulate(*ba), fused_simulate_plain(*ba), "table " + name)
+    for name in ("ds_curve_rating_losses", "both_ends"):
+        sa = build_storage_case(name, dev)
+        sa = (as_table(sa[0], depth_max=30.0), *sa[1:])
+        checks["storage_" + name] = compare_runs(fused_simulate(*sa), fused_simulate_plain(*sa), "table " + name)
+    rec["checks"] = checks
+
+    # -- kernel 3's table path
+    sset16 = solver.settings(TABLE_BATCH_TOL, 100)
+    bargs = (solver.us_params, solver.ds_params, h96, Q96, sset16)
+    g16 = ensemble.table_roughness_ensemble(geo96, np.linspace(*TABLE_N_RANGE, TABLE_SMALL_BATCH))
+    out16 = fused_simulate_batched(g16, *bargs)
+    singles = [fused_simulate(trees.member(g16, m), *bargs) for m in range(TABLE_SMALL_BATCH)]
+    batched = dict(bit_identity_16_members=compare_members(out16, singles, "table batch vs single launches",
+                                                       exact=True))
+    if not bool(out16.converged.all()):
+        raise AssertionError("table batch: a member did not converge")
+    # members of the main path's ensemble against the plain engine, every level
+    picked = torch.linspace(0, B - 1, TABLE_PLAIN_MEMBERS).round().long().tolist()
+    sub = trees.tree_map(lambda x: x[picked], geob)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out_sub = fused_simulate_batched_plain(sub, solver.us_params, solver.ds_params, h96, Q96, sset_b)
+    torch.cuda.synchronize()
+    batched_plain_ms = (time.perf_counter() - t0) * 1e3
+    batched["plain_members"] = dict(compare_members(prs_out_member(out_e, picked),
+                                                    [prs_out_member(out_sub, m) for m in range(len(picked))],
+                                                    "table ensemble vs plain", exact=False),
+                                    members_of_the_timed_batch=picked, plain_ms=batched_plain_ms)
+    del sub, out_sub
+    # a member whose initial depth is NaN: its bracket index stays in the
+    # table, it converges at no level, and the others keep their single bits
+    bad = TABLE_SMALL_BATCH // 3
+    h_nan = h96.expand(TABLE_SMALL_BATCH, n).clone()
+    h_nan[bad, 7] = float("nan")
+    out_nan = fused_simulate_batched(g16, solver.us_params, solver.ds_params, h_nan, Q96, sset16)
+    sound = [m for m in range(TABLE_SMALL_BATCH) if m != bad]
+    compare_members(prs_out_member(out_nan, sound), [singles[m] for m in sound],
+                    "table batch: sound members beside a NaN one", exact=True)
+    if bool(out_nan.converged[bad, 1:].any()):
+        raise AssertionError("table batch: the NaN member converged at some level")
+    batched["nan_member"] = dict(member=bad, levels_converged=int(out_nan.converged[bad, 1:].sum()),
+                                 sound_members_bit_identical=True)
+    # the 10 240 members: timed, and the build the C entry chose against the register build
+    ens_runs = [wall_ms(run_ensemble) for _ in range(3)]
+    ens_ms = statistics.median(ens_runs)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    builds = {name: dict(resident_blocks_per_sm=fn.resident_blocks(n, False, bid, table=True))
+              for name, bid in (("register_build", fn.REGISTER_BUILD), ("residency_build", fn.RESIDENCY_BUILD))}
+    chosen = fn.chosen_build(B, n, table=True)
+    bl = (geob, solver.us_params, solver.ds_params, h96, Q96, sset_b)
+    reg = batched_launch(*bl, fn.REGISTER_BUILD)
+    if not (torch.equal(reg.depth, out_e.depth) and torch.equal(reg.flow, out_e.flow)
+            and torch.equal(reg.iterations, out_e.iterations)):
+        raise AssertionError("table ensemble: the register build and the chosen build disagree")
+    del reg
+    builds["register_build"]["ensemble_ms"] = wall_ms(lambda: batched_launch(*bl, fn.REGISTER_BUILD))
+    builds["ptxas"] = [k for k in kernel_builds(build.build_info["fused_newton"]["ptxas"]) if k["table"]]
+    batched["ensemble"] = dict(members=B, samples=TABLE_BATCH_SAMPLES, n_time_levels=nt, store="boundaries",
+                               launches=1, all_converged=True, wall_ms_runs=ens_runs, wall_ms_median=ens_ms,
+                               simulations_per_s=B / (ens_ms * 1e-3), total_newton_iterations=ens_iters,
+                               chosen_build=KERNEL1_BUILD_NAMES[chosen], multiprocessors=sms, builds=builds,
+                               register_build_bit_identical=True)
+    rec["batched"] = batched
+
+    # -- bounds: operations as FLOPS_TABLE_ASSEMBLY and block Thomas per node
+    # and Newton iteration this run's data needed; bytes: the inputs read
+    # once and the outputs written once, where of the tables only the rows an
+    # evaluation reads count (a bracket is two rows of each of the seven):
+    # for the single run the brackets of the stored depths of every level;
+    # for the ensemble, whose interior depths are not stored, one bracket a
+    # node (shared tables once, K, n_eq and dK/dA once a member)
+    def bound(nbytes, flops):
+        tb, tf = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_F64_FLOPS * 1e3
+        return max(tb, tf), ("bytes" if tb >= tf else "operations"), dict(bytes=nbytes, flops=flops)
+
+    n_par = fn._N_PARAMS
+    small = 8 * (4 * n + 2 * n + n_par)                     # rows, state, parameters
+    dgrid = geo.depth_max / (M - 1)
+    j = torch.clamp(torch.floor(out.depth / dgrid), 0, M - 2).long() + torch.arange(n, device=dev) * M
+    rows_read = int(torch.unique(torch.cat([j, j + 1]).flatten()).numel())
+    sb, sby, sterms = bound(small + 8 * (7 * rows_read + 2 * nt) + fn.output_bytes(1, n, nt, "full"),
+                            total_it * n * (FLOPS_TABLE_ASSEMBLY + FLOPS_THOMAS))
+    sterms["table_rows_read"] = rows_read
+    Mb = TABLE_BATCH_SAMPLES
+    bb, bby, bterms = bound(8 * 4 * 2 * n + B * (small + 8 * (3 * 2 * n + 2 * nt))
+                            + fn.output_bytes(B, n, nt, "boundaries"),
+                            ens_iters * n * (FLOPS_TABLE_ASSEMBLY + FLOPS_THOMAS))
+    kernels = [
+        dict(name="fused_simulate_table", route="cuda",
+             source="flowsim_tpu_torch/ops/cuda/csrc/fused_newton.cu",
+             replaces="flowsim_tpu/ops/pallas/fused_newton.py:1413",
+             launches=launches["fused_simulate_table"], max_abs_err=cmp["max_abs_dh"],
+             ms=events["ms"], plain_ms=plain_ms, bound_ms=sb, bound_by=sby, library_ms=None, bound_terms=sterms,
+             table_closures="flowsim_tpu/ops/pallas/fused_newton.py:268 _section_df_table, :317",
+             build=rec["single"]["build"], us_per_newton_iteration=events["us_per_newton_iteration"],
+             shape=dict(n_nodes=n, samples=M, n_time_levels=nt, newton_iterations=total_it),
+             tolerance=dict(depth_m=H_TOL, flow_m3s=Q_TOL, iteration_counts="identical")),
+        dict(name="fused_simulate_batched_table", route="cuda",
+             source="flowsim_tpu_torch/ops/cuda/csrc/fused_newton.cu",
+             replaces="flowsim_tpu/ops/pallas/fused_newton.py:2269",
+             launches=launches["fused_simulate_batched_table"], max_abs_err=batched["plain_members"]["max_abs_dh"],
+             ms=ens_ms, plain_ms=batched_plain_ms, bound_ms=bb, bound_by=bby, library_ms=None, bound_terms=bterms,
+             table_closures="flowsim_tpu/ops/pallas/fused_newton.py:341 _section_df_table_rows, :2061-2078",
+             build=KERNEL1_BUILD_NAMES[chosen], ms_over_bound=ens_ms / bb,
+             register_build_ms=builds["register_build"]["ensemble_ms"],
+             shape=dict(members=B, n_nodes=n, samples=Mb, n_time_levels=nt, newton_iterations=ens_iters,
+                        store="boundaries"),
+             plain_shape=dict(members=len(picked), n_nodes=n, samples=Mb, n_time_levels=nt,
+                              newton_iterations=batched["plain_members"]["iterations"], store="boundaries"),
+             tolerance=dict(depth_m=H_TOL, flow_m3s=Q_TOL, iteration_counts="identical",
+                            against_single_launches="bit-identical")),
+    ]
+    return rec, kernels
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device (torch.cuda.is_available() is False)",
@@ -2192,7 +2535,7 @@ def main() -> int:
             builds[name]["batch_ms"][members] = time_cuda(lambda: batched_launch(
                 gb, ub, solver.ds_params, solver.h0, solver.Q0, sset_b, bid), reps=2, warmup=1)
     kernels_128 = [k for k in kernel_builds(build.build_info["fused_newton"]["ptxas"])
-                   if k["block"] == 128 and not k["storage"]]
+                   if k["block"] == 128 and not k["storage"] and not k["table"]]
     for k in kernels_128:
         builds["register_build" if k["min_blocks"] == 1 else "residency_build"]["ptxas"] = k
     builds["latency_build"]["ptxas"] = latency_kernel_builds(build.build_info["fused_newton"]["ptxas"])
@@ -2271,6 +2614,11 @@ def main() -> int:
     t0 = time.perf_counter()
     network_ens, ens_table = drive_network_ensemble(dev, launches, network_checks["batched_4x25"]["plain_ms"])
     emit("network_ensemble", **network_ens, seconds=time.perf_counter() - t0)
+
+    # -- phase 13: irregular sections, the table paths of kernels 1 and 3 ------
+    t0 = time.perf_counter()
+    table, table_kernels = drive_table(dev, launches)
+    emit("table", **table, seconds=time.perf_counter() - t0)
 
     # -- the kernel table ----------------------------------------------------
     n_it = cmp["iterations"]          # iterations of the run that ms/plain_ms time
@@ -2397,6 +2745,7 @@ def main() -> int:
              tolerance=dict(depth_m=H_TOL, flow_m3s=Q_TOL, junction_stage_m=NETWORK_Y_TOL,
                             iteration_counts="identical", against_single_launches="bit-identical")),
     ]
+    kernels += table_kernels
     for kern in kernels:
         if kern["launches"] < 1:
             raise AssertionError(f"{kern['name']} was not launched on the main path")

@@ -10,12 +10,14 @@ kernels are compiled at first use.
 
 from flowsim_tpu_torch.config import GRAVITY, default_dtype, resolve_device
 from flowsim_tpu_torch.geometry import (
+    TableGeometry,
     TrapezoidGeometry,
     TrapezoidStation,
     build_trapezoid_geometry,
     interpolate_stations,
     trapezoid_station,
 )
+from flowsim_tpu_torch.geometry_tables import IrregularStation, build_table_geometry
 from flowsim_tpu_torch.api import (
     Boundary,
     Channel,

@@ -15,6 +15,10 @@ Deliberate difference from the JAX api: there ``engine="fused"`` silently
 falls back to the XLA engine when the configuration is outside the kernel's
 scope; here ``FusedUnsupported`` reaches the caller.
 
+``Channel.set_cross_sections`` takes ``TrapezoidStation``s (closed-form
+sections) or ``IrregularStation``s (surveyed polylines), alone or mixed; a
+list with an irregular station lowers to a ``TableGeometry``.
+
 ``device`` defaults to ``"cuda"`` and raises when there is no CUDA device;
 pass ``device="cpu"`` explicitly to run on the host.
 
@@ -29,6 +33,7 @@ Not ported yet: ``LaxSolver``, result export (``prepare_results`` /
 
 from __future__ import annotations
 
+import copy
 import math
 from typing import Callable, Optional
 
@@ -36,6 +41,7 @@ import numpy as np
 import torch
 
 from flowsim_tpu_torch import geometry as geom
+from flowsim_tpu_torch.geometry_tables import build_table_geometry
 from flowsim_tpu_torch.config import DEFAULT_DEVICE, DEFAULT_DTYPE, resolve_device
 from flowsim_tpu_torch.ops import boundary as bnd
 from flowsim_tpu_torch.ops import hydraulics as hyd
@@ -234,7 +240,7 @@ class Channel:
         self.coords = None
         self.coords_chainages = None
         # populated by a solver
-        self.geometry: Optional[geom.TrapezoidGeometry] = None
+        self.geometry = None   # TrapezoidGeometry or TableGeometry
         self.ch_at_node = None
         self.initial_conditions = None
 
@@ -268,19 +274,30 @@ class Channel:
             )
             return self.geometry
 
-        kinds = {type(s).__name__ for s in self.input_stations}
-        if kinds != {"TrapezoidStation"}:
-            raise NotImplementedError(
-                "irregular (lookup-table) sections are not ported yet "
-                "(ROADMAP.md Queue 1 item 8: TableGeometry; its kernel half Queue 2A items 1-2)")
-        self.geometry = geom.interpolate_stations(
-            self.input_stations,
-            self.xs_chainages,
-            self.ch_at_node,
-            coords=self.coords,
-            coords_chainages=self.coords_chainages,
-            device=device,
-        )
+        if all(isinstance(s, geom.TrapezoidStation) for s in self.input_stations):
+            self.geometry = geom.interpolate_stations(
+                self.input_stations,
+                self.xs_chainages,
+                self.ch_at_node,
+                coords=self.coords,
+                coords_chainages=self.coords_chainages,
+                device=device,
+            )
+        else:
+            # irregular-only or mixed trapezoid/irregular lists both lower to
+            # per-node lookup tables: trapezoid-bracketed nodes sample the
+            # analytic closures, pairs involving an irregular station blend on
+            # the union x grid (ref cross_section.py:852-968)
+            stations = list(self.input_stations)
+            if self.coords is not None and self.coords_chainages is not None:
+                curv = geom.planform_curvature(self.xs_chainages, self.coords_chainages, self.coords)
+                # copy before stamping curvature: the station objects are
+                # caller-owned and may be reused for another Channel (with
+                # different or no coords)
+                for i in range(1, len(stations) - 1):
+                    stations[i] = copy.copy(stations[i])
+                    stations[i].curvature = float(curv[i])
+            self.geometry = build_table_geometry(stations, self.xs_chainages, self.ch_at_node, device=device)
         return self.geometry
 
     def initialize_conditions(self, n_nodes: int, dx: float, device=DEFAULT_DEVICE):

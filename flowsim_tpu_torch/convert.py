@@ -1,8 +1,8 @@
 """Carry state across from NumPy: plain dicts -> the port's parameter trees.
 
-``from_numpy(kind, tree, device)`` builds a ``TrapezoidGeometry``,
-``RatingCurveParams``, ``StorageParams`` (kind ``"storage"``),
-``BoundaryParams``, ``PreissmannSettings``, an ``(h0, Q0)`` state or a network
+``from_numpy(kind, tree, device)`` builds a ``TrapezoidGeometry``, a
+``TableGeometry`` (its ``n_ref`` a float or ``None``), ``RatingCurveParams``,
+``StorageParams`` (kind ``"storage"``), ``BoundaryParams``, ``PreissmannSettings``, an ``(h0, Q0)`` state or a network
 ``BranchDef`` (kind ``"branch"``) from a
 dict of NumPy arrays / floats / strings whose keys are the field names of the JAX package's dataclasses — what
 ``dataclasses.fields`` + ``np.asarray`` give for one of its trees.  Array
@@ -25,15 +25,15 @@ import numpy as np
 import torch
 
 from flowsim_tpu_torch.config import DEFAULT_DEVICE, DEFAULT_DTYPE, resolve_device
-from flowsim_tpu_torch.geometry import TrapezoidGeometry
+from flowsim_tpu_torch.geometry import TableGeometry, TrapezoidGeometry
 from flowsim_tpu_torch.ops.boundary import BoundaryParams
 from flowsim_tpu_torch.ops.network import BranchDef, _is_junction
 from flowsim_tpu_torch.ops.preissmann import PreissmannSettings
 from flowsim_tpu_torch.ops.rating_curve import RatingCurveParams
 from flowsim_tpu_torch.ops.storage import StorageParams
 
-KINDS = ("TrapezoidGeometry", "RatingCurveParams", "storage", "BoundaryParams", "PreissmannSettings", "state",
-         "branch")
+KINDS = ("TrapezoidGeometry", "TableGeometry", "RatingCurveParams", "storage", "BoundaryParams",
+         "PreissmannSettings", "state", "branch")
 
 
 def _f64(v, device):
@@ -49,6 +49,13 @@ def _geometry(tree, device):
         else:
             out[f.name] = _f64(v, device)
     return TrapezoidGeometry(**out)
+
+
+def _table_geometry(tree, device):
+    n_ref = tree.get("n_ref")
+    return TableGeometry(n_ref=None if n_ref is None else float(n_ref),
+                         **{f.name: _f64(tree[f.name], device) for f in dataclasses.fields(TableGeometry)
+                            if f.name != "n_ref"})
 
 
 def _rating(tree, device):
@@ -105,7 +112,8 @@ def _branch(tree, device):
                      ds=end(tree["ds"]), h0=h0, Q0=Q0, qlat=None if qlat is None else _f64(qlat, device))
 
 
-_MAKERS = dict(zip(KINDS, (_geometry, _rating, _storage, _boundary, _settings, _state, _branch)))
+_MAKERS = dict(zip(KINDS, (_geometry, _table_geometry, _rating, _storage, _boundary, _settings, _state,
+                           _branch)))
 
 
 def from_numpy(kind: str, tree: dict, device=DEFAULT_DEVICE):

@@ -5,9 +5,14 @@ dataclass of per-node parameter tensors; all hydraulic closures (see
 :mod:`flowsim_tpu_torch.ops.sections`) are vectorized pure functions of
 ``(geometry, depth)``.
 
-Only :class:`TrapezoidGeometry` (rectangular / simple-trapezoid /
-compound-trapezoid sections in closed form) is ported so far; the lookup-table
-geometry for irregular surveyed sections is a later slice.
+Two representations, as in the JAX package:
+
+* :class:`TrapezoidGeometry` — rectangular / simple-trapezoid /
+  compound-trapezoid sections in closed form;
+* :class:`TableGeometry` — irregular surveyed (x, z) polyline sections,
+  rasterized on the host into per-node lookup tables over a uniform depth
+  grid (:mod:`flowsim_tpu_torch.geometry_tables`) and interpolated on the
+  device.
 
 Host-side construction (station interpolation, planform curvature) is NumPy
 and runs once at setup; the result is placed on the requested device.
@@ -101,6 +106,58 @@ class TrapezoidGeometry:
 
     def node(self, i) -> "TrapezoidGeometry":
         """Scalar (0-d) geometry of node ``i``."""
+        return self._map(lambda v: v[i])
+
+
+@dataclass(frozen=True)
+class TableGeometry:
+    """Per-node lookup tables over a uniform depth grid.
+
+    ``depth_max[n]`` is the table span of node ``n``; tables hold M samples at
+    depths ``j * depth_max / (M-1)``.  Values beyond the span extrapolate
+    linearly using the last interval.  An ensemble carries a leading member
+    axis on every tensor (``[B, N]`` rows, ``[B, N, M]`` tables).
+    """
+
+    z_bed: torch.Tensor       # [N]
+    depth_max: torch.Tensor   # [N]
+    area: torch.Tensor        # [N, M]
+    perimeter: torch.Tensor   # [N, M]
+    top_width: torch.Tensor   # [N, M]
+    conveyance: torch.Tensor  # [N, M]
+    n_eq: torch.Tensor        # [N, M]
+    dK_dA: torch.Tensor       # [N, M]
+    dR_dA: torch.Tensor       # [N, M]
+    bed_slope: torch.Tensor   # [N]
+    curvature: torch.Tensor   # [N]
+    # Build-time main-channel Manning n baked into the conveyance columns
+    # (None when the source stations disagree).  Plain metadata, not a
+    # tensor: parallel.ensemble.table_roughness_ensemble anchors its exact
+    # roughness rescale on it.
+    n_ref: Optional[float] = None
+
+    @property
+    def n_nodes(self) -> int:
+        # area is [..., N, M]; z_bed's first axis is the member axis of an
+        # ensemble, so N comes from the table shape
+        return self.area.shape[-2]
+
+    @property
+    def device(self) -> torch.device:
+        return self.z_bed.device
+
+    def _map(self, fn) -> "TableGeometry":
+        return dataclasses.replace(self, **{
+            f.name: fn(getattr(self, f.name)) for f in dataclasses.fields(self) if f.name != "n_ref"})
+
+    def astype(self, dtype) -> "TableGeometry":
+        return self._map(lambda v: v.to(dtype))
+
+    def to(self, device) -> "TableGeometry":
+        return self._map(lambda v: v.to(device))
+
+    def node(self, i) -> "TableGeometry":
+        """Geometry of node ``i``: 0-d rows and ``[M]`` tables."""
         return self._map(lambda v: v[i])
 
 

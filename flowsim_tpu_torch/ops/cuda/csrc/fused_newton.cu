@@ -65,6 +65,21 @@
 // ([S, nt, 2]: the stage of level k-1 is read back by the thread that wrote
 // it), so the other threads hold no storage state in registers.
 //
+// Irregular sections (the TABLE builds; the table path of both TPU kernels:
+// _section_df_table / _section_from_brackets, fused_newton.py:268 / :317):
+// per node seven tables of M depth samples, interpolated linearly.  They stay
+// in device memory in float64 and are read through L2 — 7 x 121 x 1024 x 8 B
+// = 6.9 MB for one 121-node reach at M = 1024, far more than shared memory
+// holds beside the solve, and each evaluation reads two rows of each table
+// (14 doubles a node).  The TPU kernel instead keeps f32 tables in VMEM and
+// fetches the bracket by one-hot masked windows and sublane gathers, and its
+// batched form shares member 0's tables with a per-member conveyance scale;
+// here an ensemble shares the four tables the geometry alone sets (A, P, T,
+// dR/dA) and reads each member's own K, n_eq and dK/dA, which keeps a batched
+// launch bit-identical to single launches.  The bracket index is formed as
+// the plain engine forms it: a division by the grid step (not a product with
+// a packed reciprocal), floored and clamped in float64.
+//
 // Everything is float64 (native on this card): no double-single pairs and no
 // f32 Jacobian as on the TPU.  The arithmetic mirrors ops/sections.py,
 // ops/hydraulics.py, ops/rating_curve.py, ops/boundary.py and
@@ -73,9 +88,10 @@
 // rating-curve basis, central-difference dQ/dz); built with --fmad=false the
 // trajectory matches the plain PyTorch engine to rounding.
 //
-// Builds.  One arithmetic, the same bits; choose_build_id picks by the shape
-// and the member count.  The register build (one thread a node, 248
-// registers, two blocks an SM) runs every shape.  At N <= 128 without
+// Builds.  One arithmetic, the same bits; choose_build_id picks by the shape,
+// the geometry and the member count (table geometry: the register build, and
+// the residency build past one wave of it).  The register build (one thread
+// a node, 248 registers, two blocks an SM) runs every shape.  At N <= 128 without
 // storage a launch that one wave of the latency build holds (one block an SM:
 // 132 members on an H100, so every single simulation) takes the latency
 // build below: one warp a scheduler left each float64 division, sqrt and cbrt
@@ -103,6 +119,8 @@
 // does not synchronise, returns cudaGetLastError().
 #include <cuda_runtime.h>
 #include <math_constants.h>
+
+#include <type_traits>
 
 #include "pcr_common.cuh"
 #include "reach_common.cuh"
@@ -187,10 +205,14 @@ __device__ __forceinline__ double cell_rows(double* buf, int ld, int i, double t
 // number of blocks an SM must hold: the launch bound caps the registers at
 // 65536 / (MINB * BLOCK), and what does not fit spills.  No build changes an
 // operation, so every build gives the same bits.  PROBE: the probe build
-// (reach_common.cuh, Probe) of the flagship's shape.
-template <int BLOCK, bool STORAGE, int MINB, bool PROBE>
+// (reach_common.cuh, Probe) of the flagship's shape.  TABLE: the geometry
+// kind, irregular sections from lookup tables (reach_common.cuh, TabGeo: the
+// rows [S, TG_ROWS, N] and the tables in device memory) instead of closed-form
+// trapezoids ([S, G_ROWS, N]); only the closures differ, energy_slope, the
+// assembly, the boundary and storage rows and the solve are shared.
+template <int BLOCK, bool STORAGE, int MINB, bool PROBE, bool TABLE>
 __global__ void __launch_bounds__(BLOCK, MINB)
-fused_simulate_kernel(const double* __restrict__ geo_all,   // [S, 13, N]
+fused_simulate_kernel(const double* __restrict__ geo_all,   // [S, 13, N] / [S, 4, N] (TABLE)
                       const double* __restrict__ h0_all,    // [S, N]
                       const double* __restrict__ Q0_all,    // [S, N]
                       const double* __restrict__ us_all,    // [S, nt]
@@ -211,12 +233,17 @@ fused_simulate_kernel(const double* __restrict__ geo_all,   // [S, 13, N]
                       int us_kind, int ds_kind, int rc_kind, int us_rc_kind,
                       int store_boundaries, int qlat_mode,
                       int us_sflags, int ds_sflags, int us_nv, int us_na, int ds_nv, int ds_na,
+                      const double* __restrict__ tab_shared,  // [TS_COUNT, N, M] (TABLE)
+                      const double* __restrict__ tab_k,       // [S, N, M] (TABLE)
+                      const double* __restrict__ tab_neq,     // [S, N, M] (TABLE)
+                      const double* __restrict__ tab_dk,      // [S, N, M] (TABLE)
+                      int tab_m,                              // M samples a table row
                       long long* __restrict__ probe_out) {  // [PH_COUNT] cycles (probe build)
     extern __shared__ double smem[];
     __shared__ double warp_part[2][32];
 
     const size_t sim = blockIdx.x;
-    const double* geo = geo_all + sim * (size_t)G_ROWS * n;
+    const double* geo = geo_all + sim * (size_t)(TABLE ? (int)TG_ROWS : (int)G_ROWS) * n;
     const double* us_series = us_all + sim * (size_t)nt;
     const double* ds_series = ds_all + sim * (size_t)nt;
     const double* par = par_all + sim * (size_t)P_COUNT;
@@ -253,16 +280,29 @@ fused_simulate_kernel(const double* __restrict__ geo_all,   // [S, 13, N]
                par[P_RC_COOLDOWN], rc_kind};
     const bool gated = (ds_kind == BC_RATING) && (rc_kind == RC_GATED);
 
-    Geo g{};
+    typename std::conditional<TABLE, TabGeo, Geo>::type g{};
     double z1 = 0.0;  // bed level of node i+1
     if (node) {
-        g.z = geo[G_ZBED * n + i];      g.b = geo[G_BMAIN * n + i];
-        g.m = geo[G_MMAIN * n + i];     g.n = geo[G_NMAIN * n + i];
-        g.compound = geo[G_COMPOUND * n + i] != 0.0;
-        g.hbank = geo[G_HBANK * n + i]; g.bl = geo[G_BFPL * n + i];
-        g.br = geo[G_BFPR * n + i];     g.mfp = geo[G_MFP * n + i];
-        g.nl = geo[G_NLEFT * n + i];    g.nr = geo[G_NRIGHT * n + i];
-        g.s0 = geo[G_BEDSLOPE * n + i]; g.curv = geo[G_CURV * n + i];
+        if constexpr (TABLE) {
+            const size_t nm = (size_t)n * tab_m;
+            const size_t row = (size_t)i * tab_m;
+            g.ts = tab_shared + row;
+            g.k = tab_k + sim * nm + row;
+            g.neq = tab_neq + sim * nm + row;
+            g.dk = tab_dk + sim * nm + row;
+            g.nm = nm;
+            g.z = geo[TG_ZBED * n + i];     g.curv = geo[TG_CURV * n + i];
+            g.dgrid = geo[TG_DMAX * n + i] / (double)(tab_m - 1);
+            g.jmax = (double)(tab_m - 2);
+        } else {
+            g.z = geo[G_ZBED * n + i];      g.b = geo[G_BMAIN * n + i];
+            g.m = geo[G_MMAIN * n + i];     g.n = geo[G_NMAIN * n + i];
+            g.compound = geo[G_COMPOUND * n + i] != 0.0;
+            g.hbank = geo[G_HBANK * n + i]; g.bl = geo[G_BFPL * n + i];
+            g.br = geo[G_BFPR * n + i];     g.mfp = geo[G_MFP * n + i];
+            g.nl = geo[G_NLEFT * n + i];    g.nr = geo[G_NRIGHT * n + i];
+            g.s0 = geo[G_BEDSLOPE * n + i]; g.curv = geo[G_CURV * n + i];
+        }
         if (cell) z1 = geo[G_ZBED * n + i + 1];
         sh[i] = h0_all[sim * (size_t)n + i];
         sQ[i] = Q0_all[sim * (size_t)n + i];
@@ -700,13 +740,13 @@ __device__ __forceinline__ ClosL closures_lanes(const GeoL& g, double h, double 
     return c;
 }
 
-// The latency build: the register build's signature (the storage arguments
-// are not read: a run with storage never takes it); LANES * np threads, np =
-// 32 ceil(N / 32) nodes.  The closures run on LANES lanes a node (node
-// threadIdx.x / LANES; a padding node computes as node N-1 and stores
-// nothing); the assembly, the residual norm, the sweeps (sweep_node_carried)
-// and the back-substitution on one thread a node (node threadIdx.x < np), as
-// in the register build.
+// The latency build: the register build's signature (the storage and table
+// arguments are not read: a run with storage or tables never takes it);
+// LANES * np threads, np = 32 ceil(N / 32) nodes.  The closures run on
+// LANES lanes a node (node threadIdx.x / LANES; a padding node computes as
+// node N-1 and stores nothing); the assembly, the residual norm, the sweeps
+// (sweep_node_carried) and the back-substitution on one thread a node (node
+// threadIdx.x < np), as in the register build.
 template <bool PROBE>
 __global__ void __launch_bounds__(LANES * LATENCY_MAX_N, 1)
 fused_latency_kernel(const double* __restrict__ geo_all, const double* __restrict__ h0_all,
@@ -720,6 +760,8 @@ fused_latency_kernel(const double* __restrict__ geo_all, const double* __restric
                      int us_kind, int ds_kind, int rc_kind, int us_rc_kind,
                      int store_boundaries, int qlat_mode,
                      int us_sflags, int ds_sflags, int us_nv, int us_na, int ds_nv, int ds_na,
+                     const double* __restrict__ tab_shared, const double* __restrict__ tab_k,
+                     const double* __restrict__ tab_neq, const double* __restrict__ tab_dk, int tab_m,
                      long long* __restrict__ probe_out) {
     extern __shared__ double smem[];
     __shared__ double warp_part[2][32];
@@ -939,49 +981,58 @@ fused_latency_kernel(const double* __restrict__ geo_all, const double* __restric
 
 // Every build has one signature: a build is a kernel pointer, its block and
 // its dynamic shared memory.
-using KernelFn = decltype(&fused_simulate_kernel<128, false, 1, false>);
+using KernelFn = decltype(&fused_simulate_kernel<128, false, 1, false, false>);
 struct Build { KernelFn fn; int threads; size_t smem; };
 
-// REGISTER_BUILD: every shape; RESIDENCY_BUILD and LATENCY_BUILD: N <= 128
-// without storage.
+// REGISTER_BUILD: every shape; RESIDENCY_BUILD: N <= 128 without storage;
+// LATENCY_BUILD: N <= 128 without storage, trapezoid geometry.
 enum { REGISTER_BUILD = 0, RESIDENCY_BUILD = 1, LATENCY_BUILD = 2 };
 
 int threads_for(int n) { return ((n + 31) / 32) * 32; }
 size_t smem_for(int n) { return (size_t)SMEM_DOUBLES_PER_NODE * n * sizeof(double); }
 
-template <int BLOCK>
+template <int BLOCK, bool TABLE>
 KernelFn register_build(bool storage) {
-    return storage ? &fused_simulate_kernel<BLOCK, true, 1, false> : &fused_simulate_kernel<BLOCK, false, 1, false>;
+    return storage ? &fused_simulate_kernel<BLOCK, true, 1, false, TABLE>
+                   : &fused_simulate_kernel<BLOCK, false, 1, false, TABLE>;
+}
+
+template <bool TABLE>
+KernelFn register_build_for(int n, bool storage) {
+    if (n <= 128) return register_build<128, TABLE>(storage);
+    if (n <= 256) return register_build<256, TABLE>(storage);
+    if (n <= 512) return register_build<512, TABLE>(storage);
+    return register_build<1024, TABLE>(storage);
 }
 
 // REGISTER_BUILD: the block size alone is the launch bound, so a small reach
 // gets the full register budget (250 registers at N <= 128: two blocks an SM)
 // and only a long one is squeezed to 64.  RESIDENCY_BUILD: four blocks an SM,
 // 128 registers, the rest spilled.  A probe build exists for N <= 128 without
-// storage, of the register and the latency builds.
-int pick_build(int n, bool storage, int build, bool probe, Build* out) {
+// storage, of the register and the latency builds, trapezoid geometry.  Table
+// geometry (table) has the register and the residency builds: the latency
+// build's closures are the trapezoid's own.
+int pick_build(int n, bool storage, bool table, int build, bool probe, Build* out) {
     const bool small = n <= LATENCY_MAX_N && !storage;
     if (build == LATENCY_BUILD) {
-        if (!small) return (int)cudaErrorInvalidValue;
+        if (!small || table) return (int)cudaErrorInvalidValue;
         const int np = threads_for(n);
         *out = Build{probe ? &fused_latency_kernel<true> : &fused_latency_kernel<false>, LANES * np,
                      (size_t)LAT_DOUBLES_PER_NODE * np * sizeof(double)};
         return 0;
     }
-    if (probe && (!small || build != REGISTER_BUILD)) return (int)cudaErrorInvalidValue;
+    if (probe && (!small || build != REGISTER_BUILD || table)) return (int)cudaErrorInvalidValue;
     out->threads = threads_for(n);
     out->smem = smem_for(n);
     if (build == RESIDENCY_BUILD) {
         if (!small) return (int)cudaErrorInvalidValue;
-        out->fn = &fused_simulate_kernel<128, false, 4, false>;
+        out->fn = table ? &fused_simulate_kernel<128, false, 4, false, true>
+                        : &fused_simulate_kernel<128, false, 4, false, false>;
         return 0;
     }
     if (build != REGISTER_BUILD) return (int)cudaErrorInvalidValue;
-    if (probe) out->fn = &fused_simulate_kernel<128, false, 1, true>;
-    else if (n <= 128) out->fn = register_build<128>(storage);
-    else if (n <= 256) out->fn = register_build<256>(storage);
-    else if (n <= 512) out->fn = register_build<512>(storage);
-    else out->fn = register_build<1024>(storage);
+    if (probe) out->fn = &fused_simulate_kernel<128, false, 1, true, false>;
+    else out->fn = table ? register_build_for<true>(n, storage) : register_build_for<false>(n, storage);
     return 0;
 }
 
@@ -997,19 +1048,25 @@ int resident_blocks(const Build& b, int* blocks) {
 // asks it through flowsim_fused_chosen_build): at N <= 128 without storage the latency build
 // while the batch fits the card in one wave of it, then the register build
 // while it fits in one wave of that, then the residency build where it holds
-// more members; every other shape the register build.
-int choose_build_id(int n_sims, int n, bool storage, int* build) {
+// more members; every other shape the register build.  Table geometry skips
+// the latency build: the register build, then the residency build.
+int choose_build_id(int n_sims, int n, bool storage, bool table, int* build) {
     *build = REGISTER_BUILD;
     if (n > LATENCY_MAX_N || storage) return 0;
     int dev, sms, lat_bps, reg_bps, res_bps, rc;
     Build b;
     if ((rc = (int)cudaGetDevice(&dev))) return rc;
     if ((rc = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))) return rc;
-    if ((rc = pick_build(n, false, LATENCY_BUILD, false, &b)) || (rc = resident_blocks(b, &lat_bps))) return rc;
-    if (n_sims <= lat_bps * sms) { *build = LATENCY_BUILD; return 0; }
-    if ((rc = pick_build(n, false, REGISTER_BUILD, false, &b)) || (rc = resident_blocks(b, &reg_bps))) return rc;
+    if (!table) {
+        if ((rc = pick_build(n, false, false, LATENCY_BUILD, false, &b)) || (rc = resident_blocks(b, &lat_bps)))
+            return rc;
+        if (n_sims <= lat_bps * sms) { *build = LATENCY_BUILD; return 0; }
+    }
+    if ((rc = pick_build(n, false, table, REGISTER_BUILD, false, &b)) || (rc = resident_blocks(b, &reg_bps)))
+        return rc;
     if (n_sims <= reg_bps * sms) return 0;
-    if ((rc = pick_build(n, false, RESIDENCY_BUILD, false, &b)) || (rc = resident_blocks(b, &res_bps))) return rc;
+    if ((rc = pick_build(n, false, table, RESIDENCY_BUILD, false, &b)) || (rc = resident_blocks(b, &res_bps)))
+        return rc;
     if (res_bps > reg_bps) *build = RESIDENCY_BUILD;
     return 0;
 }
@@ -1026,15 +1083,21 @@ extern "C" int flowsim_fused_latency_max_n() { return LATENCY_MAX_N; }
         const void* par, const void* qlat, void* depth, void* flow, void* iters, void* err, void* conv, \
         void* gate, void* stage, const void* stor, const void* stab, long long stab_stride, int n_sims, int n, \
         int nt, int max_iter, int us_kind, int ds_kind, int rc_kind, int us_rc_kind, int store_boundaries, \
-        int qlat_mode, const int* st
+        int qlat_mode, const int* st, const void* tab_shared, const void* tab_k, const void* tab_neq, \
+        const void* tab_dk, int tab_m
 #define FLOWSIM_SIM_ARGS geo, h0, Q0, us, ds, par, qlat, depth, flow, iters, err, conv, gate, stage, stor, stab, \
-        stab_stride, n_sims, n, nt, max_iter, us_kind, ds_kind, rc_kind, us_rc_kind, store_boundaries, qlat_mode, st
+        stab_stride, n_sims, n, nt, max_iter, us_kind, ds_kind, rc_kind, us_rc_kind, store_boundaries, qlat_mode, st, \
+        tab_shared, tab_k, tab_neq, tab_dk, tab_m
 
 namespace {
 
 int check_args(int n_sims, int n, int nt, int qlat_mode, const void* qlat, const int* st, const void* stage,
-               const void* stor, const void* stab) {
+               const void* stor, const void* stab, const void* tab_shared, const void* tab_k,
+               const void* tab_neq, const void* tab_dk, int tab_m) {
     if (n_sims <= 0 || n <= 1 || n > 1024 || nt <= 0) return (int)cudaErrorInvalidValue;
+    if (tab_m == 1 || tab_m < 0
+        || (tab_m && (tab_shared == nullptr || tab_k == nullptr || tab_neq == nullptr || tab_dk == nullptr)))
+        return (int)cudaErrorInvalidValue;
     if (qlat_mode < QLAT_NONE || qlat_mode > QLAT_LEVELS) return (int)cudaErrorInvalidValue;
     if ((qlat_mode != QLAT_NONE) != (qlat != nullptr)) return (int)cudaErrorInvalidValue;
     if (st == nullptr || stage == nullptr) return (int)cudaErrorInvalidValue;
@@ -1045,12 +1108,14 @@ int check_args(int n_sims, int n, int nt, int qlat_mode, const void* qlat, const
 
 // build -1: choose_build_id; else that build (a test hook)
 int launch(int build, bool probe, long long* probe_out, FLOWSIM_SIM_PARAMS, void* stream) {
-    int rc = check_args(n_sims, n, nt, qlat_mode, qlat, st, stage, stor, stab);
+    int rc = check_args(n_sims, n, nt, qlat_mode, qlat, st, stage, stor, stab, tab_shared, tab_k, tab_neq, tab_dk,
+                        tab_m);
     if (rc) return rc;
     const bool storage = (st[0] | st[1]) & ST_ON;
-    if (build < 0 && (rc = choose_build_id(n_sims, n, storage, &build))) return rc;
+    const bool table = tab_m != 0;
+    if (build < 0 && (rc = choose_build_id(n_sims, n, storage, table, &build))) return rc;
     Build b;
-    if ((rc = pick_build(n, storage, build, probe, &b))) return rc;
+    if ((rc = pick_build(n, storage, table, build, probe, &b))) return rc;
     cudaError_t e = cudaFuncSetAttribute((const void*)b.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)b.smem);
     if (e != cudaSuccess) return (int)e;
@@ -1059,7 +1124,9 @@ int launch(int build, bool probe, long long* probe_out, FLOWSIM_SIM_PARAMS, void
         (const double*)ds, (const double*)par, (const double*)qlat, (double*)depth, (double*)flow,
         (int*)iters, (double*)err, (int*)conv, (double*)gate, (double*)stage, (const double*)stor,
         (const double*)stab, stab_stride, n, nt, max_iter, pcr::n_sweeps(n), us_kind, ds_kind,
-        rc_kind, us_rc_kind, store_boundaries, qlat_mode, st[0], st[1], st[2], st[3], st[4], st[5], probe_out);
+        rc_kind, us_rc_kind, store_boundaries, qlat_mode, st[0], st[1], st[2], st[3], st[4], st[5],
+        (const double*)tab_shared, (const double*)tab_k, (const double*)tab_neq, (const double*)tab_dk, tab_m,
+        probe_out);
     return (int)cudaGetLastError();
 }
 
@@ -1069,9 +1136,13 @@ int launch(int build, bool probe, long long* probe_out, FLOWSIM_SIM_PARAMS, void
 // fused_simulate_batched.  Every array carries a leading n_sims axis (the
 // storage tables only when stab_stride != 0).  st: the six storage ints
 // {us flags, ds flags, us nv, us na, ds nv, ds na}; stage [n_sims, nt, 2] is
-// filled with NaN by the caller.  build: -1 chooses by the shape and the
-// member count (choose_build_id: what the wrappers do); 0-2 forces a build,
-// so that chip_smoke.py can time the builds against each other.
+// filled with NaN by the caller.  tab_m: 0 for trapezoid geometry (geo
+// [n_sims, 13, N]); M for table geometry (geo [n_sims, 4, N]: bed level,
+// table span, bed slope, curvature), with tab_shared [4, N, M] (A, P, T,
+// dR/dA) and tab_k, tab_neq, tab_dk [n_sims, N, M] (K, n_eq, dK/dA).  build: -1
+// chooses by the shape, the geometry and the member count (choose_build_id:
+// what the wrappers do); 0-2 forces a build, so that chip_smoke.py can time
+// the builds against each other.
 extern "C" int flowsim_fused_simulate(FLOWSIM_SIM_PARAMS, int build, void* stream) {
     return launch(build, false, nullptr, FLOWSIM_SIM_ARGS, stream);
 }
@@ -1092,17 +1163,17 @@ extern "C" int flowsim_fused_simulate_probe(FLOWSIM_SIM_PARAMS, int build, void*
 #undef FLOWSIM_SIM_PARAMS
 #undef FLOWSIM_SIM_ARGS
 
-// Resident blocks per SM of a build at N nodes, from the CUDA occupancy
-// calculator.
-extern "C" int flowsim_fused_resident_blocks(int n, int storage, int build, int* blocks) {
+// Resident blocks per SM of a build at N nodes (table != 0: of the table
+// geometry's build), from the CUDA occupancy calculator.
+extern "C" int flowsim_fused_resident_blocks(int n, int storage, int table, int build, int* blocks) {
     if (n <= 1 || n > 1024 || blocks == nullptr) return (int)cudaErrorInvalidValue;
     Build b;
-    const int rc = pick_build(n, storage != 0, build, false, &b);
+    const int rc = pick_build(n, storage != 0, table != 0, build, false, &b);
     return rc ? rc : resident_blocks(b, blocks);
 }
 
 // The build the C entry takes for n_sims simulations of N nodes.
-extern "C" int flowsim_fused_chosen_build(int n_sims, int n, int storage, int* build) {
+extern "C" int flowsim_fused_chosen_build(int n_sims, int n, int storage, int table, int* build) {
     if (n_sims <= 0 || n <= 1 || n > 1024 || build == nullptr) return (int)cudaErrorInvalidValue;
-    return choose_build_id(n_sims, n, storage != 0, build);
+    return choose_build_id(n_sims, n, storage != 0, table != 0, build);
 }

@@ -201,7 +201,63 @@ __device__ Sec section_state(const Geo& g, double depth_in) {
     return s;
 }
 
-__device__ Slope energy_slope(const Geo& g, const Sec& s, double h, double Q) {
+// -- ops/sections.py, the table path (irregular sections) ---------------------
+
+// rows of the packed table geometry [TG_ROWS, N]; the seven tables stay in
+// device memory, read through L2: the four that the geometry alone sets,
+// [TS_COUNT, N, M] and shared by the members of an ensemble, and K, n_eq and
+// dK/dA, three arrays [S, N, M] as the geometry holds them (a roughness
+// ensemble rescales them per member)
+enum { TG_ZBED, TG_DMAX, TG_BEDSLOPE, TG_CURV, TG_ROWS };
+enum { TS_A, TS_P, TS_T, TS_DR, TS_COUNT };
+static_assert(TG_ZBED == G_ZBED, "both layouts keep the bed level in row 0");
+
+// One node's tables: its row at sample 0 of the first shared table (nm =
+// N * M doubles between two shared tables) and of its member's K, n_eq and
+// dK/dA; dgrid = depth_max / (M - 1) as the plain engine forms it, jmax = M - 2.
+struct TabGeo {
+    const double* ts;
+    const double* k;
+    const double* neq;
+    const double* dk;
+    size_t nm;
+    double z, curv, dgrid, jmax;
+};
+
+// ops/sections.py::_table_section_state, operation for operation: the raw
+// depth over the grid step (a division, as the plain engine does it, not a
+// product with a packed reciprocal), the bracket floored and clamped to
+// [0, M-2] in float64 before it becomes an index (fmax takes 0 for a NaN
+// depth, whose values stay NaN through frac: no read out of range), frac may
+// exceed 1 (linear extrapolation beyond the table), lo + frac * (hi - lo),
+// and only A, P, T and K wet-masked.  Two rows of each of the seven tables
+// are read, 14 doubles a node.
+__device__ Sec section_state(const TabGeo& g, double depth) {
+    const double x = depth / g.dgrid;
+    const double jf = fmin(fmax(floor(x), 0.0), g.jmax);
+    const int j = (int)jf;
+    const double frac = x - jf;
+    auto lerp = [&](const double* t) {
+        const double lo = t[j];
+        return lo + frac * (t[j + 1] - lo);
+    };
+    const bool wet = depth > 0.0;
+    Sec s;
+    s.A = wet ? lerp(g.ts + TS_A * g.nm) : 0.0;
+    s.P = wet ? lerp(g.ts + TS_P * g.nm) : 0.0;
+    s.T = wet ? lerp(g.ts + TS_T * g.nm) : 0.0;
+    s.K = wet ? lerp(g.k) : 0.0;
+    s.n_eq = lerp(g.neq);
+    s.dK_dA = lerp(g.dk);
+    s.dR_dA = lerp(g.ts + TS_DR * g.nm);
+    s.R = safe_div(s.A, s.P);
+    s.dA_dh = s.T;
+    return s;
+}
+
+// Geometry GEO: Geo (trapezoid) or TabGeo (tables); it reads the curvature alone
+template <class GEO>
+__device__ Slope energy_slope(const GEO& g, const Sec& s, double h, double Q) {
     const bool Kpos = s.K > 0.0;
     const double Ksafe = Kpos ? s.K : 1.0;
     const double Sf = Kpos ? friction_slope(Q, Ksafe) : 0.0;

@@ -21,6 +21,14 @@ kernel's residency build (128 registers, four blocks an SM, 528 members in
 flight, the same bits), chosen by the C entry from the member count; PERF.md
 keeps the readings.
 
+Irregular sections: a batched :class:`TableGeometry` (what
+``parallel.ensemble.table_roughness_ensemble`` gives) runs in the kernel's
+table builds.  Its members must share the four tables that the geometry alone
+sets (A, P, T, dR/dA), packed once; each member's K, n_eq and dK/dA are its
+own, so a batched launch gives each member the bits of its single launch.
+The TPU kernel's factored form (member 0's tables times a per-member
+conveyance scale) would round differently and is not carried over.
+
 The boundary *kinds* and the settings are shared by all members; everything
 else may differ.  Packing is done with tensor ops on the members' device
 (stack / expand), never a Python loop over members.
@@ -35,7 +43,7 @@ from __future__ import annotations
 import torch
 
 from flowsim_tpu_torch import trees
-from flowsim_tpu_torch.geometry import TrapezoidGeometry
+from flowsim_tpu_torch.geometry import TableGeometry, TrapezoidGeometry
 from flowsim_tpu_torch.ops import preissmann as prs
 from flowsim_tpu_torch.ops.cuda import fused_newton as fn
 from flowsim_tpu_torch.ops.cuda.fused_newton import FusedUnsupported
@@ -118,7 +126,9 @@ def fused_simulate_batched(geo_batch, us_bc, ds_bc, h0, Q0, settings, us_batched
     """Run a member-batch of full simulations in ONE kernel launch.
 
     ``geo_batch``: TrapezoidGeometry with a leading member axis on every leaf
-    (``parallel.ensemble.stack_geometries`` / ``roughness_ensemble``).
+    (``parallel.ensemble.stack_geometries`` / ``roughness_ensemble``), or a
+    TableGeometry whose members share A, P, T and dR/dA
+    (``table_roughness_ensemble``).
     ``us_bc`` / ``ds_bc``: shared BoundaryParams, or (with ``us_batched`` /
     ``ds_batched``) the stacked per-member params of
     ``ensemble.batch_boundaries`` — per-member target series, initial depth,
@@ -139,10 +149,10 @@ def fused_simulate_batched(geo_batch, us_bc, ds_bc, h0, Q0, settings, us_batched
     CPU tensors take the plain version.
     """
     global launch_count
-    if not isinstance(geo_batch, TrapezoidGeometry):
+    if not isinstance(geo_batch, (TrapezoidGeometry, TableGeometry)):
         raise FusedUnsupported(
-            "the batched fused kernel supports TrapezoidGeometry only (shared lookup tables "
-            "with a per-member conveyance scale wait for ROADMAP.md Queue 1 item 8)")
+            f"unknown geometry class {type(geo_batch).__name__!r}: the batched fused kernel takes "
+            "TrapezoidGeometry or TableGeometry")
     if geo_batch.z_bed.dim() != 2:
         raise FusedUnsupported("geo_batch needs a leading member axis")
     n_members, n = geo_batch.z_bed.shape
@@ -155,6 +165,8 @@ def fused_simulate_batched(geo_batch, us_bc, ds_bc, h0, Q0, settings, us_batched
     qlat = batched_lateral_inflow(lateral_inflow, n_members, n, nt, h0)
     geo0, us0, ds0, *_ = _member_args(geo_batch, us_bc, ds_bc, h0, Q0, None, us_batched, ds_batched, 0)
     fn._check_supported(geo0, us0, ds0, settings)
+    if isinstance(geo_batch, TableGeometry):
+        fn.check_shared_tables(geo_batch)
 
     dev = h0.device
     if dev.type == "cpu":
@@ -162,12 +174,13 @@ def fused_simulate_batched(geo_batch, us_bc, ds_bc, h0, Q0, settings, us_batched
     fn.check_device(dev, h0, Q0, geo_batch, us_bc, ds_bc, "fused_simulate_batched")
 
     lead = (n_members,)
+    tables = fn.pack_tables(geo_batch, n_members)
     par, rc_kind, us_rc_kind = fn.pack_params(us_bc, ds_bc, settings, batch_shape=lead)
     storage = fn.pack_storage(us_bc, ds_bc, batch_shape=lead)
     out = fn.launch(fn.pack_geometry(geo_batch), h0.expand(n_members, n).contiguous(),
                     Q0.expand(n_members, n).contiguous(), fn.series(us_bc, nt, dev, lead),
                     fn.series(ds_bc, nt, dev, lead), par,
                     None if qlat is None else qlat.contiguous(), settings,
-                    us_bc.kind, ds_bc.kind, rc_kind, us_rc_kind, storage)
+                    us_bc.kind, ds_bc.kind, rc_kind, us_rc_kind, storage, tables)
     launch_count += 1
     return out

@@ -153,7 +153,7 @@ def check_supported(branches, n_junctions, settings, junction_rating=None):
         if not isinstance(br.geo, TrapezoidGeometry):
             raise FusedUnsupported(
                 f"branch {i}: the fused network kernel supports TrapezoidGeometry only (table "
-                "geometry is still to be ported, ROADMAP.md Queue 1 item 8)")
+                "branches are still to be ported, ROADMAP.md Queue 2A item 2)")
         try:
             fn._check_supported(br.geo, *_ends(br, nt, br.h0), settings)
         except FusedUnsupported as e:

@@ -16,6 +16,11 @@ On CUDA tensors the wrapper launches the kernel or raises.  The plain version
 The same kernel on a grid of B blocks is the batched (ensemble) kernel; its
 wrapper is ``ops/cuda/fused_batched.py``, which shares :func:`launch` and the
 packing functions of this module (they accept a leading member axis).
+
+Both geometry kinds run in the kernel: a :class:`TrapezoidGeometry` packs its
+13 rows; a :class:`TableGeometry` (irregular sections) packs 4 rows (bed
+level, table span, bed slope, curvature) and its seven lookup tables, which
+stay in device memory (:func:`pack_tables`).
 """
 
 from __future__ import annotations
@@ -26,7 +31,7 @@ import math
 
 import torch
 
-from flowsim_tpu_torch.geometry import TrapezoidGeometry
+from flowsim_tpu_torch.geometry import TableGeometry, TrapezoidGeometry
 from flowsim_tpu_torch.ops import preissmann as prs
 from flowsim_tpu_torch.ops.cuda import build
 
@@ -37,6 +42,12 @@ MAX_N = 964
 
 _GEO_ROWS = ("z_bed", "b_main", "m_main", "n_main", "compound", "h_bank", "b_fp_left",
              "b_fp_right", "m_fp", "n_left", "n_right", "bed_slope", "curvature")
+# a TableGeometry: its rows (TG_*), the tables the geometry alone sets (TS_*,
+# shared by the members of an ensemble) and those a roughness ensemble
+# rescales per member (TM_*), in csrc/reach_common.cuh's order
+_TABLE_ROWS = ("z_bed", "depth_max", "bed_slope", "curvature")
+_SHARED_TABLES = ("area", "perimeter", "top_width", "dR_dA")
+_MEMBER_TABLES = ("conveyance", "n_eq", "dK_dA")
 _BC_KINDS = {"flow_hydrograph": 0, "stage_hydrograph": 1, "fixed_depth": 2,
              "normal_depth": 3, "rating_curve": 4}
 _RC_KINDS = {"polynomial": 0, "blended_poly": 1, "gated_blend": 2}
@@ -80,10 +91,12 @@ def _check_rating(name, bc, kinds):
 
 def _check_supported(geo, us_bc, ds_bc, settings):
     """Raise :class:`FusedUnsupported` outside the kernel's scope."""
-    if not isinstance(geo, TrapezoidGeometry):
+    if not isinstance(geo, (TrapezoidGeometry, TableGeometry)):
         raise FusedUnsupported(
-            "fused kernel supports TrapezoidGeometry only (table geometry is "
-            "an extension still to be ported, ROADMAP.md Queue 1 item 8)")
+            f"unknown geometry class {type(geo).__name__!r}: the fused kernel takes "
+            "TrapezoidGeometry or TableGeometry")
+    if isinstance(geo, TableGeometry) and geo.area.shape[-1] < 2:
+        raise FusedUnsupported(f"a lookup table needs at least 2 depth samples; got {geo.area.shape[-1]}")
     for name, bc in (("upstream", us_bc), ("downstream", ds_bc)):
         if bc.kind not in _BC_KINDS:
             raise FusedUnsupported(f"unknown {name} BC kind {bc.kind!r}")
@@ -96,7 +109,7 @@ def _check_supported(geo, us_bc, ds_bc, settings):
             if kind not in _STORAGE_RC_KINDS or bc.storage.rating.coeffs.shape[-1] != 3:
                 raise FusedUnsupported(
                     f"unsupported rating kind {kind!r} on the {name} storage; the kernel "
-                    f"evaluates {_STORAGE_RC_KINDS} quadratics there (ROADMAP.md Queue 1 item 8)")
+                    f"evaluates {_STORAGE_RC_KINDS} quadratics there (ROADMAP.md Queue 2A item 3)")
         if bc.kind == "normal_depth":
             s0 = float(bc.bed_slope.reshape(-1)[0])
             if not math.isfinite(s0) or s0 <= 0.0:
@@ -129,15 +142,16 @@ def _lib():
     lib = build.load("fused_newton")
     fn = lib.flowsim_fused_simulate
     if not getattr(fn, "_typed", False):
-        head = [ctypes.c_void_p] * 16 + [ctypes.c_longlong] + [ctypes.c_int] * 10 + [ctypes.POINTER(ctypes.c_int)]
+        head = [ctypes.c_void_p] * 16 + [ctypes.c_longlong] + [ctypes.c_int] * 10 + [ctypes.POINTER(ctypes.c_int)] \
+            + [ctypes.c_void_p] * 4 + [ctypes.c_int]
         fn.argtypes = head + [ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.flowsim_fused_simulate_probe.argtypes = head + [ctypes.c_int, ctypes.c_void_p,
                                                             ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
         lib.flowsim_fused_simulate_probe.restype = ctypes.c_int
-        lib.flowsim_fused_resident_blocks.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+        lib.flowsim_fused_resident_blocks.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
         lib.flowsim_fused_resident_blocks.restype = ctypes.c_int
-        lib.flowsim_fused_chosen_build.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+        lib.flowsim_fused_chosen_build.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
         lib.flowsim_fused_chosen_build.restype = ctypes.c_int
         for aux in (lib.flowsim_fused_param_count, lib.flowsim_fused_smem_bytes_per_node,
                     lib.flowsim_fused_storage_param_count, lib.flowsim_fused_probe_phases,
@@ -155,11 +169,43 @@ def _lib():
     return lib
 
 
-def pack_geometry(geo: TrapezoidGeometry) -> torch.Tensor:
-    """[13, N] float64 ([B, 13, N] for a batched geometry): the geometry rows
-    in the kernel's order (``compound`` as 0/1)."""
+def pack_geometry(geo) -> torch.Tensor:
+    """The geometry rows in the kernel's order, float64: ``[13, N]`` of a
+    TrapezoidGeometry (``compound`` as 0/1), ``[4, N]`` of a TableGeometry
+    (its tables: :func:`pack_tables`); ``[B, rows, N]`` for a batched one."""
     dt = geo.z_bed.dtype
-    return torch.stack([getattr(geo, r).to(dt) for r in _GEO_ROWS], dim=-2).contiguous()
+    rows = _TABLE_ROWS if isinstance(geo, TableGeometry) else _GEO_ROWS
+    return torch.stack([getattr(geo, r).to(dt) for r in rows], dim=-2).contiguous()
+
+
+def check_shared_tables(geo_batch: TableGeometry) -> None:
+    """Raise :class:`FusedUnsupported` unless every member of a batched
+    TableGeometry holds member 0's A, P, T and dR/dA tables (an expanded view,
+    as ``table_roughness_ensemble`` gives, does so by its stride): the kernel
+    reads those four once for the whole batch."""
+    for name in _SHARED_TABLES:
+        t = getattr(geo_batch, name)
+        if not (t.stride(0) == 0 or torch.equal(t, t[:1].expand_as(t))):
+            raise FusedUnsupported(
+                f"the members of a batched TableGeometry must share {_SHARED_TABLES}; {name} differs "
+                "(parallel.ensemble.table_roughness_ensemble gives such a batch)")
+
+
+def pack_tables(geo, n_sims: int | None = None) -> tuple[torch.Tensor, tuple, int]:
+    """The lookup tables of a TableGeometry as the kernel reads them:
+    ``(shared [4, N, M], (K, n_eq, dK/dA) each [S, N, M], M)`` — A, P, T
+    and dR/dA stacked once, the three member tables as the geometry holds
+    them (no copy of a contiguous table: at 10 240 members they are GBs).
+    ``n_sims=None``: one simulation of ``[N, M]`` tables; else a batched
+    geometry of ``n_sims`` members that :func:`check_shared_tables` accepts
+    (its member 0 gives the shared tables).  A TrapezoidGeometry has no
+    tables: ``(None, None, 0)``."""
+    if not isinstance(geo, TableGeometry):
+        return None, None, 0
+    lead = (lambda t: t.unsqueeze(0)) if n_sims is None else (lambda t: t)
+    shared = torch.stack([lead(getattr(geo, t))[0] for t in _SHARED_TABLES])
+    member = tuple(lead(getattr(geo, t)).contiguous() for t in _MEMBER_TABLES)
+    return shared, member, geo.area.shape[-1]
 
 
 def _rating_slots(rc, gated):
@@ -272,38 +318,43 @@ def check_output_memory(n_sims: int, n: int, nt: int, store: str, free_bytes: in
             f"ensemble in chunks (batched_simulate(..., chunk_size=...)) or use store='boundaries'")
 
 
-def resident_blocks(n: int, storage: bool = False, build_id: int = REGISTER_BUILD) -> int:
+def resident_blocks(n: int, storage: bool = False, build_id: int = REGISTER_BUILD, table: bool = False) -> int:
     """Blocks of a kernel build that one SM holds at N nodes, from the CUDA
     occupancy calculator (:data:`REGISTER_BUILD`, every shape; the others
-    N <= :data:`LATENCY_MAX_N` without storage)."""
+    N <= :data:`LATENCY_MAX_N` without storage, and the latency build
+    trapezoid geometry only; ``table``: the table geometry's build)."""
     out = ctypes.c_int(0)
-    rc = _lib().flowsim_fused_resident_blocks(n, int(storage), build_id, ctypes.byref(out))
+    rc = _lib().flowsim_fused_resident_blocks(n, int(storage), int(table), build_id, ctypes.byref(out))
     if rc != 0:
         raise RuntimeError(f"occupancy query failed: CUDA error {rc}")
     return out.value
 
 
-def chosen_build(n_sims: int, n: int, storage: bool = False) -> int:
+def chosen_build(n_sims: int, n: int, storage: bool = False, table: bool = False) -> int:
     """The build the kernel's C entry takes for ``n_sims`` simulations of
     ``n`` nodes (``choose_build_id`` in ``csrc/fused_newton.cu``): with
     storage or N > :data:`LATENCY_MAX_N` the register build; else the
-    latency build while one wave of it holds the batch, the register build
-    while one wave of that does, then the residency build where it holds
-    more members an SM."""
+    latency build while one wave of it holds the batch (trapezoid geometry;
+    ``table`` skips it), the register build while one wave of that does,
+    then the residency build where it holds more members an SM."""
     out = ctypes.c_int(0)
-    rc = _lib().flowsim_fused_chosen_build(n_sims, n, int(storage), ctypes.byref(out))
+    rc = _lib().flowsim_fused_chosen_build(n_sims, n, int(storage), int(table), ctypes.byref(out))
     if rc != 0:
         raise RuntimeError(f"build choice failed: CUDA error {rc}")
     return out.value
 
 
 def launch(geo_rows, h0, Q0, us_series, ds_series, par, qlat, settings, us_kind, ds_kind,
-           rc_kind, us_rc_kind, storage, build_id: int = -1, probe=None) -> prs.SimOutput:
+           rc_kind, us_rc_kind, storage, tables=(None, None, 0), build_id: int = -1,
+           probe=None) -> prs.SimOutput:
     """Launch the kernel on a grid of ``S = geo_rows.shape[0]`` blocks, one per
     simulation.  Every input carries the leading ``S`` axis and lies on one
     CUDA device; ``qlat`` is ``None``, ``[S, N]`` or ``[S, nt, N]``;
     ``storage`` is what :func:`pack_storage` returns (blocks ``[S, 2, 17]``,
-    tables ``[S, L]`` or shared ``[L]``).  ``build_id`` -1 lets the kernel's C
+    tables ``[S, L]`` or shared ``[L]``).  ``tables``: what
+    :func:`pack_tables` returns — ``(None, None, 0)`` for trapezoid rows
+    ``[S, 13, N]``, else ``(shared [4, N, M], (K, n_eq, dK/dA) each
+    [S, N, M], M)`` for table rows ``[S, 4, N]``.  ``build_id`` -1 lets the kernel's C
     entry choose its build (:func:`chosen_build`: what every wrapper does); a
     build id forces one, a test hook for timing the builds against each
     other.  ``probe``: ``None``, or ``(cycles, clock)`` — an int64 tensor
@@ -315,9 +366,16 @@ def launch(geo_rows, h0, Q0, us_series, ds_series, par, qlat, settings, us_kind,
     dev = geo_rows.device
     n_sims, _, n = geo_rows.shape
     nt = settings.n_time_levels
-    expect = dict(geo_rows=(n_sims, len(_GEO_ROWS), n), h0=(n_sims, n), Q0=(n_sims, n),
-                  us_series=(n_sims, nt), ds_series=(n_sims, nt), par=(n_sims, _N_PARAMS))
+    tab_shared, tab_member, tab_m = tables
+    expect = dict(geo_rows=(n_sims, len(_TABLE_ROWS) if tab_m else len(_GEO_ROWS), n), h0=(n_sims, n),
+                  Q0=(n_sims, n), us_series=(n_sims, nt), ds_series=(n_sims, nt), par=(n_sims, _N_PARAMS))
     given = dict(geo_rows=geo_rows, h0=h0, Q0=Q0, us_series=us_series, ds_series=ds_series, par=par)
+    if tab_m:
+        expect["shared tables"] = (len(_SHARED_TABLES), n, tab_m)
+        given["shared tables"] = tab_shared
+        for name, t in zip(_MEMBER_TABLES, tab_member):
+            expect[name + " table"] = (n_sims, n, tab_m)
+            given[name + " table"] = t
     stor, stab, st_ints = storage
     expect["storage blocks"] = (n_sims, 2, _N_STORAGE_PARAMS)
     given["storage blocks"] = stor
@@ -351,7 +409,8 @@ def launch(geo_rows, h0, Q0, us_series, ds_series, par, qlat, settings, us_kind,
                 tab_len if stab.dim() == 2 else 0, n_sims, n, nt, int(settings.max_iter),
                 _BC_KINDS[us_kind], _BC_KINDS[ds_kind], rc_kind, us_rc_kind,
                 int(settings.store == "boundaries"), 0 if qlat is None else qlat.dim() - 1,
-                (ctypes.c_int * 6)(*st_ints))
+                (ctypes.c_int * 6)(*st_ints), None if not tab_m else tab_shared.data_ptr(),
+                *((None,) * 3 if not tab_m else (t.data_ptr() for t in tab_member)), tab_m)
         stream = torch.cuda.current_stream().cuda_stream
         if probe is None:
             rc = _lib().flowsim_fused_simulate(*args, build_id, stream)
@@ -394,7 +453,7 @@ def _launch_one(geo, us_bc, ds_bc, h0, Q0, settings, qlat, probe=None, build_id=
     out = launch(one(pack_geometry(geo)), one(h0), one(Q0), one(series(us_bc, nt, dev)),
                  one(series(ds_bc, nt, dev)), one(par), None if qlat is None else one(qlat),
                  settings, us_bc.kind, ds_bc.kind, rc_kind, us_rc_kind,
-                 (one(stor), stab, st_ints), build_id=build_id, probe=probe)
+                 (one(stor), stab, st_ints), pack_tables(geo), build_id=build_id, probe=probe)
     return prs.SimOutput(*(None if f is None else f[0] for f in out))
 
 
@@ -404,7 +463,9 @@ def fused_simulate_probe(geo, us_bc, ds_bc, h0, Q0, settings, build_id=-1):
     one, on CUDA tensors.  Returns ``(SimOutput, cycles, clock_khz)``:
     ``cycles`` maps each of :data:`PROBE_PHASES` to the SM cycles thread 0
     spent in it over the run.  Its outputs are the production build's bits.
-    Counts no launch."""
+    Trapezoid geometry only.  Counts no launch."""
+    if not isinstance(geo, TrapezoidGeometry):
+        raise FusedUnsupported("the probe builds are of the trapezoid closures")
     _check_supported(geo, us_bc, ds_bc, settings)
     prs.check_shapes(geo, us_bc, ds_bc, h0, Q0, settings, None)
     check_device(h0.device, h0, Q0, geo, us_bc, ds_bc, "fused_simulate_probe")

@@ -49,8 +49,10 @@ validates the overrides, :func:`simulate_members` runs the members one after
 another through the stacked engine (``parallel/ensemble``'s plain engine and
 the batched network kernel's plain version).
 
-Not ported yet: ``simulate_network_chunk`` (checkpoint/resume, ROADMAP.md
-Queue 1 item 14) and ``newton="fixed"`` (gradients, item 9; it raises).
+Not ported yet: table (irregular-section) branches (ROADMAP.md Queue 2A
+item 2, with their loop and stacked engines; they raise),
+``simulate_network_chunk`` (checkpoint/resume, Queue 1 item 14) and
+``newton="fixed"`` (gradients, item 9; it raises).
 The TPU-only f32-LU-plus-refinement junction solve of the JAX package has no
 counterpart: the card solves in float64.
 """
@@ -65,6 +67,7 @@ import torch
 
 from flowsim_tpu_torch import trees
 from flowsim_tpu_torch.config import farray
+from flowsim_tpu_torch.geometry import TrapezoidGeometry
 from flowsim_tpu_torch.ops import boundary as bnd
 from flowsim_tpu_torch.ops import preissmann as prs
 from flowsim_tpu_torch.ops import rating_curve as rcurve
@@ -125,10 +128,15 @@ def check_junction_inputs(junction_area, junction_rating, n_junctions):
 
 
 def _check_supported(branches: List[BranchDef], n_junctions: int, settings=None):
-    """Junction ids in range, every junction with >= 2 ends, and (with
-    ``settings``) every branch's state, series and lateral inflow of the
-    shapes the level loop indexes: a wrong length would read past an end."""
+    """Trapezoid branches only (a table branch raises), junction ids in
+    range, every junction with >= 2 ends, and (with ``settings``) every
+    branch's state, series and lateral inflow of the shapes the level loop
+    indexes: a wrong length would read past an end."""
     for i, br in enumerate(branches):
+        if not isinstance(br.geo, TrapezoidGeometry):
+            raise NotImplementedError(
+                f"branch {i}: {type(br.geo).__name__} branches in a river network are not ported yet "
+                "(ROADMAP.md Queue 2A item 2: table branches in ops/network and kernels 5-6)")
         n_b = int(br.h0.shape[0])
         for end_name, end in (("us", br.us), ("ds", br.ds)):
             if _is_junction(end):

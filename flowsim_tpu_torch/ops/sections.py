@@ -17,7 +17,9 @@ full-section area omits the main-channel column while ``dA_dh`` is the full
 top width, and the curvature term of ``dSe_dA_eff`` is pre-multiplied by
 dA/dh (see :func:`energy_slope`).
 
-The lookup-table branch for irregular sections is a later slice.
+Dispatch on the geometry type: :class:`TrapezoidGeometry` evaluates the
+closed forms, :class:`TableGeometry` interpolates its lookup tables
+(:func:`_table_section_state`); any other class raises ``TypeError``.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from flowsim_tpu_torch.geometry import TrapezoidGeometry
+from flowsim_tpu_torch.geometry import TableGeometry, TrapezoidGeometry
 from flowsim_tpu_torch.ops import hydraulics as hyd
 
 
@@ -139,12 +141,13 @@ def _subsection_conveyances(g: TrapezoidGeometry, r, A, P, R):
     return K_l, K_m, K_r
 
 
-def section_state(g: TrapezoidGeometry, depth) -> SectionState:
+def section_state(g, depth) -> SectionState:
     """All closure quantities at once; see :class:`SectionState`."""
+    if isinstance(g, TableGeometry):
+        return _table_section_state(g, depth)
     if not isinstance(g, TrapezoidGeometry):
-        raise NotImplementedError(
-            "only TrapezoidGeometry is ported; the lookup-table geometry is a "
-            "later slice (ROADMAP.md Queue 1 item 8; its kernel half Queue 2A items 1-2)")
+        raise TypeError(f"unknown geometry class {type(g).__name__!r}: "
+                        "expected TrapezoidGeometry or TableGeometry")
     r = _trapz_regimes(g, depth)
     A, P, R, T = _properties(g, r)
     zero = torch.zeros_like(A)
@@ -178,6 +181,52 @@ def section_state(g: TrapezoidGeometry, depth) -> SectionState:
     dK_dA = torch.where(A > 0.0, hyd.dK_dA(A, n_eq, R, dR_dA), zero)
 
     return SectionState(A=A, P=P, R=R, T=T, K=K, n_eq=n_eq, dA_dh=dA_dh, dR_dA=dR_dA, dK_dA=dK_dA)
+
+
+# ---------------------------------------------------------------------------
+# Table (irregular-section) path
+# ---------------------------------------------------------------------------
+
+
+def _table_lookup(table, idx, frac):
+    lo = torch.gather(table, -1, idx.unsqueeze(-1)).squeeze(-1)
+    hi = torch.gather(table, -1, (idx + 1).unsqueeze(-1)).squeeze(-1)
+    return lo + frac * (hi - lo)
+
+
+def _table_section_state(g: TableGeometry, depth) -> SectionState:
+    """Linear interpolation on the uniform depth grid of each node.
+
+    The raw (possibly negative) depth drives the lookup; the bracket index is
+    clipped to [0, M-2], so depths beyond the table extrapolate on its last
+    interval (``frac`` > 1) and negative ones on the first; only A, P, T and
+    K are wet-masked.  The index is floored and clipped in float64 before it
+    becomes an integer, and a NaN depth takes bracket 0 (its values stay
+    NaN): the CUDA kernels do the same.
+    """
+    M = g.area.shape[-1]
+    dgrid = g.depth_max / (M - 1)
+    x = depth / dgrid
+    jf = torch.clamp(torch.floor(x), 0.0, float(M - 2))
+    jf = torch.where(torch.isnan(jf), torch.zeros_like(jf), jf)
+    idx = jf.long()
+    frac = x - jf  # may exceed 1 beyond the table: linear extrapolation
+
+    A = _table_lookup(g.area, idx, frac)
+    P = _table_lookup(g.perimeter, idx, frac)
+    T = _table_lookup(g.top_width, idx, frac)
+    K = _table_lookup(g.conveyance, idx, frac)
+    n_eq = _table_lookup(g.n_eq, idx, frac)
+    dK = _table_lookup(g.dK_dA, idx, frac)
+    dR = _table_lookup(g.dR_dA, idx, frac)
+    wet = depth > 0.0
+    zero = torch.zeros_like(A)
+    A = torch.where(wet, A, zero)
+    P = torch.where(wet, P, zero)
+    T = torch.where(wet, T, zero)
+    K = torch.where(wet, K, zero)
+    R = _safe_div(A, P)
+    return SectionState(A=A, P=P, R=R, T=T, K=K, n_eq=n_eq, dA_dh=T, dR_dA=dR, dK_dA=dK)
 
 
 # ---------------------------------------------------------------------------

@@ -20,8 +20,11 @@ overrides with ``engine="plain"`` (a member loop through the stacked network
 engine) or ``engine="fused"`` (all members in one launch of the network
 kernel, ``ops/cuda/fused_network.py``).
 
+Irregular sections: :func:`table_roughness_ensemble` rescales the lookup
+tables of a ``TableGeometry`` per member; both engines take the result.
+
 Not ported yet: ``shard`` / ``mesh`` (a batch spread over several cards,
-ROADMAP.md Queue 1 item 13) and ``table_roughness_ensemble`` (Queue 1 item 8).
+ROADMAP.md Queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -70,6 +73,46 @@ def roughness_ensemble(geo, n_values):
     batched = trees.tree_map(lambda v: v.expand(B, *v.shape), geo)
     return dataclasses.replace(
         batched, n_main=n_values[:, None].expand(B, geo.n_nodes).contiguous())
+
+
+def table_roughness_ensemble(geo, n_values, n_base=None):
+    """Batched :class:`TableGeometry` with per-member uniform roughness.
+
+    Irregular-section tables bake Manning n into the conveyance columns at
+    build time (geometry_tables.build_table_geometry), so a per-member
+    roughness is applied as an exact rescale: with ``s = n / n_base``,
+    Manning K = A R^(2/3) / n gives ``K -> K/s``, ``dK_dA -> dK_dA/s`` and
+    the Horton-Einstein equivalent n (linear in the subsection n's when all
+    scale together, ref cross_section.py:443-501) gives ``n_eq -> s*n_eq``.
+    A/P/R/T columns are pure geometry and are shared across members: they
+    are expanded views of the input's tensors, and only K, dK_dA and n_eq
+    take memory per member.
+
+    ``n_base`` defaults to the build-time main-channel n recorded on the
+    geometry (``geo.n_ref``); passing a different value is rejected — the
+    rescale is silently wrong physics when anchored off the baked n.
+    """
+    n_ref = geo.n_ref
+    if n_base is None:
+        if n_ref is None:
+            raise ValueError(
+                "geo does not record its build-time Manning n (stations "
+                "disagreed, or the geometry predates n_ref); pass n_base "
+                "explicitly — it MUST be the n baked into the tables")
+        n_base = n_ref
+    elif n_ref is not None and abs(n_base - n_ref) > 1e-12 * abs(n_ref):
+        raise ValueError(
+            f"n_base={n_base} does not match the Manning n baked into the "
+            f"tables at build time (geo.n_ref={n_ref}); the rescale would "
+            f"be uniformly mis-scaled")
+    n_values = torch.as_tensor(n_values, dtype=torch.float64, device=geo.device).reshape(-1)
+    s = (n_values / n_base).to(geo.conveyance.dtype)[:, None, None]
+    batched = trees.tree_map(lambda v: v.expand(s.shape[0], *v.shape), geo)
+    # the batch no longer has a single baked n (each member's is its own
+    # n value): clear the anchor so a second rescale cannot anchor off the
+    # original build-time value
+    return dataclasses.replace(batched, conveyance=geo.conveyance / s, dK_dA=geo.dK_dA / s,
+                               n_eq=geo.n_eq * s, n_ref=None)
 
 
 def batched_simulate(geo_batch, us_bc, ds_bc, h0, Q0, settings: prs.PreissmannSettings,

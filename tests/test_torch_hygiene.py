@@ -156,9 +156,18 @@ def test_check_supported_raises_fused_unsupported(flagship, case):
     solver, channel, sset = flagship
     geo, us, ds = channel.geometry, solver.us_params, solver.ds_params
     if case == "table_geometry":
-        class TableGeometry:  # anything that is not a TrapezoidGeometry
+        # the port's TableGeometry is in the kernel (its table builds); what
+        # is refused by name is a geometry class the kernel does not know
+        from flowsim_tpu_torch import build_table_geometry, trapezoid_station
+        table = build_table_geometry([trapezoid_station(z_bed=1.0, b_main=10.0), trapezoid_station(
+            z_bed=0.0, b_main=10.0)], [0.0, 1000.0], [0.0, 500.0, 1000.0], depth_max=5.0, samples=8, device="cpu")
+        _check_supported(table, us, ds, sset)
+
+        class TableGeometry:  # not the port's TableGeometry
             n_nodes = 121
         geo = TableGeometry()
+        with pytest.raises(FusedUnsupported, match="unknown geometry class 'TableGeometry'"):
+            _check_supported(geo, us, ds, sset)
     elif case == "storage":
         # lumped storage is in the kernel; what stays refused, as in the TPU
         # kernel, is a gated rating on the storage itself

@@ -349,12 +349,15 @@ def test_fused_network_refuses_by_name(small_tributary):
     br, nj, sset, _ = small_tributary
     lv = lambda **kw: [dataclasses.replace(br[0], **kw), *br[1:]]
 
-    class TableGeometry:  # anything that is not a TrapezoidGeometry
-        n_nodes = 61
+    # a table branch: its tables at the branch's nodes, built by the port
+    from flowsim_tpu_torch import build_table_geometry, trapezoid_station
+    n0 = br[0].geo.n_nodes
+    table = build_table_geometry([trapezoid_station(z_bed=1.0, b_main=10.0), trapezoid_station(
+        z_bed=0.0, b_main=10.0)], [0.0, 1.0], np.linspace(0.0, 1.0, n0), depth_max=5.0, samples=8, device="cpu")
 
     cases = [
         (lambda: fnet.fused_simulate_network([dataclasses.replace(br[0], ds=br[2].ds)], 0, sset), "not a network"),
-        (lambda: fnet.check_supported(lv(geo=TableGeometry()), nj, sset), "TrapezoidGeometry"),
+        (lambda: fnet.check_supported(lv(geo=table), nj, sset), "Queue 2A item 2"),
         (lambda: fnet.fused_simulate_network(br, nj, dataclasses.replace(sset, diagnos=True)), "diagnostics"),
         (lambda: fnet.fused_simulate_network(
             lv(us=dataclasses.replace(br[2].ds, rating=rc.make_gated_blend([0.0, 5.0, 0.0], [0.0, 6.0, 0.0], 480.0,
@@ -370,6 +373,10 @@ def test_fused_network_refuses_by_name(small_tributary):
     for call, match in cases:
         with pytest.raises(FusedUnsupported, match=match):
             call()
+    # the loop and stacked engines refuse a table branch as well, by the same item
+    for engine in ("loop", "stacked"):
+        with pytest.raises(NotImplementedError, match="Queue 2A item 2"):
+            net.simulate_network(lv(geo=table), nj, sset, engine=engine)
     # the basin at levels=5 fits one block, the basin at levels=6 does not
     from flowsim_tpu_torch.models import basin
 

@@ -176,14 +176,16 @@ def test_not_ported_messages_name_their_queue_items(pair):
         with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
             prs.simulate(*args, dataclasses.replace(s.settings(1e-6, 100), newton=newton))
 
-    class TableGeometry:  # anything that is not a TrapezoidGeometry
+    # irregular sections are ported (TableGeometry); what is not a geometry
+    # or a station of the port is refused by name
+    class TableGeometry:  # not the port's TableGeometry
         n_nodes = 3
 
     from flowsim_tpu_torch.ops import sections as sec
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(TypeError, match="unknown geometry class 'TableGeometry'"):
         sec.section_state(TableGeometry(), torch.ones(3, dtype=torch.float64))
 
-    class IrregularStation:  # a station that is not a TrapezoidStation
+    class IrregularStation:  # not the port's IrregularStation
         pass
 
     flow = api.Hydrograph(function=lambda t: 100.0)
@@ -191,5 +193,5 @@ def test_not_ported_messages_name_their_queue_items(pair):
                           api.Boundary(condition="normal_depth", chainage=2000.0, bed_level=0.0),
                           initial_flow=100.0)
     channel.set_cross_sections([0.0, 2000.0], [IrregularStation(), IrregularStation()])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(TypeError, match="unknown station class 'IrregularStation'"):
         channel.build_geometry(3, device="cpu")

@@ -7,7 +7,7 @@ Run from the repository root, no arguments, one card::
 
 It builds the CUDA kernels of ``flowsim_tpu_torch/ops/cuda/csrc`` with
 ``nvcc``, holds each against its plain PyTorch version on the card, and drives
-six main paths through the user entry points:
+the main paths through the user entry points:
 
 * one forecast: the GERD->Roseires flagship end to end (``model.build`` ->
   ``PreissmannSolver.run``), checked by the repository's own means (all levels
@@ -42,7 +42,16 @@ six main paths through the user entry points:
   96) — the table path of kernel 3 —, with a mixed-station reach, lateral
   inflow, store="boundaries", the boundary pairs and storage rows on tables,
   and batched launches bit-identical to single ones; the single run and 4
-  members of the ensemble are held against the plain engine on all 193 levels.
+  members of the ensemble are held against the plain engine on all 193 levels;
+* surveyed branches in river networks (phase ``table_network``): that reach
+  split at node 60 into two table branches, with and without a trapezoid
+  tributary at the junction, through ``simulate_network(engine="fused")`` —
+  the table path of kernel 5 — and 1024 mixed members at M = 96 through
+  ``batched_simulate_network(engine="fused")`` — the table path of kernel 6
+  —, held against the plain version on the card (both networks and two
+  members on their first 49 levels), every build of the table path forced to the
+  same bits, the probe builds, B = 4 against single launches and a NaN
+  member among 15 sound ones.
 
 Before the main path, the ``kernels`` phase also holds kernel 1's latency
 build (the one a single launch takes) against its register build bit for
@@ -168,6 +177,20 @@ TABLE_PLAIN_MEMBERS = 4        # members of the timed ensemble held against the 
 TABLE_SMALL_BATCH = 16         # the JAX case's members
 TABLE_N_RANGE = (0.025, 0.04)
 JUNCTION_RATING_KINDS = ("polynomial", "blended_poly", "poly_n", "power", "table")
+# surveyed branches in networks: the validation reach split at
+# NETWORK_SPLIT_NODE into two table branches (the split of
+# tests/test_fused_network.py's table network), and in the mixed variant the
+# trapezoid tributary of scripts/validate_fused_network_hw.py:349-366 (b = 40
+# m, m = 2, n = 0.03, 4 km at slope 2e-4, 150 -> 300 m^3/s over 4 h) at the
+# main stem's dx; its ensemble at M = 96, tol 1e-6, with the network
+# Monte-Carlo's inflow draws
+TRIB_LENGTH, TRIB_WIDTH, TRIB_SIDE, TRIB_N, TRIB_FLOWS = 4000.0, 40.0, 2.0, 0.03, (150.0, 300.0)
+# levels of the surveyed networks and of two ensemble members held against
+# the plain engine: the first 49 (the script runs more than a minute longer
+# than before this phase, so the plain engine does not take all 193)
+TABLE_NET_COMPARED_LEVELS = 49
+TABLE_NET_SMALL_BATCH = 16
+TABLE_NET_BIT_MEMBERS = 4
 
 
 def emit(phase: str, **fields) -> None:
@@ -753,13 +776,13 @@ def latency_kernel_builds(ptxas: list) -> list:
 def network_kernel_builds(ptxas: list) -> list:
     """Registers and spills of fused_network.cu's builds, by template
     arguments (RHS pairs, launch-bound block, blocks an SM, one slot a
-    thread, probe)."""
+    thread, probe, table branches)."""
     out = []
     for rec in ptxas:
-        m = re.search(r"fused_network_kernelILi(\d+)ELi(\d+)ELi(\d+)ELb([01])ELb([01])E", rec["kernel"])
+        m = re.search(r"fused_network_kernelILi(\d+)ELi(\d+)ELi(\d+)ELb([01])ELb([01])ELb([01])E", rec["kernel"])
         if m:
             out.append(dict(rhs=int(m.group(1)), block=int(m.group(2)), min_blocks=int(m.group(3)),
-                            one_slot=m.group(4) == "1", probe=m.group(5) == "1",
+                            one_slot=m.group(4) == "1", probe=m.group(5) == "1", table=m.group(6) == "1",
                             **{k: rec.get(k) for k in ("registers", "stack_bytes", "spill_store_bytes",
                                                        "spill_load_bytes")}))
     return out
@@ -1656,7 +1679,7 @@ def drive_network_ensemble(dev, launches: dict, batched_plain_ms: float) -> tupl
     chosen = fnet.chosen_build(M, *shape)
     _, launch = network_packed(br, nj, sset, batch)
     ptxas = [k for k in network_kernel_builds(build.build_info["fused_network"]["ptxas"])
-             if k["rhs"] == topo.m_rhs and not k["probe"]]
+             if k["rhs"] == topo.m_rhs and not k["probe"] and not k["table"]]
     # (launch-bound block, blocks an SM, one slot a thread) of each build at these slots
     bounds = {fnet.LOOP_BUILD: (256, 1, False), fnet.LATENCY_BUILD: (256, 1, True),
               fnet.RESIDENCY_BUILD: (192 if shape[0] <= 192 else 256, 2, True)}
@@ -1733,7 +1756,7 @@ def trees_slice(v, members: int):
 
 
 def network_bound(n_iterations: int, topo, n_junctions: int, n_time_levels: int,
-                  members: int = 1) -> tuple[float, str, dict]:
+                  members: int = 1, table=None, table_bytes: int = 0) -> tuple[float, str, dict]:
     """The least time of a network run, over the real nodes of its branches
     (``topo``: ``ops.network.stacked_topology``; the kernel's edge pads are
     its own overhead, not work the function needs): its inputs read once (13
@@ -1743,13 +1766,18 @@ def network_bound(n_iterations: int, topo, n_junctions: int, n_time_levels: int,
     converged, per level), against its FP64 operations (per iteration and
     node of branch b: the assembly and a block-Thomas solve with 1 +
     couplings_b right-hand-side pairs; per iteration the J x J Gauss-Jordan
-    solve, 2 J^3 / 3 + 2 J^2)."""
+    solve, 2 J^3 / 3 + 2 J^2).  ``table``: per branch True for a table
+    branch, whose nodes read 4 geometry rows and do FLOPS_TABLE_ASSEMBLY;
+    ``table_bytes``: the table samples its evaluations read, once."""
     n_b, B, J = topo.n_b, len(topo.n_b), n_junctions
+    table = table or (False,) * B
     nodes = sum(n_b)
-    nbytes = members * (8 * (15 * nodes + 2 * B * n_time_levels)
-                        + n_time_levels * (8 * (2 * nodes + J + 4 * B + 1) + 2 * 4))
-    per_iteration = sum(n * (FLOPS_ASSEMBLY + FLOPS_THOMAS + len(c) * FLOPS_THOMAS_PAIR)
-                        for n, c in zip(n_b, topo.couplings))
+    rows = sum(n * (6 if t else 15) for n, t in zip(n_b, table))
+    nbytes = table_bytes + members * (8 * (rows + 2 * B * n_time_levels)
+                                      + n_time_levels * (8 * (2 * nodes + J + 4 * B + 1) + 2 * 4))
+    per_iteration = sum(n * ((FLOPS_TABLE_ASSEMBLY if t else FLOPS_ASSEMBLY) + FLOPS_THOMAS
+                             + len(c) * FLOPS_THOMAS_PAIR)
+                        for n, c, t in zip(n_b, topo.couplings, table))
     flops = n_iterations * (per_iteration + 2 * J ** 3 / 3 + 2 * J ** 2)
     tb, tf = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_F64_FLOPS * 1e3
     return max(tb, tf), ("bytes" if tb >= tf else "operations"), dict(bytes=nbytes, flops=flops)
@@ -1840,7 +1868,7 @@ def cut_levels(args, levels: int):
     return geo, cut(us), cut(ds), h0, Q0, dataclasses.replace(sset, n_time_levels=levels)
 
 
-def drive_table(dev, launches: dict) -> tuple[dict, list]:
+def drive_table(dev, launches: dict) -> tuple[dict, list, dict]:
     """Irregular sections on the card: kernel 1's and kernel 3's table paths.
 
     The main path, counts at 0 before and read after: the validation reach
@@ -1852,7 +1880,9 @@ def drive_table(dev, launches: dict) -> tuple[dict, list]:
     and timed, a mixed-station reach through the api, lateral inflow
     with store="boundaries", the boundary pairs and storage rows on tables,
     B = 16 against 16 single launches bit for bit, and a NaN member beside
-    sound ones.  Returns the phase record and the kernel-table rows."""
+    sound ones.  Returns the phase record, the kernel-table rows and the
+    reach's geometry (``solver``, and ``geo96``, ``h96``, ``Q96`` at M = 96)
+    for the network phase, which slices it rather than building it again."""
     from flowsim_tpu_torch import api, trees
     from flowsim_tpu_torch.geometry_tables import build_table_geometry
     from flowsim_tpu_torch.ops import initial_conditions as ic
@@ -2062,8 +2092,315 @@ def drive_table(dev, launches: dict) -> tuple[dict, list]:
              tolerance=dict(depth_m=H_TOL, flow_m3s=Q_TOL, iteration_counts="identical",
                             against_single_launches="bit-identical")),
     ]
-    return rec, kernels
+    return rec, kernels, dict(solver=solver, geo96=geo96, h96=h96, Q96=Q96)
 
+
+
+def surveyed_network(reach: dict, geo, h0, Q0, mixed: bool) -> list:
+    """The surveyed-reach network: the validation reach ``geo`` with its
+    initial state split at NETWORK_SPLIT_NODE into two table branches that
+    share that node (the upper one takes the reach's inflow, the lower one
+    its normal-depth end, junction 0 between them); ``mixed`` adds the
+    trapezoid tributary at the junction (TRIB_*, at the main stem's dx, its
+    own steady state) and its initial 150 m^3/s to the lower branch's flow."""
+    from flowsim_tpu_torch import trees
+    from flowsim_tpu_torch.geometry import interpolate_stations, trapezoid_station
+    from flowsim_tpu_torch.ops import boundary as bnd
+    from flowsim_tpu_torch.ops import initial_conditions as ic
+    from flowsim_tpu_torch.ops import network as net
+
+    solver = reach["solver"]
+    cut, dx, dev = NETWORK_SPLIT_NODE, solver.spatial_step, h0.device
+    upper = net.BranchDef(geo=trees.tree_map(lambda v: v[: cut + 1], geo), dx=dx, us=solver.us_params, ds=0,
+                          h0=h0[: cut + 1], Q0=Q0[: cut + 1])
+    lower = net.BranchDef(geo=trees.tree_map(lambda v: v[cut:], geo), dx=dx, us=0, ds=solver.ds_params,
+                          h0=h0[cut:], Q0=Q0[cut:])
+    if not mixed:
+        return [upper, lower]
+    z_conf = float(geo.z_bed[cut])
+    station = lambda z: trapezoid_station(z_bed=z, b_main=TRIB_WIDTH, m_main=TRIB_SIDE, n_main=TRIB_N,
+                                          bed_slope=TABLE_SLOPE)
+    n_trib = round(TRIB_LENGTH / dx) + 1
+    g_trib = interpolate_stations([station(z_conf + TRIB_LENGTH * TABLE_SLOPE), station(z_conf)],
+                                  [0.0, TRIB_LENGTH], np.linspace(0.0, TRIB_LENGTH, n_trib), device=dev)
+    h_trib, Q_trib = ic.initial_conditions(g_trib, "steady-state", TRIB_FLOWS[0], dx)
+    q0, q1 = TRIB_FLOWS
+    times = np.arange(solver.number_of_time_levels) * solver.time_step
+    us = bnd.make_boundary("flow_hydrograph", bed_level=float(g_trib.z_bed[0]),
+                           target_series=[q0 + (q1 - q0) * min(t / (4 * 3600.0), 1.0) for t in times], device=dev)
+    trib = net.BranchDef(geo=g_trib, dx=dx, us=us, ds=0, h0=h_trib, Q0=Q_trib)
+    return [upper, trib, dataclasses.replace(lower, Q0=lower.Q0 + q0)]
+
+
+def cut_network_levels(branches, settings, levels: int):
+    """A network run's branches and settings cut to its first ``levels``
+    levels."""
+    from flowsim_tpu_torch.ops import network as net
+
+    cut = lambda e: e if net._is_junction(e) or e.kind not in ("flow_hydrograph", "stage_hydrograph") \
+        else dataclasses.replace(e, target_series=e.target_series[..., :levels])
+    return ([dataclasses.replace(b, us=cut(b.us), ds=cut(b.ds)) for b in branches],
+            dataclasses.replace(settings, n_time_levels=levels))
+
+
+def network_levels(out, levels: int):
+    """The first ``levels`` levels of a single NetworkOutput."""
+    return type(out)(*(tuple(x[:levels] for x in f) if isinstance(f, tuple) else f[:levels] for f in out))
+
+
+def table_samples_read(branches, depths) -> int:
+    """Table samples the evaluations of the stored depths read: per table
+    branch, the two samples of the bracket of every level's depth at every
+    node, each counted once."""
+    from flowsim_tpu_torch.geometry import TableGeometry
+
+    total = 0
+    for br, d in zip(branches, depths):
+        g = br.geo
+        if isinstance(g, TableGeometry):
+            M = g.area.shape[-1]
+            j = torch.clamp(torch.floor(d / (g.depth_max / (M - 1))), 0, M - 2).long() \
+                + torch.arange(d.shape[-1], device=d.device) * M
+            total += int(torch.unique(torch.cat([j, j + 1]).flatten()).numel())
+    return total
+
+
+def drive_table_network(dev, launches: dict, reach: dict, t_start: float) -> tuple[dict, list]:
+    """Surveyed branches in river networks: the table paths of kernels 5 and 6.
+
+    The main path, counts at 0 before and read after: the surveyed-reach
+    network — the table phase's validation reach (N = 121, M = 1024, 193
+    levels) split at node 60 into two table branches, with the trapezoid
+    tributary (mixed) and without it (all-table) — through
+    ``simulate_network(engine="fused")`` (one launch of kernel 5 each), and
+    the mixed network at M = 96 with NETWORK_MC_MEMBERS members through
+    ``batched_simulate_network(engine="fused")`` (one launch of kernel 6).
+    The branches are sliced from the table phase's geometry, not built
+    again.  Then both networks against the stacked engine with the "pcr"
+    solve on the card (the kernel's plain version) on their first
+    TABLE_NET_COMPARED_LEVELS levels, kernel 5
+    alone by CUDA events, every build the C entry can take for a table
+    network forced (the same bits), the probe builds, and the ensemble:
+    timed, every build on its members, B = 4 against single launches, two of
+    its members against the plain version, a NaN member among 15 sound ones.
+    Returns the phase record and the kernel-table rows."""
+    from flowsim_tpu_torch.geometry import TableGeometry
+    from flowsim_tpu_torch.ops import network as net
+    from flowsim_tpu_torch.ops.cuda import build
+    from flowsim_tpu_torch.ops.cuda import fused_network as fnet
+    from flowsim_tpu_torch.parallel import ensemble
+
+    rec = dict(script_seconds_at_phase_start=time.perf_counter() - t_start)
+    solver = reach["solver"]
+    geo = solver.channel.geometry
+    sset = solver.settings(TABLE_TOL, 100)
+    nets = {"mixed": surveyed_network(reach, geo, solver.h0, solver.Q0, True),
+            "all_table": surveyed_network(reach, geo, solver.h0, solver.Q0, False)}
+    ens_br = surveyed_network(reach, reach["geo96"], reach["h96"], reach["Q96"], True)
+    sset_e = solver.settings(TABLE_BATCH_TOL, 100)
+    M = NETWORK_MC_MEMBERS
+    scales = 0.9 + 0.2 * np.random.default_rng(NETWORK_MC_SEED).random(M)
+    batch = scale_inflows(ens_br, scales)
+
+    def run_ensemble():
+        return ensemble.batched_simulate_network(ens_br, 1, sset_e, batch, engine="fused")
+
+    # -- the main path
+    fnet.launch_count = 0
+    fnet.batched_launch_count = 0
+    outs = {k: net.simulate_network(b, 1, sset, engine="fused") for k, b in nets.items()}
+    torch.cuda.synchronize()
+    single_launches = fnet.launch_count
+    out_e = run_ensemble()
+    torch.cuda.synchronize()
+    launches["fused_simulate_network_table"] = single_launches
+    launches["fused_simulate_network_batched_table"] = fnet.batched_launch_count
+    if single_launches != 2 or fnet.batched_launch_count != 1 or fnet.launch_count != 2:
+        raise AssertionError(f"table network main path: {fnet.launch_count} single and "
+                             f"{fnet.batched_launch_count} batched launches, expected 2 and 1")
+    nt = sset.n_time_levels
+    for k, b in nets.items():
+        o = outs[k]
+        if [tuple(d.shape) for d in o.depth] != [(nt, int(br.h0.shape[0])) for br in b] \
+                or o.junction_stage.shape != (nt, 1) or not bool(o.converged.all()) \
+                or not all(bool(torch.isfinite(d).all()) for d in o.depth + o.flow):
+            raise AssertionError(f"table network {k}: wrong shape, not converged or not finite")
+    if out_e.depth[0].shape != (M, nt, NETWORK_SPLIT_NODE + 1) or not bool(out_e.converged.all()) \
+            or not all(bool(torch.isfinite(d).all()) for d in out_e.depth + out_e.flow):
+        raise AssertionError(f"table network ensemble: {int((~out_e.converged.all(dim=1)).sum())} of {M} members "
+                             "did not converge at every level, or a field is not finite")
+    mixed = outs["mixed"]
+    imbalance = float((mixed.flow[0][1:, -1] + mixed.flow[1][1:, -1] - mixed.flow[2][1:, 0]).abs().max())
+
+    # -- kernel 5's table path: each network against its plain version, timed alone
+    L = TABLE_NET_COMPARED_LEVELS
+    singles = {}
+    for k, b in nets.items():
+        topo = net.stacked_topology(b)
+        shape = (len(b) * topo.n_max, len(b), 1, topo.m_rhs)
+        b_cut, s_cut = cut_network_levels(b, sset, L)
+        t0 = time.perf_counter()
+        ref = fnet.fused_simulate_network_plain(b_cut, 1, s_cut)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        cmp = compare_networks(network_levels(outs[k], L), ref, f"table network {k}: kernel vs stacked plain")
+        del ref
+        _, launch = network_packed(b, 1, sset)
+        runs = [time_cuda(lambda: launch(-1), reps=1, warmup=int(not i)) for i in range(5)]
+        chosen = fnet.chosen_build(1, *shape, table=True)
+        builds = {}
+        for name, bid in (("loop_build", fnet.LOOP_BUILD), ("latency_build", fnet.LATENCY_BUILD),
+                          ("residency_build", fnet.RESIDENCY_BUILD)):
+            compare_networks(network_launch(b, 1, sset, build_id=bid), outs[k],
+                             f"table network {k}: the {name} against the chosen build", exact=True)
+            builds[name] = dict(build_id=bid, bit_identical=True,
+                                ms=statistics.median(time_cuda(lambda: launch(bid), reps=1, warmup=int(not i))
+                                                     for i in range(3)))
+        iters = int(outs[k].iterations.sum())
+        singles[k] = dict(
+            branches=len(b), nodes_per_branch=list(topo.n_b), kinds=[type(br.geo).__name__ for br in b],
+            samples=int(geo.area.shape[-1]), n_time_levels=nt, total_iterations=iters,
+            max_iterations_in_a_level=int(outs[k].iterations.max()), all_converged=True,
+            chosen_build=chosen, builds=builds,
+            kernel_alone_cuda_events=dict(ms=statistics.median(runs), ms_runs=runs,
+                                          us_per_newton_iteration=statistics.median(runs) * 1e3 / iters),
+            plain_compared_levels=L, plain_ms=plain_ms, plain=cmp,
+            table_samples_read=table_samples_read(b, outs[k].depth), topo=topo)
+    # the probe builds split a mixed-network iteration by phase
+    b = nets["mixed"]
+    probe = {}
+    for bid in (fnet.LOOP_BUILD, fnet.LATENCY_BUILD):
+        probed, cycles, clock = fnet.fused_simulate_network_probe(b, 1, sset, build_id=bid)
+        compare_networks(probed, mixed, f"probe of the mixed network, build {bid}", exact=True)
+        name = {fnet.LOOP_BUILD: "loop_build", fnet.LATENCY_BUILD: "latency_build"}[bid]
+        probe[name] = dict(probe_record(cycles, clock, singles["mixed"]["total_iterations"],
+                                        singles["mixed"]["builds"][name]["ms"]), bit_identical_to_production=True)
+    rec["single"] = {k: {f: v for f, v in r.items() if f != "topo"} for k, r in singles.items()}
+    rec["single"]["mixed"].update(probe=probe, max_junction_imbalance_m3s=imbalance)
+
+    # -- kernel 6's table path: the ensemble
+    ens_iters = int(out_e.iterations.sum())
+    ens_runs = [wall_ms(run_ensemble) for _ in range(3)]
+    ens_ms = statistics.median(ens_runs)
+    topo_e = net.stacked_topology(ens_br)
+    shape_e = (len(ens_br) * topo_e.n_max, len(ens_br), 1, topo_e.m_rhs)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    chosen_e = fnet.chosen_build(M, *shape_e, table=True)
+    _, launch_e = network_packed(ens_br, 1, sset_e, batch)
+    ptxas = [k for k in network_kernel_builds(build.build_info["fused_network_table"]["ptxas"])
+             if k["rhs"] == topo_e.m_rhs and not k["probe"] and k["table"]]
+    bounds = {fnet.LOOP_BUILD: (256, 1, False), fnet.LATENCY_BUILD: (256, 1, True),
+              fnet.RESIDENCY_BUILD: (192 if shape_e[0] <= 192 else 256, 2, True)}
+    ens_builds = dict(multiprocessors=sms, chosen_build=chosen_e)
+    for name, bid in (("loop_build", fnet.LOOP_BUILD), ("latency_build", fnet.LATENCY_BUILD),
+                      ("residency_build", fnet.RESIDENCY_BUILD)):
+        ob = fnet._output(launch_e(bid), topo_e, None)
+        for a, c in zip((*ob.depth, *ob.flow, ob.junction_stage, ob.error, ob.iterations),
+                        (*out_e.depth, *out_e.flow, out_e.junction_stage, out_e.error, out_e.iterations)):
+            if not torch.equal(a, c):
+                raise AssertionError(f"table network ensemble: the {name} disagrees with the wrapper's build")
+        del ob
+        bps = fnet.resident_blocks(*shape_e, bid, table=True)
+        blk, minb, one = bounds[bid]
+        ens_builds[name] = dict(build_id=bid, resident_blocks_per_sm=bps, members_in_flight=bps * sms,
+                                ms=time_cuda(lambda: launch_e(bid), reps=2, warmup=1), bit_identical=True,
+                                ptxas=[k for k in ptxas
+                                       if (k["block"], k["min_blocks"], k["one_slot"]) == (blk, minb, one)])
+    # B = 4 against single launches, and the timed batch's first members against them
+    part = [{k: trees_slice(v, TABLE_NET_BIT_MEMBERS) for k, v in d.items()} for d in batch]
+    ob4 = fnet.fused_simulate_network_batched(ens_br, 1, sset_e, part)
+    for m in range(TABLE_NET_BIT_MEMBERS):
+        one = fnet.fused_simulate_network(net.member_branches(ens_br, part, m), 1, sset_e)
+        compare_networks(network_member(ob4, m), one, f"table network B=4 member {m} vs its single launch",
+                         exact=True)
+        compare_networks(network_member(out_e, m), one, f"table network ensemble member {m} vs its single launch",
+                         exact=True)
+    # two members of the timed batch against the plain version, first levels
+    picked = [0, M - 1]
+    plain_recs, t0 = [], time.perf_counter()
+    for m in picked:
+        bm, sm = cut_network_levels(net.member_branches(ens_br, batch, m), sset_e, L)
+        plain_recs.append(compare_networks(network_levels(network_member(out_e, m), L),
+                                           fnet.fused_simulate_network_plain(bm, 1, sm),
+                                           f"table network ensemble member {m} vs stacked plain"))
+    torch.cuda.synchronize()
+    ens_plain_ms = (time.perf_counter() - t0) * 1e3
+    # a member whose upper inflow turns NaN at one level among 15 sound ones:
+    # it converges at no later level, the others keep the timed batch's bits
+    n16, bad, nan_level = TABLE_NET_SMALL_BATCH, TABLE_NET_SMALL_BATCH // 3, 5
+    batch16 = [{k: trees_slice(v, n16) for k, v in d.items()} for d in batch]
+    batch16[0]["us"] = dataclasses.replace(batch16[0]["us"], target_series=batch16[0]["us"].target_series.clone())
+    batch16[0]["us"].target_series[bad, nan_level] = float("nan")
+    o16 = fnet.fused_simulate_network_batched(ens_br, 1, sset_e, batch16)
+    for m in range(n16):
+        if m != bad:
+            compare_networks(network_member(o16, m), network_member(out_e, m),
+                             f"table network: sound member {m} beside a NaN one", exact=True)
+    if bool(o16.converged[bad, nan_level:].any()):
+        raise AssertionError("table network: the NaN member converged at a level after its NaN inflow")
+    rec["ensemble"] = dict(
+        members=M, branches=len(ens_br), kinds=[type(br.geo).__name__ for br in ens_br],
+        samples=int(reach["geo96"].area.shape[-1]), n_time_levels=nt, tolerance=sset_e.tolerance, store="full",
+        launches=1, all_converged=True, wall_ms_runs=ens_runs, wall_ms_median=ens_ms,
+        network_simulations_per_s=M / (ens_ms * 1e-3), total_newton_iterations=ens_iters,
+        min_max_iterations_per_member=[int(v) for v in out_e.iterations.sum(dim=1).aminmax()],
+        builds=ens_builds, bit_identity_4_members=True,
+        plain_members=dict(members_of_the_timed_batch=picked, levels=L, plain_ms=ens_plain_ms,
+                           iterations=sum(r["iterations"] for r in plain_recs),
+                           max_abs_dh=max(r["max_abs_dh"] for r in plain_recs),
+                           max_abs_dQ=max(r["max_abs_dQ"] for r in plain_recs),
+                           max_abs_dY=max(r["max_abs_dY"] for r in plain_recs)),
+        nan_member=dict(member=bad, nan_inflow_level=nan_level,
+                        levels_converged=int(o16.converged[bad, 1:].sum()), sound_members_bit_identical=True))
+    del out_e, o16, ob4
+
+    # -- bounds: FLOPS_TABLE_ASSEMBLY on table nodes, FLOPS_ASSEMBLY on
+    # trapezoid ones, the solve and junction terms as for kernels 5-6; of
+    # the tables only the samples read count: the brackets of every stored
+    # depth for one run, one bracket a node for the ensemble (whose members
+    # share the tables)
+    sm_ = singles["mixed"]
+    kinds = [isinstance(br.geo, TableGeometry) for br in nets["mixed"]]
+    sb, sby, sterms = network_bound(sm_["total_iterations"], sm_["topo"], 1, nt, table=kinds,
+                                    table_bytes=8 * 7 * sm_["table_samples_read"])
+    sterms["table_samples_read"] = sm_["table_samples_read"]
+    table_nodes = sum(n for n, t in zip(topo_e.n_b, kinds) if t)
+    eb, eby, eterms = network_bound(ens_iters, topo_e, 1, nt, members=M, table=kinds,
+                                    table_bytes=8 * 7 * 2 * table_nodes)
+    tol = dict(depth_m=H_TOL, flow_m3s=Q_TOL, junction_stage_m=NETWORK_Y_TOL, iteration_counts="identical")
+    kernels = [
+        dict(name="fused_simulate_network_table", route="cuda",
+             source="flowsim_tpu_torch/ops/cuda/csrc/fused_network.cu",
+             replaces="flowsim_tpu/ops/pallas/fused_network.py:887",
+             table_closures="flowsim_tpu/ops/pallas/fused_network.py:419, :459-467 -> "
+                            "fused_newton.py:341 _section_df_table_rows",
+             launches=launches["fused_simulate_network_table"], max_abs_err=sm_["plain"]["max_abs_dh"],
+             ms=sm_["kernel_alone_cuda_events"]["ms"], plain_ms=sm_["plain_ms"], bound_ms=sb, bound_by=sby,
+             library_ms=None, bound_terms=sterms, build=sm_["chosen_build"],
+             us_per_newton_iteration=sm_["kernel_alone_cuda_events"]["us_per_newton_iteration"],
+             all_table_ms=singles["all_table"]["kernel_alone_cuda_events"]["ms"],
+             shape=dict(network="mixed", branches=sm_["branches"], nodes_per_branch=sm_["nodes_per_branch"],
+                        samples=sm_["samples"], n_time_levels=nt, newton_iterations=sm_["total_iterations"]),
+             plain_shape=dict(n_time_levels=L, newton_iterations=sm_["plain"]["iterations"]),
+             tolerance=tol),
+        dict(name="fused_simulate_network_batched_table", route="cuda",
+             source="flowsim_tpu_torch/ops/cuda/csrc/fused_network.cu",
+             replaces="flowsim_tpu/ops/pallas/fused_network.py:1904",
+             table_closures="flowsim_tpu/ops/pallas/fused_network.py:1471, :1556-1580 -> "
+                            "fused_newton.py:341 _section_df_table_rows",
+             launches=launches["fused_simulate_network_batched_table"],
+             max_abs_err=rec["ensemble"]["plain_members"]["max_abs_dh"], ms=ens_ms, plain_ms=ens_plain_ms,
+             bound_ms=eb, bound_by=eby, library_ms=None, bound_terms=eterms, ms_over_bound=ens_ms / eb,
+             build=chosen_e, build_ms={k: v["ms"] for k, v in ens_builds.items() if isinstance(v, dict)},
+             shape=dict(members=M, branches=len(ens_br), samples=rec["ensemble"]["samples"], n_time_levels=nt,
+                        newton_iterations=ens_iters, store="full"),
+             plain_shape=dict(members=len(picked), n_time_levels=L,
+                              newton_iterations=rec["ensemble"]["plain_members"]["iterations"]),
+             tolerance=dict(tol, against_single_launches="bit-identical")),
+    ]
+    fnet.launch_count = launches["fused_simulate_network_table"]
+    fnet.batched_launch_count = launches["fused_simulate_network_batched_table"]
+    return rec, kernels
 
 
 def main() -> int:
@@ -2617,8 +2954,14 @@ def main() -> int:
 
     # -- phase 13: irregular sections, the table paths of kernels 1 and 3 ------
     t0 = time.perf_counter()
-    table, table_kernels = drive_table(dev, launches)
+    table, table_kernels, table_reach = drive_table(dev, launches)
     emit("table", **table, seconds=time.perf_counter() - t0)
+
+    # -- phase 14: surveyed branches in river networks, the table paths of kernels 5 and 6
+    t0 = time.perf_counter()
+    table_net, table_net_kernels = drive_table_network(dev, launches, table_reach, t_start)
+    del table_reach
+    emit("table_network", **table_net, seconds=time.perf_counter() - t0)
 
     # -- the kernel table ----------------------------------------------------
     n_it = cmp["iterations"]          # iterations of the run that ms/plain_ms time
@@ -2745,7 +3088,7 @@ def main() -> int:
              tolerance=dict(depth_m=H_TOL, flow_m3s=Q_TOL, junction_stage_m=NETWORK_Y_TOL,
                             iteration_counts="identical", against_single_launches="bit-identical")),
     ]
-    kernels += table_kernels
+    kernels += table_kernels + table_net_kernels
     for kern in kernels:
         if kern["launches"] < 1:
             raise AssertionError(f"{kern['name']} was not launched on the main path")

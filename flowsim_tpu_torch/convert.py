@@ -12,9 +12,10 @@ boundaries, a ``[B, N]`` state): the result is then the batched tree that
 module never sees a JAX object: whoever holds one turns it into such a dict
 first.  Fields the port does not have (TPU-only settings) are ignored.  A
 boundary's ``"rating"`` and ``"storage"`` entries are nested dicts (a storage
-may nest a rating of its own).  A branch's ``"geo"`` is a geometry dict, its
-``"us"`` / ``"ds"`` either a boundary dict or an ``int`` junction id, and its
-``"qlat"`` an array or ``None``.
+may nest a rating of its own).  A branch's ``"geo"`` is a geometry dict (a
+``TableGeometry``'s when it holds an ``"area"`` table), its ``"us"`` /
+``"ds"`` either a boundary dict or an ``int`` junction id, and its ``"qlat"``
+an array or ``None``.
 """
 
 from __future__ import annotations
@@ -108,7 +109,8 @@ def _branch(tree, device):
     end = lambda e: int(e) if _is_junction(e) else _boundary(e, device)
     h0, Q0 = _state(tree, device)
     qlat = tree.get("qlat")
-    return BranchDef(geo=_geometry(tree["geo"], device), dx=float(tree["dx"]), us=end(tree["us"]),
+    geo = (_table_geometry if "area" in tree["geo"] else _geometry)(tree["geo"], device)
+    return BranchDef(geo=geo, dx=float(tree["dx"]), us=end(tree["us"]),
                      ds=end(tree["ds"]), h0=h0, Q0=Q0, qlat=None if qlat is None else _f64(qlat, device))
 
 

@@ -31,7 +31,11 @@ NVCC_FLAGS = (
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-SOURCES = ("pcr_kernel", "fused_newton", "tiled_pcr", "fused_network")
+SOURCES = ("pcr_kernel", "fused_newton", "tiled_pcr", "fused_network", "fused_network_table")
+# a library built from another library's source with extra flags: the
+# network kernel's builds for networks with table branches, compiled beside
+# its trapezoid builds by a second nvcc
+VARIANTS = {"fused_network_table": ("fused_network", ("-DFLOWSIM_NETWORK_TABLE=1",))}
 
 _libs: dict[str, ctypes.CDLL] = {}
 # per source: {"seconds": build time (0 when reused), "ptxas": [per-kernel
@@ -54,10 +58,17 @@ def find_nvcc() -> str:
         "need the CUDA toolkit")
 
 
+def _source_and_flags(name: str) -> tuple[str, tuple]:
+    """The ``.cu`` file a library is built from, and its extra nvcc flags."""
+    source, extra = VARIANTS.get(name, (name, ()))
+    return os.path.join(CSRC, source + ".cu"), extra
+
+
 def _source_hash(name: str) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    source, extra = _source_and_flags(name)
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + extra).encode())
     for fn in sorted(os.listdir(CSRC)):
-        if fn == name + ".cu" or fn.endswith(".cuh"):
+        if fn == os.path.basename(source) or fn.endswith(".cuh"):
             with open(os.path.join(CSRC, fn), "rb") as f:
                 h.update(fn.encode())
                 h.update(f.read())
@@ -107,7 +118,8 @@ def start_build(name: str):
     if os.path.exists(so) and os.path.exists(log):
         return None, so, log, time.perf_counter()
     tmp = so + f".tmp{os.getpid()}"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp, os.path.join(CSRC, name + ".cu")]
+    source, extra = _source_and_flags(name)
+    cmd = [find_nvcc(), *NVCC_FLAGS, *extra, "-I", CSRC, "-o", tmp, source]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return proc, so, log, time.perf_counter()
 

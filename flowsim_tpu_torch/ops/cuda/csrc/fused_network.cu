@@ -4,7 +4,9 @@
 //
 // Replaces flowsim_tpu/ops/pallas/fused_network.py (_kernel_network via
 // _build_call_network / fused_simulate_network, and _kernel_network_batched
-// via _build_call_network_batched / fused_simulate_network_batched): for each
+// via _build_call_network_batched / fused_simulate_network_batched, with
+// their table path: fused_network.py:419, :459-467 and :1471, :1556-1580 ->
+// fused_newton._section_df_table_rows, fused_newton.py:341): for each
 // time level — pad re-sync, gate-controller update, previous-level state —
 // a while-Newton over the whole network: every branch's closures, cell
 // residuals and Jacobian with equal-stage rows at its junction ends, one PCR
@@ -84,10 +86,34 @@
 //  The probe build (PROBE, reach_common.cuh) of the loop and latency forms
 //  sums the cycles of each phase of an iteration.
 //
+// Table branches (irregular sections; the TABLE builds).  A branch's geometry
+// is a trapezoid (closed forms) or per-node lookup tables of M depth samples
+// (reach_common.cuh, TabGeo: section_state(const TabGeo&) reads two rows of
+// each of the seven tables, the bracket formed as the plain engine forms it).
+// A network with a table branch takes a TABLE build, in which each slot
+// evaluates its own branch's closure (tab_branch: the branch's index among
+// the table branches, -1 for a trapezoid), so trapezoid and table branches
+// mix freely.  The tables stay in device memory in float64, [T, 7, Nmax, M] for
+// the T table branches (A, P, T, dR/dA, K, n_eq, dK/dA), edge-padded along
+// the node axis so that a pad node reads its branch's last node, and are
+// read through L2: one copy for the launch, shared by every member (a batch
+// cannot override a table branch's geometry).  A table branch's geometry
+// rows hold the bed level (G_ZBED), the table span (G_BMAIN), the bed slope
+// and the curvature.  The TPU kernel evaluates both closures on every
+// sublane with benign padding rows and selects, and gathers each bracket by
+// one-hot masks over the table in VMEM, in double-single arithmetic; here a
+// slot evaluates one closure and reads its bracket by index.  The builds
+// without TABLE compile as before: the table code is under if constexpr and
+// the table arguments follow every earlier one.
+// This source is built twice, into two libraries compiled side by side: the
+// trapezoid builds, and with -DFLOWSIM_NETWORK_TABLE=1 the TABLE builds
+// (ops/cuda/build.py VARIANTS); each library's C entry holds its own set.
+//
 // Dropped from the TPU kernel, which needs them only for the TPU: double-single
 // (df32) arithmetic and the f32 Jacobian (the card has FP64), one-hot sublane
 // scatters and gathers for the Schur assembly, the level streamer, the
-// data-derived zeros, the VMEM member cap.
+// data-derived zeros, the VMEM member cap (and its cap on the table
+// resolution M: device memory bounds M here), the benign table blocks.
 //
 // External ends take every kind kernel 1 takes (boundary_row / storage_row of
 // reach_common.cuh: hydrographs, fixed and normal depth, polynomial and
@@ -104,6 +130,8 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include <type_traits>
+
 #include "pcr_common.cuh"
 #include "reach_common.cuh"
 
@@ -113,6 +141,16 @@ namespace {
 // end -1
 enum { BI_N, BI_US_J, BI_DS_J, BI_US_KIND, BI_DS_KIND, BI_RC_KIND, BI_URC_KIND,
        BI_US_SFLAGS, BI_DS_SFLAGS, BI_US_NV, BI_US_NA, BI_DS_NV, BI_DS_NA, BI_TAB_OFF, BI_COUNT };
+
+// a table branch's seven tables [TAB_COUNT, Nmax, M]: the four of TS_*, then
+// K, n_eq and dK/dA; its geometry rows keep the table span in the G_BMAIN row
+enum { TAB_K = TS_COUNT, TAB_NEQ, TAB_DK, TAB_COUNT };
+#ifndef FLOWSIM_NETWORK_TABLE
+#define FLOWSIM_NETWORK_TABLE 0
+#endif
+// the builds this library holds: those of networks with table branches, or
+// of trapezoid networks
+constexpr bool LIB_TABLE = FLOWSIM_NETWORK_TABLE != 0;
 
 // per-junction parameters [J, JP_COUNT]: reservoir area, rating kind (JR_*),
 // stage shift, pivot, buffer, finite-difference step, the low and high
@@ -245,6 +283,36 @@ __device__ void warp_gauss_jordan(double* M, double* rhs, double* x, int J, int 
     for (int r = lane; r < J; r += 32) x[r] = rhs[r] / M[(size_t)r * J + r];
 }
 
+// One node's tables: row is its row of the branch's first table, nm = Nmax *
+// M doubles between two tables; dgrid = depth_max / (M - 1) as the plain
+// engine forms it, jmax = M - 2.
+__device__ __forceinline__ TabGeo tab_geo(const double* row, size_t nm, double z, double curv, double dgrid,
+                                          double jmax) {
+    TabGeo t;
+    t.ts = row;
+    t.k = row + TAB_K * nm;
+    t.neq = row + TAB_NEQ * nm;
+    t.dk = row + TAB_DK * nm;
+    t.nm = nm;
+    t.z = z; t.curv = curv; t.dgrid = dgrid; t.jmax = jmax;
+    return t;
+}
+
+// A slot's geometry in a TABLE build: its branch's geometry rows, and for a
+// slot of a table branch (row not null) its node's tables.  Both kinds keep
+// the curvature in the same row, which is all energy_slope reads.
+struct SlotGeo {
+    Geo g;
+    const double* row;
+    size_t nm;
+    double dgrid, jmax, curv;
+};
+
+__device__ __forceinline__ Sec section_state(const SlotGeo& s, double depth) {
+    if (s.row != nullptr) return section_state(tab_geo(s.row, s.nm, s.g.z, s.curv, s.dgrid, s.jmax), depth);
+    return section_state(s.g, depth);
+}
+
 __device__ __forceinline__ Geo load_geo(const double* __restrict__ geo, int n_max, int b, int i) {
     const double* r = geo + (size_t)b * G_ROWS * n_max + i;
     Geo g;
@@ -265,8 +333,9 @@ __device__ __forceinline__ Geo load_geo(const double* __restrict__ geo, int n_ma
 enum { LOOP_BUILD = 0, LATENCY_BUILD = 1, RESIDENCY_BUILD = 2 };
 
 // ONE: the latency build's one slot a thread (needs slots <= blockDim.x).
-// PROBE: the probe build (reach_common.cuh, Probe).
-template <int RHS, int BLOCK, int MINB, bool ONE, bool PROBE>
+// PROBE: the probe build (reach_common.cuh, Probe).  TABLE: a network with
+// table branches (each slot evaluates its branch's closure).
+template <int RHS, int BLOCK, int MINB, bool ONE, bool PROBE, bool TABLE>
 __global__ void __launch_bounds__(BLOCK, MINB)
 fused_network_kernel(const double* __restrict__ geo_all,   // [M, B, 13, Nmax]
                      const double* __restrict__ h0_all,    // [M, B, Nmax]
@@ -290,7 +359,10 @@ fused_network_kernel(const double* __restrict__ geo_all,   // [M, B, 13, Nmax]
                      double* stage_all,                    // [M, nt, B, 2]; NaN-filled
                      double* __restrict__ gate_all,        // [M, nt, B, 2]
                      long long* __restrict__ probe_out,    // [PH_COUNT] cycles (probe build)
-                     int B, int n_max, int J, int nt, int max_iter, int sweeps, int qlat_mode) {
+                     int B, int n_max, int J, int nt, int max_iter, int sweeps, int qlat_mode,
+                     const int* __restrict__ tab_branch,   // [B]: index among the table branches, or -1
+                     const double* __restrict__ tab_all,   // [T, TAB_COUNT, Nmax, M], shared (TABLE)
+                     int tab_m) {
     constexpr int C = comp(RHS);
     extern __shared__ double smem[];
     __shared__ double warp_part[2][32];
@@ -348,11 +420,22 @@ fused_network_kernel(const double* __restrict__ geo_all,   // [M, B, 13, Nmax]
 #define CAVG(c1, c0, p1, p0) (0.5 * theta * ((c1) + (c0)) + 0.5 * (1.0 - theta) * ((p1) + (p0)))
 #define BRANCH_INT(b, f) bint[(b) * BI_COUNT + (f)]
 
+    // the table path: a slot's row of its branch's first table (null for a
+    // trapezoid slot)
+    const size_t tab_nm = (size_t)n_max * tab_m;
+    const double tab_jmax = (double)(tab_m - 2);
+    auto table_row = [&](int b, int i) -> const double* {
+        const int t = tab_branch[b];
+        return t < 0 ? nullptr : tab_all + ((size_t)t * TAB_COUNT * n_max + i) * tab_m;
+    };
+
     // -- the latency build's own slot: indices, branch, geometry in registers
     const bool own = tid < ld;
     int ob = 0, oi = 0, on_b = 0, ous_j = -1, ods_j = -1;
     double odx = 1.0, oz1 = 0.0;
     Geo og{};
+    const double* otab = nullptr;   // TABLE: its table row, and the grid step
+    double odgrid = 0.0;
     if constexpr (ONE) {
         if (own) {
             ob = tid / n_max;
@@ -363,6 +446,10 @@ fused_network_kernel(const double* __restrict__ geo_all,   // [M, B, 13, Nmax]
             odx = par_m[(size_t)ob * P_COUNT + P_DX];
             og = load_geo(geo, n_max, ob, oi);
             if (oi < n_max - 1) oz1 = geo[((size_t)ob * G_ROWS + G_ZBED) * n_max + oi + 1];
+            if constexpr (TABLE) {
+                otab = table_row(ob, oi);
+                odgrid = og.b / (double)(tab_m - 1);   // the table span, row G_BMAIN
+            }
         }
     }
     // every slot of this thread: once in the latency build, a loop otherwise
@@ -376,9 +463,21 @@ fused_network_kernel(const double* __restrict__ geo_all,   // [M, B, 13, Nmax]
             }
         }
     };
-    auto geo_at = [&](int b, int i) -> Geo {
-        if constexpr (ONE) return og;
-        else return load_geo(geo, n_max, b, i);
+    // a slot's geometry: in a TABLE build with its tables, so that the
+    // closures take its branch's kind (section_state(const SlotGeo&))
+    auto geo_at = [&](int b, int i) -> std::conditional_t<TABLE, SlotGeo, Geo> {
+        if constexpr (TABLE) {
+            if constexpr (ONE) {
+                return SlotGeo{og, otab, tab_nm, odgrid, tab_jmax, og.curv};
+            } else {
+                const Geo g = load_geo(geo, n_max, b, i);
+                return SlotGeo{g, table_row(b, i), tab_nm, g.b / (double)(tab_m - 1), tab_jmax, g.curv};
+            }
+        } else if constexpr (ONE) {
+            return og;
+        } else {
+            return load_geo(geo, n_max, b, i);
+        }
     };
 
     // the latency build's registers: previous-level state of its node (0) and
@@ -454,7 +553,7 @@ fused_network_kernel(const double* __restrict__ geo_all,   // [M, B, 13, Nmax]
         // -- previous-level state per slot; junction level-start terms
         each_slot([&](int s, int b, int i) {
             const double h = sh[s], Q = sQ[s];
-            const Geo g = geo_at(b, i);
+            const auto g = geo_at(b, i);
             const Sec sc = section_state(g, h);
             const Slope e = energy_slope(g, sc, h, Q);
             const double Q2A = Q * Q / sc.A;
@@ -496,7 +595,7 @@ fused_network_kernel(const double* __restrict__ geo_all,   // [M, B, 13, Nmax]
             // closures of every slot into the exchange area
             each_slot([&](int s, int b, int i) {
                 const double h = sh[s], Q = sQ[s];
-                const Geo g = geo_at(b, i);
+                const auto g = geo_at(b, i);
                 const Sec sc = section_state(g, h);
                 const Slope e = energy_slope(g, sc, h, Q);
                 const double Q2A = Q * Q / sc.A, QA = Q / sc.A;
@@ -606,6 +705,7 @@ fused_network_kernel(const double* __restrict__ geo_all,   // [M, B, 13, Nmax]
                     } else {
                         Sec sc;
                         if constexpr (ONE) sc = osc;
+                        else if constexpr (TABLE) sc = section_state(geo_at(b, i), h);
                         else sc = section_state(load_geo(geo, n_max, b, i), h);
                         const int kind = BRANCH_INT(b, up ? BI_US_KIND : BI_DS_KIND);
                         const int sflags = BRANCH_INT(b, up ? BI_US_SFLAGS : BI_DS_SFLAGS);
@@ -815,7 +915,7 @@ fused_network_kernel(const double* __restrict__ geo_all,   // [M, B, 13, Nmax]
 }
 
 // Every build has one signature: a build is a kernel pointer.
-using NetKernel = decltype(&fused_network_kernel<2, MAX_THREADS, 1, false, false>);
+using NetKernel = decltype(&fused_network_kernel<2, MAX_THREADS, 1, false, false, false>);
 
 int threads_for(int slots) {
     const int t = ((slots + 31) / 32) * 32;
@@ -827,25 +927,27 @@ int threads_for(int slots) {
 // size, 192 threads (the tributary's 183 slots) or MAX_THREADS:
 // 65536 / (2 * BLOCK) registers a thread, rounded down to 8 — 168 at 192
 // threads, 128 at 256.  A network with more slots than threads has no
-// residency build: the loop build runs every batch of it.
+// residency build: the loop build runs every batch of it.  This library's
+// builds are those of networks with table branches or those of trapezoid
+// networks (LIB_TABLE): the same three forms.
 template <int RHS>
 int pick_rhs(int build, int slots, bool probe, NetKernel* out) {
     const bool one = slots <= MAX_THREADS;
     if (probe && build != LOOP_BUILD && build != LATENCY_BUILD) return (int)cudaErrorInvalidValue;
     switch (build) {
     case LOOP_BUILD:
-        *out = probe ? &fused_network_kernel<RHS, MAX_THREADS, 1, false, true>
-                     : &fused_network_kernel<RHS, MAX_THREADS, 1, false, false>;
+        *out = probe ? &fused_network_kernel<RHS, MAX_THREADS, 1, false, true, LIB_TABLE>
+                     : &fused_network_kernel<RHS, MAX_THREADS, 1, false, false, LIB_TABLE>;
         return 0;
     case LATENCY_BUILD:
         if (!one) return (int)cudaErrorInvalidValue;
-        *out = probe ? &fused_network_kernel<RHS, MAX_THREADS, 1, true, true>
-                     : &fused_network_kernel<RHS, MAX_THREADS, 1, true, false>;
+        *out = probe ? &fused_network_kernel<RHS, MAX_THREADS, 1, true, true, LIB_TABLE>
+                     : &fused_network_kernel<RHS, MAX_THREADS, 1, true, false, LIB_TABLE>;
         return 0;
     case RESIDENCY_BUILD:
         if (!one) return (int)cudaErrorInvalidValue;
-        *out = threads_for(slots) <= 192 ? &fused_network_kernel<RHS, 192, 2, true, false>
-                                         : &fused_network_kernel<RHS, MAX_THREADS, 2, true, false>;
+        *out = threads_for(slots) <= 192 ? &fused_network_kernel<RHS, 192, 2, true, false, LIB_TABLE>
+                                         : &fused_network_kernel<RHS, MAX_THREADS, 2, true, false, LIB_TABLE>;
         return 0;
     }
     return (int)cudaErrorInvalidValue;
@@ -867,7 +969,8 @@ int resident_blocks(NetKernel fn, int threads, size_t smem, int* blocks) {
 // The build a launch of n_members networks takes.  A network with more
 // slots than threads takes the loop build.  Else the latency build runs
 // every batch the card holds at once in it; a larger batch takes the
-// residency build when that holds more members.
+// residency build when that holds more members.  A network with table
+// branches chooses the same way among its TABLE builds.
 int choose_build(int n_members, int slots, int rhs, size_t smem, int* build) {
     *build = slots <= MAX_THREADS ? LATENCY_BUILD : LOOP_BUILD;
     if (*build == LOOP_BUILD) return 0;
@@ -887,10 +990,10 @@ int choose_build(int n_members, int slots, int rhs, size_t smem, int* build) {
 
 int launch(int build, bool probe, const double* geo, const double* h0, const double* Q0, const double* ser,
            const double* par, const double* qlat, const double* stor, const double* stab, long long stab_stride,
-           const double* Y0, const int* bint, const double* jpar, const double* jtab, double* depth,
-           double* flow, double* Y, int* iters, double* err, int* conv, double* stage, double* gate,
-           long long* probe_out, int n_members, int B, int n_max, int J, int nt, int max_iter, int rhs,
-           int qlat_mode, cudaStream_t stream) {
+           const double* Y0, const int* bint, const double* jpar, const double* jtab, const int* tab_branch,
+           const double* tab, double* depth, double* flow, double* Y, int* iters, double* err, int* conv,
+           double* stage, double* gate, long long* probe_out, int n_members, int B, int n_max, int J, int nt,
+           int max_iter, int rhs, int qlat_mode, int tab_m, cudaStream_t stream) {
     const int slots = B * n_max;
     const size_t smem = smem_doubles(slots, B, J, rhs) * sizeof(double);
     int rc = 0;
@@ -901,16 +1004,22 @@ int launch(int build, bool probe, const double* geo, const double* h0, const dou
     if (e != cudaSuccess) return (int)e;
     fn<<<n_members, threads_for(slots), smem, stream>>>(
         geo, h0, Q0, ser, par, qlat, stor, stab, stab_stride, Y0, bint, jpar, jtab, depth, flow, Y,
-        iters, err, conv, stage, gate, probe_out, B, n_max, J, nt, max_iter, pcr::n_sweeps(n_max), qlat_mode);
+        iters, err, conv, stage, gate, probe_out, B, n_max, J, nt, max_iter, pcr::n_sweeps(n_max), qlat_mode,
+        tab_branch, tab, tab_m);
     return (int)cudaGetLastError();
 }
 
 int check_args(int n_members, int B, int n_max, int J, int nt, int qlat_mode, const void* qlat,
-               const void* stage, const void* stor, const void* stab, const void* jtab) {
+               const void* stage, const void* stor, const void* stab, const void* jtab, const void* tab_branch,
+               const void* tab, int tab_m) {
     if (n_members <= 0 || B <= 0 || n_max <= 1 || J <= 0 || nt <= 0) return (int)cudaErrorInvalidValue;
     if (qlat_mode < QLAT_NONE || qlat_mode > QLAT_LEVELS) return (int)cudaErrorInvalidValue;
     if ((qlat_mode != QLAT_NONE) != (qlat != nullptr)) return (int)cudaErrorInvalidValue;
     if (stage == nullptr || stor == nullptr || stab == nullptr || jtab == nullptr) return (int)cudaErrorInvalidValue;
+    // tables go to the library of the TABLE builds, and only there
+    if (tab_m == 1 || tab_m < 0 || (tab_m != 0) != LIB_TABLE || (tab_m != 0) != (tab != nullptr)
+        || (tab_m != 0) != (tab_branch != nullptr))
+        return (int)cudaErrorInvalidValue;
     return 0;
 }
 
@@ -919,6 +1028,7 @@ int check_args(int n_members, int B, int n_max, int J, int nt, int qlat_mode, co
 extern "C" int flowsim_fused_network_branch_ints() { return BI_COUNT; }
 extern "C" int flowsim_fused_network_junction_params() { return JP_COUNT; }
 extern "C" int flowsim_fused_network_probe_phases() { return PH_COUNT; }
+extern "C" int flowsim_fused_network_tables() { return TAB_COUNT; }
 // dynamic shared memory of one block, in bytes
 extern "C" long long flowsim_fused_network_smem_bytes(int slots, int B, int J, int rhs) {
     return (long long)(smem_doubles(slots, B, J, rhs) * sizeof(double));
@@ -926,27 +1036,33 @@ extern "C" long long flowsim_fused_network_smem_bytes(int slots, int B, int J, i
 
 #define FLOWSIM_NET_ARGS (const double*)geo, (const double*)h0, (const double*)Q0, (const double*)ser, \
         (const double*)par, (const double*)qlat, (const double*)stor, (const double*)stab, stab_stride, \
-        (const double*)Y0, (const int*)bint, (const double*)jpar, (const double*)jtab, (double*)depth, \
-        (double*)flow, (double*)Y, (int*)iters, (double*)err, (int*)conv, (double*)stage, (double*)gate
+        (const double*)Y0, (const int*)bint, (const double*)jpar, (const double*)jtab, (const int*)tab_branch, \
+        (const double*)tab, \
+        (double*)depth, (double*)flow, (double*)Y, (int*)iters, (double*)err, (int*)conv, (double*)stage, \
+        (double*)gate
 
 // One block per member: n_members = 1 is fused_simulate_network, M is
 // fused_simulate_network_batched.  Every per-member array carries the leading
-// member axis (the storage tables only when stab_stride != 0); bint, jpar and
-// jtab are shared.  stage [M, nt, B, 2] is filled with NaN by the caller.
+// member axis (the storage tables only when stab_stride != 0); bint, jpar,
+// jtab and tab are shared.  stage [M, nt, B, 2] is filled with NaN by the
+// caller.  tab_m: 0 for a network of trapezoid branches (tab and tab_branch
+// null), else the depth samples M of every table branch's tables, tab [T, 7,
+// Nmax, M], and tab_branch [B] each branch's index among them (-1: trapezoid).
 // build: -1 chooses by the member count (choose_build: what the wrappers
 // do); 0-2 forces a build (a test hook: chip_smoke.py times the builds
 // against each other and holds them to the same bits).
 extern "C" int flowsim_fused_network(const void* geo, const void* h0, const void* Q0, const void* ser,
                                      const void* par, const void* qlat, const void* stor, const void* stab,
                                      long long stab_stride, const void* Y0, const void* bint,
-                                     const void* jpar, const void* jtab, void* depth, void* flow, void* Y,
-                                     void* iters, void* err, void* conv, void* stage, void* gate,
-                                     int n_members, int B, int n_max, int J, int nt, int max_iter, int rhs,
-                                     int qlat_mode, int build, void* stream) {
-    const int rc = check_args(n_members, B, n_max, J, nt, qlat_mode, qlat, stage, stor, stab, jtab);
+                                     const void* jpar, const void* jtab, const void* tab_branch, const void* tab,
+                                     void* depth, void* flow, void* Y, void* iters, void* err, void* conv,
+                                     void* stage, void* gate, int n_members, int B, int n_max, int J, int nt,
+                                     int max_iter, int rhs, int qlat_mode, int tab_m, int build, void* stream) {
+    const int rc = check_args(n_members, B, n_max, J, nt, qlat_mode, qlat, stage, stor, stab, jtab, tab_branch, tab,
+                              tab_m);
     if (rc) return rc;
     return launch(build, false, FLOWSIM_NET_ARGS, nullptr, n_members, B, n_max, J, nt, max_iter, rhs, qlat_mode,
-                  (cudaStream_t)stream);
+                  tab_m, (cudaStream_t)stream);
 }
 
 // The probe build of the loop (build 0) or latency (build 1) form: the same
@@ -956,11 +1072,14 @@ extern "C" int flowsim_fused_network(const void* geo, const void* h0, const void
 extern "C" int flowsim_fused_network_probe(const void* geo, const void* h0, const void* Q0, const void* ser,
                                            const void* par, const void* qlat, const void* stor, const void* stab,
                                            long long stab_stride, const void* Y0, const void* bint,
-                                           const void* jpar, const void* jtab, void* depth, void* flow, void* Y,
-                                           void* iters, void* err, void* conv, void* stage, void* gate,
-                                           void* probe, int* clock_khz, int n_members, int B, int n_max, int J,
-                                           int nt, int max_iter, int rhs, int qlat_mode, int build, void* stream) {
-    int rc = check_args(n_members, B, n_max, J, nt, qlat_mode, qlat, stage, stor, stab, jtab);
+                                           const void* jpar, const void* jtab, const void* tab_branch,
+                                           const void* tab, void* depth, void* flow, void* Y, void* iters,
+                                           void* err, void* conv, void* stage, void* gate, void* probe,
+                                           int* clock_khz, int n_members, int B, int n_max, int J, int nt,
+                                           int max_iter, int rhs, int qlat_mode, int tab_m, int build,
+                                           void* stream) {
+    int rc = check_args(n_members, B, n_max, J, nt, qlat_mode, qlat, stage, stor, stab, jtab, tab_branch, tab,
+                        tab_m);
     if (rc) return rc;
     if (probe == nullptr || clock_khz == nullptr || (build != LOOP_BUILD && build != LATENCY_BUILD))
         return (int)cudaErrorInvalidValue;
@@ -968,7 +1087,7 @@ extern "C" int flowsim_fused_network_probe(const void* geo, const void* h0, cons
     if ((rc = (int)cudaGetDevice(&dev))) return rc;
     if ((rc = (int)cudaDeviceGetAttribute(clock_khz, cudaDevAttrClockRate, dev))) return rc;
     return launch(build, true, FLOWSIM_NET_ARGS, (long long*)probe, n_members, B, n_max, J, nt, max_iter, rhs,
-                  qlat_mode, (cudaStream_t)stream);
+                  qlat_mode, tab_m, (cudaStream_t)stream);
 }
 #undef FLOWSIM_NET_ARGS
 

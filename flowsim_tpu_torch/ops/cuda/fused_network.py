@@ -16,6 +16,14 @@ The external ends of a branch are packed with the single-reach kernel's own
 functions (``fused_newton.pack_params`` / ``pack_storage`` /
 ``pack_geometry``), one parameter block per branch.
 
+A branch's geometry is a :class:`TrapezoidGeometry` or a
+:class:`TableGeometry` (surveyed sections as lookup tables), mixed freely: a
+network with a table branch takes the kernel's table builds, in which each
+slot evaluates its own branch's closure.  The table branches must share one
+depth-grid resolution M (as the JAX kernel asks); their tables are packed
+once for the launch (:func:`pack_tables`), and a batch cannot override a
+table branch's geometry per member (its members share its tables).
+
 The kernel has builds of one arithmetic, and the C entry picks one by the
 network's size and the member count (every build gives the same bits):
 
@@ -50,7 +58,7 @@ import dataclasses
 import torch
 
 from flowsim_tpu_torch.config import farray
-from flowsim_tpu_torch.geometry import TrapezoidGeometry
+from flowsim_tpu_torch.geometry import TableGeometry
 from flowsim_tpu_torch.ops import boundary as bnd
 from flowsim_tpu_torch.ops import network as net
 from flowsim_tpu_torch.ops.cuda import build
@@ -67,6 +75,11 @@ PROBE_PHASES = fn.PROBE_PHASES
 # dynamic shared memory a block may take: 227 KB less the static reduction area
 SMEM_LIMIT = 232448 - 512
 _BI_COUNT = 14
+# a table branch's geometry rows: the bed level, the table span (in the
+# trapezoid's b_main row), the bed slope and the curvature; its seven tables
+# in csrc/fused_network.cu's order (TS_* then TAB_K, TAB_NEQ, TAB_DK)
+_TABLE_GEO_ROWS = {0: "z_bed", 1: "depth_max", 11: "bed_slope", 12: "curvature"}
+_TABLES = fn._SHARED_TABLES + fn._MEMBER_TABLES
 _JP_COUNT = 14
 _JR_KINDS = {"polynomial": 0, "blended_poly": 1, "poly_n": 2, "power": 3, "table": 4}
 _JP_AREA, _JP_KIND, _JP_SHIFT, _JP_PIVOT, _JP_BUFFER, _JP_FD, _JP_C0, _JP_H0, _JP_NCOEF, _JP_OFF = \
@@ -88,35 +101,40 @@ def smem_bytes(slots: int, n_branches: int, n_junctions: int, m_rhs: int) -> int
 def fused_simulate_network_plain(branches, n_junctions, settings, Y0=None, junction_area=None,
                                  junction_rating=None) -> net.NetworkOutput:
     """The plain PyTorch version of the kernel: the stacked engine with the
-    PCR inner solve."""
+    PCR inner solve, each geometry class stacked on its own
+    (``ops.network.simulate_stacked(by_class=True)``)."""
     sset = dataclasses.replace(settings, linear_solver="pcr")
-    return net.simulate_network(branches, n_junctions, sset, Y0=Y0, junction_area=junction_area,
-                                junction_rating=junction_rating, engine="stacked")
+    return net.simulate_stacked(branches, n_junctions, sset, Y0=Y0, junction_area=junction_area,
+                                junction_rating=junction_rating, by_class=True)
 
 
-def _lib():
-    lib = build.load("fused_network")
+def _lib(table: bool = False):
+    """The kernel's library: its trapezoid builds, or (``table``) the builds
+    of networks with table branches, a second library of the same source
+    (``build.VARIANTS``) that nvcc compiles beside the first."""
+    lib = build.load("fused_network_table" if table else "fused_network")
     f = lib.flowsim_fused_network
     if not getattr(f, "_typed", False):
-        head = [ctypes.c_void_p] * 8 + [ctypes.c_longlong] + [ctypes.c_void_p] * 12
-        f.argtypes = head + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        head = [ctypes.c_void_p] * 8 + [ctypes.c_longlong] + [ctypes.c_void_p] * 14
+        f.argtypes = head + [ctypes.c_int] * 10 + [ctypes.c_void_p]
         f.restype = ctypes.c_int
         lib.flowsim_fused_network_probe.argtypes = head + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)] \
-            + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+            + [ctypes.c_int] * 10 + [ctypes.c_void_p]
         lib.flowsim_fused_network_probe.restype = ctypes.c_int
         lib.flowsim_fused_network_resident_blocks.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
         lib.flowsim_fused_network_resident_blocks.restype = ctypes.c_int
         lib.flowsim_fused_network_chosen_build.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
         lib.flowsim_fused_network_chosen_build.restype = ctypes.c_int
         for aux in (lib.flowsim_fused_network_branch_ints, lib.flowsim_fused_network_junction_params,
-                    lib.flowsim_fused_network_probe_phases):
+                    lib.flowsim_fused_network_probe_phases, lib.flowsim_fused_network_tables):
             aux.argtypes = []
             aux.restype = ctypes.c_int
         lib.flowsim_fused_network_smem_bytes.argtypes = [ctypes.c_int] * 4
         lib.flowsim_fused_network_smem_bytes.restype = ctypes.c_longlong
         if lib.flowsim_fused_network_branch_ints() != _BI_COUNT \
                 or lib.flowsim_fused_network_junction_params() != _JP_COUNT \
-                or lib.flowsim_fused_network_probe_phases() != len(PROBE_PHASES):
+                or lib.flowsim_fused_network_probe_phases() != len(PROBE_PHASES) \
+                or lib.flowsim_fused_network_tables() != len(_TABLES):
             raise RuntimeError("parameter layout of fused_network.cu and its wrapper differ")
         if any(lib.flowsim_fused_network_smem_bytes(*a) != smem_bytes(*a) for a in ((183, 3, 1, 2), (403, 31, 15, 3))):
             raise RuntimeError("shared-memory layout of fused_network.cu and its wrapper differ")
@@ -139,25 +157,33 @@ def _ends(br, nt, like):
     return tuple(_dummy_end(nt, like) if net._is_junction(e) else e for e in (br.us, br.ds))
 
 
-def check_supported(branches, n_junctions, settings, junction_rating=None):
+def check_supported(branches, n_junctions, settings, junction_rating=None, batch=None):
     """Raise :class:`FusedUnsupported` outside the kernel's scope: no
-    junction, table geometry, an external end kernel 1 refuses, a junction
-    rating kind the kernel does not evaluate, or a network whose slots do
-    not fit one block's shared memory (a batch: its member 0, since the
-    members share every kind)."""
+    junction, a geometry class other than trapezoid or table, table branches
+    of different depth-grid resolutions, an external end kernel 1 refuses, a
+    junction rating kind the kernel does not evaluate, a network whose slots
+    do not fit one block's shared memory, or (``batch``: per-branch override
+    dicts) a per-member override of a table branch's geometry.  A batch is
+    checked on its member 0, since the members share every kind."""
     if n_junctions < 1:
         raise FusedUnsupported("not a network (no junctions): run the single reach with "
                                "ops.cuda.fused_newton.fused_simulate")
     nt = settings.n_time_levels
     for i, br in enumerate(branches):
-        if not isinstance(br.geo, TrapezoidGeometry):
-            raise FusedUnsupported(
-                f"branch {i}: the fused network kernel supports TrapezoidGeometry only (table "
-                "branches are still to be ported, ROADMAP.md Queue 2A item 2)")
         try:
             fn._check_supported(br.geo, *_ends(br, nt, br.h0), settings)
         except FusedUnsupported as e:
             raise FusedUnsupported(f"branch {i}: {e}") from None
+    table_m = sorted({int(br.geo.area.shape[-1]) for br in branches if isinstance(br.geo, TableGeometry)})
+    if len(table_m) > 1:
+        raise FusedUnsupported(
+            f"TableGeometry branches must share one depth-grid resolution (got M = {table_m}); rebuild the "
+            "tables with a common resolution")
+    for i, (br, d) in enumerate(zip(branches, batch or ())):
+        if isinstance(br.geo, TableGeometry) and "geo" in d:
+            raise FusedUnsupported(
+                f"branch {i}: per-member TableGeometry overrides do not batch (the members of a branch share "
+                "its lookup tables); run the members one by one")
     for j, rc in enumerate(junction_rating or ()):
         if rc is None:
             continue
@@ -175,6 +201,53 @@ def check_supported(branches, n_junctions, settings, junction_rating=None):
             f"memory, the block has {SMEM_LIMIT} B: run this network with engine=\"stacked\" and "
             f"linear_solver=\"cuda_pcr\"")
     return topo
+
+
+def table_resolution(branches) -> int:
+    """The depth samples M of the network's table branches (0: none)."""
+    return next((int(br.geo.area.shape[-1]) for br in branches if isinstance(br.geo, TableGeometry)), 0)
+
+
+def pack_tables(branches, n_max: int) -> torch.Tensor | None:
+    """The seven tables of every table branch, ``[T, 7, n_max, M]`` float64,
+    edge-padded along the node axis (a pad node reads its branch's last
+    node): one copy for the launch, which every member reads.  ``None``
+    without table branches."""
+    geos = [br.geo for br in branches if isinstance(br.geo, TableGeometry)]
+    if not geos:
+        return None
+    return torch.stack([torch.stack([net.edge_pad(getattr(g, t).to(torch.float64), n_max) for t in _TABLES])
+                        for g in geos]).contiguous()
+
+
+def table_branches(branches, dev) -> torch.Tensor | None:
+    """Each branch's index among the table branches, -1 for a trapezoid one
+    (int32 ``[B]`` on ``dev``); ``None`` without table branches."""
+    is_table = [isinstance(br.geo, TableGeometry) for br in branches]
+    if not any(is_table):
+        return None
+    index = torch.cumsum(torch.tensor(is_table, dtype=torch.int32), 0) - 1
+    return torch.where(torch.tensor(is_table), index, -1).to(torch.int32).to(dev)
+
+
+def table_bytes(branches, n_max: int) -> int:
+    """Bytes of :func:`pack_tables`' output."""
+    return 8 * len(_TABLES) * n_max * table_resolution(branches) * sum(
+        isinstance(br.geo, TableGeometry) for br in branches)
+
+
+def _geometry_rows(geo) -> torch.Tensor:
+    """A branch's geometry rows ``[13, N]`` (``[M, 13, N]`` batched): a
+    trapezoid's own (``fused_newton.pack_geometry``), or a table branch's
+    bed level, table span, bed slope and curvature in the rows the kernel
+    reads for them (:data:`_TABLE_GEO_ROWS`)."""
+    if not isinstance(geo, TableGeometry):
+        return fn.pack_geometry(geo)
+    z = geo.z_bed.to(torch.float64)
+    rows = [torch.zeros_like(z)] * len(fn._GEO_ROWS)
+    for r, name in _TABLE_GEO_ROWS.items():
+        rows[r] = getattr(geo, name).to(torch.float64)
+    return torch.stack(rows, dim=-2).contiguous()
 
 
 def _edge_pad_last(x, n_max):
@@ -247,7 +320,7 @@ def _pack(branches, J, settings, batch, M, Y0, junction_area, junction_rating, t
         geo, us, ds = (d.get(k, getattr(br, k)) for k in ("geo", "us", "ds"))
         h0 = d.get("h0", br.h0)
         Q0 = d.get("Q0", br.Q0)
-        rows = fn.pack_geometry(geo)                                  # [13, N] or [M, 13, N]
+        rows = _geometry_rows(geo)                                    # [13, N] or [M, 13, N]
         geo_rows.append(_edge_pad_last(rows, Nmax).expand(M, -1, Nmax))
         h0s.append(_edge_pad_last(h0.to(**f64), Nmax).expand(M, Nmax))
         Q0s.append(_edge_pad_last(Q0.to(**f64), Nmax).expand(M, Nmax))
@@ -311,7 +384,9 @@ def _pack(branches, J, settings, batch, M, Y0, junction_area, junction_rating, t
         Y0_all = torch.as_tensor(Y0, **f64).expand(M, J)
     jpar, jtab = _junction_block(junction_area, junction_rating, J, dev)
     return dict(geo=geo_all, h0=h0_all, Q0=Q0_all, ser=ser_all, par=par_all, qlat=qlat_all, stor=stor_all,
-                stab=stab_all, stride=stride, Y0=Y0_all.contiguous(), bint=bint.to(dev), jpar=jpar, jtab=jtab)
+                stab=stab_all, stride=stride, Y0=Y0_all.contiguous(), bint=bint.to(dev), jpar=jpar, jtab=jtab,
+                tab=pack_tables(branches, Nmax), tab_branch=table_branches(branches, dev),
+                tab_m=table_resolution(branches))
 
 
 def _outputs(M, B, J, nt, n_max, dev):
@@ -326,10 +401,11 @@ def _outputs(M, B, J, nt, n_max, dev):
 
 def _c_args(p, o):
     """The pointer arguments of the C entries, in their order."""
-    qlat = p["qlat"]
+    qlat, tab, tab_branch = p["qlat"], p["tab"], p["tab_branch"]
     return (p["geo"].data_ptr(), p["h0"].data_ptr(), p["Q0"].data_ptr(), p["ser"].data_ptr(), p["par"].data_ptr(),
             None if qlat is None else qlat.data_ptr(), p["stor"].data_ptr(), p["stab"].data_ptr(), p["stride"],
             p["Y0"].data_ptr(), p["bint"].data_ptr(), p["jpar"].data_ptr(), p["jtab"].data_ptr(),
+            None if tab_branch is None else tab_branch.data_ptr(), None if tab is None else tab.data_ptr(),
             *(o[k].data_ptr() for k in ("depth", "flow", "Y", "iters", "err", "conv", "stage", "gate")))
 
 
@@ -347,8 +423,8 @@ def _launch(p, M, B, J, settings, topo, build_id=CHOOSE_BUILD, probe=None):
         o = _outputs(M, B, J, nt, Nmax, dev)
         qlat = p["qlat"]
         tail = (M, B, Nmax, J, nt, int(settings.max_iter), topo.m_rhs, 0 if qlat is None else qlat.dim() - 2,
-                build_id, torch.cuda.current_stream().cuda_stream)
-        lib = _lib()
+                p["tab_m"], build_id, torch.cuda.current_stream().cuda_stream)
+        lib = _lib(p["tab_m"] != 0)
         clock = ctypes.c_int(0)
         if probe is None:
             rc = lib.flowsim_fused_network(*_c_args(p, o), *tail)
@@ -360,25 +436,29 @@ def _launch(p, M, B, J, settings, topo, build_id=CHOOSE_BUILD, probe=None):
     return raw if probe is None else (*raw, clock.value)
 
 
-def chosen_build(n_members: int, slots: int, n_branches: int, n_junctions: int, m_rhs: int) -> int:
+def chosen_build(n_members: int, slots: int, n_branches: int, n_junctions: int, m_rhs: int,
+                 table: bool = False) -> int:
     """The build the C entry takes for ``n_members`` members of a network of
     this shape (the loop build for more slots than threads; else the latency
     build, or the residency build for a batch larger than the card holds in
-    the latency one)."""
+    the latency one); ``table``: a network with table branches, which
+    chooses among the table builds the same way."""
     out = ctypes.c_int(0)
-    rc = _lib().flowsim_fused_network_chosen_build(n_members, slots, n_branches, n_junctions, m_rhs,
-                                                   ctypes.byref(out))
+    rc = _lib(table).flowsim_fused_network_chosen_build(n_members, slots, n_branches, n_junctions, m_rhs,
+                                                        ctypes.byref(out))
     if rc != 0:
         raise RuntimeError(f"build choice failed: CUDA error {rc}")
     return out.value
 
 
-def resident_blocks(slots: int, n_branches: int, n_junctions: int, m_rhs: int, build_id: int) -> int:
-    """Blocks of a kernel build that one SM holds for this network's block
-    size and shared memory, from the CUDA occupancy calculator."""
+def resident_blocks(slots: int, n_branches: int, n_junctions: int, m_rhs: int, build_id: int,
+                    table: bool = False) -> int:
+    """Blocks of a kernel build (``table``: its table build) that one SM
+    holds for this network's block size and shared memory, from the CUDA
+    occupancy calculator."""
     out = ctypes.c_int(0)
-    rc = _lib().flowsim_fused_network_resident_blocks(slots, n_branches, n_junctions, m_rhs, build_id,
-                                                      ctypes.byref(out))
+    rc = _lib(table).flowsim_fused_network_resident_blocks(slots, n_branches, n_junctions, m_rhs, build_id,
+                                                           ctypes.byref(out))
     if rc != 0:
         raise RuntimeError(f"occupancy query failed: CUDA error {rc}")
     return out.value
@@ -395,11 +475,19 @@ def _output(raw, topo, junction_rating) -> net.NetworkOutput:
 
 
 def _check_device(branches, dev, name):
+    """Every branch on the launch's card, and the packed tables within its
+    free memory (a table's resolution M is bounded by device memory alone)."""
     if dev.type != "cuda":
         raise ValueError(f"{name} needs CUDA or CPU tensors; got {dev}")
     for br in branches:
         us, ds = _ends(br, 1, br.h0)
         fn.check_device(dev, br.h0, br.Q0, br.geo, us, ds, name)
+    need = table_bytes(branches, max(int(br.h0.shape[0]) for br in branches))
+    if need:
+        free = torch.cuda.mem_get_info(dev)[0]
+        if need > free:
+            raise MemoryError(f"{name}: the packed tables of the table branches take {need / 1e9:.2f} GB but the "
+                              f"card has {free / 1e9:.2f} GB free: rebuild them with fewer depth samples")
 
 
 def fused_simulate_network(branches, n_junctions, settings, Y0=None, junction_area=None,
@@ -457,7 +545,7 @@ def fused_simulate_network_batched_plain(branches, n_junctions, settings, batch,
     """The plain PyTorch version of the batched kernel: every member through
     :func:`fused_simulate_network_plain`, stacked on a leading member axis."""
     return net.simulate_members(branches, n_junctions, dataclasses.replace(settings, linear_solver="pcr"), batch,
-                                Y0=Y0, junction_area=junction_area, junction_rating=junction_rating)
+                                Y0=Y0, junction_area=junction_area, junction_rating=junction_rating, by_class=True)
 
 
 def fused_simulate_network_batched(branches, n_junctions, settings, batch, Y0=None, junction_area=None,
@@ -474,7 +562,7 @@ def fused_simulate_network_batched(branches, n_junctions, settings, batch, Y0=No
     M = net.check_batch(branches, batch, settings)
     net._check_supported(branches, n_junctions, settings)
     net.check_junction_inputs(junction_area, junction_rating, n_junctions)
-    topo = check_supported(net.member_branches(branches, batch, 0), n_junctions, settings, junction_rating)
+    topo = check_supported(net.member_branches(branches, batch, 0), n_junctions, settings, junction_rating, batch)
     dev = branches[0].h0.device
     if dev.type == "cpu":
         return fused_simulate_network_batched_plain(branches, n_junctions, settings, batch, Y0, junction_area,

@@ -39,20 +39,29 @@ Three engines:
   batched assembly and one batched multi-RHS block solve per iteration (pad
   nodes carry delta-copy equations, so node Nmax-1 mirrors each branch's real
   end); ``settings.linear_solver`` picks the solve, ``"cuda_pcr"`` is kernel
-  2 over all branches and right-hand sides in one launch.  This engine with
-  ``"pcr"`` is the plain version of the fused network kernel;
+  2 over all branches and right-hand sides in one launch.  It stacks the
+  branches' geometry trees, so, as in the JAX package, every branch has one
+  geometry class (a network that mixes trapezoid and table branches raises
+  ``ValueError``) and table branches share their static ``n_ref``;
 * ``"fused"`` — the whole simulation in one CUDA kernel launch
   (``ops/cuda/fused_network.py``); on CPU tensors its plain version.
 
+The fused network kernel's plain version is :func:`simulate_stacked` with
+``by_class=True`` and the ``"pcr"`` solve: the stacked engine with each
+geometry class stacked on its own and its closures evaluated on its own
+branches, so that it also runs mixed networks, as the kernel does.
+
+Branch geometry: :class:`TrapezoidGeometry` (closed forms) or
+:class:`TableGeometry` (per-node lookup tables of surveyed sections), mixed
+freely in the loop engine and in the fused kernel.
+
 A network Monte-Carlo overrides branch fields per member: :func:`check_batch`
 validates the overrides, :func:`simulate_members` runs the members one after
-another through the stacked engine (``parallel/ensemble``'s plain engine and
-the batched network kernel's plain version).
+another through the stacked engine (``parallel/ensemble``'s plain engine and,
+with ``by_class=True``, the batched network kernel's plain version).
 
-Not ported yet: table (irregular-section) branches (ROADMAP.md Queue 2A
-item 2, with their loop and stacked engines; they raise),
-``simulate_network_chunk`` (checkpoint/resume, Queue 1 item 14) and
-``newton="fixed"`` (gradients, item 9; it raises).
+Not ported yet: ``simulate_network_chunk`` (checkpoint/resume, ROADMAP.md
+Queue 1 item 14) and ``newton="fixed"`` (gradients, item 9; it raises).
 The TPU-only f32-LU-plus-refinement junction solve of the JAX package has no
 counterpart: the card solves in float64.
 """
@@ -60,6 +69,7 @@ counterpart: the card solves in float64.
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
+from types import SimpleNamespace
 from typing import List, NamedTuple, Optional, Union
 
 import numpy as np
@@ -67,7 +77,7 @@ import torch
 
 from flowsim_tpu_torch import trees
 from flowsim_tpu_torch.config import farray
-from flowsim_tpu_torch.geometry import TrapezoidGeometry
+from flowsim_tpu_torch.geometry import TableGeometry, TrapezoidGeometry
 from flowsim_tpu_torch.ops import boundary as bnd
 from flowsim_tpu_torch.ops import preissmann as prs
 from flowsim_tpu_torch.ops import rating_curve as rcurve
@@ -128,15 +138,14 @@ def check_junction_inputs(junction_area, junction_rating, n_junctions):
 
 
 def _check_supported(branches: List[BranchDef], n_junctions: int, settings=None):
-    """Trapezoid branches only (a table branch raises), junction ids in
-    range, every junction with >= 2 ends, and (with ``settings``) every
-    branch's state, series and lateral inflow of the shapes the level loop
-    indexes: a wrong length would read past an end."""
+    """Trapezoid or table geometry (another class raises ``TypeError``),
+    junction ids in range, every junction with >= 2 ends, and (with
+    ``settings``) every branch's state, series and lateral inflow of the
+    shapes the level loop indexes: a wrong length would read past an end."""
     for i, br in enumerate(branches):
-        if not isinstance(br.geo, TrapezoidGeometry):
-            raise NotImplementedError(
-                f"branch {i}: {type(br.geo).__name__} branches in a river network are not ported yet "
-                "(ROADMAP.md Queue 2A item 2: table branches in ops/network and kernels 5-6)")
+        if not isinstance(br.geo, (TrapezoidGeometry, TableGeometry)):
+            raise TypeError(f"branch {i}: unknown geometry class {type(br.geo).__name__!r}; a branch takes "
+                            "TrapezoidGeometry or TableGeometry")
         n_b = int(br.h0.shape[0])
         for end_name, end in (("us", br.us), ("ds", br.ds)):
             if _is_junction(end):
@@ -304,21 +313,51 @@ def simulate_network(branches: List[BranchDef], n_junctions: int, settings: prs.
     """
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}; expected one of {ENGINES}")
-    prs.check_settings(settings)
-    _check_supported(branches, n_junctions, settings)
-    settings = prs.guard_f32_floor(settings)
-    check_junction_inputs(junction_area, junction_rating, n_junctions)
+    if engine == "stacked":
+        return simulate_stacked(branches, n_junctions, settings, Y0, junction_area, junction_rating)
+    settings = _checked_settings(branches, n_junctions, settings, junction_area, junction_rating)
     if engine == "fused":
         from flowsim_tpu_torch.ops.cuda.fused_network import fused_simulate_network
 
         return fused_simulate_network(branches, n_junctions, settings, Y0=Y0, junction_area=junction_area,
                                       junction_rating=junction_rating)
+    Y0, area = _junction_start(branches, n_junctions, Y0, junction_area)
+    return _simulate_loop(branches, n_junctions, settings, Y0, area, junction_rating)
+
+
+def simulate_stacked(branches: List[BranchDef], n_junctions: int, settings: prs.PreissmannSettings, Y0=None,
+                     junction_area=None, junction_rating=None, by_class: bool = False) -> NetworkOutput:
+    """The stacked engine (``simulate_network(engine="stacked")``).
+
+    ``by_class``: stack each geometry class on its own (:func:`stack_geometry`)
+    and evaluate its closures on its own branches — the fused network
+    kernel's plain version, which also runs a network that mixes trapezoid
+    and table branches; else one geometry tree for the whole network, as the
+    JAX package's stacked engine stacks it (a mixed network, or table
+    branches whose ``n_ref`` differs, raise ``ValueError``)."""
+    settings = _checked_settings(branches, n_junctions, settings, junction_area, junction_rating)
+    groups = stack_geometry(branches, max(int(br.h0.shape[0]) for br in branches), by_class)
+    Y0, area = _junction_start(branches, n_junctions, Y0, junction_area)
+    return _simulate_stacked(branches, n_junctions, settings, Y0, area, junction_rating, groups)
+
+
+def _checked_settings(branches, n_junctions, settings, junction_area, junction_rating):
+    """Every input check of the engines; the settings with the float32 floor
+    guarded."""
+    prs.check_settings(settings)
+    _check_supported(branches, n_junctions, settings)
+    settings = prs.guard_f32_floor(settings)
+    check_junction_inputs(junction_area, junction_rating, n_junctions)
+    return settings
+
+
+def _junction_start(branches, n_junctions, Y0, junction_area):
+    """The initial junction stages ``[J]`` and the junction areas ``[J]``."""
     h0 = branches[0].h0
     area = h0.new_zeros((n_junctions,)) if junction_area is None else farray(junction_area, h0.device)
     Y0 = default_initial_stages(branches, n_junctions) if Y0 is None \
         else torch.as_tensor(Y0, dtype=h0.dtype, device=h0.device)
-    run = _simulate_stacked if engine == "stacked" else _simulate_loop
-    return run(branches, n_junctions, settings, Y0, area, junction_rating)
+    return Y0, area
 
 
 def _lateral_inflow(br, k, like):
@@ -494,6 +533,34 @@ def edge_pad(x, n_max):
     return torch.cat([x, x[-1:].expand(n_max - N, *x.shape[1:])], dim=0)
 
 
+def stack_geometry(branches, n_max: int, by_class: bool = False) -> list:
+    """The branches' geometry edge-padded to ``n_max`` nodes and stacked,
+    ``[(branch indices, geometry [B_c, n_max, ...])]``, one entry per
+    geometry class in the order of first appearance.
+
+    ``by_class=False`` (the stacked engine): one tree for the whole network,
+    as the JAX package's ``jax.tree_util.tree_map`` stacks it — a network
+    that mixes geometry classes raises ``ValueError`` naming the engines that
+    run it, and so do table branches whose static ``n_ref`` differs.
+    ``by_class=True`` (the fused kernel's plain version): each class is
+    stacked on its own, a table's ``n_ref`` (build metadata the simulation
+    never reads) dropped."""
+    classes = list(dict.fromkeys(type(br.geo) for br in branches))
+    if len(classes) > 1 and not by_class:
+        raise ValueError(
+            "the stacked engine stacks one geometry tree, as the JAX package's does: this network mixes "
+            f"{' and '.join(c.__name__ for c in classes)} branches; run it with engine=\"loop\" or "
+            "engine=\"fused\"")
+    groups = []
+    for cls in classes:
+        idx = [b for b, br in enumerate(branches) if type(br.geo) is cls]
+        geos = [branches[b].geo for b in idx]
+        if by_class and cls is TableGeometry:
+            geos = [replace(g, n_ref=None) for g in geos]
+        groups.append((idx, trees.tree_map(lambda *xs: torch.stack([edge_pad(x, n_max) for x in xs]), *geos)))
+    return groups
+
+
 @dataclass(frozen=True)
 class StackedTopology:
     """The static index maps of the stacked engine (and of the fused network
@@ -553,12 +620,13 @@ def stack_lateral_inflow(branches, n_max, nt, like):
     return torch.stack(per, dim=1 if any2d else 0)
 
 
-def _simulate_stacked(branches, J, settings, Y0, area, junction_rating) -> NetworkOutput:
+def _simulate_stacked(branches, J, settings, Y0, area, junction_rating, groups) -> NetworkOutput:
     """The stacked engine: one batched assembly and one batched multi-RHS
     solve per Newton iteration over the edge-padded branches.  Closures and
     stencil run node-major (``[Nmax, B]``), so the single reach's
     ``cell_stencil`` applies as it is; pads are re-synced to their branch's
-    end at every level start."""
+    end at every level start.  ``groups``: :func:`stack_geometry`; with
+    more than one class each class's closures run on its own columns."""
     topo = stacked_topology(branches)
     B, Nmax = len(branches), topo.n_max
     theta, dt, nt = settings.theta, settings.time_step, settings.n_time_levels
@@ -567,8 +635,39 @@ def _simulate_stacked(branches, J, settings, Y0, area, junction_rating) -> Netwo
     dev, dtype = h0.device, h0.dtype
     f64 = dict(dtype=dtype, device=dev)
     dxs = torch.tensor([float(br.dx) for br in branches], **f64)
-    geoS = trees.tree_map(lambda *xs: torch.stack([edge_pad(x, Nmax) for x in xs]), *[br.geo for br in branches])
-    geoT = trees.tree_map(lambda v: v.T, geoS)                       # node-major [Nmax, B]
+    # node-major geometry [Nmax, B, ...]: movedim, not .T, keeps a table's
+    # sample axis last
+    groupsT = [(torch.tensor(idx, dtype=torch.long, device=dev), trees.tree_map(lambda v: v.movedim(0, 1), g))
+               for idx, g in groups]
+    if len(groups) == 1:
+        z_bedS = groups[0][1].z_bed
+    else:
+        z_bedS = h0.new_empty((B, Nmax))
+        for idx, g in groups:
+            z_bedS[idx] = g.z_bed
+    bedT = SimpleNamespace(z_bed=z_bedS.T)
+
+    def closures(hT, QT):
+        """Section state and energy slope of every slot, node-major."""
+        if len(groupsT) == 1:
+            g = groupsT[0][1]
+            st = sec.section_state(g, hT)
+            return st, sec.energy_slope(g, hT, QT, st)
+        st_f, es_f = {f: hT.new_empty(hT.shape) for f in sec.SectionState._fields}, \
+            {f: hT.new_empty(hT.shape) for f in sec.EnergySlope._fields}
+        for cols, g in groupsT:
+            h, Q = hT[:, cols], QT[:, cols]
+            st = sec.section_state(g, h)
+            es = sec.energy_slope(g, h, Q, st)
+            for out, part in ((st_f, st), (es_f, es)):
+                for f, v in zip(part._fields, part):
+                    out[f][:, cols] = v
+        return sec.SectionState(**st_f), sec.EnergySlope(**es_f)
+
+    def prev_level_state(hT, QT):
+        st, es = closures(hT, QT)
+        return prs.PrevLevel(h=hT, Q=QT, A=st.A, Se=es.Se, Q2A=QT * QT / st.A)
+
     qlatS = stack_lateral_inflow(branches, Nmax, nt, h0)
     n_b = torch.tensor(topo.n_b, device=dev)
     node_real = torch.arange(Nmax, device=dev)[None, :] < n_b[:, None]           # [B, Nmax]
@@ -613,7 +712,7 @@ def _simulate_stacked(branches, J, settings, Y0, area, junction_rating) -> Netwo
         jid = us_j if upstream else ds_j
         h_e, Q_e = hS[:, idx], QS[:, idx]
         if J:
-            res = h_e - (Y[jid] - geoS.z_bed[:, idx])
+            res = h_e - (Y[jid] - z_bedS[:, idx])
         else:
             res = torch.zeros_like(h_e)
         dfh, dfq, stage = torch.ones_like(h_e), torch.zeros_like(h_e), torch.full_like(h_e, float("nan"))
@@ -639,9 +738,8 @@ def _simulate_stacked(branches, J, settings, Y0, area, junction_rating) -> Netwo
 
     def one_iteration(hS, QS, Y, prevS, prevT, k, end_states, qc, qp, prev_terms):
         hT, QT = hS.T, QS.T
-        stT = sec.section_state(geoT, hT)
-        esT = sec.energy_slope(geoT, hT, QT, stT)
-        cells = prs.cell_stencil(theta, dt, dxs, dict(prs.node_stencil_fields(geoT, stT, esT, hT, QT), qlat=qc),
+        stT, esT = closures(hT, QT)
+        cells = prs.cell_stencil(theta, dt, dxs, dict(prs.node_stencil_fields(bedT, stT, esT, hT, QT), qlat=qc),
                                  dict(A=prevT.A, Se=prevT.Se, Q2A=prevT.Q2A, Q=prevT.Q, h=prevT.h, qlat=qp))
         mask = cell_real
         Rc = torch.where(mask, cells.Rc.T, hS[:, 1:] - hS[:, :-1])
@@ -709,7 +807,7 @@ def _simulate_stacked(branches, J, settings, Y0, area, junction_rating) -> Netwo
     for k in range(1, nt):
         hS, QS = sync(hS), sync(QS)
         end_states = _gate_level_start(branches, end_states, float(k) * dt)
-        prevT = prs.prev_level_state(geoT, hS.T, QS.T)
+        prevT = prev_level_state(hS.T, QS.T)
         prevS = prs.PrevLevel(*(t.T for t in prevT))
         if qlatS is None:
             qc = qp = None
@@ -763,6 +861,9 @@ def check_batch(branches, batch, settings) -> int:
                 raise ValueError(f"unknown BranchDef override {k!r}; expected one of {BATCH_KEYS}")
             if k in ("us", "ds") and (_is_junction(v) or _is_junction(getattr(br, k))):
                 raise ValueError("junction ends cannot be overridden per member")
+            if k == "geo" and type(v) is not type(br.geo):
+                raise ValueError(f"branch {i} geo: the members must keep the branch's geometry class "
+                                 f"{type(br.geo).__name__}")
             if k in ("us", "ds") and (v.kind, getattr(v.rating, "kind", None)) != (
                     getattr(br, k).kind, getattr(getattr(br, k).rating, "kind", None)):
                 raise ValueError(f"branch {i} {k}: the members must keep the branch's boundary and rating kinds")
@@ -806,11 +907,11 @@ def join_outputs(outs, join=torch.stack) -> NetworkOutput:
 
 
 def simulate_members(branches, n_junctions, settings, batch, Y0=None, junction_area=None,
-                     junction_rating=None) -> NetworkOutput:
+                     junction_rating=None, by_class: bool = False) -> NetworkOutput:
     """Every member of a batch (:func:`check_batch`) through the stacked
-    engine with ``settings.linear_solver``, one after another, stacked on a
-    leading member axis."""
+    engine with ``settings.linear_solver`` (:func:`simulate_stacked`, with
+    ``by_class``), one after another, stacked on a leading member axis."""
     M = check_batch(branches, batch, settings)
-    return join_outputs([simulate_network(member_branches(branches, batch, m), n_junctions, settings, Y0=Y0,
+    return join_outputs([simulate_stacked(member_branches(branches, batch, m), n_junctions, settings, Y0=Y0,
                                           junction_area=junction_area, junction_rating=junction_rating,
-                                          engine="stacked") for m in range(M)])
+                                          by_class=by_class) for m in range(M)])

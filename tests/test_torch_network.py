@@ -349,15 +349,20 @@ def test_fused_network_refuses_by_name(small_tributary):
     br, nj, sset, _ = small_tributary
     lv = lambda **kw: [dataclasses.replace(br[0], **kw), *br[1:]]
 
-    # a table branch: its tables at the branch's nodes, built by the port
+    # table branches, their tables at the branches' nodes built by the port,
+    # of two depth-grid resolutions
     from flowsim_tpu_torch import build_table_geometry, trapezoid_station
-    n0 = br[0].geo.n_nodes
-    table = build_table_geometry([trapezoid_station(z_bed=1.0, b_main=10.0), trapezoid_station(
-        z_bed=0.0, b_main=10.0)], [0.0, 1.0], np.linspace(0.0, 1.0, n0), depth_max=5.0, samples=8, device="cpu")
+
+    def table(b, samples):
+        return build_table_geometry([trapezoid_station(z_bed=1.0, b_main=10.0), trapezoid_station(
+            z_bed=0.0, b_main=10.0)], [0.0, 1.0], np.linspace(0.0, 1.0, br[b].geo.n_nodes), depth_max=5.0,
+            samples=samples, device="cpu")
+
+    two_m = [dataclasses.replace(br[0], geo=table(0, 8)), br[1], dataclasses.replace(br[2], geo=table(2, 16))]
 
     cases = [
         (lambda: fnet.fused_simulate_network([dataclasses.replace(br[0], ds=br[2].ds)], 0, sset), "not a network"),
-        (lambda: fnet.check_supported(lv(geo=table), nj, sset), "Queue 2A item 2"),
+        (lambda: fnet.check_supported(two_m, nj, sset), "share one depth-grid resolution"),
         (lambda: fnet.fused_simulate_network(br, nj, dataclasses.replace(sset, diagnos=True)), "diagnostics"),
         (lambda: fnet.fused_simulate_network(
             lv(us=dataclasses.replace(br[2].ds, rating=rc.make_gated_blend([0.0, 5.0, 0.0], [0.0, 6.0, 0.0], 480.0,
@@ -373,10 +378,10 @@ def test_fused_network_refuses_by_name(small_tributary):
     for call, match in cases:
         with pytest.raises(FusedUnsupported, match=match):
             call()
-    # the loop and stacked engines refuse a table branch as well, by the same item
-    for engine in ("loop", "stacked"):
-        with pytest.raises(NotImplementedError, match="Queue 2A item 2"):
-            net.simulate_network(lv(geo=table), nj, sset, engine=engine)
+    # the stacked engine stacks one geometry tree: a mixed network raises by
+    # name, for the loop and fused engines that run it
+    with pytest.raises(ValueError, match='engine="loop" or engine="fused"'):
+        net.simulate_network(lv(geo=table(0, 8)), nj, sset, engine="stacked")
     # the basin at levels=5 fits one block, the basin at levels=6 does not
     from flowsim_tpu_torch.models import basin
 

@@ -22,8 +22,18 @@ the main paths through the user entry points:
   launch each of the tiled SPIKE solve's three kernels (local tile solves,
   reduced system, substitution) per Newton iteration — against the same run
   with the plain ``"pcr"`` solve, and each stage timed at two tiles;
+* reaches of 965-8192 nodes (phase ``long_reach_fused``): the flagship
+  refined to 50 m (N = 2409, 385 levels) through
+  ``api.PreissmannSolver.run(engine="fused")``, the long reach at N = 2048,
+  4096 and 8192 through ``fused_simulate`` and 1024 members of the N = 2048
+  reach through ``batched_simulate(engine="fused")`` — the long build of
+  kernels 1 and 3, its state in a scratch of device memory — against the
+  plain engine, the long build forced at N <= 964 against the register
+  build bit for bit (trapezoid, storage and table reaches), and the N = 2048
+  reach on lookup tables;
 * the reservoir: ``models.example.build()`` (a flood wave routed into a lumped
-  storage) with ``engine="fused"`` against ``engine="plain"``;
+  storage) with ``engine="fused"`` against ``engine="plain"``, and the same
+  reservoir with a power outflow rating fitted through ``api.RatingCurve``;
 * river networks: the flagship with a tributary confluence
   (``models.gerd_tributary``: 3 branches, 385 levels) through
   ``ops.network.simulate_network(engine="fused")`` and
@@ -55,7 +65,9 @@ the main paths through the user entry points:
 
 Before the main path, the ``kernels`` phase also holds kernel 1's latency
 build (the one a single launch takes) against its register build bit for
-bit, and the ``probe`` phase splits a Newton iteration of kernels 5 and 1 into
+bit, lumped storages with outflow ratings of every kind but gated_blend
+(power, table, poly_n among them) in kernels 1, 3, 5 and 6 against their
+plain versions, and the ``probe`` phase splits a Newton iteration of kernels 5 and 1 into
 its phases (the probe builds, of every build of kernel 1: thread 0 reads the
 SM clock after each barrier) and prints microseconds per iteration for each.
 
@@ -69,9 +81,10 @@ Without a CUDA device the script exits non-zero and prints no result.
 ``python3 chip_smoke.py --kernel1-times`` times kernel 1 alone (CUDA events,
 packing outside: the flagship at 97 and 385 levels in every build, the
 reservoir example), ``--kernel2-times`` kernel 2 alone (the host's path and
-the device alone), ``--sass`` counts each kernel's float64 instructions
-between barriers; with any of them the script prints only those, to compare
-two checkouts on one card.
+the device alone), ``--network-times`` kernels 5 and 6 alone (the tributary,
+one launch and 1024 members), ``--sass`` counts each kernel's float64
+instructions between barriers; with any of them the script prints only
+those, to compare two checkouts on one card.
 """
 
 from __future__ import annotations
@@ -193,6 +206,24 @@ TABLE_NET_SMALL_BATCH = 16
 TABLE_NET_BIT_MEMBERS = 4
 
 
+# reaches of 965-8192 nodes in kernels 1 and 3 (their long build): the JAX
+# package's scaling reach (build_long_reach, scripts/bench_scaling.py:43-79)
+# at these N, 8 levels, against the plain engine on every level; the
+# flagship refined to 50 m (N = 2409, 385 levels; the plain engine on its
+# first 25); the scaling reach at N = 2048 on lookup tables of M = 32
+# samples; and 1024 members of the N = 2048 reach with roughness
+# linspace(0.02, 0.06) (scripts/bench_scaling.py:135-140)
+LONG_FUSED_NODES = (2048, 4096, 8192)
+LONG_FLAGSHIP_STEP = 50.0
+LONG_FLAGSHIP_PLAIN_LEVELS = 25
+LONG_TABLE_NODES, LONG_TABLE_SAMPLES = 2048, 32
+LONG_ENSEMBLE_MEMBERS, LONG_ENSEMBLE_NODES, LONG_ENSEMBLE_N_RANGE = 1024, 2048, (0.02, 0.06)
+LONG_BIT_MEMBERS = 4
+# bytes one PCR sweep moves in the long build's scratch, a node: its own 14
+# components and its two partners' 14 read, 14 written
+LONG_SWEEP_BYTES_PER_NODE = 4 * 14 * 8
+
+
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
@@ -302,7 +333,7 @@ def check_latency_build(dev) -> dict:
     return dict(cases=out, chosen_build_at_n121=choices)
 
 
-KERNEL1_BUILD_NAMES = {0: "register_build", 1: "residency_build", 2: "latency_build"}
+KERNEL1_BUILD_NAMES = {0: "register_build", 1: "residency_build", 2: "latency_build", 3: "long_build"}
 
 
 def kernel1_build_ids(fn) -> list:
@@ -588,7 +619,11 @@ def build_long_reach(n_nodes: int, device, levels: int = 8, linear_solver: str =
     return geo, us, ds, h0, Q0, sset
 
 
-STORAGE_CASES = ("ds_const", "ds_curve_rating_losses", "ds_const_losses", "us_const", "us_curve", "both_ends")
+STORAGE_CASES = ("ds_const", "ds_curve_rating_losses", "ds_const_losses", "us_const", "us_curve", "both_ends",
+                 "ds_power_losses", "us_table", "both_poly_n")
+# the power rating of scripts/validate_fused_network_hw.py:187-188: 20 m^3/s
+# three metres above its crest
+POWER_RATING_A, POWER_RATING_B = 20.0 / 3.0 ** 1.6, 1.6
 
 
 def build_storage_case(name: str, device, levels: int = 12):
@@ -597,8 +632,13 @@ def build_storage_case(name: str, device, levels: int = 12):
     ``fixed_depth`` boundary, one of STORAGE_CASES: constant area, a
     stage-area curve with a polynomial rating on the storage and entrance
     losses, losses alone, an upstream reservoir (constant area, area curve)
-    over a quiescent pool, and a reservoir at each end.  Returns
-    (geo, us_bc, ds_bc, h0, Q0, settings)."""
+    over a quiescent pool, and a reservoir at each end; and the outflow
+    ratings beyond the quadratics: the curve-and-losses reservoir with a
+    ``power`` rating (POWER_RATING_A/B, its crest at the curve's lowest
+    stage, so the whole bisection bracket lies above it), the upstream curve
+    reservoir with a 10-breakpoint ``table`` rating, and the pair at both
+    ends with cubic ratings from ``rating_curve.fit(..., degree=3)``
+    (``poly_n``).  Returns (geo, us_bc, ds_bc, h0, Q0, settings)."""
     from flowsim_tpu_torch import geometry as geom
     from flowsim_tpu_torch.ops import boundary as bnd
     from flowsim_tpu_torch.ops import initial_conditions as ic
@@ -656,6 +696,33 @@ def build_storage_case(name: str, device, levels: int = 12):
             surface_area=3.0e6, min_stage=bed_us - 5.0, solution_boundaries=(0.0, 100.0), device=device))
         ds = mk("fixed_depth", bed_level=bed_ds, storage=stg.make_storage(
             surface_area=1.25e6, min_stage=bed_ds + h_ds0, solution_boundaries=(0.0, 100.0), device=device))
+    elif name == "ds_power_losses":
+        us, state = us_hyd, (h0, Q0)
+        curve = np.stack([bed_ds + np.linspace(-2.0, 20.0, 12), 4.0e5 * (1.0 + 0.08 * np.arange(12))], axis=1)
+        ds = mk("fixed_depth", bed_level=bed_ds, storage=stg.make_storage(
+            area_curve=curve, min_stage=bed_ds - 1.0,
+            rating=rcurve.make_power(POWER_RATING_A, POWER_RATING_B, stage_shift=-(bed_ds - 2.0), device=device),
+            capture_losses=True, reservoir_length=1500.0, K_q=0.2, device=device))
+    elif name == "us_table":
+        ds, state = ds_stage_pool, (pool_h0, pool_Q0)
+        curve = np.stack([bed_us + np.linspace(-2.0, 30.0, 10), 8.0e6 * (1.0 + 0.05 * np.arange(10))], axis=1)
+        table = rcurve.make_table(bed_us + np.array([-2.0, 0.0, 1.0, 1.5, 2.0, 2.5, 3.0, 5.0, 10.0, 30.0]),
+                                  [0.0, 0.0, 5.0, 10.0, 20.0, 35.0, 50.0, 150.0, 600.0, 5000.0], device=device)
+        us = mk("fixed_depth", bed_level=bed_us, storage=stg.make_storage(
+            area_curve=curve, min_stage=bed_us - 1.0, rating=table, device=device))
+    elif name == "both_poly_n":
+        state, tol = (h0, Q0), 1e-8
+
+        def cubic(crest, c1, c2, c3):   # monotone in the whole bracket: c2^2 < 3 c1 c3
+            x = np.linspace(0.2, 4.0, 12)
+            return rcurve.fit(c1 * x + c2 * x * x + c3 * x ** 3, crest + x, stage_shift=-crest, degree=3,
+                              device=device)
+        us = mk("fixed_depth", bed_level=bed_us, storage=stg.make_storage(
+            surface_area=3.0e6, min_stage=bed_us - 5.0, solution_boundaries=(0.0, 100.0),
+            rating=cubic(bed_us + float(h0[0]) - 1.0, 2.0, 0.5, 0.1), device=device))
+        ds = mk("fixed_depth", bed_level=bed_ds, storage=stg.make_storage(
+            surface_area=1.25e6, min_stage=bed_ds + h_ds0, solution_boundaries=(0.0, 100.0),
+            rating=cubic(bed_ds + h_ds0 - 1.0, 10.0, 2.0, 0.5), device=device))
     else:
         raise ValueError(f"unknown storage case {name!r}; expected one of {STORAGE_CASES}")
     sset = prs.PreissmannSettings(theta=0.6, time_step=dt, spatial_step=dx, n_time_levels=nt,
@@ -890,9 +957,11 @@ def check_tiled_kernel(dev) -> dict:
 
 
 def check_storage_kernels(dev) -> dict:
-    """Kernel 1 with each storage variant and kernel 3 with storage ensembles
-    against their plain versions: identical per-level counts, fields and
-    reservoir stages within the tolerances."""
+    """Kernel 1 with each storage variant (every outflow rating kind but
+    gated_blend among them) and kernel 3 with storage ensembles (per-member
+    power and poly_n coefficients among them) against their plain versions:
+    identical per-level counts, fields and reservoir stages within the
+    tolerances; a batch against single launches bit for bit."""
     from flowsim_tpu_torch import trees
     from flowsim_tpu_torch.ops import rating_curve as rcurve
     from flowsim_tpu_torch.ops.cuda.fused_batched import fused_simulate_batched, fused_simulate_batched_plain
@@ -951,6 +1020,50 @@ def check_storage_kernels(dev) -> dict:
     out_p = fused_simulate_batched_plain(geob, *args[1:])
     out["ensemble_both_ends_3x6"] = compare_members(
         out_k, [prs_out_member(out_p, m) for m in range(3)], "both-ends storage ensemble", exact=False)
+    # outflow ratings beyond the quadratics in kernel 3: four members of
+    # per-member power coefficients (a scaled), against single launches bit
+    # for bit and against the plain version
+    geo, us, ds, h0, Q0, sset = build_storage_case("ds_power_losses", dev, levels=6)
+    B = 4
+    rt = ds.storage.rating
+    ds_members = [dataclasses.replace(ds, storage=dataclasses.replace(ds.storage, rating=dataclasses.replace(
+        rt, coeffs=rt.coeffs * torch.tensor([f, 1.0], dtype=torch.float64, device=dev))))
+        for f in (0.8, 1.0, 1.2, 1.5)]
+    ds_b, _ = ensemble.batch_boundaries(ds_members)
+    geob = expand_members(geo, B)
+    out_k = fused_simulate_batched(geob, us, ds_b, h0, Q0, sset, ds_batched=True)
+    out_p = fused_simulate_batched_plain(geob, us, ds_b, h0, Q0, sset, ds_batched=True)
+    out["ensemble_ds_power_4x6"] = compare_members(
+        out_k, [prs_out_member(out_p, m) for m in range(B)], "power-rated storage ensemble", exact=False)
+    singles = [fused_simulate(geo, us, ds_members[m], h0, Q0, sset) for m in range(B)]
+    compare_members(out_k, singles, "power-rated storage ensemble vs single launches", exact=True)
+    final = out_k.reservoir_stage[:, -1].tolist()
+    if len(set(final)) != B:
+        raise AssertionError(f"power-rated storage ensemble: the members' final stages do not differ: {final}")
+    out["ensemble_ds_power_4x6"].update(final_stage_per_member=final, against_single_launches="bit-identical")
+    # per-member cubic coefficients at both ends (the storage tables per member)
+    args = build_storage_case("both_poly_n", dev, levels=6)
+    rd = args[2].storage.rating
+    ds_members = [dataclasses.replace(args[2], storage=dataclasses.replace(
+        args[2].storage, rating=dataclasses.replace(rd, coeffs=rd.coeffs * f))) for f in (0.8, 1.0, 1.25)]
+    ds_b, _ = ensemble.batch_boundaries(ds_members)
+    geob = expand_members(args[0], 3)
+    out_k = fused_simulate_batched(geob, args[1], ds_b, *args[3:], ds_batched=True)
+    out_p = fused_simulate_batched_plain(geob, args[1], ds_b, *args[3:], ds_batched=True)
+    out["ensemble_both_poly_n_3x6"] = compare_members(
+        out_k, [prs_out_member(out_p, m) for m in range(3)], "poly_n storage ensemble", exact=False)
+    # a power rating whose crest lies inside the bisection bracket: its
+    # discharge at the bracket's foot is NaN, and the bisection takes the
+    # plain engine's NaN branch (the stage goes to the foot, then min_stage)
+    geo, us, ds, h0, Q0, sset = build_storage_case("ds_power_losses", dev, levels=4)
+    f64 = dict(dtype=torch.float64, device=dev)
+    nan_foot = dataclasses.replace(ds, storage=dataclasses.replace(
+        ds.storage, min_stage=torch.tensor(1.0, **f64),
+        rating=dataclasses.replace(ds.storage.rating, stage_shift=torch.tensor(1.5, **f64))))
+    out_k = fused_simulate(geo, us, nan_foot, h0, Q0, sset)
+    out["power_crest_inside_bracket"] = dict(
+        compare_runs(out_k, fused_simulate_plain(geo, us, nan_foot, h0, Q0, sset), "power crest inside bracket"),
+        stage=out_k.reservoir_stage[1:].tolist())
     # a gated rating on the storage itself is outside the kernel, as on the TPU
     geo, us, ds, h0, Q0, sset = build_storage_case("ds_curve_rating_losses", dev, levels=2)
     gated = rcurve.make_gated_blend([0.0, 20.0, 0.0], [0.0, 30.0, 0.0], pivot_stage=2.0, device=dev)
@@ -1119,7 +1232,9 @@ def drive_long_reach(dev, launches: dict) -> tuple[list, dict]:
 def drive_reservoir(dev) -> dict:
     """The reservoir main path: the shipped example (a flood wave routed into
     a lumped storage) through ``models.example.build`` and ``solver.run``,
-    ``engine="fused"`` against ``engine="plain"``, all 24 levels."""
+    ``engine="fused"`` against ``engine="plain"``, all 24 levels; and the
+    same reservoir with a fitted power outflow rating
+    (:func:`example_with_rating`)."""
     from flowsim_tpu_torch.models import example
     from flowsim_tpu_torch.ops.cuda import fused_newton
 
@@ -1144,10 +1259,302 @@ def drive_reservoir(dev) -> dict:
     stage = out_k.reservoir_stage
     if not bool(torch.isnan(stage[0])) or not bool(torch.isfinite(stage[1:]).all()):
         raise AssertionError("reservoir example: the stage series is not finite after level 0")
+    rated, _ = example_with_rating(dev)
+    out_r = rated.run(engine="fused", max_iter=100, verbose=0)
+    rated_stage = out_r.reservoir_stage
+    power = dict(compare_runs(out_r, rated.run(engine="plain", max_iter=100, verbose=0),
+                              "reservoir example with a fitted power rating"),
+                 rating=dict(kind=rated.ds_params.storage.rating.kind,
+                             a_b=rated.ds_params.storage.rating.coeffs.tolist()),
+                 peak_stage=float(rated_stage[1:].max()), peak_stage_unrated=float(stage[1:].max()))
+    if not float(rated_stage[1:].max()) < float(stage[1:].max()):
+        raise AssertionError("the rated reservoir peaks no lower than the unrated one")
     return dict(n_nodes=21, n_time_levels=25, launches=count, kernel_ms=kernel_ms, plain_ms=plain_ms,
                 iterations_per_level=out_k.iterations.tolist(), reservoir_stage=stage[1:].tolist(),
                 peak_stage=float(stage[1:].max()), peak_inflow=float(out_k.flow[:, 0].max()),
-                peak_flow_into_reservoir=float(out_k.flow[:, -1].max()), **cmp)
+                peak_flow_into_reservoir=float(out_k.flow[:, -1].max()), fitted_power_rating=power, **cmp)
+
+
+def example_with_rating(dev):
+    """The shipped example (``models.example.build``) with an outflow rating
+    on its reservoir, fitted through the api (``RatingCurve.fit(...,
+    type="power")`` on ``api.LumpedStorage``): Q = 30 (Y / 5)^1.5 m^3/s
+    sampled at stages 5-70 m.  Returns (solver, channel)."""
+    from flowsim_tpu_torch import api
+    from flowsim_tpu_torch.models import example
+
+    stages = np.linspace(5.0, 70.0, 14)
+    rating = api.RatingCurve()
+    rating.fit(30.0 * (stages / 5.0) ** 1.5, stages, type="power")
+    us = api.Boundary(condition="flow_hydrograph", bed_level=5, chainage=0,
+                      hydrograph=api.Hydrograph(function=example.trapezoid_hydrograph))
+    ds = api.Boundary(condition="fixed_depth", initial_depth=5, bed_level=0, chainage=20000)
+    ds.set_lumped_storage(api.LumpedStorage(surface_area=5000 * 250, min_stage=5, solution_boundaries=(0, 200),
+                                            rating_curve=rating))
+    channel = api.Channel(width=250, initial_flow=example.trapezoid_hydrograph(0), roughness=0.027,
+                          upstream_boundary=us, downstream_boundary=ds)
+    solver = api.PreissmannSolver(channel=channel, theta=0.8, time_step=3600, spatial_step=1000,
+                                  simulation_time=24 * 3600, device=dev)
+    return solver, channel
+
+
+def roofline(nbytes: float, flops: float) -> tuple[float, str]:
+    """The least time of a function on the card: (ms, "bytes" / "operations")
+    from its bytes over PEAK_BYTES_PER_S and its float64 operations over
+    PEAK_F64_FLOPS, the larger of the two."""
+    tb, tf = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_F64_FLOPS * 1e3
+    return max(tb, tf), ("bytes" if tb >= tf else "operations")
+
+
+def same_stages(a, b, what: str) -> None:
+    """Reservoir stages bit for bit, NaN at the same places."""
+    for f in ("reservoir_stage", "reservoir_stage_us"):
+        x, y = getattr(a, f), getattr(b, f)
+        if not (torch.equal(x.isnan(), y.isnan()) and torch.equal(x.nan_to_num(), y.nan_to_num())):
+            raise AssertionError(f"{what}: {f} is not bit-identical")
+
+
+def check_long_build(dev) -> dict:
+    """Kernel 1's long build forced at N <= 964, one node a thread, against
+    its register build, bit for bit (depth, flow, error, iterations,
+    converged, gate, reservoir stages): the flagship (N = 121, 25 levels),
+    the flagship with lateral inflow per level and store="boundaries" (13
+    levels), the flagship at spatial_step=125 (N = 964, 13 levels), four
+    storage cases (12 levels), the scaling reach on lookup tables (N = 121
+    and 964, M = 32, 8 levels), and kernel 3 on 4 flagship members; the two
+    builds timed in turns on the flagship cases.  Counts no launch."""
+    from flowsim_tpu_torch.models.gerd_roseires import model
+    from flowsim_tpu_torch.ops.cuda import fused_newton as fn
+    from flowsim_tpu_torch.parallel import ensemble
+
+    cases = {}
+    s, c = model.build(device=dev, sim_duration=3600 * 24)
+    flag = (c.geometry, s.us_params, s.ds_params, s.h0, s.Q0, s.settings(tolerance=1e-6, max_iter=100))
+    cases["flagship_n121_25_levels"] = flag
+    s13, _ = model.build(device=dev, sim_duration=3600 * 12)
+    rng = np.random.default_rng(7)
+    q_level = torch.tensor(rng.uniform(0.0, 2e-3, (13, 121)), dtype=torch.float64, device=dev)
+    cases["inflow_per_level_store_boundaries_13_levels"] = (
+        *cut_levels(flag, 13)[:5], dataclasses.replace(cut_levels(flag, 13)[5], store="boundaries"), q_level)
+    s964, c964 = model.build(device=dev, sim_duration=3600 * 12, spatial_step=125.0)
+    cases[f"flagship_n{s964.number_of_nodes}_13_levels"] = (
+        c964.geometry, s964.us_params, s964.ds_params, s964.h0, s964.Q0, s964.settings(tolerance=1e-6, max_iter=100))
+    for name in ("ds_curve_rating_losses", "ds_power_losses", "us_table", "both_poly_n"):
+        cases["storage_" + name] = build_storage_case(name, dev)
+    for n in (121, fn.MAX_N):   # the scaling reach on lookup tables, 8 levels
+        args = build_long_reach(n, dev)
+        cases[f"table_n{n}_m{LONG_TABLE_SAMPLES}_8_levels"] = (as_table(args[0], samples=LONG_TABLE_SAMPLES),
+                                                                *args[1:])
+    out = {}
+    for name, args in cases.items():
+        packed = pack_one(*args)
+        reg = fn.launch(*packed, build_id=fn.REGISTER_BUILD)
+        lng = fn.launch(*packed, build_id=fn.LONG_BUILD)
+        same_bits(lng, reg, f"long vs register build, {name}")
+        same_stages(lng, reg, f"long vs register build, {name}")
+        if not bool(lng.converged.all()):
+            raise AssertionError(f"{name}: not converged")
+        out[name] = dict(n_nodes=int(args[3].shape[0]), levels=int(lng.iterations.shape[1]),
+                         iterations=int(lng.iterations.sum()), bit_identical=True)
+        if name.startswith("flagship"):   # the two builds on the same launch, by CUDA events, in turns
+            ids = dict(register_build=fn.REGISTER_BUILD, long_build=fn.LONG_BUILD)
+            runs = {b: [] for b in ids}
+            for b in ("register_build", "long_build", "long_build", "register_build"):
+                runs[b].append(time_cuda(lambda: fn.launch(*packed, build_id=ids[b]), reps=3, warmup=3))
+            out[name].update({f"{b}_ms_runs": v for b, v in runs.items()})
+    geob = ensemble.roughness_ensemble(c.geometry, [0.026, 0.030, 0.036, 0.044])
+    reg = batched_launch(geob, s.us_params, s.ds_params, s.h0, s.Q0, flag[5], fn.REGISTER_BUILD)
+    lng = batched_launch(geob, s.us_params, s.ds_params, s.h0, s.Q0, flag[5], fn.LONG_BUILD)
+    same_bits(lng, reg, "kernel 3: long vs register build")
+    out["batched_4x25"] = dict(members=4, iterations=int(lng.iterations.sum()), bit_identical=True)
+    return out
+
+
+def long_kernel_builds(ptxas: list) -> list:
+    """Registers and spills of fused_newton.cu's long builds, by template
+    arguments (storage rows, table geometry)."""
+    out = []
+    for rec in ptxas:
+        m = re.search(r"fused_long_kernelILb([01])ELb([01])E", rec["kernel"])
+        if m:
+            out.append(dict(storage=m.group(1) == "1", table=m.group(2) == "1",
+                            **{k: rec.get(k) for k in ("registers", "stack_bytes", "spill_store_bytes",
+                                                       "spill_load_bytes")}))
+    return out
+
+
+def drive_long_fused(dev, launches: dict) -> tuple[dict, list]:
+    """Reaches of 965-8192 nodes through kernels 1 and 3 (their long build):
+    the main path — the flagship at 50 m through ``api.PreissmannSolver.run(
+    engine="fused")`` (385 levels), the scaling reach at N = 2048 / 4096 / 8192
+    through ``fused_simulate`` and 1024 members of the N = 2048 reach through
+    ``batched_simulate(engine="fused", store="boundaries")`` — with the counts
+    set to 0 just before and read just after; then each held against the
+    plain engine (the flagship on its first 25 levels, the reaches on all 8,
+    members 0 and 1023), 4 members against single launches bit for bit, the
+    N = 2048 reach on lookup tables, the long build forced at N <= 964
+    against the register build (:func:`check_long_build`), the times and the
+    refusal at N = 8193.  Returns (record, kernel rows)."""
+    from flowsim_tpu_torch import trees
+    from flowsim_tpu_torch.models.gerd_roseires import model
+    from flowsim_tpu_torch.ops.cuda import build, fused_batched
+    from flowsim_tpu_torch.ops.cuda import fused_newton as fn
+    from flowsim_tpu_torch.parallel import ensemble
+
+    t0 = time.perf_counter()
+    s50, c50 = model.build(device=dev, spatial_step=LONG_FLAGSHIP_STEP)
+    flagship_build_s = time.perf_counter() - t0
+    reaches = {n: build_long_reach(n, dev) for n in LONG_FUSED_NODES}
+    geo, us, ds, h0, Q0, sset = build_long_reach(LONG_ENSEMBLE_NODES, dev)
+    sset_b = dataclasses.replace(sset, store="boundaries")
+    B = LONG_ENSEMBLE_MEMBERS
+    geob = ensemble.roughness_ensemble(geo, np.linspace(*LONG_ENSEMBLE_N_RANGE, B))
+
+    def run_ensemble(members=B):
+        return ensemble.batched_simulate(trees.slice_members(geob, 0, members), us, ds, h0, Q0, sset_b,
+                                         engine="fused")
+
+    # -- the main path: counts to 0, drive, read the counts
+    fn.launch_count = fn.long_launch_count = 0
+    fused_batched.launch_count = fused_batched.long_launch_count = 0
+    unconverged = None
+    try:
+        out50 = s50.run(engine="fused", tolerance=1e-6, verbose=0)
+    except ValueError as e:
+        # the api refuses a run that did not converge at some level; the
+        # launch happened (the counts below say so) and its output is kept
+        unconverged, out50 = str(e), s50.output
+    outs = {n: fn.fused_simulate(*reaches[n]) for n in LONG_FUSED_NODES}
+    out_e = run_ensemble()
+    torch.cuda.synchronize()
+    launches["fused_simulate_long"] = fn.long_launch_count
+    launches["fused_simulate_batched_long"] = fused_batched.long_launch_count
+    if (fn.launch_count, fn.long_launch_count) != (1 + len(LONG_FUSED_NODES),) * 2 \
+            or (fused_batched.launch_count, fused_batched.long_launch_count) != (1, 1):
+        raise AssertionError(f"long reaches: {fn.long_launch_count} of {fn.launch_count} single and "
+                             f"{fused_batched.long_launch_count} of {fused_batched.launch_count} batched launches "
+                             f"took the long build, expected {1 + len(LONG_FUSED_NODES)} and 1")
+
+    # -- the flagship at 50 m: all 385 levels, the plain engine on the first 25
+    n50, nt50 = s50.number_of_nodes, s50.number_of_time_levels
+    if out50.depth.shape != (nt50, n50) or not bool(torch.isfinite(out50.depth).all()):
+        raise AssertionError(f"flagship at {LONG_FLAGSHIP_STEP} m: output of the wrong shape or not finite")
+    args50 = (c50.geometry, s50.us_params, s50.ds_params, s50.h0, s50.Q0, s50.settings(tolerance=1e-6, max_iter=100))
+    ms50 = wall_ms(lambda: fn.fused_simulate(*args50))
+    it50 = int(out50.iterations.sum())
+    cut50 = cut_levels(args50, LONG_FLAGSHIP_PLAIN_LEVELS)
+    out_c = fn.fused_simulate(*cut50)
+    t0 = time.perf_counter()
+    out_cp = fn.fused_simulate_plain(*cut50)
+    torch.cuda.synchronize()
+    flagship = dict(n_nodes=n50, spatial_step=LONG_FLAGSHIP_STEP, n_time_levels=nt50,
+                    host_build_seconds=flagship_build_s, levels_converged=int(out50.converged.sum()),
+                    api_unconverged=unconverged,
+                    total_iterations=it50, max_iterations_in_a_level=int(out50.iterations.max()),
+                    wall_ms=ms50, us_per_newton_iteration=ms50 * 1e3 / it50,
+                    plain_compared=dict(compare_runs(out_c, out_cp, "flagship at 50 m vs plain"),
+                                        plain_ms=(time.perf_counter() - t0) * 1e3))
+    if not torch.equal(out_c.depth, out50.depth[:LONG_FLAGSHIP_PLAIN_LEVELS]):
+        raise AssertionError("flagship at 50 m: the first 25 levels of the api run differ from the cut run")
+
+    # -- the scaling reach at N = 2048 / 4096 / 8192, 8 levels, against the plain engine
+    reach_recs, rows = {}, {}
+    for n, args in reaches.items():
+        t0 = time.perf_counter()
+        out_p = fn.fused_simulate_plain(*args)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        rec = compare_runs(outs[n], out_p, f"long reach N={n}")
+        packed = pack_one(*args)
+        ms = time_cuda(lambda: fn.launch(*packed), reps=5, warmup=3)
+        reach_recs[f"n_{n}"] = dict(rec, kernel_ms=ms, us_per_newton_iteration=ms * 1e3 / rec["iterations"],
+                                    plain_ms=plain_ms, chosen_build=fn.chosen_build(1, n),
+                                    scratch_bytes=fn.scratch_bytes(1, n),
+                                    scratch_bytes_per_sweep=LONG_SWEEP_BYTES_PER_NODE * n)
+    # on lookup tables: the N = 2048 reach's two end sections sampled at M = 32
+    t0 = time.perf_counter()
+    tg = as_table(reaches[LONG_TABLE_NODES][0], samples=LONG_TABLE_SAMPLES)
+    table_host_s = time.perf_counter() - t0
+    targs = (tg, *reaches[LONG_TABLE_NODES][1:])
+    out_t = fn.fused_simulate(*targs)
+    tpacked = pack_one(*targs)
+    table_rec = dict(compare_runs(out_t, fn.fused_simulate_plain(*targs), "long table reach"),
+                     n_nodes=LONG_TABLE_NODES, samples=LONG_TABLE_SAMPLES, host_table_build_seconds=table_host_s,
+                     kernel_ms=time_cuda(lambda: fn.launch(*tpacked), reps=5, warmup=3))
+
+    # -- the ensemble: timed, 4 members against single launches, 2 against the plain engine
+    if out_e.depth.shape != (B, sset.n_time_levels, 2) or not bool(out_e.converged.all()) \
+            or not bool(torch.isfinite(out_e.depth).all()):
+        raise AssertionError("long ensemble: wrong shape, not converged or not finite")
+    ens_runs = [wall_ms(run_ensemble) for _ in range(3)]
+    ens_ms = statistics.median(ens_runs)
+    ens_iters = int(out_e.iterations.sum())
+    singles = [fn.fused_simulate(trees.member(geob, m), us, ds, h0, Q0, sset_b) for m in range(LONG_BIT_MEMBERS)]
+    bits = compare_members(run_ensemble(LONG_BIT_MEMBERS), singles, "long ensemble vs single launches", exact=True)
+    picked = [0, B - 1]
+    t0 = time.perf_counter()
+    plains = [fn.fused_simulate_plain(trees.member(geob, m), us, ds, h0, Q0, sset_b) for m in picked]
+    torch.cuda.synchronize()
+    ens_plain_ms = (time.perf_counter() - t0) * 1e3
+    ens_cmp = compare_members(prs_out_member(out_e, picked), plains, "long ensemble vs plain", exact=False)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    bps = fn.resident_blocks(LONG_ENSEMBLE_NODES, False, fn.LONG_BUILD)
+    ensemble_rec = dict(members=B, n_nodes=LONG_ENSEMBLE_NODES, n_time_levels=sset.n_time_levels,
+                        store="boundaries", launches=1, wall_ms_runs=ens_runs, wall_ms_median=ens_ms,
+                        simulations_per_s=B / (ens_ms * 1e-3), total_newton_iterations=ens_iters,
+                        resident_blocks_per_sm=bps, members_in_flight=bps * sms,
+                        scratch_bytes=fn.scratch_bytes(B, LONG_ENSEMBLE_NODES),
+                        against_single_launches=bits,
+                        members_0_and_last_vs_plain=dict(ens_cmp, plain_ms=ens_plain_ms))
+
+    # -- the limits: the build the C entry takes, and N = 8193 refused by name
+    for n, want in ((fn.MAX_N, fn.REGISTER_BUILD), (fn.MAX_N + 1, fn.LONG_BUILD), (fn.LONG_MAX_N, fn.LONG_BUILD)):
+        if fn.chosen_build(1, n) != want:
+            raise AssertionError(f"N={n}: the C entry does not take build {want}")
+    try:
+        fn.fused_simulate(*build_long_reach(fn.LONG_MAX_N + 1, dev, levels=1))
+    except fn.FusedUnsupported as e:
+        refused = str(e)
+    else:
+        raise AssertionError(f"fused_simulate accepted N = {fn.LONG_MAX_N + 1}")
+    t0 = time.perf_counter()
+    forced = check_long_build(dev)
+    record = dict(flagship_50m=flagship, reaches=reach_recs, table_reach=table_rec, ensemble=ensemble_rec,
+                  forced_long_build_vs_register_build=dict(forced, seconds=time.perf_counter() - t0),
+                  refuses_n_8193=refused, ptxas=long_kernel_builds(build.build_info["fused_newton"]["ptxas"]))
+
+    # -- the kernel rows: kernel 1's long build at N = 8192, kernel 3's on the ensemble
+    n_par = fn._N_PARAMS
+    big = reach_recs[f"n_{max(LONG_FUSED_NODES)}"]
+    n, nt = max(LONG_FUSED_NODES), sset.n_time_levels
+    b1, by1 = roofline(8 * (13 * n + 2 * n + 2 * nt + n_par) + fn.output_bytes(1, n, nt, "full"),
+                       big["iterations"] * n * (FLOPS_ASSEMBLY + FLOPS_THOMAS))
+    ne = LONG_ENSEMBLE_NODES
+    b3, by3 = roofline(B * 8 * (13 * ne + 2 * ne + 2 * nt + n_par) + fn.output_bytes(B, ne, nt, "boundaries"),
+                       ens_iters * ne * (FLOPS_ASSEMBLY + FLOPS_THOMAS))
+    tol = dict(depth_m=H_TOL, flow_m3s=Q_TOL, iteration_counts="identical")
+    kernels = [
+        dict(name="fused_simulate_long", route="cuda", source="flowsim_tpu_torch/ops/cuda/csrc/fused_newton.cu",
+             replaces="flowsim_tpu/ops/pallas/fused_newton.py:1413", launches=launches["fused_simulate_long"],
+             max_abs_err=max(r["max_abs_dh"] for r in reach_recs.values()), ms=big["kernel_ms"],
+             plain_ms=big["plain_ms"], bound_ms=b1, bound_by=by1, library_ms=None, build="long",
+             ms_by_n={k: r["kernel_ms"] for k, r in reach_recs.items()},
+             us_per_newton_iteration_by_n={k: r["us_per_newton_iteration"] for k, r in reach_recs.items()},
+             scratch_bytes_per_sweep=big["scratch_bytes_per_sweep"],
+             shape=dict(n_nodes=n, n_time_levels=nt, newton_iterations=big["iterations"]), tolerance=tol),
+        dict(name="fused_simulate_batched_long", route="cuda",
+             source="flowsim_tpu_torch/ops/cuda/csrc/fused_newton.cu",
+             replaces="flowsim_tpu/ops/pallas/fused_newton.py:2269",
+             launches=launches["fused_simulate_batched_long"], max_abs_err=ens_cmp["max_abs_dh"], ms=ens_ms,
+             plain_ms=ens_plain_ms, bound_ms=b3, bound_by=by3, library_ms=None, build="long",
+             ms_over_bound=ens_ms / b3, resident_blocks_per_sm=bps,
+             scratch_bytes_per_sweep=B * LONG_SWEEP_BYTES_PER_NODE * ne,
+             shape=dict(members=B, n_nodes=ne, n_time_levels=nt, newton_iterations=ens_iters, store="boundaries"),
+             plain_shape=dict(members=len(picked), n_nodes=ne, n_time_levels=nt,
+                              newton_iterations=ens_cmp["iterations"]),
+             tolerance=dict(tol, against_single_launches="bit-identical")),
+    ]
+    return record, kernels
 
 
 def compare_networks(kernel_out, ref_out, what: str, exact: bool = False) -> dict:
@@ -1271,6 +1678,29 @@ def build_network_case(name: str, device, sim_hours: float = 2.0):
     return branches, nj, sset, kw
 
 
+def storage_outlet_networks(dev) -> dict:
+    """The basin's ``storage_outlet`` case (:func:`build_network_case`) with
+    an outflow rating on the outlet's reservoir, one network per kind:
+    ``power`` Q = 20 Y^1.5 (Y the stage, 1.57 m at the start), a ``table`` of
+    8 breakpoints and a cubic ``poly_n``.  Returns {kind: (branches,
+    n_junctions, settings)}."""
+    from flowsim_tpu_torch.ops import rating_curve as rcurve
+    from flowsim_tpu_torch.ops import storage as stg
+
+    b7, n7, s7, _ = build_network_case("storage_outlet", dev)
+    ratings = dict(
+        power=rcurve.make_power(20.0, 1.5, device=dev),
+        table=rcurve.make_table([0.0, 1.0, 1.5, 2.0, 3.0, 5.0, 10.0, 100.0],
+                                [0.0, 10.0, 30.0, 60.0, 140.0, 400.0, 1500.0, 50000.0], device=dev),
+        poly_n=rcurve.make_polynomial_general([0.0, 10.0, 8.0, 1.5], device=dev))
+    out = {}
+    for kind, rating in ratings.items():
+        sp = stg.make_storage(surface_area=1.0e6, min_stage=float(b7[0].ds.storage.min_stage),
+                              solution_boundaries=(0.0, 100.0), rating=rating, device=dev)
+        out[kind] = ([dataclasses.replace(b7[0], ds=dataclasses.replace(b7[0].ds, storage=sp)), *b7[1:]], n7, s7)
+    return out
+
+
 def split_flagship(solver, channel):
     """The flagship cut at NETWORK_SPLIT_NODE into two branches joined at one
     junction: the same nonlinear system as the single reach."""
@@ -1342,6 +1772,23 @@ def check_network_kernels(dev) -> dict:
                 raise AssertionError("storage outlet: the reservoir stage is not finite")
             rec["stage_first_last"] = [float(stage[0]), float(stage[-1])]
         out[name] = rec
+    # (iii-b) the storage outlet with an outflow rating beyond the quadratics
+    # (power, a table of 8 breakpoints, a cubic): kernel 5, and kernel 6 on 4
+    # members of per-member inflow, against the plain version
+    for kind, (b7r, n7, s7) in storage_outlet_networks(dev).items():
+        o_k = fnet.fused_simulate_network(b7r, n7, s7)
+        rec = compare_networks(o_k, fnet.fused_simulate_network_plain(b7r, n7, s7), f"storage outlet, {kind}")
+        stage = o_k.reservoir_stage[1:, 0, 1]
+        batch = scale_inflows(b7r, [0.9, 1.0, 1.1, 1.2])
+        ob = fnet.fused_simulate_network_batched(b7r, n7, s7, batch)
+        op = fnet.fused_simulate_network_batched_plain(b7r, n7, s7, batch)
+        recs = [compare_networks(network_member(ob, m), network_member(op, m), f"storage outlet {kind}, member {m}")
+                for m in range(4)]
+        out[f"{kind}_rating_on_storage"] = dict(
+            rec, stage_first_last=[float(stage[0]), float(stage[-1])],
+            batched_4=dict(members=4, iterations=sum(r["iterations"] for r in recs),
+                           max_abs_dh=max(r["max_abs_dh"] for r in recs),
+                           max_abs_dstage=max(r["max_abs_dstage"] for r in recs)))
     # (iv) the 15-branch basin over 25 levels
     b4, n4, s4 = basin.build(levels=4, sim_hours=6, device=dev)
     out["basin_levels4_25"] = compare_networks(fnet.fused_simulate_network(b4, n4, s4),
@@ -1441,9 +1888,10 @@ def check_network_kernels(dev) -> dict:
     # (viii) what the kernel refuses reaches the caller by name
     b_ext = [dataclasses.replace(br[0], ds=br[2].ds)]
     b7, n7, s7, _ = build_network_case("storage_outlet", dev)
-    power_storage = stg.make_storage(surface_area=1.0e6, min_stage=float(b7[0].ds.storage.min_stage),
-                                     rating=rcurve.make_power(20.0, 1.5, device=dev), device=dev)
-    b7_power = [dataclasses.replace(b7[0], ds=dataclasses.replace(b7[0].ds, storage=power_storage)), *b7[1:]]
+    gated_storage = stg.make_storage(surface_area=1.0e6, min_stage=float(b7[0].ds.storage.min_stage),
+                                     rating=rcurve.make_gated_blend([0.0, 20.0, 0.0], [0.0, 30.0, 0.0], 2.0,
+                                                                    device=dev), device=dev)
+    b7_gated = [dataclasses.replace(b7[0], ds=dataclasses.replace(b7[0].ds, storage=gated_storage)), *b7[1:]]
     gated_us = dataclasses.replace(
         br[0], us=dataclasses.replace(br[2].ds, rating=rcurve.make_gated_blend(
             [0.0, 5.0, 0.0], [0.0, 6.0, 0.0], 480.0, device=dev)))
@@ -1456,7 +1904,7 @@ def check_network_kernels(dev) -> dict:
             ("diagnos", lambda: fnet.fused_simulate_network(br, nj, dataclasses.replace(sset_t, diagnos=True))),
             ("newton_fixed", lambda: fnet.fused_simulate_network(br, nj, dataclasses.replace(sset_t, newton="fixed"))),
             ("upstream_gated_rating", lambda: fnet.fused_simulate_network([gated_us, *br[1:]], nj, sset_t)),
-            ("power_rating_on_storage", lambda: fnet.fused_simulate_network(b7_power, n7, s7)),
+            ("gated_blend_rating_on_storage", lambda: fnet.fused_simulate_network(b7_gated, n7, s7)),
             ("junction_rating_quartic_polynomial",
              lambda: fnet.fused_simulate_network(br, nj, sset_t, junction_rating=[poly4])),
             ("slots_beyond_shared_memory", lambda: fnet.fused_simulate_network(b6, n6, s6)),
@@ -2774,22 +3222,13 @@ def main() -> int:
         mid_checks[f"n_{s_mid.number_of_nodes}"] = compare_runs(
             fused_simulate(*ma), fused_simulate_plain(*ma), f"reach at dx={step}")
 
-    long_kw = dict(device=dev, sim_duration=3600 * 48, spatial_step=125.0)
-    s_long, c_long = model.build(**long_kw)
+    # the register build's longest reach: the flagship at 125 m, N = 964
+    s_long, c_long = model.build(device=dev, sim_duration=3600 * 48, spatial_step=125.0)
     la = (c_long.geometry, s_long.us_params, s_long.ds_params, s_long.h0, s_long.Q0,
           s_long.settings(tolerance=1e-6, max_iter=100))
-    note = None
-    try:
-        out_lk = fused_simulate(*la)
-    except FusedUnsupported as e:
-        # no fallback: report, then take the largest reach the kernel holds
-        note = str(e)
-        emit("long_reach_unsupported", n_nodes=s_long.number_of_nodes, error=note)
-        length = c_long.length
-        s_long, c_long = model.build(**dict(long_kw, spatial_step=length / (fused_newton.MAX_N - 1)))
-        la = (c_long.geometry, s_long.us_params, s_long.ds_params, s_long.h0, s_long.Q0,
-              s_long.settings(tolerance=1e-6, max_iter=100))
-        out_lk = fused_simulate(*la)
+    if s_long.number_of_nodes != fused_newton.MAX_N:
+        raise AssertionError(f"the flagship at 125 m has {s_long.number_of_nodes} nodes, not {fused_newton.MAX_N}")
+    out_lk = fused_simulate(*la)
     long_ms = statistics.median(wall_ms(lambda: fused_simulate(*la)) for _ in range(3))
     t0 = time.perf_counter()
     out_lp = fused_simulate_plain(*la)
@@ -2798,8 +3237,14 @@ def main() -> int:
     lcmp = compare_runs(out_lk, out_lp, "long reach fused vs plain")
     emit("long_reach", n_nodes=s_long.number_of_nodes, sweeps=sweeps(s_long.number_of_nodes),
          spatial_step=s_long.spatial_step, kernel_ms=long_ms, plain_ms=long_plain_ms,
-         us_per_newton_iteration=long_ms * 1e3 / lcmp["iterations"], unsupported_note=note,
+         us_per_newton_iteration=long_ms * 1e3 / lcmp["iterations"],
+         build=KERNEL1_BUILD_NAMES[fused_newton.chosen_build(1, s_long.number_of_nodes)],
          shorter_reaches=mid_checks, **lcmp)
+
+    # -- phase 6b: reaches of 965-8192 nodes, the long build of kernels 1 and 3
+    t0 = time.perf_counter()
+    long_fused, long_kernels = drive_long_fused(dev, launches)
+    emit("long_reach_fused", **long_fused, seconds=time.perf_counter() - t0)
 
     # -- phase 7: the Monte-Carlo main path, through the user entry points ----
     # model.build -> roughness_ensemble + per-member inflow -> batched_simulate
@@ -3088,7 +3533,7 @@ def main() -> int:
              tolerance=dict(depth_m=H_TOL, flow_m3s=Q_TOL, junction_stage_m=NETWORK_Y_TOL,
                             iteration_counts="identical", against_single_launches="bit-identical")),
     ]
-    kernels += table_kernels + table_net_kernels
+    kernels += long_kernels + table_kernels + table_net_kernels
     for kern in kernels:
         if kern["launches"] < 1:
             raise AssertionError(f"{kern['name']} was not launched on the main path")
@@ -3105,16 +3550,36 @@ def main() -> int:
     return 0
 
 
+def network_times(dev, rounds: int = 3) -> dict:
+    """Kernels 5 and 6 alone by CUDA events, packing outside, the build the C
+    entry chooses: the tributary (385 levels), one launch, and its 1024
+    members of the network Monte-Carlo's inflow draws, one launch; ``rounds``
+    readings each.  ``python3 chip_smoke.py --network-times`` prints only
+    this, so that two checkouts can be compared on one card."""
+    from flowsim_tpu_torch.models import gerd_tributary
+
+    br, nj, sset, _ = gerd_tributary.build(device=dev)
+    batch = scale_inflows(br, 0.9 + 0.2 * np.random.default_rng(NETWORK_MC_SEED).random(NETWORK_MC_MEMBERS))
+    launches = dict(tributary_385_levels=(network_packed(br, nj, sset)[1], 3),
+                    tributary_1024_members=(network_packed(br, nj, sset, batch)[1], 1))
+    out = {}
+    for name, (launch, reps) in launches.items():
+        runs = [time_cuda(launch, reps=reps, warmup=1) for _ in range(rounds)]
+        out[name] = dict(ms=statistics.median(runs), ms_runs=runs)
+    return out
+
+
 # the measurement modes: the argument, the key of the printed JSON, the measurement
 MODES = {"--kernel1-times": ("kernel1_times", kernel1_times), "--kernel2-times": ("kernel2_times", kernel2_times),
-         "--sass": ("sass", lambda dev: sass_counts())}
+         "--network-times": ("network_times", network_times), "--sass": ("sass", lambda dev: sass_counts())}
 
 
 def modes_main(flags) -> int:
-    """``--kernel1-times`` / ``--kernel2-times`` / ``--sass`` (any of them):
-    the card's name and power limit, then one JSON line with each asked
-    measurement (:func:`kernel1_times`, :func:`kernel2_times`,
-    :func:`sass_counts`) as the last line."""
+    """``--kernel1-times`` / ``--kernel2-times`` / ``--network-times`` /
+    ``--sass`` (any of them): the card's name and power limit, then one JSON
+    line with each asked measurement (:func:`kernel1_times`,
+    :func:`kernel2_times`, :func:`network_times`, :func:`sass_counts`) as the
+    last line."""
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1

@@ -118,9 +118,12 @@
 // External ends take every kind kernel 1 takes (boundary_row / storage_row of
 // reach_common.cuh: hydrographs, fixed and normal depth, polynomial and
 // blended ratings, the gated controller downstream, lumped storage at either
-// end or both).  Junction ratings: polynomial, blended_poly, poly_n, power and
-// table, with ops/rating_curve.py's formulas (central difference for the
-// blended and table slopes, analytic otherwise).
+// end or both, its outflow rating of any kind but gated_blend).  Junction
+// ratings: polynomial, blended_poly, poly_n, power and table, with
+// ops/rating_curve.py's formulas (central difference for the blended and
+// table slopes, analytic otherwise); a junction's Q and a storage's outflow
+// use one function for the kinds beyond the quadratics, reach_common.cuh's
+// rating_discharge_n.
 //
 // Float64 throughout; the expressions and their association are the plain
 // engine's, built with --fmad=false.
@@ -140,7 +143,8 @@ namespace {
 // per-branch ints [B, BI_COUNT]; a junction end holds its id, an external
 // end -1
 enum { BI_N, BI_US_J, BI_DS_J, BI_US_KIND, BI_DS_KIND, BI_RC_KIND, BI_URC_KIND,
-       BI_US_SFLAGS, BI_DS_SFLAGS, BI_US_NV, BI_US_NA, BI_DS_NV, BI_DS_NA, BI_TAB_OFF, BI_COUNT };
+       BI_US_SFLAGS, BI_DS_SFLAGS, BI_US_NV, BI_US_NA, BI_DS_NV, BI_DS_NA, BI_US_NR, BI_DS_NR, BI_TAB_OFF,
+       BI_COUNT };
 
 // a table branch's seven tables [TAB_COUNT, Nmax, M]: the four of TS_*, then
 // K, n_eq and dK/dA; its geometry rows keep the table span in the G_BMAIN row
@@ -158,7 +162,8 @@ constexpr bool LIB_TABLE = FLOWSIM_NETWORK_TABLE != 0;
 // coefficients (ascending) or of a table (stages then discharges) in jtab
 enum { JP_AREA, JP_KIND, JP_SHIFT, JP_PIVOT, JP_BUFFER, JP_FD, JP_C0, JP_C1, JP_C2,
        JP_H0, JP_H1, JP_H2, JP_NCOEF, JP_OFF, JP_COUNT };
-enum { JR_NONE = -1, JR_POLY = 0, JR_BLEND = 1, JR_POLY_N = 2, JR_POWER = 3, JR_TABLE = 4 };
+enum { JR_NONE = -1, JR_POLY = RC_POLY, JR_BLEND = RC_BLEND, JR_POLY_N = RC_POLY_N, JR_POWER = RC_POWER,
+       JR_TABLE = RC_TABLE };
 
 constexpr int MAX_THREADS = 256;
 constexpr int MAX_JUNCTION_ENDS = 8;   // a longer list is scanned from the branch table
@@ -172,22 +177,8 @@ __host__ __device__ inline size_t smem_doubles(int slots, int B, int J, int rhs)
 
 // -- ops/rating_curve.py at a junction ---------------------------------------
 
-// rating_curve._interp: linear interpolation, the end values held outside
-__device__ double table_q(const double* __restrict__ xp, const double* __restrict__ fp, int n, double x) {
-    int lo = 0, hi = n;   // searchsorted(right=True): entries <= x
-    while (lo < hi) {
-        const int mid = (lo + hi) >> 1;
-        if (xp[mid] <= x) lo = mid + 1; else hi = mid;
-    }
-    int i = lo - 1;
-    i = i < 0 ? 0 : (i > n - 2 ? n - 2 : i);
-    const double x0 = xp[i], x1 = xp[i + 1], f0 = fp[i], f1 = fp[i + 1];
-    double val = f0 + (x - x0) * (f1 - f0) / (x1 - x0);
-    if (x <= xp[0]) val = fp[0];
-    if (x >= xp[n - 1]) val = fp[n - 1];
-    return val;
-}
-
+// Q(Y) of a junction's release rating; the kinds beyond the quadratics by
+// reach_common.cuh's rating_discharge_n, the function the storage rows call
 __device__ double junction_q(const double* __restrict__ jp, const double* __restrict__ jtab, double Y) {
     const int kind = (int)jp[JP_KIND];
     if (kind == JR_POLY) {
@@ -199,17 +190,9 @@ __device__ double junction_q(const double* __restrict__ jp, const double* __rest
                  jp[JP_BUFFER], jp[JP_FD], 0.0, RC_BLEND};
         return rating_q(r, Y, 0.0);
     }
-    const int n = (int)jp[JP_NCOEF];
-    const double* c = jtab + (int)jp[JP_OFF];
-    if (kind == JR_POLY_N) {   // Horner, coefficients ascending
-        const double x = Y + jp[JP_SHIFT];
-        double out = c[n - 1];
-        for (int j = n - 2; j >= 0; --j) out = out * x + c[j];
-        return out;
-    }
-    if (kind == JR_POWER) return jp[JP_C0] * pow(Y + jp[JP_SHIFT], jp[JP_C1]);
-    if (kind == JR_TABLE) return table_q(c, c + n, n, Y);
-    return 0.0;
+    if (kind == JR_NONE) return 0.0;
+    return rating_discharge_n(kind, jp[JP_C0], jp[JP_C1], jp[JP_SHIFT], jtab + (int)jp[JP_OFF], (int)jp[JP_NCOEF],
+                              Y);
 }
 
 __device__ double junction_dq(const double* __restrict__ jp, const double* __restrict__ jtab, double Y) {
@@ -720,11 +703,14 @@ fused_network_kernel(const double* __restrict__ geo_all,   // [M, B, 13, Nmax]
                                 : stage[((size_t)(k - 1) * B + b) * 2 + (up ? 0 : 1)];
                             const int nv = BRANCH_INT(b, up ? BI_US_NV : BI_DS_NV);
                             const int na = BRANCH_INT(b, up ? BI_US_NA : BI_DS_NA);
+                            const int nr = BRANCH_INT(b, up ? BI_US_NR : BI_DS_NR);
                             const int off = BRANCH_INT(b, BI_TAB_OFF)
-                                + (up ? 0 : 2 * (BRANCH_INT(b, BI_US_NV) + BRANCH_INT(b, BI_US_NA)));
+                                + (up ? 0 : 2 * (BRANCH_INT(b, BI_US_NV) + BRANCH_INT(b, BI_US_NA))
+                                                + BRANCH_INT(b, BI_US_NR));
                             res = storage_row(stor_m + ((size_t)b * 2 + (up ? 0 : 1)) * SP_COUNT, stab_m + off,
-                                              sflags, nv, na, up ? -1.0 : 1.0, bed, dt, ONE ? oQp0 : sQp[s], Y_old,
-                                              sc.A, sc.R, sc.n_eq, sc.dR_dA, sc.dA_dh, h, Q, p_dh, p_dq, p_b, st);
+                                              sflags, nv, na, nr, up ? -1.0 : 1.0, bed, dt, ONE ? oQp0 : sQp[s],
+                                              Y_old, sc.A, sc.R, sc.n_eq, sc.dR_dA, sc.dA_dh, h, Q, p_dh, p_dq, p_b,
+                                              st);
                         } else {
                             Bc bc = up ? Bc{par[P_US_BED_LEVEL], par[P_US_BED_SLOPE], par[P_US_INIT_DEPTH], kind}
                                        : Bc{par[P_DS_BED_LEVEL], par[P_DS_BED_SLOPE], par[P_DS_INIT_DEPTH], kind};

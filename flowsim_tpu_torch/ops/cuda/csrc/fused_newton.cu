@@ -31,7 +31,9 @@
 //    races), one barrier per sweep;
 //  * the second PCR buffer doubles as the neighbour-exchange area during
 //    assembly, which keeps the footprint at 30 doubles (240 B) per node and
-//    lets N <= 964 fit the 227 KB of one SM;
+//    lets N <= 964 fit the 227 KB of one SM (longer reaches, up to the TPU
+//    kernel's 8192 nodes, take the long build below: the same state in a
+//    scratch of device memory, several nodes a thread);
 //  * every thread computes the same reduced residual norm from the same
 //    per-warp partial sums, so the loop condition is uniform and no thread
 //    can leave a barrier behind;
@@ -56,6 +58,11 @@
 // stage-volume and stage-area tables read from device memory (two tables of
 // 4096 doubles stay in L2) and the same table interpolation, operation for
 // operation — the per-level Newton counts match the plain engine exactly.
+// Its outflow rating may be of any kind but gated_blend (beyond the
+// quadratics reach_common.cuh's rating_discharge_n, which the junctions of
+// fused_network.cu call too): a
+// poly_n rating's coefficients or a table rating's stages and discharges
+// follow the end's tables, their length in the storage ints (us nr, ds nr).
 // The TPU kernel instead inverts a monotone stage grid with a sign count and
 // one-hot masks and resamples the tables to a 1024-point grid: a workaround
 // for a vector unit without loops or gathers, not carried over.  The storage
@@ -90,8 +97,9 @@
 //
 // Builds.  One arithmetic, the same bits; choose_build_id picks by the shape,
 // the geometry and the member count (table geometry: the register build, and
-// the residency build past one wave of it).  The register build (one thread
-// a node, 248 registers, two blocks an SM) runs every shape.  At N <= 128 without
+// the residency build past one wave of it; N > 964: the long build).  The
+// register build (one thread a node, 248 registers, two blocks an SM) runs
+// every shape up to 964 nodes.  At N <= 128 without
 // storage a launch that one wave of the latency build holds (one block an SM:
 // 132 members on an H100, so every single simulation) takes the latency
 // build below: one warp a scheduler left each float64 division, sqrt and cbrt
@@ -233,12 +241,14 @@ fused_simulate_kernel(const double* __restrict__ geo_all,   // [S, 13, N] / [S, 
                       int us_kind, int ds_kind, int rc_kind, int us_rc_kind,
                       int store_boundaries, int qlat_mode,
                       int us_sflags, int ds_sflags, int us_nv, int us_na, int ds_nv, int ds_na,
+                      int us_nr, int ds_nr,                   // doubles of storage rating data
                       const double* __restrict__ tab_shared,  // [TS_COUNT, N, M] (TABLE)
                       const double* __restrict__ tab_k,       // [S, N, M] (TABLE)
                       const double* __restrict__ tab_neq,     // [S, N, M] (TABLE)
                       const double* __restrict__ tab_dk,      // [S, N, M] (TABLE)
                       int tab_m,                              // M samples a table row
-                      long long* __restrict__ probe_out) {  // [PH_COUNT] cycles (probe build)
+                      long long* __restrict__ probe_out,    // [PH_COUNT] cycles (probe build)
+                      double* __restrict__ scratch_all) {   // the long build's alone
     extern __shared__ double smem[];
     __shared__ double warp_part[2][32];
 
@@ -405,7 +415,7 @@ fused_simulate_kernel(const double* __restrict__ geo_all,   // [S, 13, N] / [S, 
                     // the stage this thread stored for level k-1
                     const double Y_old = k == 1 ? p0.h + us_bc.bed_level : stage[(size_t)(k - 1) * 2 + 1];
                     res = storage_row(stor_all + sim * (size_t)(2 * SP_COUNT),
-                                      stab_all + sim * (size_t)stab_stride, us_sflags, us_nv, us_na,
+                                      stab_all + sim * (size_t)stab_stride, us_sflags, us_nv, us_na, us_nr,
                                       -1.0, us_bc.bed_level, dt, p0.Q, Y_old, s.A, s.R, s.n_eq, s.dR_dA,
                                       s.dA_dh, h, Q, &buf0[4 * n + i], &buf0[5 * n + i],
                                       &buf0[12 * n + i], &stage[(size_t)k * 2 + 1]);
@@ -426,8 +436,8 @@ fused_simulate_kernel(const double* __restrict__ geo_all,   // [S, 13, N] / [S, 
                     // model's bootstrap), later levels on the stored stage
                     const double Y_old = k == 1 ? h + ds_bc.bed_level : stage[(size_t)(k - 1) * 2];
                     res = storage_row(stor_all + sim * (size_t)(2 * SP_COUNT) + SP_COUNT,
-                                      stab_all + sim * (size_t)stab_stride + 2 * (us_nv + us_na),
-                                      ds_sflags, ds_nv, ds_na, 1.0, ds_bc.bed_level, dt, p0.Q, Y_old,
+                                      stab_all + sim * (size_t)stab_stride + 2 * (us_nv + us_na) + us_nr,
+                                      ds_sflags, ds_nv, ds_na, ds_nr, 1.0, ds_bc.bed_level, dt, p0.Q, Y_old,
                                       s.A, s.R, s.n_eq, s.dR_dA, s.dA_dh, h, Q, &buf0[6 * n + i],
                                       &buf0[7 * n + i], &buf0[13 * n + i], &stage[(size_t)k * 2]);
                 } else {
@@ -760,9 +770,10 @@ fused_latency_kernel(const double* __restrict__ geo_all, const double* __restric
                      int us_kind, int ds_kind, int rc_kind, int us_rc_kind,
                      int store_boundaries, int qlat_mode,
                      int us_sflags, int ds_sflags, int us_nv, int us_na, int ds_nv, int ds_na,
+                     int us_nr, int ds_nr,
                      const double* __restrict__ tab_shared, const double* __restrict__ tab_k,
                      const double* __restrict__ tab_neq, const double* __restrict__ tab_dk, int tab_m,
-                     long long* __restrict__ probe_out) {
+                     long long* __restrict__ probe_out, double* __restrict__ scratch_all) {
     extern __shared__ double smem[];
     __shared__ double warp_part[2][32];
 
@@ -979,14 +990,298 @@ fused_latency_kernel(const double* __restrict__ geo_all, const double* __restric
 #undef STORE_LEVEL
 }
 
+// -- the long build -------------------------------------------------------------
+//
+// Reaches of REGISTER_MAX_N < N <= LONG_MAX_N nodes (the TPU kernel's
+// MAX_VMEM_N), and any N when a caller forces it.  The register build keeps
+// 240 B a node in shared memory with one thread a node, so it stops at 964
+// nodes; this build keeps the same per-node state in a scratch of device
+// memory that the wrapper allocates (torch.empty), LONG_DOUBLES_PER_NODE
+// doubles a node a simulation: the two PCR buffers, h and Q as in the
+// register build, and the previous level's state and the cell's lateral
+// inflow, which the register build holds in registers (a thread here owns
+// up to eight nodes).  2.4 MB at N = 8192: it stays in the card's 50 MB L2.
+//
+//  * one block of LONG_BLOCK = 1024 threads a simulation; thread t owns the
+//    nodes t, t + 1024, ... and runs each phase over them in that order;
+//  * each node's operations are the register build's, in its order: the
+//    closures of node i from its geometry rows (read from device memory at
+//    each use, as the register build reads them once), the cell rows and the
+//    boundary rows (the boundary node's section state formed again from the
+//    same depth: the same bits), the residual norm (a thread's nodes summed
+//    in order, then block_sum), the PCR sweeps (pcr::sweep_nodes) and the
+//    back-substitution, the phases separated by __syncthreads() (which makes
+//    a thread's writes to device memory visible to the block) as there;
+//  * so at N <= 1024, one node a thread, a forced launch gives the register
+//    build's bits: a thread's sum over its one node is that node's value and
+//    the per-warp partials of the warps without nodes are zeros.
+//
+// What bounds it: the chain of an iteration, as for the register build, now
+// with L2 latency on every exchange and ceil(log2 N) sweeps of up to eight
+// nodes a thread; 64 registers a thread at 1024 threads, the rest spilled.
+// A thread-block cluster sharing distributed shared memory, or TMA staging
+// of the sweeps, would take the buffers out of L2: not done here.
+constexpr int REGISTER_MAX_N = 964;     // 240 B a node in 227 KB
+constexpr int LONG_MAX_N = 8192;
+constexpr int LONG_BLOCK = 1024;
+// per node, beside the buffers and h, Q: the previous level's state and the
+// theta-weighted lateral inflow of the cell (i, i+1), [L_COUNT][N]
+enum { L_H, L_Q, L_A, L_SE, L_Q2A, L_QAVG, L_COUNT };
+constexpr int LONG_DOUBLES_PER_NODE = 2 * COMP + 2 + L_COUNT;
+
+// node i's geometry as the register build loads it
+template <bool TABLE>
+__device__ __forceinline__ typename std::conditional<TABLE, TabGeo, Geo>::type
+node_geo(const double* __restrict__ geo, int n, int i, size_t sim, const double* __restrict__ tab_shared,
+         const double* __restrict__ tab_k, const double* __restrict__ tab_neq, const double* __restrict__ tab_dk,
+         int tab_m) {
+    typename std::conditional<TABLE, TabGeo, Geo>::type g{};
+    if constexpr (TABLE) {
+        const size_t nm = (size_t)n * tab_m;
+        const size_t row = (size_t)i * tab_m;
+        g.ts = tab_shared + row;
+        g.k = tab_k + sim * nm + row;
+        g.neq = tab_neq + sim * nm + row;
+        g.dk = tab_dk + sim * nm + row;
+        g.nm = nm;
+        g.z = geo[TG_ZBED * n + i];     g.curv = geo[TG_CURV * n + i];
+        g.dgrid = geo[TG_DMAX * n + i] / (double)(tab_m - 1);
+        g.jmax = (double)(tab_m - 2);
+    } else {
+        g.z = geo[G_ZBED * n + i];      g.b = geo[G_BMAIN * n + i];
+        g.m = geo[G_MMAIN * n + i];     g.n = geo[G_NMAIN * n + i];
+        g.compound = geo[G_COMPOUND * n + i] != 0.0;
+        g.hbank = geo[G_HBANK * n + i]; g.bl = geo[G_BFPL * n + i];
+        g.br = geo[G_BFPR * n + i];     g.mfp = geo[G_MFP * n + i];
+        g.nl = geo[G_NLEFT * n + i];    g.nr = geo[G_NRIGHT * n + i];
+        g.s0 = geo[G_BEDSLOPE * n + i]; g.curv = geo[G_CURV * n + i];
+    }
+    return g;
+}
+
+// The long build: the register build's signature; scratch_all [S,
+// LONG_DOUBLES_PER_NODE, N] is its per-simulation state.  STORAGE and TABLE
+// as in the register build; no probe build.
+template <bool STORAGE, bool TABLE>
+__global__ void __launch_bounds__(LONG_BLOCK, 1)
+fused_long_kernel(const double* __restrict__ geo_all, const double* __restrict__ h0_all,
+                  const double* __restrict__ Q0_all, const double* __restrict__ us_all,
+                  const double* __restrict__ ds_all, const double* __restrict__ par_all,
+                  const double* __restrict__ qlat_all, double* __restrict__ depth_all,
+                  double* __restrict__ flow_all, int* __restrict__ iters_all, double* __restrict__ err_all,
+                  int* __restrict__ conv_all, double* __restrict__ gate_all, double* stage_all,
+                  const double* __restrict__ stor_all, const double* __restrict__ stab_all,
+                  long long stab_stride, int n, int nt, int max_iter, int sweeps,
+                  int us_kind, int ds_kind, int rc_kind, int us_rc_kind,
+                  int store_boundaries, int qlat_mode,
+                  int us_sflags, int ds_sflags, int us_nv, int us_na, int ds_nv, int ds_na,
+                  int us_nr, int ds_nr,
+                  const double* __restrict__ tab_shared, const double* __restrict__ tab_k,
+                  const double* __restrict__ tab_neq, const double* __restrict__ tab_dk, int tab_m,
+                  long long* __restrict__ probe_out, double* scratch_all) {
+    __shared__ double warp_part[2][32];
+
+    const size_t sim = blockIdx.x;
+    const double* geo = geo_all + sim * (size_t)(TABLE ? (int)TG_ROWS : (int)G_ROWS) * n;
+    const double* us_series = us_all + sim * (size_t)nt;
+    const double* ds_series = ds_all + sim * (size_t)nt;
+    const double* par = par_all + sim * (size_t)P_COUNT;
+    const int width = store_boundaries ? 2 : n;
+    double* depth = depth_all + sim * (size_t)nt * width;
+    double* flow = flow_all + sim * (size_t)nt * width;
+    const double* qlat = qlat_mode == QLAT_NONE ? nullptr
+        : qlat_all + sim * (size_t)(qlat_mode == QLAT_LEVELS ? nt : 1) * n;
+    int* iters = iters_all + sim * (size_t)nt;
+    double* errs = err_all + sim * (size_t)nt;
+    int* conv = conv_all + sim * (size_t)nt;
+    double* gate = gate_all + sim * (size_t)nt;
+    double* stage = stage_all + sim * (size_t)nt * 2;
+    const bool us_stor = STORAGE && (us_kind == BC_FIXED) && (us_sflags & ST_ON);
+    const bool ds_stor = STORAGE && (ds_kind == BC_FIXED) && (ds_sflags & ST_ON);
+
+    double* buf0 = scratch_all + sim * (size_t)LONG_DOUBLES_PER_NODE * n;  // the system / PCR ping
+    double* buf1 = buf0 + (size_t)COMP * n;   // neighbour exchange / PCR pong
+    double* sh = buf1 + (size_t)COMP * n;     // depth per node
+    double* sQ = sh + n;                      // discharge per node
+    double* prev = sQ + n;                    // [L_COUNT][N]
+
+    const int t0 = threadIdx.x;
+    const double theta = par[P_THETA], dt = par[P_DT], dx = par[P_DX], tol = par[P_TOL];
+    Bc us_bc{par[P_US_BED_LEVEL], par[P_US_BED_SLOPE], par[P_US_INIT_DEPTH], us_kind};
+    Bc ds_bc{par[P_DS_BED_LEVEL], par[P_DS_BED_SLOPE], par[P_DS_INIT_DEPTH], ds_kind};
+    Rating rat{par[P_RC_LOW0], par[P_RC_LOW1], par[P_RC_LOW2],
+               par[P_RC_HIGH0], par[P_RC_HIGH1], par[P_RC_HIGH2],
+               par[P_RC_SHIFT], par[P_RC_PIVOT], par[P_RC_BUFFER], par[P_RC_FD],
+               par[P_RC_COOLDOWN], rc_kind};
+    const bool gated = (ds_kind == BC_RATING) && (rc_kind == RC_GATED);
+    auto geo_of = [&](int i) { return node_geo<TABLE>(geo, n, i, sim, tab_shared, tab_k, tab_neq, tab_dk, tab_m); };
+
+    for (int i = t0; i < n; i += LONG_BLOCK) {
+        sh[i] = h0_all[sim * (size_t)n + i];
+        sQ[i] = Q0_all[sim * (size_t)n + i];
+    }
+#define STORE_LEVEL(k)                                                                     \
+    for (int i = t0; i < n; i += LONG_BLOCK) {                                             \
+        if (store_boundaries) {                                                            \
+            if (i == 0) { depth[(size_t)(k) * 2] = sh[0]; flow[(size_t)(k) * 2] = sQ[0]; }  \
+            if (i == n - 1) { depth[(size_t)(k) * 2 + 1] = sh[i]; flow[(size_t)(k) * 2 + 1] = sQ[i]; } \
+        } else {                                                                           \
+            depth[(size_t)(k) * n + i] = sh[i];                                            \
+            flow[(size_t)(k) * n + i] = sQ[i];                                             \
+        }                                                                                  \
+    }
+    STORE_LEVEL(0)
+    GateCtl gc{par[P_GATE_INIT]};
+    if (t0 == 0) { iters[0] = 0; errs[0] = 0.0; conv[0] = 1; gate[0] = gc.open; }
+    __syncthreads();
+    double gate_stage = ds_bc.bed_level + sh[n - 1];
+
+    for (int k = 1; k < nt; ++k) {
+        if (gated) gc.step(rat, k, dt, gate_stage);
+
+        // -- previous-level state and the cell's lateral inflow, per node
+        for (int i = t0; i < n; i += LONG_BLOCK) {
+            const auto g = geo_of(i);
+            const double hp = sh[i], Qp = sQ[i];
+            const Sec s = section_state(g, hp);
+            const Slope e = energy_slope(g, s, hp, Qp);
+            prev[L_H * n + i] = hp;   prev[L_Q * n + i] = Qp;
+            prev[L_A * n + i] = s.A;  prev[L_SE * n + i] = e.Se;
+            prev[L_Q2A * n + i] = Qp * Qp / s.A;
+            if (i < n - 1 && qlat_mode != QLAT_NONE) {
+                const double* qc = qlat_mode == QLAT_LEVELS ? qlat + (size_t)k * n : qlat;
+                const double* qp = qlat_mode == QLAT_LEVELS ? qlat + (size_t)(k - 1) * n : qlat;
+                prev[L_QAVG * n + i] = 0.5 * theta * (qc[i + 1] + qc[i]) + 0.5 * (1.0 - theta) * (qp[i + 1] + qp[i]);
+            }
+        }
+        const double us_target = us_series[k], ds_target = ds_series[k];
+        __syncthreads();
+
+        double err = CUDART_INF;
+        int it = 0;
+        while (err >= tol && it < max_iter) {
+            for (int i = t0; i < n; i += LONG_BLOCK) {
+                const auto g = geo_of(i);
+                const double h = sh[i], Q = sQ[i];
+                const Sec s = section_state(g, h);
+                const Slope e = energy_slope(g, s, h, Q);
+                buf1[0 * n + i] = s.A;      buf1[1 * n + i] = Q * Q / s.A;
+                buf1[2 * n + i] = e.Se;     buf1[3 * n + i] = s.dA_dh;
+                buf1[4 * n + i] = e.dSe_dA; buf1[5 * n + i] = e.dSe_dQ;
+                buf1[6 * n + i] = Q / s.A;
+            }
+            __syncthreads();
+
+            double sq = 0.0;
+            for (int i = t0; i < n; i += LONG_BLOCK) {
+                const double h = sh[i], Q = sQ[i];
+                double sq_i = 0.0;
+                buf0[2 * n + i] = 0.0; buf0[3 * n + i] = 0.0;
+                buf0[8 * n + i] = 0.0; buf0[9 * n + i] = 0.0;
+                auto prev_of = [&](int m) {
+                    return NodePrev{prev[L_H * n + m], prev[L_Q * n + m], prev[L_A * n + m], prev[L_SE * n + m],
+                                    prev[L_Q2A * n + m]};
+                };
+                if (i < n - 1) {
+                    const int j = i + 1;
+                    auto it_of = [&](int m, double hm, double Qm) {
+                        return NodeIt{hm, Qm, buf1[0 * n + m], buf1[1 * n + m], buf1[2 * n + m],
+                                      buf1[3 * n + m], buf1[4 * n + m], buf1[5 * n + m], buf1[6 * n + m]};
+                    };
+                    sq_i = cell_rows(buf0, n, i, theta, dt, dx, it_of(i, h, Q), it_of(j, sh[j], sQ[j]), prev_of(i),
+                                     prev_of(j), (geo[G_ZBED * n + j] - geo[G_ZBED * n + i]) / dx,
+                                     qlat_mode != QLAT_NONE, prev[L_QAVG * n + i]);
+                }
+                if (i == 0 || i == n - 1) {
+                    // the boundary node's section at this iterate, formed again
+                    const Sec s = section_state(geo_of(i), h);
+                    const double hp = prev[L_H * n + i], Qp = prev[L_Q * n + i];
+                    double res, df_dh, df_dQ;
+                    if (i == 0) {   // upstream row: D row 0 of node 0
+                        Rating us_rat{};
+                        if (us_kind == BC_RATING)
+                            us_rat = Rating{par[P_URC_LOW0], par[P_URC_LOW1], par[P_URC_LOW2],
+                                            par[P_URC_HIGH0], par[P_URC_HIGH1], par[P_URC_HIGH2],
+                                            par[P_URC_SHIFT], par[P_URC_PIVOT], par[P_URC_BUFFER],
+                                            par[P_URC_FD], 0.0, us_rc_kind};
+                        buf0[0 * n + i] = 0.0;   buf0[1 * n + i] = 0.0;
+                        if (us_stor) {
+                            const double Y_old = k == 1 ? hp + us_bc.bed_level : stage[(size_t)(k - 1) * 2 + 1];
+                            res = storage_row(stor_all + sim * (size_t)(2 * SP_COUNT),
+                                              stab_all + sim * (size_t)stab_stride, us_sflags, us_nv, us_na, us_nr,
+                                              -1.0, us_bc.bed_level, dt, Qp, Y_old, s.A, s.R, s.n_eq, s.dR_dA,
+                                              s.dA_dh, h, Q, &buf0[4 * n + i], &buf0[5 * n + i],
+                                              &buf0[12 * n + i], &stage[(size_t)k * 2 + 1]);
+                            if (!ds_stor) stage[(size_t)k * 2] = stage[(size_t)k * 2 + 1];
+                        } else {
+                            boundary_row(us_bc, us_rat, s, h, Q, us_target, gc.open, res, df_dh, df_dQ);
+                            buf0[4 * n + i] = df_dh; buf0[5 * n + i] = df_dQ;
+                            buf0[12 * n + i] = -res;
+                        }
+                        sq_i += res * res;
+                    }
+                    if (i == n - 1) {   // downstream row: D row 1 of node N-1
+                        buf0[10 * n + i] = 0.0;   buf0[11 * n + i] = 0.0;
+                        if (ds_stor) {
+                            const double Y_old = k == 1 ? h + ds_bc.bed_level : stage[(size_t)(k - 1) * 2];
+                            res = storage_row(stor_all + sim * (size_t)(2 * SP_COUNT) + SP_COUNT,
+                                              stab_all + sim * (size_t)stab_stride + 2 * (us_nv + us_na) + us_nr,
+                                              ds_sflags, ds_nv, ds_na, ds_nr, 1.0, ds_bc.bed_level, dt, Qp, Y_old,
+                                              s.A, s.R, s.n_eq, s.dR_dA, s.dA_dh, h, Q, &buf0[6 * n + i],
+                                              &buf0[7 * n + i], &buf0[13 * n + i], &stage[(size_t)k * 2]);
+                        } else {
+                            boundary_row(ds_bc, rat, s, h, Q, ds_target, gc.open, res, df_dh, df_dQ);
+                            buf0[6 * n + i] = df_dh;  buf0[7 * n + i] = df_dQ;
+                            buf0[13 * n + i] = -res;
+                        }
+                        sq_i += res * res;
+                    }
+                }
+                sq += sq_i;
+            }
+            // the barrier inside publishes buf0 and retires every read of the
+            // exchange area before the first sweep overwrites it
+            err = sqrt(block_sum(sq, warp_part[it & 1]));
+
+            double* src = buf0;
+            double* dst = buf1;
+            int stride = 1;
+            for (int sw = 0; sw < sweeps; ++sw, stride *= 2) {
+                pcr::sweep_nodes<1>(src, dst, n, n, stride, t0, LONG_BLOCK);
+                __syncthreads();
+                double* t = src; src = dst; dst = t;
+            }
+            for (int i = t0; i < n; i += LONG_BLOCK) {
+                double delta[2];
+                pcr::backsolve_node<1>(src, n, i, delta);
+                sh[i] = sh[i] + delta[0];
+                sQ[i] = sQ[i] + delta[1];
+            }
+            ++it;
+            __syncthreads();
+        }
+
+        STORE_LEVEL(k)
+        gate_stage = ds_bc.bed_level + sh[n - 1];
+        if (t0 == 0) {
+            iters[k] = it;
+            errs[k] = err;
+            conv[k] = err < tol ? 1 : 0;
+            gate[k] = gc.open;
+        }
+    }
+#undef STORE_LEVEL
+}
+
 // Every build has one signature: a build is a kernel pointer, its block and
 // its dynamic shared memory.
 using KernelFn = decltype(&fused_simulate_kernel<128, false, 1, false, false>);
 struct Build { KernelFn fn; int threads; size_t smem; };
 
-// REGISTER_BUILD: every shape; RESIDENCY_BUILD: N <= 128 without storage;
-// LATENCY_BUILD: N <= 128 without storage, trapezoid geometry.
-enum { REGISTER_BUILD = 0, RESIDENCY_BUILD = 1, LATENCY_BUILD = 2 };
+// REGISTER_BUILD: N <= REGISTER_MAX_N; RESIDENCY_BUILD: N <= 128 without
+// storage; LATENCY_BUILD: N <= 128 without storage, trapezoid geometry;
+// LONG_BUILD: every N up to LONG_MAX_N, with a scratch in device memory.
+enum { REGISTER_BUILD = 0, RESIDENCY_BUILD = 1, LATENCY_BUILD = 2, LONG_BUILD = 3 };
 
 int threads_for(int n) { return ((n + 31) / 32) * 32; }
 size_t smem_for(int n) { return (size_t)SMEM_DOUBLES_PER_NODE * n * sizeof(double); }
@@ -1005,14 +1300,26 @@ KernelFn register_build_for(int n, bool storage) {
     return register_build<1024, TABLE>(storage);
 }
 
+KernelFn long_build(bool storage, bool table) {
+    if (table) return storage ? &fused_long_kernel<true, true> : &fused_long_kernel<false, true>;
+    return storage ? &fused_long_kernel<true, false> : &fused_long_kernel<false, false>;
+}
+
 // REGISTER_BUILD: the block size alone is the launch bound, so a small reach
 // gets the full register budget (250 registers at N <= 128: two blocks an SM)
 // and only a long one is squeezed to 64.  RESIDENCY_BUILD: four blocks an SM,
 // 128 registers, the rest spilled.  A probe build exists for N <= 128 without
 // storage, of the register and the latency builds, trapezoid geometry.  Table
 // geometry (table) has the register and the residency builds: the latency
-// build's closures are the trapezoid's own.
+// build's closures are the trapezoid's own.  LONG_BUILD: 1024 threads, no
+// dynamic shared memory, every shape, no probe build.
 int pick_build(int n, bool storage, bool table, int build, bool probe, Build* out) {
+    if (build == LONG_BUILD) {
+        if (probe) return (int)cudaErrorInvalidValue;
+        *out = Build{long_build(storage, table), LONG_BLOCK, 0};
+        return 0;
+    }
+    if (n > REGISTER_MAX_N) return (int)cudaErrorInvalidValue;
     const bool small = n <= LATENCY_MAX_N && !storage;
     if (build == LATENCY_BUILD) {
         if (!small || table) return (int)cudaErrorInvalidValue;
@@ -1045,13 +1352,15 @@ int resident_blocks(const Build& b, int* blocks) {
 }
 
 // The build a launch of n_sims simulations takes (fused_newton.chosen_build
-// asks it through flowsim_fused_chosen_build): at N <= 128 without storage the latency build
-// while the batch fits the card in one wave of it, then the register build
-// while it fits in one wave of that, then the residency build where it holds
-// more members; every other shape the register build.  Table geometry skips
-// the latency build: the register build, then the residency build.
+// asks it through flowsim_fused_chosen_build): at N > REGISTER_MAX_N the long
+// build; at N <= 128 without storage the latency build while the batch fits
+// the card in one wave of it, then the register build while it fits in one
+// wave of that, then the residency build where it holds more members; every
+// other shape the register build.  Table geometry skips the latency build:
+// the register build, then the residency build.
 int choose_build_id(int n_sims, int n, bool storage, bool table, int* build) {
     *build = REGISTER_BUILD;
+    if (n > REGISTER_MAX_N) { *build = LONG_BUILD; return 0; }
     if (n > LATENCY_MAX_N || storage) return 0;
     int dev, sms, lat_bps, reg_bps, res_bps, rc;
     Build b;
@@ -1078,23 +1387,26 @@ extern "C" int flowsim_fused_probe_phases() { return PH_COUNT; }
 extern "C" int flowsim_fused_smem_bytes_per_node() { return SMEM_DOUBLES_PER_NODE * (int)sizeof(double); }
 extern "C" int flowsim_fused_storage_param_count() { return SP_COUNT; }
 extern "C" int flowsim_fused_latency_max_n() { return LATENCY_MAX_N; }
+extern "C" int flowsim_fused_register_max_n() { return REGISTER_MAX_N; }
+extern "C" int flowsim_fused_long_max_n() { return LONG_MAX_N; }
+extern "C" int flowsim_fused_long_scratch_bytes_per_node() { return LONG_DOUBLES_PER_NODE * (int)sizeof(double); }
 
 #define FLOWSIM_SIM_PARAMS const void* geo, const void* h0, const void* Q0, const void* us, const void* ds, \
         const void* par, const void* qlat, void* depth, void* flow, void* iters, void* err, void* conv, \
         void* gate, void* stage, const void* stor, const void* stab, long long stab_stride, int n_sims, int n, \
         int nt, int max_iter, int us_kind, int ds_kind, int rc_kind, int us_rc_kind, int store_boundaries, \
         int qlat_mode, const int* st, const void* tab_shared, const void* tab_k, const void* tab_neq, \
-        const void* tab_dk, int tab_m
+        const void* tab_dk, int tab_m, void* scratch
 #define FLOWSIM_SIM_ARGS geo, h0, Q0, us, ds, par, qlat, depth, flow, iters, err, conv, gate, stage, stor, stab, \
         stab_stride, n_sims, n, nt, max_iter, us_kind, ds_kind, rc_kind, us_rc_kind, store_boundaries, qlat_mode, st, \
-        tab_shared, tab_k, tab_neq, tab_dk, tab_m
+        tab_shared, tab_k, tab_neq, tab_dk, tab_m, scratch
 
 namespace {
 
 int check_args(int n_sims, int n, int nt, int qlat_mode, const void* qlat, const int* st, const void* stage,
                const void* stor, const void* stab, const void* tab_shared, const void* tab_k,
                const void* tab_neq, const void* tab_dk, int tab_m) {
-    if (n_sims <= 0 || n <= 1 || n > 1024 || nt <= 0) return (int)cudaErrorInvalidValue;
+    if (n_sims <= 0 || n <= 1 || n > LONG_MAX_N || nt <= 0) return (int)cudaErrorInvalidValue;
     if (tab_m == 1 || tab_m < 0
         || (tab_m && (tab_shared == nullptr || tab_k == nullptr || tab_neq == nullptr || tab_dk == nullptr)))
         return (int)cudaErrorInvalidValue;
@@ -1102,11 +1414,12 @@ int check_args(int n_sims, int n, int nt, int qlat_mode, const void* qlat, const
     if ((qlat_mode != QLAT_NONE) != (qlat != nullptr)) return (int)cudaErrorInvalidValue;
     if (st == nullptr || stage == nullptr) return (int)cudaErrorInvalidValue;
     if (((st[0] | st[1]) & ST_ON) && stor == nullptr) return (int)cudaErrorInvalidValue;
-    if (((st[0] | st[1]) & ST_AREA_CURVE) && stab == nullptr) return (int)cudaErrorInvalidValue;
+    if ((((st[0] | st[1]) & ST_AREA_CURVE) || st[6] || st[7]) && stab == nullptr) return (int)cudaErrorInvalidValue;
     return 0;
 }
 
-// build -1: choose_build_id; else that build (a test hook)
+// build -1: choose_build_id; else that build (a test hook).  The long build
+// needs the scratch [n_sims, LONG_DOUBLES_PER_NODE, N].
 int launch(int build, bool probe, long long* probe_out, FLOWSIM_SIM_PARAMS, void* stream) {
     int rc = check_args(n_sims, n, nt, qlat_mode, qlat, st, stage, stor, stab, tab_shared, tab_k, tab_neq, tab_dk,
                         tab_m);
@@ -1114,6 +1427,7 @@ int launch(int build, bool probe, long long* probe_out, FLOWSIM_SIM_PARAMS, void
     const bool storage = (st[0] | st[1]) & ST_ON;
     const bool table = tab_m != 0;
     if (build < 0 && (rc = choose_build_id(n_sims, n, storage, table, &build))) return rc;
+    if (build == LONG_BUILD && scratch == nullptr) return (int)cudaErrorInvalidValue;
     Build b;
     if ((rc = pick_build(n, storage, table, build, probe, &b))) return rc;
     cudaError_t e = cudaFuncSetAttribute((const void*)b.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1124,9 +1438,9 @@ int launch(int build, bool probe, long long* probe_out, FLOWSIM_SIM_PARAMS, void
         (const double*)ds, (const double*)par, (const double*)qlat, (double*)depth, (double*)flow,
         (int*)iters, (double*)err, (int*)conv, (double*)gate, (double*)stage, (const double*)stor,
         (const double*)stab, stab_stride, n, nt, max_iter, pcr::n_sweeps(n), us_kind, ds_kind,
-        rc_kind, us_rc_kind, store_boundaries, qlat_mode, st[0], st[1], st[2], st[3], st[4], st[5],
+        rc_kind, us_rc_kind, store_boundaries, qlat_mode, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
         (const double*)tab_shared, (const double*)tab_k, (const double*)tab_neq, (const double*)tab_dk, tab_m,
-        probe_out);
+        probe_out, (double*)scratch);
     return (int)cudaGetLastError();
 }
 
@@ -1134,15 +1448,18 @@ int launch(int build, bool probe, long long* probe_out, FLOWSIM_SIM_PARAMS, void
 
 // One block per simulation: n_sims = 1 is fused_simulate, n_sims = B is
 // fused_simulate_batched.  Every array carries a leading n_sims axis (the
-// storage tables only when stab_stride != 0).  st: the six storage ints
-// {us flags, ds flags, us nv, us na, ds nv, ds na}; stage [n_sims, nt, 2] is
-// filled with NaN by the caller.  tab_m: 0 for trapezoid geometry (geo
-// [n_sims, 13, N]); M for table geometry (geo [n_sims, 4, N]: bed level,
-// table span, bed slope, curvature), with tab_shared [4, N, M] (A, P, T,
-// dR/dA) and tab_k, tab_neq, tab_dk [n_sims, N, M] (K, n_eq, dK/dA).  build: -1
-// chooses by the shape, the geometry and the member count (choose_build_id:
-// what the wrappers do); 0-2 forces a build, so that chip_smoke.py can time
-// the builds against each other.
+// storage tables only when stab_stride != 0).  st: the eight storage ints
+// {us flags, ds flags, us nv, us na, ds nv, ds na, us nr, ds nr} (nr: the
+// doubles of a poly_n or table outflow rating after the end's tables); stage
+// [n_sims, nt, 2] is filled with NaN by the caller.  tab_m: 0 for trapezoid
+// geometry (geo [n_sims, 13, N]); M for table geometry (geo [n_sims, 4, N]:
+// bed level, table span, bed slope, curvature), with tab_shared [4, N, M]
+// (A, P, T, dR/dA) and tab_k, tab_neq, tab_dk [n_sims, N, M] (K, n_eq,
+// dK/dA).  scratch: [n_sims, LONG_DOUBLES_PER_NODE, N] doubles for the long
+// build (null otherwise).  build: -1 chooses by the shape, the geometry and
+// the member count (choose_build_id: what the wrappers do); 0-3 forces a
+// build, so that chip_smoke.py can time the builds against each other and
+// hold the long build to the register build's bits.
 extern "C" int flowsim_fused_simulate(FLOWSIM_SIM_PARAMS, int build, void* stream) {
     return launch(build, false, nullptr, FLOWSIM_SIM_ARGS, stream);
 }
@@ -1166,7 +1483,7 @@ extern "C" int flowsim_fused_simulate_probe(FLOWSIM_SIM_PARAMS, int build, void*
 // Resident blocks per SM of a build at N nodes (table != 0: of the table
 // geometry's build), from the CUDA occupancy calculator.
 extern "C" int flowsim_fused_resident_blocks(int n, int storage, int table, int build, int* blocks) {
-    if (n <= 1 || n > 1024 || blocks == nullptr) return (int)cudaErrorInvalidValue;
+    if (n <= 1 || n > LONG_MAX_N || blocks == nullptr) return (int)cudaErrorInvalidValue;
     Build b;
     const int rc = pick_build(n, storage != 0, table != 0, build, false, &b);
     return rc ? rc : resident_blocks(b, blocks);
@@ -1174,6 +1491,6 @@ extern "C" int flowsim_fused_resident_blocks(int n, int storage, int table, int 
 
 // The build the C entry takes for n_sims simulations of N nodes.
 extern "C" int flowsim_fused_chosen_build(int n_sims, int n, int storage, int table, int* build) {
-    if (n_sims <= 0 || n <= 1 || n > 1024 || build == nullptr) return (int)cudaErrorInvalidValue;
+    if (n_sims <= 0 || n <= 1 || n > LONG_MAX_N || build == nullptr) return (int)cudaErrorInvalidValue;
     return choose_build_id(n_sims, n, storage != 0, table != 0, build);
 }

@@ -3,8 +3,9 @@
 // Replaces flowsim_tpu/ops/pallas/pcr_common.py (pcr_reduce / pcr_backsolve),
 // the sweep shared by every TPU kernel of the JAX package.  One source of
 // truth for the PCR algebra of the CUDA kernels: pcr_kernel.cu (one system
-// per block), fused_newton.cu (the in-simulation Newton solve) and
-// tiled_pcr.cu (one tile per block, five right-hand-side pairs).
+// per block), fused_newton.cu (the in-simulation Newton solve: its buffers in
+// shared memory, or in device memory for the long build) and tiled_pcr.cu
+// (one tile per block, five right-hand-side pairs).
 //
 // The TPU version holds the system as rows of a [16, lanes] vector buffer and
 // reaches neighbours i-s / i+s with lane rolls; being functional, each sweep
@@ -103,6 +104,17 @@ __device__ __forceinline__ void sweep_node(const double* __restrict__ src,
 #undef PCR_OWN
 #undef PCR_M
 #undef PCR_P
+}
+
+// One sweep over several nodes a thread: sweep_node for the nodes first,
+// first + step, ... below n, in that order.  The long build of
+// fused_newton.cu runs it on buffers in device memory (a thread of its
+// 1024-thread block owns up to eight nodes); the caller's barrier after the
+// sweep, __syncthreads(), makes the writes visible to the block.
+template <int RHS>
+__device__ __forceinline__ void sweep_nodes(const double* src, double* dst, int ld, int n, int s, int first,
+                                            int step) {
+    for (int i = first; i < n; i += step) sweep_node<RHS>(src, dst, ld, n, s, i);
 }
 
 // Diagonal solve of the fully reduced system at node i: x = inv(D) @ b for

@@ -41,7 +41,9 @@ constexpr int BISECT_ITERS = 80;          // ops/storage.py
 constexpr double INTERP_EPS = 4.930380657631324e-32;  // spacing(eps), as jnp.interp guards dx
 
 enum { BC_FLOW = 0, BC_STAGE = 1, BC_FIXED = 2, BC_NORMAL = 3, BC_RATING = 4 };
-enum { RC_POLY = 0, RC_BLEND = 1, RC_GATED = 2 };
+// rating kinds (ops/rating_curve.py): a boundary rating is one of the first
+// three; a lumped storage or a junction takes every kind but gated_blend
+enum { RC_POLY = 0, RC_BLEND = 1, RC_GATED = 2, RC_POLY_N = 3, RC_POWER = 4, RC_TABLE = 5 };
 enum { QLAT_NONE = 0, QLAT_CONST = 1, QLAT_LEVELS = 2 };
 
 // torch.clamp semantics: NaN propagates (fmax/fmin would drop it)
@@ -317,6 +319,45 @@ __device__ __forceinline__ double rating_dq_dz(const Rating& r, double stage, do
     return (rating_q(r, stage + r.fd, gate_open) - rating_q(r, stage - r.fd, gate_open)) / (2.0 * r.fd);
 }
 
+// rating_curve._interp: linear interpolation, the end values held outside
+// (it clamps otherwise than storage.interp below: the bracket [i, i+1] with
+// i = searchsorted(right=True) - 1 in [0, n-2], the ends at x <= xp[0] and
+// x >= xp[n-1])
+__device__ __forceinline__ double table_q(const double* __restrict__ xp, const double* __restrict__ fp, int n,
+                                          double x) {
+    int lo = 0, hi = n;   // searchsorted(right=True): entries <= x
+    while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (xp[mid] <= x) lo = mid + 1; else hi = mid;
+    }
+    int i = lo - 1;
+    i = i < 0 ? 0 : (i > n - 2 ? n - 2 : i);
+    const double x0 = xp[i], x1 = xp[i + 1], f0 = fp[i], f1 = fp[i + 1];
+    double val = f0 + (x - x0) * (f1 - f0) / (x1 - x0);
+    if (x <= xp[0]) val = fp[0];
+    if (x >= xp[n - 1]) val = fp[n - 1];
+    return val;
+}
+
+// rating_curve.discharge of the kinds beyond the quadratics, shared by the
+// storage row and the junctions of fused_network.cu (each evaluates the
+// quadratic kinds itself): poly_n Horner from the top of its `count`
+// ascending coefficients at `data` (_polyval_ascending); power a * pow(stage
+// + shift, b) (a stage below -shift gives NaN, as the plain engine's tensor
+// power does); table rating_curve._interp of `count` stages then `count`
+// discharges at `data`.
+__device__ __forceinline__ double rating_discharge_n(int kind, double a, double b, double shift,
+                                                     const double* __restrict__ data, int count, double stage) {
+    if (kind == RC_POLY_N) {
+        const double x = stage + shift;
+        double out = data[count - 1];
+        for (int j = count - 2; j >= 0; --j) out = out * x + data[j];
+        return out;
+    }
+    if (kind == RC_POWER) return a * pow(stage + shift, b);
+    return table_q(data, data + count, count, stage);
+}
+
 // -- ops/storage.py ---------------------------------------------------------
 
 // ops/storage.py::interp: linear interpolation, the end values held outside
@@ -342,12 +383,14 @@ __device__ __forceinline__ int sign_of(double x) { return (x > 0.0) - (x < 0.0);
 
 // The fixed_depth + storage boundary row (ops/boundary.py::evaluate, storage
 // branch).  sp: this boundary's SP_* block; tab: its tables
-// [vol_stage(nv) | vol_table(nv) | area_stage(na) | area_table(na)].
+// [vol_stage(nv) | vol_table(nv) | area_stage(na) | area_table(na) |
+// rating data(nr)], the rating data of a poly_n or table outflow rating
+// (rating_discharge_n; power keeps a and b in the block).
 // Writes df_dh, df_dQ, -residual and the new stage where the caller points;
 // returns the residual.  Not inlined: one thread of the block runs it, and
 // its registers should not count against the other threads' budget.
 __device__ __noinline__ double storage_row(const double* __restrict__ sp,
-                                           const double* __restrict__ tab, int flags, int nv, int na,
+                                           const double* __restrict__ tab, int flags, int nv, int na, int nr,
                                            double sign, double bed_level, double dt, double Q_prev,
                                            double Y_old, double A, double R, double n_eq,
                                            double dR_dA, double dA_dh, double h, double Q,
@@ -358,21 +401,29 @@ __device__ __noinline__ double storage_row(const double* __restrict__ sp,
     const double* vol_table = tab + nv;
     const double* area_stage = tab + 2 * nv;
     const double* area_table = area_stage + na;
+    const double* rating_data = area_table + na;
     const double SA = sp[SP_SURFACE_AREA], min_stage = sp[SP_MIN_STAGE];
     Rating rat{};
     if (rated)
         rat = Rating{sp[SP_RC_LOW0], sp[SP_RC_LOW1], sp[SP_RC_LOW2], sp[SP_RC_HIGH0], sp[SP_RC_HIGH1],
                      sp[SP_RC_HIGH2], sp[SP_RC_SHIFT], sp[SP_RC_PIVOT], sp[SP_RC_BUFFER], sp[SP_RC_FD],
                      0.0, flags >> ST_RC_SHIFT};
+    // nr doubles of rating data: poly_n's coefficients, or a table's stages then discharges
+    const int r_count = rat.kind == RC_TABLE ? nr / 2 : nr;
 
     const double vol_in = sign * 0.5 * (Q_prev + Q) * dt;
 
     // mass_balance: 80 halvings of [y_min, y_max] on
     //   g(Y) = net_vol_change(Y_old, Y) - (vol_in - 0.5 (q(Y_old) + q(Y)) dt)
     const double v_old = curve ? interp_table(Y_old, vol_stage, vol_table, nv) : 0.0;
-    const double q_old = rated ? rating_q(rat, Y_old, 0.0) : 0.0;
+    auto q_of = [&](double Y) {
+        return rat.kind >= RC_POLY_N ? rating_discharge_n(rat.kind, rat.low0, rat.low1, rat.shift, rating_data,
+                                                          r_count, Y)
+                                     : rating_q(rat, Y, 0.0);
+    };
+    const double q_old = rated ? q_of(Y_old) : 0.0;
     auto g_of = [&](double Y) {
-        const double q_new = rated ? rating_q(rat, Y, 0.0) : 0.0;
+        const double q_new = rated ? q_of(Y) : 0.0;
         const double target_vol = vol_in - 0.5 * (q_old + q_new) * dt;
         const double dv = curve ? interp_table(Y, vol_stage, vol_table, nv) - v_old : (Y - Y_old) * SA;
         return dv - target_vol;

@@ -29,9 +29,16 @@ own, so a batched launch gives each member the bits of its single launch.
 The TPU kernel's factored form (member 0's tables times a per-member
 conveyance scale) would round differently and is not carried over.
 
+Reaches of more than ``fused_newton.MAX_N`` nodes run in the kernel's long
+build on the same grid, each member with its own scratch in device memory
+(``fused_newton.scratch_bytes``), counted with the outputs against the
+card's free memory before anything is allocated.
+
 The boundary *kinds* and the settings are shared by all members; everything
-else may differ.  Packing is done with tensor ops on the members' device
-(stack / expand), never a Python loop over members.
+else may differ (a lumped storage's outflow rating keeps one kind and one
+length of coefficients or table across the members).  Packing is done with
+tensor ops on the members' device (stack / expand), never a Python loop over
+members.
 
 On CUDA tensors the wrapper launches the kernel or raises.  The plain version
 :func:`fused_simulate_batched_plain` — a loop over members through the plain
@@ -49,8 +56,10 @@ from flowsim_tpu_torch.ops.cuda import fused_newton as fn
 from flowsim_tpu_torch.ops.cuda.fused_newton import FusedUnsupported
 
 # number of kernel launches made by fused_simulate_batched (not by its plain
-# version, and not by fused_simulate)
+# version, and not by fused_simulate), and of those the launches that took
+# the long build (N > fused_newton.MAX_N)
 launch_count = 0
+long_launch_count = 0
 
 
 def _check_batched_boundary(name, flag, bc, batched, n_members, nt):
@@ -148,7 +157,7 @@ def fused_simulate_batched(geo_batch, us_bc, ds_bc, h0, Q0, settings, us_batched
     ``MemoryError`` when the outputs would not fit the card's free memory.
     CPU tensors take the plain version.
     """
-    global launch_count
+    global launch_count, long_launch_count
     if not isinstance(geo_batch, (TrapezoidGeometry, TableGeometry)):
         raise FusedUnsupported(
             f"unknown geometry class {type(geo_batch).__name__!r}: the batched fused kernel takes "
@@ -183,4 +192,5 @@ def fused_simulate_batched(geo_batch, us_bc, ds_bc, h0, Q0, settings, us_batched
                     None if qlat is None else qlat.contiguous(), settings,
                     us_bc.kind, ds_bc.kind, rc_kind, us_rc_kind, storage, tables)
     launch_count += 1
+    long_launch_count += fn.uses_long_build(n)
     return out

@@ -74,14 +74,17 @@ CHOOSE_BUILD = -1
 PROBE_PHASES = fn.PROBE_PHASES
 # dynamic shared memory a block may take: 227 KB less the static reduction area
 SMEM_LIMIT = 232448 - 512
-_BI_COUNT = 14
+_BI_COUNT = 16
 # a table branch's geometry rows: the bed level, the table span (in the
 # trapezoid's b_main row), the bed slope and the curvature; its seven tables
 # in csrc/fused_network.cu's order (TS_* then TAB_K, TAB_NEQ, TAB_DK)
 _TABLE_GEO_ROWS = {0: "z_bed", 1: "depth_max", 11: "bed_slope", 12: "curvature"}
 _TABLES = fn._SHARED_TABLES + fn._MEMBER_TABLES
 _JP_COUNT = 14
-_JR_KINDS = {"polynomial": 0, "blended_poly": 1, "poly_n": 2, "power": 3, "table": 4}
+# a junction's release rating: the kind codes of a storage's outflow rating
+# (one device function evaluates the kinds beyond the quadratics for both,
+# reach_common.cuh's rating_discharge_n)
+_JR_KINDS = {k: fn._RC_KINDS[k] for k in ("polynomial", "blended_poly", "poly_n", "power", "table")}
 _JP_AREA, _JP_KIND, _JP_SHIFT, _JP_PIVOT, _JP_BUFFER, _JP_FD, _JP_C0, _JP_H0, _JP_NCOEF, _JP_OFF = \
     0, 1, 2, 3, 4, 5, 6, 9, 12, 13
 
@@ -332,7 +335,7 @@ def _pack(branches, J, settings, batch, M, Y0, junction_area, junction_rating, t
         sers.append(torch.stack([fn.series(e, nt, dev, lead) for e in ends], dim=1))
         stor, stab, st = fn.pack_storage(ends[0], ends[1], batch_shape=lead)
         stors.append(stor)
-        tab_len = 2 * sum(st[2:])
+        tab_len = fn.storage_table_len(st)
         if tab_len:
             tabs.append(stab)
             any_tab_member |= stab.dim() == 2

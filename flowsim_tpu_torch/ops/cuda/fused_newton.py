@@ -21,6 +21,13 @@ Both geometry kinds run in the kernel: a :class:`TrapezoidGeometry` packs its
 13 rows; a :class:`TableGeometry` (irregular sections) packs 4 rows (bed
 level, table span, bed slope, curvature) and its seven lookup tables, which
 stay in device memory (:func:`pack_tables`).
+
+Reaches of up to :data:`MAX_N` nodes keep their state in shared memory; from
+there to :data:`LONG_MAX_N` (the TPU kernel's limit) the long build keeps it
+in a scratch of device memory that :func:`launch` allocates.  A lumped
+storage's outflow rating may be of any kind but ``gated_blend``
+(:func:`pack_storage` packs poly_n coefficients and rating tables after the
+storage's own tables).
 """
 
 from __future__ import annotations
@@ -39,6 +46,11 @@ from flowsim_tpu_torch.ops.cuda import build
 # h and Q, float64, per node; 227 KB per block less the static reduction area
 SMEM_BYTES_PER_NODE = (2 * 14 + 2) * 8
 MAX_N = 964
+# the long build (N > MAX_N, up to the TPU kernel's MAX_VMEM_N): the same
+# state per node, plus the previous level's state and the cell's lateral
+# inflow, in a scratch of device memory the wrapper allocates per simulation
+LONG_MAX_N = 8192
+LONG_SCRATCH_BYTES_PER_NODE = (2 * 14 + 2 + 6) * 8
 
 _GEO_ROWS = ("z_bed", "b_main", "m_main", "n_main", "compound", "h_bank", "b_fp_left",
              "b_fp_right", "m_fp", "n_left", "n_right", "bed_slope", "curvature")
@@ -50,21 +62,26 @@ _SHARED_TABLES = ("area", "perimeter", "top_width", "dR_dA")
 _MEMBER_TABLES = ("conveyance", "n_eq", "dK_dA")
 _BC_KINDS = {"flow_hydrograph": 0, "stage_hydrograph": 1, "fixed_depth": 2,
              "normal_depth": 3, "rating_curve": 4}
-_RC_KINDS = {"polynomial": 0, "blended_poly": 1, "gated_blend": 2}
+# rating kinds, csrc/reach_common.cuh's RC_*: a boundary rating is one of
+# the first three, a storage's outflow rating any kind but gated_blend
+_RC_KINDS = {"polynomial": 0, "blended_poly": 1, "gated_blend": 2, "poly_n": 3, "power": 4, "table": 5}
+_DS_RC_KINDS = ("polynomial", "blended_poly", "gated_blend")
 _US_RC_KINDS = ("polynomial", "blended_poly")   # the gate controller is downstream-only
 _N_PARAMS = 32
 # one boundary's storage block: surface area, min stage, bracket, beta,
 # reservoir length, K_q and a 10-slot rating block
 _N_STORAGE_PARAMS = 17
 _ST_ON, _ST_AREA_CURVE, _ST_RATING, _ST_LOSSES, _ST_RC_SHIFT = 1, 2, 4, 8, 4
-_STORAGE_RC_KINDS = ("polynomial", "blended_poly")
+_STORAGE_RC_KINDS = ("polynomial", "blended_poly", "poly_n", "power", "table")
 
-# the kernel's builds (csrc/fused_newton.cu): every shape has the register
-# build.  At N <= LATENCY_MAX_N without storage a launch that fits the card in
-# one wave of the latency build (two threads a node for the closures) takes
-# it; a larger batch the register build while one wave of that holds it, then
-# the residency build (four blocks an SM, not two).
-REGISTER_BUILD, RESIDENCY_BUILD, LATENCY_BUILD = 0, 1, 2
+# the kernel's builds (csrc/fused_newton.cu): every shape up to MAX_N has the
+# register build.  At N <= LATENCY_MAX_N without storage a launch that fits
+# the card in one wave of the latency build (two threads a node for the
+# closures) takes it; a larger batch the register build while one wave of
+# that holds it, then the residency build (four blocks an SM, not two).
+# Above MAX_N the long build (1024 threads, up to 8 nodes a thread, its state
+# in device memory); a test hook forces it at any N.
+REGISTER_BUILD, RESIDENCY_BUILD, LATENCY_BUILD, LONG_BUILD = 0, 1, 2, 3
 LATENCY_MAX_N = 128
 
 # phases of an iteration in the probe build, as the network kernel's
@@ -73,8 +90,10 @@ LATENCY_MAX_N = 128
 PROBE_PHASES = ("level_start", "previous_level", "closures", "assembly", "sweeps", "back_substitution",
                 "schur_rows", "junction_solve", "update")
 
-# number of kernel launches made by fused_simulate (not by its plain version)
+# number of kernel launches made by fused_simulate (not by its plain version),
+# and of those the launches that took the long build (N > MAX_N)
 launch_count = 0
+long_launch_count = 0
 
 
 class FusedUnsupported(Exception):
@@ -89,6 +108,31 @@ def _check_rating(name, bc, kinds):
         raise FusedUnsupported("the fused kernel packs quadratics (3 coefficients)")
 
 
+def _check_storage_rating(name, rc):
+    """A storage's outflow rating: any kind but gated_blend; the quadratic
+    kinds with 3 coefficients, power with 2, poly_n with at least one, a
+    table of at least 2 breakpoints."""
+    if rc.kind == "gated_blend":
+        raise FusedUnsupported(
+            f"a gated_blend rating on the {name} storage itself is unsupported "
+            "(the plain mass balance cannot evaluate it either)")
+    if rc.kind not in _STORAGE_RC_KINDS:
+        raise FusedUnsupported(f"unknown rating kind {rc.kind!r} on the {name} storage; the kernel "
+                               f"evaluates {_STORAGE_RC_KINDS} there")
+    width = rc.coeffs.shape[-1]
+    if rc.kind in ("polynomial", "blended_poly") and width != 3:
+        raise FusedUnsupported(f"a {rc.kind} rating on the {name} storage packs a quadratic "
+                               f"(3 coefficients); got {width}: use poly_n for another degree")
+    if rc.kind == "power" and width != 2:
+        raise FusedUnsupported(f"a power rating on the {name} storage has 2 coefficients (a, b); got {width}")
+    if rc.kind == "poly_n" and width < 1:
+        raise FusedUnsupported(f"a poly_n rating on the {name} storage has no coefficients")
+    if rc.kind == "table" and (rc.table_stage.shape[-1] < 2 or rc.table_q.shape != rc.table_stage.shape):
+        raise FusedUnsupported(f"a table rating on the {name} storage needs at least 2 (stage, discharge) "
+                               f"pairs of one length; got {tuple(rc.table_stage.shape)} and "
+                               f"{tuple(rc.table_q.shape)}")
+
+
 def _check_supported(geo, us_bc, ds_bc, settings):
     """Raise :class:`FusedUnsupported` outside the kernel's scope."""
     if not isinstance(geo, (TrapezoidGeometry, TableGeometry)):
@@ -101,15 +145,7 @@ def _check_supported(geo, us_bc, ds_bc, settings):
         if bc.kind not in _BC_KINDS:
             raise FusedUnsupported(f"unknown {name} BC kind {bc.kind!r}")
         if bc.kind == "fixed_depth" and bc.storage is not None and bc.storage.has_rating:
-            kind = bc.storage.rating.kind
-            if kind == "gated_blend":
-                raise FusedUnsupported(
-                    f"a gated_blend rating on the {name} storage itself is unsupported "
-                    "(the plain mass balance cannot evaluate it either)")
-            if kind not in _STORAGE_RC_KINDS or bc.storage.rating.coeffs.shape[-1] != 3:
-                raise FusedUnsupported(
-                    f"unsupported rating kind {kind!r} on the {name} storage; the kernel "
-                    f"evaluates {_STORAGE_RC_KINDS} quadratics there (ROADMAP.md Queue 2A item 3)")
+            _check_storage_rating(name, bc.storage.rating)
         if bc.kind == "normal_depth":
             s0 = float(bc.bed_slope.reshape(-1)[0])
             if not math.isfinite(s0) or s0 <= 0.0:
@@ -117,7 +153,7 @@ def _check_supported(geo, us_bc, ds_bc, settings):
     if us_bc.kind == "rating_curve":
         _check_rating("upstream", us_bc, _US_RC_KINDS)
     if ds_bc.kind == "rating_curve":
-        _check_rating("downstream", ds_bc, _RC_KINDS)
+        _check_rating("downstream", ds_bc, _DS_RC_KINDS)
     if settings.newton != "while":
         raise FusedUnsupported("fused kernel implements the while-Newton only")
     if settings.store not in prs.STORES:
@@ -125,10 +161,10 @@ def _check_supported(geo, us_bc, ds_bc, settings):
     if settings.diagnos:
         raise FusedUnsupported("fused kernel has no rcond diagnostics")
     n = geo.n_nodes
-    if n > MAX_N:
+    if n > LONG_MAX_N:
         raise FusedUnsupported(
-            f"N={n} exceeds the shared-memory limit of the fused kernel "
-            f"({MAX_N} nodes at {SMEM_BYTES_PER_NODE} B/node)")
+            f"N={n} exceeds the fused kernel's limit of {LONG_MAX_N} nodes (the TPU kernel's MAX_VMEM_N); "
+            "run the plain engine with linear_solver='cuda_tiled' (any N)")
 
 
 def fused_simulate_plain(geo, us_bc, ds_bc, h0, Q0, settings, lateral_inflow=None) -> prs.SimOutput:
@@ -143,7 +179,7 @@ def _lib():
     fn = lib.flowsim_fused_simulate
     if not getattr(fn, "_typed", False):
         head = [ctypes.c_void_p] * 16 + [ctypes.c_longlong] + [ctypes.c_int] * 10 + [ctypes.POINTER(ctypes.c_int)] \
-            + [ctypes.c_void_p] * 4 + [ctypes.c_int]
+            + [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p]
         fn.argtypes = head + [ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.flowsim_fused_simulate_probe.argtypes = head + [ctypes.c_int, ctypes.c_void_p,
@@ -155,16 +191,20 @@ def _lib():
         lib.flowsim_fused_chosen_build.restype = ctypes.c_int
         for aux in (lib.flowsim_fused_param_count, lib.flowsim_fused_smem_bytes_per_node,
                     lib.flowsim_fused_storage_param_count, lib.flowsim_fused_probe_phases,
-                    lib.flowsim_fused_latency_max_n):
+                    lib.flowsim_fused_latency_max_n, lib.flowsim_fused_register_max_n,
+                    lib.flowsim_fused_long_max_n, lib.flowsim_fused_long_scratch_bytes_per_node):
             aux.argtypes = []
             aux.restype = ctypes.c_int
         if lib.flowsim_fused_param_count() != _N_PARAMS \
                 or lib.flowsim_fused_storage_param_count() != _N_STORAGE_PARAMS \
                 or lib.flowsim_fused_probe_phases() != len(PROBE_PHASES) \
-                or lib.flowsim_fused_latency_max_n() != LATENCY_MAX_N:
+                or lib.flowsim_fused_latency_max_n() != LATENCY_MAX_N \
+                or lib.flowsim_fused_register_max_n() != MAX_N \
+                or lib.flowsim_fused_long_max_n() != LONG_MAX_N:
             raise RuntimeError("parameter layout of fused_newton.cu and its wrapper differ")
-        if lib.flowsim_fused_smem_bytes_per_node() != SMEM_BYTES_PER_NODE:
-            raise RuntimeError("shared-memory layout of fused_newton.cu and its wrapper differ")
+        if lib.flowsim_fused_smem_bytes_per_node() != SMEM_BYTES_PER_NODE \
+                or lib.flowsim_fused_long_scratch_bytes_per_node() != LONG_SCRATCH_BYTES_PER_NODE:
+            raise RuntimeError("memory layout of fused_newton.cu and its wrapper differ")
         fn._typed = True
     return lib
 
@@ -260,21 +300,47 @@ def _storage_of(bc):
     return bc.storage if bc.kind == "fixed_depth" else None
 
 
+def _storage_rating(rc):
+    """A storage's outflow rating as the kernel reads it: the rating block
+    (``_rating_slots``; power's a and b in the low quadratic's first two
+    slots, poly_n's and table's coefficients not in it) and the rating data
+    packed after the end's tables: poly_n's ascending coefficients, table's
+    stages then discharges (``None`` for the other kinds)."""
+    data = None
+    if rc.kind in ("power", "poly_n", "table"):
+        lead = rc.coeffs.shape[:-1]
+        low = torch.zeros((*lead, 3), dtype=torch.float64, device=rc.coeffs.device)
+        if rc.kind == "power":
+            low[..., :2] = rc.coeffs
+        elif rc.kind == "poly_n":
+            data = rc.coeffs
+        else:
+            data = torch.cat([rc.table_stage, rc.table_q], dim=-1)
+        rc = dataclasses.replace(rc, coeffs=low)
+    slots, _ = _rating_slots(rc, False)
+    return slots, data
+
+
 def pack_storage(us_bc, ds_bc, batch_shape=()):
     """The storage inputs of the kernel: the scalar blocks ``[*batch, 2, 17]``
     (upstream, downstream), the tables ``[*batch, L]`` or shared ``[L]`` — per
-    end ``vol_stage | vol_table | area_stage | area_table`` — and the six
-    ints {us flags, ds flags, us nv, us na, ds nv, ds na}.  A boundary without
-    storage gives a zero block, no tables and flags 0."""
+    end ``vol_stage | vol_table | area_stage | area_table | rating data`` —
+    and the eight ints {us flags, ds flags, us nv, us na, ds nv, ds na, us nr,
+    ds nr}: nv and na the lengths of the stage-volume and stage-area tables,
+    nr the doubles of a poly_n or table outflow rating (its coefficients, or
+    its stages then discharges).  A flag word holds the options and, from bit
+    4, the rating's kind.  A boundary without storage gives a zero block, no
+    tables and flags 0."""
     dev, dt = us_bc.bed_level.device, torch.float64
-    blocks, tables, flags, lens = [], [], [], []
+    blocks, tables, flags, lens, rating_lens = [], [], [], [], []
     for sp in (_storage_of(us_bc), _storage_of(ds_bc)):
         if sp is None:
             blocks.append(torch.zeros((*batch_shape, _N_STORAGE_PARAMS), dtype=dt, device=dev))
             flags.append(0)
             lens += [0, 0]
+            rating_lens.append(0)
             continue
-        rc_slots, _ = _rating_slots(sp.rating, False)
+        rc_slots, data = _storage_rating(sp.rating) if sp.has_rating else _rating_slots(None, False)
         slots = [(t, 1) for t in (sp.surface_area, sp.min_stage, sp.y_min, sp.y_max, sp.beta,
                                   sp.reservoir_length, sp.K_q)] + rc_slots
         blocks.append(_cat_slots(slots, batch_shape, dev))
@@ -288,6 +354,9 @@ def pack_storage(us_bc, ds_bc, batch_shape=()):
             tables += [sp.vol_stage, sp.vol_table, sp.area_stage, sp.area_table]
         else:
             lens += [0, 0]
+        rating_lens.append(0 if data is None else data.shape[-1])
+        if data is not None:
+            tables.append(data)
     stor = torch.stack(blocks, dim=-2).contiguous()
     if not tables:
         stab = torch.zeros((1,), dtype=dt, device=dev)
@@ -296,7 +365,14 @@ def pack_storage(us_bc, ds_bc, batch_shape=()):
         # boundary's are expanded only when the other end's are per member
         lead = batch_shape if any(t.dim() > 1 for t in tables) else ()
         stab = torch.cat([t.to(dt).expand(*lead, t.shape[-1]) for t in tables], dim=-1).contiguous()
-    return stor, stab, (flags[0], flags[1], lens[0], lens[1], lens[2], lens[3])
+    return stor, stab, (flags[0], flags[1], *lens, *rating_lens)
+
+
+def storage_table_len(st_ints) -> int:
+    """Doubles of both ends' storage tables, from :func:`pack_storage`'s
+    eight ints: the stage-volume and stage-area tables (stages and values)
+    and the rating data."""
+    return 2 * sum(st_ints[2:6]) + st_ints[6] + st_ints[7]
 
 
 def output_bytes(n_sims: int, n: int, nt: int, store: str) -> int:
@@ -307,21 +383,38 @@ def output_bytes(n_sims: int, n: int, nt: int, store: str) -> int:
     return n_sims * nt * (2 * width * 8 + 4 * 8 + 2 * 4)
 
 
-def check_output_memory(n_sims: int, n: int, nt: int, store: str, free_bytes: int) -> None:
-    """Refuse, before anything is allocated, a launch whose outputs exceed
-    the free memory of the card."""
-    need = output_bytes(n_sims, n, nt, store)
-    if need > free_bytes:
+def scratch_bytes(n_sims: int, n: int) -> int:
+    """Bytes of the long build's scratch: its per-node state in device
+    memory, one block of N nodes a simulation."""
+    return n_sims * n * LONG_SCRATCH_BYTES_PER_NODE
+
+
+def uses_long_build(n: int, build_id: int = -1) -> bool:
+    """Whether a launch at N nodes takes the long build: the C entry takes it
+    above :data:`MAX_N` (``choose_build_id``), and a test hook may force it."""
+    return build_id == LONG_BUILD or (build_id < 0 and n > MAX_N)
+
+
+def check_output_memory(n_sims: int, n: int, nt: int, store: str, free_bytes: int,
+                        long_build: bool = False) -> None:
+    """Refuse, before anything is allocated, a launch whose outputs (and,
+    with ``long_build``, the long build's scratch) exceed the free memory of
+    the card."""
+    out = output_bytes(n_sims, n, nt, store)
+    scratch = scratch_bytes(n_sims, n) if long_build else 0
+    if out + scratch > free_bytes:
+        what = f"outputs ({out / 1e9:.2f} GB)" + (f" and scratch ({scratch / 1e9:.2f} GB)" if scratch else "")
         raise MemoryError(
-            f"the outputs of {n_sims} simulations (N={n}, nt={nt}, store={store!r}) take "
-            f"{need / 1e9:.2f} GB but the card has {free_bytes / 1e9:.2f} GB free: run the "
+            f"the {what} of {n_sims} simulations (N={n}, nt={nt}, store={store!r}) take "
+            f"{(out + scratch) / 1e9:.2f} GB but the card has {free_bytes / 1e9:.2f} GB free: run the "
             f"ensemble in chunks (batched_simulate(..., chunk_size=...)) or use store='boundaries'")
 
 
 def resident_blocks(n: int, storage: bool = False, build_id: int = REGISTER_BUILD, table: bool = False) -> int:
     """Blocks of a kernel build that one SM holds at N nodes, from the CUDA
-    occupancy calculator (:data:`REGISTER_BUILD`, every shape; the others
-    N <= :data:`LATENCY_MAX_N` without storage, and the latency build
+    occupancy calculator (:data:`REGISTER_BUILD`, every shape to
+    :data:`MAX_N`; :data:`LONG_BUILD` every shape to :data:`LONG_MAX_N`; the
+    others N <= :data:`LATENCY_MAX_N` without storage, and the latency build
     trapezoid geometry only; ``table``: the table geometry's build)."""
     out = ctypes.c_int(0)
     rc = _lib().flowsim_fused_resident_blocks(n, int(storage), int(table), build_id, ctypes.byref(out))
@@ -332,8 +425,9 @@ def resident_blocks(n: int, storage: bool = False, build_id: int = REGISTER_BUIL
 
 def chosen_build(n_sims: int, n: int, storage: bool = False, table: bool = False) -> int:
     """The build the kernel's C entry takes for ``n_sims`` simulations of
-    ``n`` nodes (``choose_build_id`` in ``csrc/fused_newton.cu``): with
-    storage or N > :data:`LATENCY_MAX_N` the register build; else the
+    ``n`` nodes (``choose_build_id`` in ``csrc/fused_newton.cu``): above
+    :data:`MAX_N` the long build; with storage or N >
+    :data:`LATENCY_MAX_N` the register build; else the
     latency build while one wave of it holds the batch (trapezoid geometry;
     ``table`` skips it), the register build while one wave of that does,
     then the residency build where it holds more members an SM."""
@@ -357,7 +451,9 @@ def launch(geo_rows, h0, Q0, us_series, ds_series, par, qlat, settings, us_kind,
     [S, N, M], M)`` for table rows ``[S, 4, N]``.  ``build_id`` -1 lets the kernel's C
     entry choose its build (:func:`chosen_build`: what every wrapper does); a
     build id forces one, a test hook for timing the builds against each
-    other.  ``probe``: ``None``, or ``(cycles, clock)`` — an int64 tensor
+    other and for holding the long build to the register build's bits.  The
+    long build's scratch (:func:`scratch_bytes`) is allocated here, counted
+    with the outputs against the card's free memory.  ``probe``: ``None``, or ``(cycles, clock)`` — an int64 tensor
     ``[len(PROBE_PHASES)]`` on the device and a ``ctypes.c_int`` — for one
     launch of the probe build of that build (the register or the latency build;
     N <= 128, no storage), which fills them with the cycles of each phase and
@@ -379,7 +475,7 @@ def launch(geo_rows, h0, Q0, us_series, ds_series, par, qlat, settings, us_kind,
     stor, stab, st_ints = storage
     expect["storage blocks"] = (n_sims, 2, _N_STORAGE_PARAMS)
     given["storage blocks"] = stor
-    tab_len = max(1, 2 * sum(st_ints[2:]))
+    tab_len = max(1, storage_table_len(st_ints))
     expect["storage tables"] = (n_sims, tab_len) if stab.dim() == 2 else (tab_len,)
     given["storage tables"] = stab
     if qlat is not None:
@@ -391,8 +487,11 @@ def launch(geo_rows, h0, Q0, us_series, ds_series, par, qlat, settings, us_kind,
             raise ValueError(
                 f"{name}: need a contiguous float64 {expect[name]} tensor on {dev}; got "
                 f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    long_build = uses_long_build(n, build_id)
     with torch.cuda.device(dev):
-        check_output_memory(n_sims, n, nt, settings.store, torch.cuda.mem_get_info()[0])
+        check_output_memory(n_sims, n, nt, settings.store, torch.cuda.mem_get_info()[0], long_build)
+        scratch = torch.empty((n_sims, LONG_SCRATCH_BYTES_PER_NODE // 8, n), dtype=torch.float64,
+                              device=dev) if long_build else None
         width = n if settings.store == "full" else 2
         f64 = dict(dtype=torch.float64, device=dev)
         depth = torch.empty((n_sims, nt, width), **f64)
@@ -409,8 +508,9 @@ def launch(geo_rows, h0, Q0, us_series, ds_series, par, qlat, settings, us_kind,
                 tab_len if stab.dim() == 2 else 0, n_sims, n, nt, int(settings.max_iter),
                 _BC_KINDS[us_kind], _BC_KINDS[ds_kind], rc_kind, us_rc_kind,
                 int(settings.store == "boundaries"), 0 if qlat is None else qlat.dim() - 1,
-                (ctypes.c_int * 6)(*st_ints), None if not tab_m else tab_shared.data_ptr(),
-                *((None,) * 3 if not tab_m else (t.data_ptr() for t in tab_member)), tab_m)
+                (ctypes.c_int * 8)(*st_ints), None if not tab_m else tab_shared.data_ptr(),
+                *((None,) * 3 if not tab_m else (t.data_ptr() for t in tab_member)), tab_m,
+                None if scratch is None else scratch.data_ptr())
         stream = torch.cuda.current_stream().cuda_stream
         if probe is None:
             rc = _lib().flowsim_fused_simulate(*args, build_id, stream)
@@ -482,7 +582,7 @@ def fused_simulate(geo, us_bc, ds_bc, h0, Q0, settings, lateral_inflow=None) -> 
     ``[nt, N]``.  Raises :class:`FusedUnsupported` for configurations outside
     the kernel's scope.  CPU tensors take the plain version.
     """
-    global launch_count
+    global launch_count, long_launch_count
     _check_supported(geo, us_bc, ds_bc, settings)
     qlat = prs.as_lateral_inflow(lateral_inflow, h0)
     prs.check_shapes(geo, us_bc, ds_bc, h0, Q0, settings, qlat)
@@ -492,4 +592,5 @@ def fused_simulate(geo, us_bc, ds_bc, h0, Q0, settings, lateral_inflow=None) -> 
     check_device(dev, h0, Q0, geo, us_bc, ds_bc, "fused_simulate")
     out = _launch_one(geo, us_bc, ds_bc, h0, Q0, settings, qlat)
     launch_count += 1
+    long_launch_count += uses_long_build(geo.n_nodes)
     return out

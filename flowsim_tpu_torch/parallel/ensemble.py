@@ -58,6 +58,16 @@ def batch_boundaries(bcs):
     kinds = {b.kind for b in bcs}
     if len(kinds) != 1:
         raise ValueError(f"all members must share the boundary kind, got {kinds}")
+    # a lumped storage's outflow rating: one kind and one length of
+    # coefficients or rating table across the members, as a JAX batched tree
+    # has one static kind (the members' own values may differ)
+    ratings = {None if b.storage is None or b.storage.rating is None else
+               (b.storage.rating.kind, b.storage.rating.coeffs.shape[-1], b.storage.rating.table_stage.shape[-1])
+               for b in bcs}
+    if len(ratings) > 1:
+        raise ValueError(
+            "all members must share the storage rating's kind and its number of coefficients or table "
+            f"breakpoints; got (kind, coefficients, breakpoints) {sorted(map(str, ratings))}")
     return trees.stack(bcs), 0
 
 

@@ -197,7 +197,8 @@ def test_check_supported_raises_fused_unsupported(flagship, case):
         _check_supported(geo, us, ds, sset)
         return
     elif case == "too_long":
-        geo = dataclasses.replace(geo, **{f.name: getattr(geo, f.name).repeat(8)
+        # beyond the long build's 8192 nodes (121 x 68 = 8228)
+        geo = dataclasses.replace(geo, **{f.name: getattr(geo, f.name).repeat(68)
                                           for f in dataclasses.fields(geo)})
     elif case == "table_rating":
         ds = dataclasses.replace(ds, rating=rc.make_table([480.0, 490.0], [0.0, 1e4], device="cpu"))
@@ -208,6 +209,31 @@ def test_check_supported_raises_fused_unsupported(flagship, case):
     # and the entry point lets it reach the caller: no fallback to the plain engine
     with pytest.raises(FusedUnsupported):
         fused_simulate(geo, us, ds, solver.h0, solver.Q0, sset)
+
+
+@pytest.mark.parametrize("n", [965, 8192, 8193])
+def test_check_supported_takes_the_long_build_up_to_8192_nodes(flagship, n):
+    """From 965 to 8192 nodes the long build takes the reach (its state in a
+    scratch of device memory, counted with the outputs before anything is
+    allocated); 8193 is refused by name, with the solver that goes on."""
+    from flowsim_tpu_torch import trees
+    from flowsim_tpu_torch.ops.cuda import fused_newton as fn
+
+    solver, channel, sset = flagship
+    geo = trees.tree_map(lambda v: v[:1].expand(n).contiguous(), channel.geometry)
+    assert fn.uses_long_build(n) == (n > fn.MAX_N) and fn.uses_long_build(121, fn.LONG_BUILD)
+    if n > fn.LONG_MAX_N:
+        with pytest.raises(fn.FusedUnsupported, match=r"N=8193 exceeds .* 8192 nodes.*cuda_tiled"):
+            fn._check_supported(geo, solver.us_params, solver.ds_params, sset)
+        return
+    fn._check_supported(geo, solver.us_params, solver.ds_params, sset)
+    # 1024 members: outputs (two stored nodes) and the scratch, 288 B a node
+    need = fn.output_bytes(1024, n, 9, "boundaries") + fn.scratch_bytes(1024, n)
+    assert fn.scratch_bytes(1024, n) == 1024 * n * 36 * 8
+    fn.check_output_memory(1024, n, 9, "boundaries", free_bytes=need, long_build=True)
+    fn.check_output_memory(1024, n, 9, "boundaries", free_bytes=need - 1)      # the outputs alone fit
+    with pytest.raises(MemoryError, match=r"scratch .* chunk_size"):
+        fn.check_output_memory(1024, n, 9, "boundaries", free_bytes=need - 1, long_build=True)
 
 
 def test_long_reach_solver_is_named_and_runs_plain_on_cpu_tensors():

@@ -172,6 +172,23 @@ def test_convert_from_numpy_storage_trees():
     assert_trees_equal(trees.member(b2, 0), jbc)
 
 
+@pytest.mark.parametrize("kind", ["power", "poly_n", "table"])
+def test_convert_carries_each_storage_rating_kind(kind):
+    """A JAX StorageParams whose outflow rating is of a kind beyond the
+    quadratics becomes the port's, leaf for leaf, and packs for the kernel."""
+    rating = dict(power=lambda m: m.make_power(2.5, 1.6, stage_shift=3.0),
+                  poly_n=lambda m: m.make_polynomial_general([1.0, 4.0, 0.5, 0.02], stage_shift=2.0),
+                  table=lambda m: m.make_table(np.linspace(-2.0, 20.0, 9), np.linspace(0.0, 400.0, 9) ** 1.2))[kind]
+    jsp = jstg.make_storage(area_curve=_curve(), min_stage=-1.0, rating=rating(jrc))
+    carried = convert.from_numpy("storage", tree_to_numpy(jsp), device="cpu")
+    assert carried.rating.kind == kind and carried.has_rating
+    assert_trees_equal(carried, jsp)
+    bc = bnd.make_boundary("fixed_depth", bed_level=0.0, storage=carried, device="cpu")
+    _, stab, ints = fused_newton.pack_storage(bnd.make_boundary("flow_hydrograph", target_series=[1.0, 2.0],
+                                                                device="cpu"), bc)
+    assert ints[1] >> 4 == fused_newton._RC_KINDS[kind] and ints[7] == dict(power=0, poly_n=4, table=18)[kind]
+
+
 def test_api_lumped_storage_builds_what_the_jax_api_builds():
     table = _curve(seed=2)
     for cls, kw in ((japi.LumpedStorage, {}), (api.LumpedStorage, dict(device="cpu"))):
@@ -245,14 +262,15 @@ def _compare(out, jout, levels):
         assert np.nanmax(np.abs(a - b), initial=0.0) <= STAGE_TOL, name
 
 
-@pytest.mark.parametrize("name,levels", [("ds_curve_rating_losses", 6), ("both_ends", 6)])
+@pytest.mark.parametrize("name,levels", [("ds_curve_rating_losses", 6), ("both_ends", 6), ("ds_power_losses", 4),
+                                         ("us_table", 4), ("both_poly_n", 4)])
 def test_storage_variants_match_jax(name, levels):
     geo, us, ds, h0, Q0, sset = chip_smoke.build_storage_case(name, "cpu", levels=levels)
     jout = jprs.simulate(to_jax(geo), to_jax(us), to_jax(ds), J(h0.numpy()), J(Q0.numpy()), to_jax(sset))
     _compare(fused_newton.fused_simulate(geo, us, ds, h0, Q0, sset), jout, levels)
     stage = np.asarray(jout.reservoir_stage)
     assert np.isfinite(stage[1:]).all() and np.ptp(stage[1:]) > 1e-4
-    if name == "both_ends":
+    if name.startswith("both"):
         assert np.isfinite(np.asarray(jout.reservoir_stage_us)[1:]).all()
 
 
@@ -277,21 +295,54 @@ def test_storage_ensemble_four_members_matches_jax():
     # packing per member: scalars [B, 2, 17], no tables for constant areas
     stor, stab, ints = fused_newton.pack_storage(us, ds_b, batch_shape=(B,))
     assert stor.shape == (B, 2, 17) and stor[:, 1, 0].tolist() == areas and float(stor[:, 0].abs().max()) == 0.0
-    assert ints == (0, 1, 0, 0, 0, 0) and stab.shape == (1,)
+    assert ints == (0, 1, 0, 0, 0, 0, 0, 0) and stab.shape == (1,)
 
 
 def test_pack_storage_tables_and_what_the_kernel_refuses():
     geo, us, ds, h0, Q0, sset = chip_smoke.build_storage_case("ds_curve_rating_losses", "cpu", levels=2)
     stor, stab, ints = fused_newton.pack_storage(us, ds)
-    assert stor.shape == (2, 17) and ints == (0, 1 | 2 | 4 | 8, 0, 0, 4096, 12)
+    assert stor.shape == (2, 17) and ints == (0, 1 | 2 | 4 | 8, 0, 0, 4096, 12, 0, 0)
     assert stab.shape == (2 * 4096 + 2 * 12,) and torch.equal(stab[:4096], ds.storage.vol_stage)
     assert torch.equal(stab[-12:], ds.storage.area_table)
     both = chip_smoke.build_storage_case("both_ends", "cpu", levels=2)
-    assert fused_newton.pack_storage(both[1], both[2])[2] == (1, 1, 0, 0, 0, 0)
+    assert fused_newton.pack_storage(both[1], both[2])[2] == (1, 1, 0, 0, 0, 0, 0, 0)
     fused_newton._check_supported(geo, us, ds, sset)
+    # power: a and b in the rating block's first two slots, the kind (4) in the flags
+    _, _, pw, *_ = chip_smoke.build_storage_case("ds_power_losses", "cpu", levels=2)
+    stor, stab, ints = fused_newton.pack_storage(us, pw)
+    assert ints == (0, 1 | 2 | 4 | 8 | 4 << 4, 0, 0, 4096, 12, 0, 0) and stab.shape == (2 * 4096 + 2 * 12,)
+    assert stor[1, 7:10].tolist() == [chip_smoke.POWER_RATING_A, chip_smoke.POWER_RATING_B, 0.0]
+    assert float(stor[1, 13]) == float(pw.storage.rating.stage_shift)
+    # table: its stages then its discharges after the end's own tables, kind 5
+    _, ut, dt_, *_ = chip_smoke.build_storage_case("us_table", "cpu", levels=2)
+    stor, stab, ints = fused_newton.pack_storage(ut, dt_)
+    rt = ut.storage.rating
+    assert ints == (1 | 2 | 4 | 5 << 4, 0, 4096, 10, 0, 0, 20, 0) and fused_newton.storage_table_len(ints) == 8232
+    assert torch.equal(stab[-20:], torch.cat([rt.table_stage, rt.table_q])) and float(stor[0, 7:10].abs().max()) == 0
+    # poly_n at both ends: the upstream coefficients, then the downstream's (kind 3)
+    _, up, dp, *_ = chip_smoke.build_storage_case("both_poly_n", "cpu", levels=2)
+    stor, stab, ints = fused_newton.pack_storage(up, dp)
+    assert ints == (1 | 4 | 3 << 4, 1 | 4 | 3 << 4, 0, 0, 0, 0, 4, 4)
+    assert torch.equal(stab, torch.cat([up.storage.rating.coeffs, dp.storage.rating.coeffs]))
+    # per-member poly_n coefficients of one length pack per member
+    members = [dataclasses.replace(dp, storage=dataclasses.replace(dp.storage, rating=dataclasses.replace(
+        dp.storage.rating, coeffs=dp.storage.rating.coeffs * f))) for f in (0.9, 1.1)]
+    dpb, _ = ens.batch_boundaries(members)
+    stor, stab, ints = fused_newton.pack_storage(up, dpb, batch_shape=(2,))
+    assert stab.shape == (2, 8) and torch.equal(stab[1, 4:], dp.storage.rating.coeffs * 1.1)
+    assert torch.equal(stab[0, :4], stab[1, :4]) and ints[6:] == (4, 4)
+    # members that differ in the rating's kind or length are refused by name
+    other = dataclasses.replace(dp, storage=dataclasses.replace(dp.storage, rating=rc.make_polynomial_general(
+        [0.0, 1.0, 2.0], device="cpu")))
+    with pytest.raises(ValueError, match="storage rating's kind"):
+        ens.batch_boundaries([dp, other])
+    for name in ("ds_power_losses", "us_table", "both_poly_n"):
+        fused_newton._check_supported(geo, *chip_smoke.build_storage_case(name, "cpu", levels=2)[1:3], sset)
+    # what stays refused: gated_blend on the storage, and a power rating without its two coefficients
     gated = rc.make_gated_blend([0.0, 20.0, 0.0], [0.0, 30.0, 0.0], pivot_stage=2.0, device="cpu")
-    for rating, word in ((gated, "gated_blend"), (rc.make_power(3.0, 1.5, device="cpu"), "power"),
-                         (rc.make_table([0.0, 9.0], [0.0, 90.0], device="cpu"), "table")):
+    bad_power = dataclasses.replace(rc.make_power(3.0, 1.5, device="cpu"), coeffs=T([3.0, 1.5, 1.0]))
+    for rating, word in ((gated, "gated_blend rating on the downstream storage itself"),
+                         (bad_power, "power rating on the downstream storage has 2 coefficients")):
         bad = dataclasses.replace(ds, storage=dataclasses.replace(ds.storage, rating=rating))
         with pytest.raises(fused_newton.FusedUnsupported, match=word):
             fused_newton.fused_simulate(geo, us, bad, h0, Q0, sset)

@@ -33,7 +33,7 @@ from flowsim_tpu.ops import tridiag as jtri
 from flowsim_tpu.ops.pallas.tiled_pcr import tiled_spike_pallas
 from flowsim_tpu_torch.ops import preissmann as prs
 from flowsim_tpu_torch.ops import tridiag as tri
-from flowsim_tpu_torch.ops.cuda import tiled_pcr
+from flowsim_tpu_torch.ops.cuda import fused_newton, tiled_pcr
 
 from tests._torch_port import to_jax, without_autograd  # noqa: F401 (without_autograd is an autouse fixture)
 
@@ -235,6 +235,22 @@ def test_long_reach_cuda_tiled_matches_jax_pcr(long_reach):
     assert np.abs(out.depth.numpy() - np.asarray(jout.depth)).max() <= 1e-9
     assert np.abs(out.flow.numpy() - np.asarray(jout.flow)).max() <= 1e-6
     assert float((out.flow[-1] - out.flow[0]).abs().max()) > 100.0   # the ramp moved the state
+
+
+def test_fused_simulate_on_the_long_reach_matches_jax(long_reach):
+    """The slice of the long build: ``fused_simulate`` takes a reach of 2048
+    nodes (the kernel's long build on the card; here, on CPU tensors, its
+    plain version, the eager engine with the PCR solve), held against the
+    JAX package's run of the same reach."""
+    args, jout = long_reach
+    n = args[0].n_nodes
+    assert fused_newton.MAX_N < n <= fused_newton.LONG_MAX_N and fused_newton.uses_long_build(n)
+    before = fused_newton.launch_count
+    out = fused_newton.fused_simulate(*args)
+    assert fused_newton.launch_count == before       # CPU tensors: the plain version
+    assert out.iterations.tolist() == np.asarray(jout.iterations).tolist() and bool(out.converged.all())
+    assert np.abs(out.depth.numpy() - np.asarray(jout.depth)).max() <= 1e-9
+    assert np.abs(out.flow.numpy() - np.asarray(jout.flow)).max() <= 1e-6
 
 
 def test_long_reach_newton_system_through_the_tiles(long_reach):

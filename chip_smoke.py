@@ -61,7 +61,16 @@ the main paths through the user entry points:
   —, held against the plain version on the card (both networks and two
   members on their first 49 levels), every build of the table path forced to the
   same bits, the probe builds, B = 4 against single launches and a NaN
-  member among 15 sound ones.
+  member among 15 sound ones;
+* networks beyond one block's shared memory (phase ``network_scratch``): the
+  tributary on the flagship at 50 m (3627 slots, 385 levels) through
+  ``simulate_network(engine="fused")`` and ``NetworkSolver.run(engine=
+  "fused")``, the 127-branch basin, the basin at levels=6 and a table
+  network of 3075 slots — the scratch build of kernel 5, its slot arrays in
+  device memory — and 1024 members of the tributary at 250 m through
+  ``batched_simulate_network(engine="fused")`` — kernel 6's scratch build on
+  a persistent grid —, held against the plain version on the card, and the
+  scratch build forced where the shared-memory builds run, bit for bit.
 
 Before the main path, the ``kernels`` phase also holds kernel 1's latency
 build (the one a single launch takes) against its register build bit for
@@ -222,6 +231,22 @@ LONG_BIT_MEMBERS = 4
 # bytes one PCR sweep moves in the long build's scratch, a node: its own 14
 # components and its two partners' 14 read, 14 written
 LONG_SWEEP_BYTES_PER_NODE = 4 * 14 * 8
+
+# networks beyond one block's shared memory (the scratch build of kernels 5
+# and 6): the tributary on the flagship at 50 m (split at node 1200: 1201 /
+# 201 / 1209 nodes, 3627 slots, 385 levels; the plain version on its first
+# 25) and at 250 m (split at node 240: 241 / 41 / 243 nodes, 729 slots) for
+# the network Monte-Carlo's members (members 0 and 1023 against the plain
+# version on NETWORK_COMPARED_LEVELS levels); the basin at levels=6 (63 x 13
+# slots) and LARGE_BASIN (127 x 45), 25 levels; the N = 2048 scaling reach on
+# tables (M = 32) split at node 1024 with a trapezoid tributary (3 x 1025)
+SCRATCH_TRIB_50 = dict(split_node=1200, spatial_step=50.0)
+SCRATCH_TRIB_250 = dict(split_node=240, spatial_step=250.0)
+SCRATCH_PLAIN_LEVELS = 25
+SCRATCH_BASIN = dict(levels=6, sim_hours=6)
+SCRATCH_TABLE_SPLIT = 1024
+SCRATCH_BIT_MEMBERS = 4
+SCRATCH_NAN_MEMBERS = 16
 
 
 def emit(phase: str, **fields) -> None:
@@ -843,13 +868,16 @@ def latency_kernel_builds(ptxas: list) -> list:
 def network_kernel_builds(ptxas: list) -> list:
     """Registers and spills of fused_network.cu's builds, by template
     arguments (RHS pairs, launch-bound block, blocks an SM, one slot a
-    thread, probe, table branches)."""
+    thread, probe, table branches, slot arrays in a scratch; a source
+    without the last argument has no scratch build)."""
     out = []
     for rec in ptxas:
-        m = re.search(r"fused_network_kernelILi(\d+)ELi(\d+)ELi(\d+)ELb([01])ELb([01])ELb([01])E", rec["kernel"])
+        m = re.search(r"fused_network_kernelILi(\d+)ELi(\d+)ELi(\d+)ELb([01])ELb([01])ELb([01])E(?:Lb([01])E)?",
+                      rec["kernel"])
         if m:
             out.append(dict(rhs=int(m.group(1)), block=int(m.group(2)), min_blocks=int(m.group(3)),
                             one_slot=m.group(4) == "1", probe=m.group(5) == "1", table=m.group(6) == "1",
+                            scratch=m.group(7) == "1",
                             **{k: rec.get(k) for k in ("registers", "stack_bytes", "spill_store_bytes",
                                                        "spill_load_bytes")}))
     return out
@@ -1897,7 +1925,13 @@ def check_network_kernels(dev) -> dict:
             [0.0, 5.0, 0.0], [0.0, 6.0, 0.0], 480.0, device=dev)))
     poly4 = dataclasses.replace(rcurve.make_polynomial(1.0, 2.0, 3.0, device=dev),
                                 coeffs=torch.ones(4, dtype=torch.float64, device=dev))
-    b6, n6, s6 = basin.build(levels=6, sim_hours=0.5, device=dev)
+    # the JAX kernel's own limits: 127 junctions (the basin at levels=8), a
+    # branch of 8193 nodes
+    b8, n8, s8 = basin.build(levels=8, link_nodes=2, sim_hours=0.5, device=dev)
+    n_long = 8193
+    long_branch = dataclasses.replace(
+        br[2], geo=trees.tree_map(lambda v: v[-1:].expand(n_long).clone(), br[2].geo),
+        h0=br[2].h0[-1:].expand(n_long).clone(), Q0=br[2].Q0[-1:].expand(n_long).clone())
     refused = {}
     for name, call in (
             ("not_a_network", lambda: fnet.fused_simulate_network(b_ext, 0, sset_t)),
@@ -1907,9 +1941,11 @@ def check_network_kernels(dev) -> dict:
             ("gated_blend_rating_on_storage", lambda: fnet.fused_simulate_network(b7_gated, n7, s7)),
             ("junction_rating_quartic_polynomial",
              lambda: fnet.fused_simulate_network(br, nj, sset_t, junction_rating=[poly4])),
-            ("slots_beyond_shared_memory", lambda: fnet.fused_simulate_network(b6, n6, s6)),
-            ("batched_slots_beyond_shared_memory", lambda: fnet.fused_simulate_network_batched(
-                b6, n6, s6, scale_inflows(b6, [1.0, 1.1])))):
+            ("junctions_beyond_120", lambda: fnet.fused_simulate_network(b8, n8, s8)),
+            ("batched_junctions_beyond_120", lambda: fnet.fused_simulate_network_batched(
+                b8, n8, s8, scale_inflows(b8, [1.0, 1.1]))),
+            ("branch_beyond_8192_nodes", lambda: fnet.fused_simulate_network([br[0], br[1], long_branch], nj,
+                                                                              sset_t))):
         try:
             call()
         except FusedUnsupported as e:
@@ -1917,6 +1953,24 @@ def check_network_kernels(dev) -> dict:
         else:
             raise AssertionError(f"the network kernel accepted {name}")
     out["refuses"] = refused
+    # (ix) beyond one block's shared memory, accepted: the basin at levels=6
+    # (63 x 13 slots, 3 levels) in the scratch build, one network and two
+    # members, against the plain version
+    b6, n6, s6 = basin.build(levels=6, sim_hours=0.5, device=dev)
+    batch6 = scale_inflows(b6, [1.0, 1.1])
+    topo6 = net.stacked_topology(b6)
+    build6 = fnet.chosen_build(1, len(b6) * topo6.n_max, len(b6), n6, topo6.m_rhs)
+    if build6 != fnet.SCRATCH_BUILD:
+        raise AssertionError(f"the basin at levels=6 takes build {build6}, not the scratch build")
+    out["slots_beyond_shared_memory"] = dict(
+        compare_networks(fnet.fused_simulate_network(b6, n6, s6), fnet.fused_simulate_network_plain(b6, n6, s6),
+                         "basin levels=6"), build=build6, slots=len(b6) * topo6.n_max)
+    ob6 = fnet.fused_simulate_network_batched(b6, n6, s6, batch6)
+    op6 = fnet.fused_simulate_network_batched_plain(b6, n6, s6, batch6)
+    recs = [compare_networks(network_member(ob6, m), network_member(op6, m), f"basin levels=6, member {m}")
+            for m in range(2)]
+    out["batched_slots_beyond_shared_memory"] = dict(members=2, iterations=sum(r["iterations"] for r in recs),
+                                                     max_abs_dh=max(r["max_abs_dh"] for r in recs))
     return out
 
 
@@ -1974,14 +2028,16 @@ def drive_probe(dev, tributary_builds=(0, 1)) -> dict:
     return out
 
 
-def drive_network(dev, launches: dict) -> tuple[dict, dict]:
+def drive_network(dev, launches: dict, keep: dict | None = None) -> tuple[dict, dict]:
     """The network main path through the user entry points: the tributary
     at full width (385 levels) with ``simulate_network(engine="fused")`` and
     ``NetworkSolver.run(engine="fused")``, one launch of kernel 5 each, and
     the large basin of scripts/bench_basin_large.py through the stacked
     engine with ``linear_solver="cuda_pcr"`` (one kernel-2 launch per Newton
     iteration).  Then the timings and the comparisons with the stacked plain
-    engine.  Returns the phase record and the figures for the kernel table."""
+    engine.  Returns the phase record and the figures for the kernel table;
+    ``keep`` receives the large basin's run (``"large_basin"``), which the
+    phase ``network_scratch`` holds kernel 5's scratch build against."""
     from flowsim_tpu_torch.models import basin, gerd_tributary
     from flowsim_tpu_torch.ops import network as net
     from flowsim_tpu_torch.ops.cuda import fused_network as fnet
@@ -2031,6 +2087,8 @@ def drive_network(dev, launches: dict) -> tuple[dict, dict]:
                  n_time_levels=sl.n_time_levels, linear_solver="cuda_pcr", wall_ms=large_ms,
                  iterations=large_it, pcr_solve_launches=large_launches, ms_per_iteration=large_ms / large_it,
                  all_converged=True)
+    if keep is not None:
+        keep["large_basin"] = out_l
     del out_l
 
     runs = [wall_ms(lambda: fnet.fused_simulate_network(br, nj, sset)) for _ in range(6)][1:]
@@ -2127,7 +2185,7 @@ def drive_network_ensemble(dev, launches: dict, batched_plain_ms: float) -> tupl
     chosen = fnet.chosen_build(M, *shape)
     _, launch = network_packed(br, nj, sset, batch)
     ptxas = [k for k in network_kernel_builds(build.build_info["fused_network"]["ptxas"])
-             if k["rhs"] == topo.m_rhs and not k["probe"] and not k["table"]]
+             if k["rhs"] == topo.m_rhs and not k["probe"] and not k["table"] and not k["scratch"]]
     # (launch-bound block, blocks an SM, one slot a thread) of each build at these slots
     bounds = {fnet.LOOP_BUILD: (256, 1, False), fnet.LATENCY_BUILD: (256, 1, True),
               fnet.RESIDENCY_BUILD: (192 if shape[0] <= 192 else 256, 2, True)}
@@ -2736,7 +2794,7 @@ def drive_table_network(dev, launches: dict, reach: dict, t_start: float) -> tup
     chosen_e = fnet.chosen_build(M, *shape_e, table=True)
     _, launch_e = network_packed(ens_br, 1, sset_e, batch)
     ptxas = [k for k in network_kernel_builds(build.build_info["fused_network_table"]["ptxas"])
-             if k["rhs"] == topo_e.m_rhs and not k["probe"] and k["table"]]
+             if k["rhs"] == topo_e.m_rhs and not k["probe"] and k["table"] and not k["scratch"]]
     bounds = {fnet.LOOP_BUILD: (256, 1, False), fnet.LATENCY_BUILD: (256, 1, True),
               fnet.RESIDENCY_BUILD: (192 if shape_e[0] <= 192 else 256, 2, True)}
     ens_builds = dict(multiprocessors=sms, chosen_build=chosen_e)
@@ -2849,6 +2907,345 @@ def drive_table_network(dev, launches: dict, reach: dict, t_start: float) -> tup
     fnet.launch_count = launches["fused_simulate_network_table"]
     fnet.batched_launch_count = launches["fused_simulate_network_batched_table"]
     return rec, kernels
+
+
+def scratch_table_network(dev):
+    """The N = 2048 scaling reach on lookup tables (M = 32; the long-reach
+    phase's table reach) split at node SCRATCH_TABLE_SPLIT into two table
+    branches, joined at junction 0 by a trapezoid tributary (TRIB_*, 4 km at
+    the reach's dx and slope, 150 -> 300 m^3/s over the first hour): 3 x 1025
+    slots, beyond one block's shared memory.  Returns (branches, settings)."""
+    from flowsim_tpu_torch import trees
+    from flowsim_tpu_torch.geometry import interpolate_stations, trapezoid_station
+    from flowsim_tpu_torch.ops import boundary as bnd
+    from flowsim_tpu_torch.ops import initial_conditions as ic
+    from flowsim_tpu_torch.ops import network as net
+
+    geo, us, ds, h0, Q0, sset = build_long_reach(LONG_TABLE_NODES, dev)
+    tg = as_table(geo, samples=LONG_TABLE_SAMPLES)
+    cut, dx, slope = SCRATCH_TABLE_SPLIT, sset.spatial_step, float(geo.bed_slope[0])
+    z_conf = float(geo.z_bed[cut])
+    station = lambda z: trapezoid_station(z_bed=z, b_main=TRIB_WIDTH, m_main=TRIB_SIDE, n_main=TRIB_N,
+                                          bed_slope=slope)
+    n_trib = round(TRIB_LENGTH / dx) + 1
+    g_trib = interpolate_stations([station(z_conf + TRIB_LENGTH * slope), station(z_conf)], [0.0, TRIB_LENGTH],
+                                  np.linspace(0.0, TRIB_LENGTH, n_trib), device=dev)
+    q0, q1 = TRIB_FLOWS
+    h_trib, Q_trib = ic.initial_conditions(g_trib, "steady-state", q0, dx)
+    times = np.arange(sset.n_time_levels) * sset.time_step
+    trib_us = bnd.make_boundary("flow_hydrograph", bed_level=float(g_trib.z_bed[0]),
+                                target_series=[q0 + (q1 - q0) * min(t / 3600.0, 1.0) for t in times], device=dev)
+    return [net.BranchDef(geo=trees.tree_map(lambda v: v[: cut + 1], tg), dx=dx, us=us, ds=0, h0=h0[: cut + 1],
+                          Q0=Q0[: cut + 1]),
+            net.BranchDef(geo=g_trib, dx=dx, us=trib_us, ds=0, h0=h_trib, Q0=Q_trib),
+            net.BranchDef(geo=trees.tree_map(lambda v: v[cut:], tg), dx=dx, us=0, ds=ds, h0=h0[cut:],
+                          Q0=Q0[cut:] + q0)], sset
+
+
+def scratch_sweep_bytes(slots: int, m_rhs: int) -> int:
+    """Bytes one PCR sweep of the scratch build moves in a block's scratch:
+    per slot its own 12 + 2 m_rhs components and its two partners' read, its
+    own written."""
+    return 4 * (12 + 2 * m_rhs) * 8 * slots
+
+
+def same_network_bits(a, b, what: str) -> None:
+    """Two network outputs (any leading member axis) bit for bit, every
+    field, NaN where the other is NaN."""
+    for f, x in a._asdict().items():
+        y = getattr(b, f)
+        if x is None or y is None:
+            if x is not y:
+                raise AssertionError(f"{what}: {f} is missing from one output")
+            continue
+        for u, v in zip(x, y) if isinstance(x, tuple) else ((x, y),):
+            same = torch.equal(u.isnan(), v.isnan()) and torch.equal(u.nan_to_num(), v.nan_to_num()) \
+                if u.is_floating_point() else torch.equal(u, v)
+            if not same:
+                raise AssertionError(f"{what}: {f} is not bit-identical")
+
+
+def drive_network_scratch(dev, launches: dict, reach: dict, large_basin) -> tuple[dict, list]:
+    """Networks beyond one block's shared memory: the scratch build of kernels 5 and 6.
+
+    The main path, counts at 0 before and read after: the tributary on the
+    flagship at 50 m (3627 slots, 385 levels) through
+    ``simulate_network(engine="fused")`` and ``gerd_tributary.network_solver(
+    ...).run(engine="fused")``, the large basin (LARGE_BASIN: 5715 slots, 63
+    junctions) and the basin at levels=6 (819 slots), 25 levels each, and the
+    table network of :func:`scratch_table_network` through
+    ``simulate_network(engine="fused")`` — one launch of kernel 5's scratch
+    build each — and NETWORK_MC_MEMBERS members of the tributary at 250 m
+    (729 slots, 385 levels, the network Monte-Carlo's inflow draws) through
+    ``batched_simulate_network(engine="fused")``, one launch of kernel 6's.
+    Then each against the plain version on the card (the large basin
+    against the network phase's stacked ``cuda_pcr`` run, ``large_basin``),
+    kernel 5 alone by CUDA events, B = 4 against single launches, a NaN
+    member among 16, the scratch build forced where the shared-memory builds
+    run (the bits of the chosen build, and both timed in turns) and the
+    scratch builds' ptxas figures.  ``reach``: the table phase's validation
+    reach, for the mixed surveyed network.  Returns the phase record and the
+    kernel-table rows."""
+    from flowsim_tpu_torch.geometry import TableGeometry
+    from flowsim_tpu_torch.models import basin, gerd_tributary
+    from flowsim_tpu_torch.ops import network as net
+    from flowsim_tpu_torch.ops.cuda import build
+    from flowsim_tpu_torch.ops.cuda import fused_network as fnet
+    from flowsim_tpu_torch.parallel import ensemble
+
+    t0 = time.perf_counter()
+    ns50, b50 = gerd_tributary.network_solver(device=dev, **SCRATCH_TRIB_50)
+    nj, s50 = ns50.n_junctions, ns50.settings(1e-6, 100)
+    host_build_s = time.perf_counter() - t0
+    bl, njl, sl = basin.build(device=dev, **LARGE_BASIN)
+    b6, n6, s6 = basin.build(device=dev, **SCRATCH_BASIN)
+    bt, st = scratch_table_network(dev)
+    b250, nj250, s250, _ = gerd_tributary.build(device=dev, **SCRATCH_TRIB_250)
+    M = NETWORK_MC_MEMBERS
+    batch = scale_inflows(b250, 0.9 + 0.2 * np.random.default_rng(NETWORK_MC_SEED).random(M))
+
+    def run_ensemble(part=batch):
+        return ensemble.batched_simulate_network(b250, nj250, s250, part, engine="fused")
+
+    # -- the main path
+    fnet.launch_count = fnet.batched_launch_count = 0
+    fnet.scratch_launch_count = fnet.batched_scratch_launch_count = 0
+    t0 = time.perf_counter()
+    out50 = net.simulate_network(b50, nj, s50, engine="fused")
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    out50_ns = ns50.run(tolerance=1e-6, verbose=0, engine="fused")
+    outs = {"large_basin": net.simulate_network(bl, njl, sl, engine="fused"),
+            "basin_levels6": net.simulate_network(b6, n6, s6, engine="fused")}
+    trapezoid_launches = fnet.scratch_launch_count
+    outs["table_network"] = net.simulate_network(bt, 1, st, engine="fused")
+    torch.cuda.synchronize()
+    table_launches = fnet.scratch_launch_count - trapezoid_launches
+    out_e = run_ensemble()
+    torch.cuda.synchronize()
+    launches["fused_simulate_network_scratch"] = trapezoid_launches
+    launches["fused_simulate_network_table_scratch"] = table_launches
+    launches["fused_simulate_network_batched_scratch"] = fnet.batched_scratch_launch_count
+    if (fnet.launch_count, trapezoid_launches, table_launches) != (5, 4, 1) \
+            or (fnet.batched_launch_count, fnet.batched_scratch_launch_count) != (1, 1):
+        raise AssertionError(f"networks beyond shared memory: {fnet.scratch_launch_count} of {fnet.launch_count} "
+                             f"single launches ({table_launches} on tables) and {fnet.batched_scratch_launch_count} "
+                             f"of {fnet.batched_launch_count} batched ones took the scratch build, expected 5 of 5 "
+                             "(1 on tables) and 1 of 1")
+
+    # -- the 50 m tributary: both entry points, all levels; the plain version on the first levels
+    nt = s50.n_time_levels
+    n_b50 = [int(b.h0.shape[0]) for b in b50]
+    if n_b50 != [1201, 201, 1209] or nt != 385:
+        raise AssertionError(f"the 50 m tributary is not at full width: {n_b50}, nt={nt}")
+    for o, what in ((out50, "simulate_network"), (out50_ns, "NetworkSolver.run")):
+        if not bool(o.converged.all()) or not all(bool(torch.isfinite(h).all()) for h in o.depth + o.flow) \
+                or [tuple(d.shape) for d in o.depth] != [(nt, n) for n in n_b50] or o.junction_stage.shape != (nt, 1):
+            raise AssertionError(f"50 m tributary via {what}: not converged, not finite or of the wrong shape")
+    L = SCRATCH_PLAIN_LEVELS
+    topo50 = net.stacked_topology(b50)
+    slots50 = len(b50) * topo50.n_max
+    b50c, s50c = cut_network_levels(b50, s50, L)
+    t0 = time.perf_counter()
+    ref50 = fnet.fused_simulate_network_plain(b50c, nj, s50c)
+    torch.cuda.synchronize()
+    plain50_ms = (time.perf_counter() - t0) * 1e3
+    cmp50 = compare_networks(network_levels(out50, L), ref50, "50 m tributary: scratch build vs plain")
+    del ref50
+    _, launch50c = network_packed(b50c, nj, s50c)
+    ms50c = time_cuda(lambda: launch50c(-1), reps=3, warmup=1)
+    _, launch50 = network_packed(b50, nj, s50)
+    ms50 = time_cuda(lambda: launch50(-1), reps=2, warmup=1)
+    it50 = int(out50.iterations.sum())
+    trib50 = dict(
+        nodes_per_branch=n_b50, slots=slots50, rhs_pairs=topo50.m_rhs, n_time_levels=nt, host_build_seconds=host_build_s,
+        all_converged=True, total_iterations=it50, max_iterations_in_a_level=int(out50.iterations.max()),
+        first_launch_ms=first_ms, kernel_ms=ms50, us_per_newton_iteration=ms50 * 1e3 / it50,
+        scratch_bytes=fnet.scratch_bytes(1, slots50, topo50.m_rhs),
+        scratch_bytes_per_sweep=scratch_sweep_bytes(slots50, topo50.m_rhs), sweeps=sweeps(topo50.n_max),
+        via_network_solver=dict(iterations=int(out50_ns.iterations.sum()), max_abs_dh_vs_simulate_network=max(
+            float((a - b).abs().max()) for a, b in zip(out50_ns.depth, out50.depth))),
+        max_junction_imbalance_m3s=float((out50.flow[0][1:, -1] + out50.flow[1][1:, -1]
+                                          - out50.flow[2][1:, 0]).abs().max()),
+        plain=dict(cmp50, kernel_ms=ms50c, plain_ms=plain50_ms))
+
+    # -- the basins and the table network against the plain version, timed alone
+    others = {}
+    for name, (b, j, s_) in (("large_basin", (bl, njl, sl)), ("basin_levels6", (b6, n6, s6)),
+                             ("table_network", (bt, 1, st))):
+        o = outs[name]
+        topo = net.stacked_topology(b)
+        t0 = time.perf_counter()
+        ref = large_basin if name == "large_basin" else fnet.fused_simulate_network_plain(b, j, s_)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        what = "stacked cuda_pcr (the network phase's run)" if name == "large_basin" else "plain"
+        cmp = compare_networks(o, ref, f"{name}: scratch build vs {what}")
+        _, launch = network_packed(b, j, s_)
+        ms = time_cuda(lambda: launch(-1), reps=3, warmup=1)
+        it = int(o.iterations.sum())
+        others[name] = dict(
+            branches=len(b), junctions=j, slots=len(b) * topo.n_max, rhs_pairs=topo.m_rhs,
+            n_time_levels=s_.n_time_levels, kinds=sorted({type(br.geo).__name__ for br in b}), all_converged=True,
+            total_iterations=it, kernel_ms=ms, us_per_newton_iteration=ms * 1e3 / it,
+            scratch_bytes=fnet.scratch_bytes(1, len(b) * topo.n_max, topo.m_rhs),
+            scratch_bytes_per_sweep=scratch_sweep_bytes(len(b) * topo.n_max, topo.m_rhs),
+            sweeps=sweeps(topo.n_max), against=what,
+            plain=dict(cmp, plain_ms=None if name == "large_basin" else plain_ms), topo=topo)
+    del large_basin
+
+    # -- kernel 6: the ensemble, timed; B = 4 against single launches; two
+    # members against the plain version; a NaN member among 16
+    n250 = [int(b.h0.shape[0]) for b in b250]
+    if n250 != [241, 41, 243] or out_e.depth[0].shape != (M, nt, 241) or not bool(out_e.converged.all()) \
+            or not all(bool(torch.isfinite(d).all()) for d in out_e.depth + out_e.flow):
+        raise AssertionError(f"250 m tributary ensemble: {n250} nodes, {int((~out_e.converged.all(dim=1)).sum())} "
+                             f"of {M} members not converged at every level, or a field not finite")
+    ens_iters = int(out_e.iterations.sum())
+    ens_runs = [wall_ms(run_ensemble) for _ in range(3)]
+    ens_ms = statistics.median(ens_runs)
+    topo_e = net.stacked_topology(b250)
+    shape_e = (len(b250) * topo_e.n_max, len(b250), nj250, topo_e.m_rhs)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    grid_e = fnet.scratch_grid(M, *shape_e)
+    part = [{k: trees_slice(v, SCRATCH_BIT_MEMBERS) for k, v in d.items()} for d in batch]
+    ob4 = fnet.fused_simulate_network_batched(b250, nj250, s250, part)
+    for m in range(SCRATCH_BIT_MEMBERS):
+        one = fnet.fused_simulate_network(net.member_branches(b250, part, m), nj250, s250)
+        compare_networks(network_member(ob4, m), one, f"250 m tributary B=4 member {m} vs its single launch",
+                         exact=True)
+        compare_networks(network_member(out_e, m), one, f"250 m ensemble member {m} vs its single launch",
+                         exact=True)
+    del ob4
+    picked, plain_recs, Lc = [0, M - 1], [], NETWORK_COMPARED_LEVELS
+    t0 = time.perf_counter()
+    for m in picked:
+        bm, sm = cut_network_levels(net.member_branches(b250, batch, m), s250, Lc)
+        plain_recs.append(compare_networks(network_levels(network_member(out_e, m), Lc),
+                                           fnet.fused_simulate_network_plain(bm, nj250, sm),
+                                           f"250 m ensemble member {m} vs plain"))
+    torch.cuda.synchronize()
+    ens_plain_ms = (time.perf_counter() - t0) * 1e3
+    n16, bad, nan_level = SCRATCH_NAN_MEMBERS, SCRATCH_NAN_MEMBERS // 3, 5
+    batch16 = [{k: trees_slice(v, n16) for k, v in d.items()} for d in batch]
+    batch16[0]["us"] = dataclasses.replace(batch16[0]["us"], target_series=batch16[0]["us"].target_series.clone())
+    batch16[0]["us"].target_series[bad, nan_level] = float("nan")
+    o16 = fnet.fused_simulate_network_batched(b250, nj250, s250, batch16)
+    for m in range(n16):
+        if m != bad:
+            compare_networks(network_member(o16, m), network_member(out_e, m),
+                             f"250 m ensemble: sound member {m} beside a NaN one", exact=True)
+    if bool(o16.converged[bad, nan_level:].any()):
+        raise AssertionError("250 m ensemble: the NaN member converged at a level after its NaN inflow")
+    ensemble_rec = dict(
+        members=M, nodes_per_branch=n250, slots=shape_e[0], rhs_pairs=topo_e.m_rhs, n_time_levels=nt, store="full",
+        launches=1, all_converged=True, wall_ms_runs=ens_runs, wall_ms_median=ens_ms,
+        network_simulations_per_s=M / (ens_ms * 1e-3), total_newton_iterations=ens_iters,
+        min_max_iterations_per_member=[int(v) for v in out_e.iterations.sum(dim=1).aminmax()],
+        output_bytes=fnet.output_bytes(M, len(b250), topo_e.n_max, nj250, nt), multiprocessors=sms,
+        resident_blocks_per_sm=fnet.resident_blocks(*shape_e, fnet.SCRATCH_BUILD), grid=grid_e,
+        scratch_bytes=fnet.scratch_bytes(grid_e, shape_e[0], topo_e.m_rhs),
+        scratch_bytes_one_a_member=fnet.scratch_bytes(M, shape_e[0], topo_e.m_rhs),
+        scratch_bytes_per_sweep=grid_e * scratch_sweep_bytes(shape_e[0], topo_e.m_rhs),
+        bit_identity_4_members=True,
+        plain_members=dict(members_of_the_timed_batch=picked, levels=Lc, plain_ms=ens_plain_ms,
+                           iterations=sum(r["iterations"] for r in plain_recs),
+                           max_abs_dh=max(r["max_abs_dh"] for r in plain_recs),
+                           max_abs_dQ=max(r["max_abs_dQ"] for r in plain_recs),
+                           max_abs_dY=max(r["max_abs_dY"] for r in plain_recs)),
+        nan_member=dict(member=bad, nan_inflow_level=nan_level, levels_converged=int(o16.converged[bad, 1:].sum()),
+                        sound_members_bit_identical=True))
+    del out_e, o16
+
+    # -- the scratch build forced where the shared-memory builds run: the bits
+    # of the build the C entry chooses, and the two timed in turns
+    br, nj1, s1, _ = gerd_tributary.build(device=dev)
+    b5, n5, s5 = basin.build(levels=5, device=dev)
+    solver = reach["solver"]
+    mixed = surveyed_network(reach, solver.channel.geometry, solver.h0, solver.Q0, True)
+    batch1 = scale_inflows(br, 0.9 + 0.2 * np.random.default_rng(NETWORK_MC_SEED).random(M))
+    forced = {}
+    for name, (b, j, s_, bb) in (("tributary_385", (br, nj1, s1, None)), ("basin_levels5", (b5, n5, s5, None)),
+                                 ("surveyed_mixed_193", (mixed, 1, solver.settings(TABLE_TOL, 100), None)),
+                                 ("tributary_1024_members", (br, nj1, s1, batch1))):
+        topo, launch = network_packed(b, j, s_, bb)
+        table = any(isinstance(x.geo, TableGeometry) for x in b)
+        members = 1 if bb is None else M
+        chosen = fnet.chosen_build(members, len(b) * topo.n_max, len(b), j, topo.m_rhs, table=table)
+        # every field of every member at once (a leading member axis)
+        o_c = fnet._output(launch(chosen), topo, None)
+        o_s = fnet._output(launch(fnet.SCRATCH_BUILD), topo, None)
+        same_network_bits(o_s, o_c, f"{name}: scratch build vs build {chosen}")
+        iterations = int(o_s.iterations.sum())
+        del o_c, o_s
+        runs = {"chosen_build": [], "scratch_build": []}
+        ids = dict(chosen_build=chosen, scratch_build=fnet.SCRATCH_BUILD)
+        for key in ("chosen_build", "scratch_build", "scratch_build", "chosen_build"):
+            runs[key].append(time_cuda(lambda: launch(ids[key]), reps=1 if bb is not None else 3, warmup=1))
+        forced[name] = dict(members=members, chosen_build=chosen, slots=len(b) * topo.n_max,
+                            iterations=iterations, bit_identical=True,
+                            scratch_grid=fnet.scratch_grid(members, len(b) * topo.n_max, len(b), j, topo.m_rhs,
+                                                           table=table),
+                            **{f"{k}_ms_runs": v for k, v in runs.items()})
+    ptxas = {lib: [k for k in network_kernel_builds(build.build_info[lib]["ptxas"]) if k["scratch"]]
+             for lib in ("fused_network", "fused_network_table")}
+    record = dict(tributary_50m=trib50, **{k: {f: v for f, v in r.items() if f != "topo"} for k, r in others.items()},
+                  ensemble_250m=ensemble_rec, forced_scratch_vs_chosen_build=forced, ptxas=ptxas)
+
+    # -- the kernel rows: bounds as for the other network rows, over the
+    # compared runs; each sweep's scratch bytes beside them
+    tol = dict(depth_m=H_TOL, flow_m3s=Q_TOL, junction_stage_m=NETWORK_Y_TOL, iteration_counts="identical")
+    b5b, by5, t5 = network_bound(cmp50["iterations"], topo50, nj, L)
+    tn = others["table_network"]
+    kinds = [isinstance(x.geo, TableGeometry) for x in bt]
+    samples_read = table_samples_read(bt, outs["table_network"].depth)
+    btb, bty, tt = network_bound(tn["total_iterations"], tn["topo"], 1, st.n_time_levels, table=kinds,
+                                 table_bytes=8 * 7 * samples_read)
+    tt["table_samples_read"] = samples_read
+    b6b, by6, t6 = network_bound(ens_iters, topo_e, nj250, nt, members=M)
+    kernels = [
+        dict(name="fused_simulate_network_scratch", route="cuda",
+             source="flowsim_tpu_torch/ops/cuda/csrc/fused_network.cu",
+             replaces="flowsim_tpu/ops/pallas/fused_network.py:887",
+             launches=launches["fused_simulate_network_scratch"],
+             max_abs_err=max(cmp50["max_abs_dh"], others["large_basin"]["plain"]["max_abs_dh"],
+                             others["basin_levels6"]["plain"]["max_abs_dh"]),
+             ms=ms50c, plain_ms=plain50_ms, bound_ms=b5b, bound_by=by5, library_ms=None, build="scratch",
+             bound_terms=t5, scratch_bytes_per_sweep=trib50["scratch_bytes_per_sweep"],
+             ms_385_levels=ms50, us_per_newton_iteration=trib50["us_per_newton_iteration"],
+             large_basin_ms=others["large_basin"]["kernel_ms"],
+             large_basin_us_per_newton_iteration=others["large_basin"]["us_per_newton_iteration"],
+             shape=dict(network="tributary, 50 m", branches=len(b50), slots=slots50, n_time_levels=L,
+                        newton_iterations=cmp50["iterations"]),
+             tolerance=tol),
+        dict(name="fused_simulate_network_table_scratch", route="cuda",
+             source="flowsim_tpu_torch/ops/cuda/csrc/fused_network.cu",
+             replaces="flowsim_tpu/ops/pallas/fused_network.py:887",
+             launches=launches["fused_simulate_network_table_scratch"], max_abs_err=tn["plain"]["max_abs_dh"],
+             ms=tn["kernel_ms"], plain_ms=tn["plain"]["plain_ms"], bound_ms=btb, bound_by=bty, library_ms=None,
+             build="scratch (table)", bound_terms=tt, scratch_bytes_per_sweep=tn["scratch_bytes_per_sweep"],
+             shape=dict(network="N = 2048 table reach split at 1024 + trapezoid tributary", slots=tn["slots"],
+                        samples=LONG_TABLE_SAMPLES, n_time_levels=st.n_time_levels,
+                        newton_iterations=tn["total_iterations"]),
+             tolerance=tol),
+        dict(name="fused_simulate_network_batched_scratch", route="cuda",
+             source="flowsim_tpu_torch/ops/cuda/csrc/fused_network.cu",
+             replaces="flowsim_tpu/ops/pallas/fused_network.py:1904",
+             launches=launches["fused_simulate_network_batched_scratch"],
+             max_abs_err=ensemble_rec["plain_members"]["max_abs_dh"], ms=ens_ms, plain_ms=ens_plain_ms,
+             bound_ms=b6b, bound_by=by6, library_ms=None, build="scratch", bound_terms=t6, ms_over_bound=ens_ms / b6b,
+             grid=grid_e, scratch_bytes=ensemble_rec["scratch_bytes"],
+             scratch_bytes_per_sweep=ensemble_rec["scratch_bytes_per_sweep"],
+             shape=dict(network="tributary, 250 m", members=M, slots=shape_e[0], n_time_levels=nt,
+                        newton_iterations=ens_iters, store="full"),
+             plain_shape=dict(members=len(picked), n_time_levels=Lc,
+                              newton_iterations=ensemble_rec["plain_members"]["iterations"]),
+             tolerance=dict(tol, against_single_launches="bit-identical")),
+    ]
+    fnet.launch_count = fnet.scratch_launch_count = launches["fused_simulate_network_scratch"] \
+        + launches["fused_simulate_network_table_scratch"]
+    fnet.batched_launch_count = fnet.batched_scratch_launch_count = launches["fused_simulate_network_batched_scratch"]
+    return record, kernels
 
 
 def main() -> int:
@@ -3389,7 +3786,8 @@ def main() -> int:
 
     # -- phase 11: river networks, one launch of kernel 5 per simulation ------
     t0 = time.perf_counter()
-    network, net_table = drive_network(dev, launches)
+    network_keep = {}
+    network, net_table = drive_network(dev, launches, network_keep)
     emit("network", **network, seconds=time.perf_counter() - t0)
 
     # -- phase 12: the network Monte-Carlo, one launch of kernel 6 ------------
@@ -3405,8 +3803,13 @@ def main() -> int:
     # -- phase 14: surveyed branches in river networks, the table paths of kernels 5 and 6
     t0 = time.perf_counter()
     table_net, table_net_kernels = drive_table_network(dev, launches, table_reach, t_start)
-    del table_reach
     emit("table_network", **table_net, seconds=time.perf_counter() - t0)
+
+    # -- phase 15: networks beyond one block's shared memory, the scratch build of kernels 5 and 6
+    t0 = time.perf_counter()
+    scratch_net, scratch_kernels = drive_network_scratch(dev, launches, table_reach, network_keep.pop("large_basin"))
+    del table_reach
+    emit("network_scratch", **scratch_net, seconds=time.perf_counter() - t0)
 
     # -- the kernel table ----------------------------------------------------
     n_it = cmp["iterations"]          # iterations of the run that ms/plain_ms time
@@ -3533,7 +3936,7 @@ def main() -> int:
              tolerance=dict(depth_m=H_TOL, flow_m3s=Q_TOL, junction_stage_m=NETWORK_Y_TOL,
                             iteration_counts="identical", against_single_launches="bit-identical")),
     ]
-    kernels += long_kernels + table_kernels + table_net_kernels
+    kernels += long_kernels + table_kernels + table_net_kernels + scratch_kernels
     for kern in kernels:
         if kern["launches"] < 1:
             raise AssertionError(f"{kern['name']} was not launched on the main path")

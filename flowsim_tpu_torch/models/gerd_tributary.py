@@ -99,6 +99,21 @@ def network_solver(split_node=60, trib_length=10_000.0, device=DEFAULT_DEVICE, *
     flagship = solver.channel
     x = flagship.ch_at_node
     z_conf = float(flagship.geometry.z_bed[split_node])
+    dx = solver.spatial_step
+    x_us, x_ds = flagship.upstream_boundary.chainage, flagship.downstream_boundary.chainage
+
+    def junction_chainage(cells, length_at, toward):
+        # NetworkSolver gives a channel int(length // dx) + 1 nodes; the
+        # rounded node chainage x[split_node] can floor one cell short (at
+        # 50 and 250 m), so the stem's junction end moves by the few ulps
+        # that give it its cells
+        c = float(x[split_node])
+        while length_at(c) // dx < cells:
+            c = float(np.nextafter(c, toward))
+        return c
+
+    up_end = junction_chainage(split_node, lambda c: c - x_us, np.inf)
+    down_start = junction_chainage(len(x) - 1 - split_node, lambda c: x_ds - c, -np.inf)
 
     def main_stem(us, ds):
         ch = Channel(us, ds, initial_flow=flagship.initial_flow_rate)
@@ -113,9 +128,9 @@ def network_solver(split_node=60, trib_length=10_000.0, device=DEFAULT_DEVICE, *
                         Junction(0, trib_length, bed_level=z_conf), initial_flow=float(branches[1].Q0[0]))
     tributary.set_cross_sections([0.0, trib_length], [_trib_station(z_conf + TRIB_SLOPE * trib_length),
                                                       _trib_station(z_conf)])
-    channels = [main_stem(flagship.upstream_boundary, Junction(0, x[split_node], bed_level=z_conf)),
+    channels = [main_stem(flagship.upstream_boundary, Junction(0, up_end, bed_level=z_conf)),
                 tributary,
-                main_stem(Junction(0, x[split_node], bed_level=z_conf), flagship.downstream_boundary)]
+                main_stem(Junction(0, down_start, bed_level=z_conf), flagship.downstream_boundary)]
     ns = NetworkSolver(channels, theta=solver.theta, time_step=solver.time_step, spatial_step=solver.spatial_step,
                        simulation_time=(sset.n_time_levels - 1) * solver.time_step,
                        initial_conditions=[(br.h0, br.Q0) for br in branches], fit_spatial_step=False,

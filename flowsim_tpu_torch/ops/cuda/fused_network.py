@@ -37,7 +37,17 @@ network's size and the member count (every build gives the same bits):
 * the **residency build** (:data:`RESIDENCY_BUILD`) for a network whose slots
   fit the block and a batch larger than the card holds at once in the latency
   build: the latency build's form with its registers capped so that two
-  blocks share an SM.  A network with more slots than threads has none.
+  blocks share an SM.  A network with more slots than threads has none;
+* the **scratch build** (:data:`SCRATCH_BUILD`) for a network whose slot
+  arrays do not fit one block's shared memory (:func:`smem_bytes` over
+  :data:`SMEM_LIMIT`: the basin at levels >= 6, a tributary on the flagship
+  at 250 m): the loop build with the slot arrays in a scratch of device
+  memory that :func:`_launch` allocates, one for each block of a persistent
+  grid of at most the blocks the card holds at once (:func:`scratch_grid`,
+  :func:`scratch_bytes`), each block running its members one after another.
+  The junction block and the gate state stay in shared memory, so a network
+  may have up to :data:`MAX_JUNCTIONS` junctions and branches of up to 8192
+  nodes, the JAX kernel's own limits.
 
 A forced ``build_id`` (``_launch``) is a test hook: ``chip_smoke.py`` times
 the builds against each other and holds them to the same bits.
@@ -69,11 +79,15 @@ MAX_THREADS = 256
 # the kernel's builds (csrc/fused_network.cu).  The C entry chooses by the
 # member count; a forced build id is a test hook for chip_smoke.py, which
 # times the builds against each other and holds them to the same bits.
-LOOP_BUILD, LATENCY_BUILD, RESIDENCY_BUILD = 0, 1, 2
+LOOP_BUILD, LATENCY_BUILD, RESIDENCY_BUILD, SCRATCH_BUILD = 0, 1, 2, 3
 CHOOSE_BUILD = -1
 PROBE_PHASES = fn.PROBE_PHASES
-# dynamic shared memory a block may take: 227 KB less the static reduction area
+# dynamic shared memory a block may take: 227 KB less the static reduction
+# area; a network that needs more takes the scratch build
 SMEM_LIMIT = 232448 - 512
+# the JAX kernel's junction limit (flowsim_tpu/ops/pallas/fused_network.py:1103):
+# the J x J Schur matrix stays in shared memory, about 121 KB at J = 120
+MAX_JUNCTIONS = 120
 _BI_COUNT = 16
 # a table branch's geometry rows: the bed level, the table span (in the
 # trapezoid's b_main row), the bed slope and the curvature; its seven tables
@@ -89,16 +103,26 @@ _JP_AREA, _JP_KIND, _JP_SHIFT, _JP_PIVOT, _JP_BUFFER, _JP_FD, _JP_C0, _JP_H0, _J
     0, 1, 2, 3, 4, 5, 6, 9, 12, 13
 
 # kernel launches made by fused_simulate_network and by
-# fused_simulate_network_batched (not by their plain versions)
+# fused_simulate_network_batched (not by their plain versions), and those of
+# them that took the scratch build
 launch_count = 0
 batched_launch_count = 0
+scratch_launch_count = 0
+batched_scratch_launch_count = 0
 
 
 def smem_bytes(slots: int, n_branches: int, n_junctions: int, m_rhs: int) -> int:
-    """Dynamic shared memory of one block: per (branch, node) slot two PCR
-    buffers of 12 + 2 m_rhs doubles and 8 doubles of state; the J x J Schur
-    matrix and six junction columns; four gate-state doubles per branch."""
-    return 8 * (slots * (2 * (12 + 2 * m_rhs) + 8) + n_junctions * (n_junctions + 6) + 4 * n_branches)
+    """Dynamic shared memory of one block of the shared-memory builds: the
+    slot arrays (:func:`scratch_bytes` of one block); the J x J Schur matrix
+    and six junction columns; four gate-state doubles per branch."""
+    return scratch_bytes(1, slots, m_rhs) + 8 * (n_junctions * (n_junctions + 6) + 4 * n_branches)
+
+
+def scratch_bytes(n_blocks: int, slots: int, m_rhs: int) -> int:
+    """Bytes of the scratch build's scratch for ``n_blocks`` blocks: per
+    (branch, node) slot two PCR buffers of 12 + 2 m_rhs doubles and 8
+    doubles of state."""
+    return 8 * n_blocks * slots * (2 * (12 + 2 * m_rhs) + 8)
 
 
 def fused_simulate_network_plain(branches, n_junctions, settings, Y0=None, junction_area=None,
@@ -119,7 +143,7 @@ def _lib(table: bool = False):
     f = lib.flowsim_fused_network
     if not getattr(f, "_typed", False):
         head = [ctypes.c_void_p] * 8 + [ctypes.c_longlong] + [ctypes.c_void_p] * 14
-        f.argtypes = head + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+        f.argtypes = head + [ctypes.c_void_p] + [ctypes.c_int] * 10 + [ctypes.c_void_p]
         f.restype = ctypes.c_int
         lib.flowsim_fused_network_probe.argtypes = head + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)] \
             + [ctypes.c_int] * 10 + [ctypes.c_void_p]
@@ -128,19 +152,25 @@ def _lib(table: bool = False):
         lib.flowsim_fused_network_resident_blocks.restype = ctypes.c_int
         lib.flowsim_fused_network_chosen_build.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
         lib.flowsim_fused_network_chosen_build.restype = ctypes.c_int
+        lib.flowsim_fused_network_grid.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+        lib.flowsim_fused_network_grid.restype = ctypes.c_int
         for aux in (lib.flowsim_fused_network_branch_ints, lib.flowsim_fused_network_junction_params,
                     lib.flowsim_fused_network_probe_phases, lib.flowsim_fused_network_tables):
             aux.argtypes = []
             aux.restype = ctypes.c_int
         lib.flowsim_fused_network_smem_bytes.argtypes = [ctypes.c_int] * 4
         lib.flowsim_fused_network_smem_bytes.restype = ctypes.c_longlong
+        lib.flowsim_fused_network_scratch_bytes.argtypes = [ctypes.c_int] * 2
+        lib.flowsim_fused_network_scratch_bytes.restype = ctypes.c_longlong
         if lib.flowsim_fused_network_branch_ints() != _BI_COUNT \
                 or lib.flowsim_fused_network_junction_params() != _JP_COUNT \
                 or lib.flowsim_fused_network_probe_phases() != len(PROBE_PHASES) \
                 or lib.flowsim_fused_network_tables() != len(_TABLES):
             raise RuntimeError("parameter layout of fused_network.cu and its wrapper differ")
-        if any(lib.flowsim_fused_network_smem_bytes(*a) != smem_bytes(*a) for a in ((183, 3, 1, 2), (403, 31, 15, 3))):
-            raise RuntimeError("shared-memory layout of fused_network.cu and its wrapper differ")
+        if any(lib.flowsim_fused_network_smem_bytes(*a) != smem_bytes(*a) for a in ((183, 3, 1, 2), (403, 31, 15, 3))) \
+                or any(lib.flowsim_fused_network_scratch_bytes(n, r) != scratch_bytes(1, n, r)
+                       for n, r in ((3627, 2), (5715, 3))):
+            raise RuntimeError("shared-memory or scratch layout of fused_network.cu and its wrapper differ")
         f._typed = True
     return lib
 
@@ -164,13 +194,19 @@ def check_supported(branches, n_junctions, settings, junction_rating=None, batch
     """Raise :class:`FusedUnsupported` outside the kernel's scope: no
     junction, a geometry class other than trapezoid or table, table branches
     of different depth-grid resolutions, an external end kernel 1 refuses, a
-    junction rating kind the kernel does not evaluate, a network whose slots
-    do not fit one block's shared memory, or (``batch``: per-branch override
-    dicts) a per-member override of a table branch's geometry.  A batch is
-    checked on its member 0, since the members share every kind."""
+    junction rating kind the kernel does not evaluate, more than
+    :data:`MAX_JUNCTIONS` junctions, or (``batch``: per-branch override
+    dicts) a per-member override of a table branch's geometry; a branch of
+    more than 8192 nodes is refused by the single-reach check.  A batch is
+    checked on its member 0, since the members share every kind.  Any number
+    of slots runs: a network that does not fit one block's shared memory
+    takes the scratch build."""
     if n_junctions < 1:
         raise FusedUnsupported("not a network (no junctions): run the single reach with "
                                "ops.cuda.fused_newton.fused_simulate")
+    if n_junctions > MAX_JUNCTIONS:
+        raise FusedUnsupported(f"J > {MAX_JUNCTIONS} junctions exceed the in-kernel Gauss-Jordan budget (J = "
+                               f"{n_junctions}): the J x J Schur system is solved in one block's shared memory")
     nt = settings.n_time_levels
     for i, br in enumerate(branches):
         try:
@@ -195,15 +231,7 @@ def check_supported(branches, n_junctions, settings, junction_rating=None, batch
         if rc.kind in ("polynomial", "blended_poly") and rc.coeffs.shape[-1] != 3:
             raise FusedUnsupported(f"junction {j}: a {rc.kind} rating packs a quadratic (3 coefficients); "
                                    "use poly_n for another degree")
-    topo = net.stacked_topology(branches)
-    slots = len(branches) * topo.n_max
-    need = smem_bytes(slots, len(branches), n_junctions, topo.m_rhs)
-    if need > SMEM_LIMIT:
-        raise FusedUnsupported(
-            f"{len(branches)} branches x {topo.n_max} padded nodes = {slots} slots take {need} B of shared "
-            f"memory, the block has {SMEM_LIMIT} B: run this network with engine=\"stacked\" and "
-            f"linear_solver=\"cuda_pcr\"")
-    return topo
+    return net.stacked_topology(branches)
 
 
 def table_resolution(branches) -> int:
@@ -297,15 +325,19 @@ def output_bytes(n_members, n_branches, n_max, n_junctions, nt) -> int:
     return n_members * nt * (2 * n_branches * n_max * 8 + n_junctions * 8 + 4 * n_branches * 8 + 8 + 2 * 4)
 
 
-def check_output_memory(n_members, n_branches, n_max, n_junctions, nt, free_bytes) -> None:
-    """Refuse, before anything is allocated, a launch whose outputs exceed
-    the card's free memory."""
-    need = output_bytes(n_members, n_branches, n_max, n_junctions, nt)
-    if need > free_bytes:
+def check_output_memory(n_members, n_branches, n_max, n_junctions, nt, free_bytes, scratch_blocks: int = 0,
+                        m_rhs: int = 2) -> None:
+    """Refuse, before anything is allocated, a launch whose outputs (and,
+    with ``scratch_blocks``, the scratch build's scratch of that many blocks
+    at ``m_rhs``) exceed the card's free memory."""
+    out = output_bytes(n_members, n_branches, n_max, n_junctions, nt)
+    scratch = scratch_bytes(scratch_blocks, n_branches * n_max, m_rhs)
+    if out + scratch > free_bytes:
+        what = f"outputs ({out / 1e9:.2f} GB)" + (f" and scratch ({scratch / 1e9:.2f} GB)" if scratch else "")
         raise MemoryError(
-            f"the outputs of {n_members} network simulations ({n_branches} branches x {n_max} nodes, "
-            f"nt={nt}) take {need / 1e9:.2f} GB but the card has {free_bytes / 1e9:.2f} GB free: run the "
-            f"ensemble in chunks (batched_simulate_network(..., chunk_size=...))")
+            f"the {what} of {n_members} network simulations ({n_branches} branches x {n_max} nodes, "
+            f"nt={nt}) take {(out + scratch) / 1e9:.2f} GB but the card has {free_bytes / 1e9:.2f} GB free: run "
+            f"the ensemble in chunks (batched_simulate_network(..., chunk_size=...))")
 
 
 def _pack(branches, J, settings, batch, M, Y0, junction_area, junction_rating, topo):
@@ -403,7 +435,7 @@ def _outputs(M, B, J, nt, n_max, dev):
 
 
 def _c_args(p, o):
-    """The pointer arguments of the C entries, in their order."""
+    """The pointer arguments the C entries share, in their order."""
     qlat, tab, tab_branch = p["qlat"], p["tab"], p["tab_branch"]
     return (p["geo"].data_ptr(), p["h0"].data_ptr(), p["Q0"].data_ptr(), p["ser"].data_ptr(), p["par"].data_ptr(),
             None if qlat is None else qlat.data_ptr(), p["stor"].data_ptr(), p["stab"].data_ptr(), p["stride"],
@@ -413,24 +445,34 @@ def _c_args(p, o):
 
 
 def _launch(p, M, B, J, settings, topo, build_id=CHOOSE_BUILD, probe=None):
-    """One launch on a grid of M blocks; returns the raw output tensors.
-    ``build_id``: :data:`CHOOSE_BUILD` (the C entry chooses by the member
-    count) or a forced build, a test hook.  ``probe``: ``None``, or an int64
+    """One launch for M members; returns the raw output tensors.
+    ``build_id``: :data:`CHOOSE_BUILD` (the C entry chooses by the network's
+    size and the member count, :func:`chosen_build`) or a forced build, a
+    test hook.  The scratch build's scratch (:func:`scratch_bytes` of
+    :func:`scratch_grid` blocks) is allocated here, counted with the outputs
+    against the card's free memory.  ``probe``: ``None``, or an int64
     tensor ``[len(PROBE_PHASES)]`` on the device that the probe build of the
     loop or latency build fills with cycles; the SM clock in kHz is then
     returned after the outputs."""
     nt, Nmax = settings.n_time_levels, topo.n_max
     dev = p["geo"].device
+    table = p["tab_m"] != 0
     with torch.cuda.device(dev):
-        check_output_memory(M, B, Nmax, J, nt, torch.cuda.mem_get_info()[0])
+        if build_id == CHOOSE_BUILD:
+            build_id = _chosen(p, M, B, J, topo)
+        blocks = scratch_grid(M, B * Nmax, B, J, topo.m_rhs, build_id, table=table) \
+            if build_id == SCRATCH_BUILD else 0
+        check_output_memory(M, B, Nmax, J, nt, torch.cuda.mem_get_info()[0], blocks, topo.m_rhs)
+        scratch = torch.empty(scratch_bytes(blocks, B * Nmax, topo.m_rhs) // 8, dtype=torch.float64,
+                              device=dev) if blocks else None
         o = _outputs(M, B, J, nt, Nmax, dev)
         qlat = p["qlat"]
         tail = (M, B, Nmax, J, nt, int(settings.max_iter), topo.m_rhs, 0 if qlat is None else qlat.dim() - 2,
                 p["tab_m"], build_id, torch.cuda.current_stream().cuda_stream)
-        lib = _lib(p["tab_m"] != 0)
+        lib = _lib(table)
         clock = ctypes.c_int(0)
         if probe is None:
-            rc = lib.flowsim_fused_network(*_c_args(p, o), *tail)
+            rc = lib.flowsim_fused_network(*_c_args(p, o), None if scratch is None else scratch.data_ptr(), *tail)
         else:
             rc = lib.flowsim_fused_network_probe(*_c_args(p, o), probe.data_ptr(), ctypes.byref(clock), *tail)
     if rc != 0:
@@ -442,10 +484,11 @@ def _launch(p, M, B, J, settings, topo, build_id=CHOOSE_BUILD, probe=None):
 def chosen_build(n_members: int, slots: int, n_branches: int, n_junctions: int, m_rhs: int,
                  table: bool = False) -> int:
     """The build the C entry takes for ``n_members`` members of a network of
-    this shape (the loop build for more slots than threads; else the latency
-    build, or the residency build for a batch larger than the card holds in
-    the latency one); ``table``: a network with table branches, which
-    chooses among the table builds the same way."""
+    this shape (the scratch build when the slot arrays do not fit one block's
+    shared memory, the loop build for more slots than threads; else the
+    latency build, or the residency build for a batch larger than the card
+    holds in the latency one); ``table``: a network with table branches,
+    which chooses among the table builds the same way."""
     out = ctypes.c_int(0)
     rc = _lib(table).flowsim_fused_network_chosen_build(n_members, slots, n_branches, n_junctions, m_rhs,
                                                         ctypes.byref(out))
@@ -464,6 +507,20 @@ def resident_blocks(slots: int, n_branches: int, n_junctions: int, m_rhs: int, b
                                                            ctypes.byref(out))
     if rc != 0:
         raise RuntimeError(f"occupancy query failed: CUDA error {rc}")
+    return out.value
+
+
+def scratch_grid(n_members: int, slots: int, n_branches: int, n_junctions: int, m_rhs: int,
+                 build_id: int = SCRATCH_BUILD, table: bool = False) -> int:
+    """The grid the C entry launches for ``n_members`` members in a build:
+    ``n_members``, or in the scratch build at most the blocks the card holds
+    at once (the occupancy calculator's blocks an SM times the SMs), each with
+    a scratch of its own."""
+    out = ctypes.c_int(0)
+    rc = _lib(table).flowsim_fused_network_grid(n_members, slots, n_branches, n_junctions, m_rhs, build_id,
+                                                ctypes.byref(out))
+    if rc != 0:
+        raise RuntimeError(f"grid query failed: CUDA error {rc}")
     return out.value
 
 
@@ -502,7 +559,7 @@ def fused_simulate_network(branches, n_junctions, settings, Y0=None, junction_ar
     :class:`FusedUnsupported` outside the kernel's scope (:func:`check_supported`)
     and ``ValueError`` for inputs of the wrong shape, before any launch.  CPU
     tensors take the plain version."""
-    global launch_count
+    global launch_count, scratch_launch_count
     net._check_supported(branches, n_junctions, settings)
     net.check_junction_inputs(junction_area, junction_rating, n_junctions)
     topo = check_supported(branches, n_junctions, settings, junction_rating)
@@ -512,9 +569,17 @@ def fused_simulate_network(branches, n_junctions, settings, Y0=None, junction_ar
     _check_device(branches, dev, "fused_simulate_network")
     p = _pack(branches, n_junctions, settings, [dict() for _ in branches], 1, Y0, junction_area,
               junction_rating, topo)
-    raw = _launch(p, 1, len(branches), n_junctions, settings, topo)
+    build_id = _chosen(p, 1, len(branches), n_junctions, topo)
+    raw = _launch(p, 1, len(branches), n_junctions, settings, topo, build_id=build_id)
     launch_count += 1
+    scratch_launch_count += build_id == SCRATCH_BUILD
     return _single(_output(raw, topo, junction_rating))
+
+
+def _chosen(p, M, B, J, topo) -> int:
+    """The build the C entry takes for this packed launch of M members."""
+    with torch.cuda.device(p["geo"].device):
+        return chosen_build(M, B * topo.n_max, B, J, topo.m_rhs, table=p["tab_m"] != 0)
 
 
 def _single(out) -> net.NetworkOutput:
@@ -559,9 +624,9 @@ def fused_simulate_network_batched(branches, n_junctions, settings, batch, Y0=No
     the branch layout, boundary kinds and junction configuration are shared.
     Returns a NetworkOutput whose fields carry a leading member axis (depth
     and flow ``[M, nt, N_b]`` per branch).  Raises :class:`FusedUnsupported`
-    outside the kernel's scope and ``MemoryError`` when the outputs would not
-    fit the card.  CPU tensors take the plain version."""
-    global batched_launch_count
+    outside the kernel's scope and ``MemoryError`` when the outputs (with the
+    scratch build's scratch) would not fit the card.  CPU tensors take the plain version."""
+    global batched_launch_count, batched_scratch_launch_count
     M = net.check_batch(branches, batch, settings)
     net._check_supported(branches, n_junctions, settings)
     net.check_junction_inputs(junction_area, junction_rating, n_junctions)
@@ -572,6 +637,8 @@ def fused_simulate_network_batched(branches, n_junctions, settings, batch, Y0=No
                                                     junction_rating)
     _check_device(branches, dev, "fused_simulate_network_batched")
     p = _pack(branches, n_junctions, settings, batch, M, Y0, junction_area, junction_rating, topo)
-    raw = _launch(p, M, len(branches), n_junctions, settings, topo)
+    build_id = _chosen(p, M, len(branches), n_junctions, topo)
+    raw = _launch(p, M, len(branches), n_junctions, settings, topo, build_id=build_id)
     batched_launch_count += 1
+    batched_scratch_launch_count += build_id == SCRATCH_BUILD
     return _output(raw, topo, junction_rating)

@@ -205,7 +205,8 @@ def batched_simulate_network(branches, n_junctions, settings: prs.PreissmannSett
     "stacked")`` with ``settings.linear_solver``; ``engine="fused"``: one
     kernel launch per chunk, raising ``FusedUnsupported`` outside the
     kernel's scope (nothing falls back) and ``MemoryError`` when the outputs
-    would not fit the card.  ``chunk_size`` splits the members into
+    (and the scratch of a network beyond one block's shared memory) would
+    not fit the card.  ``chunk_size`` splits the members into
     sequential runs (it must divide the member count).  Returns a
     NetworkOutput with a leading member axis on every field.
     """

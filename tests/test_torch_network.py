@@ -382,14 +382,19 @@ def test_fused_network_refuses_by_name(small_tributary):
     # name, for the loop and fused engines that run it
     with pytest.raises(ValueError, match='engine="loop" or engine="fused"'):
         net.simulate_network(lv(geo=table(0, 8)), nj, sset, engine="stacked")
-    # the basin at levels=5 fits one block, the basin at levels=6 does not
+    # the basin at levels=5 fits one block's shared memory; at levels=6 it
+    # does not and takes the scratch build, so it is in scope; 127 junctions
+    # (levels=8) are refused in the JAX kernel's words
     from flowsim_tpu_torch.models import basin
 
     b5, n5, s5 = basin.build(levels=5, sim_hours=0.5, device="cpu")
     assert fnet.check_supported(b5, n5, s5).m_rhs == 3          # 31 x 13 slots fit
     b6, n6, s6 = basin.build(levels=6, sim_hours=0.5, device="cpu")
-    with pytest.raises(FusedUnsupported, match='engine="stacked" and linear_solver="cuda_pcr"'):
-        fnet.check_supported(b6, n6, s6)                        # 63 x 13 do not
+    t6 = fnet.check_supported(b6, n6, s6)                       # 63 x 13 do not
+    assert t6.m_rhs == 3 and fnet.smem_bytes(len(b6) * t6.n_max, len(b6), n6, t6.m_rhs) > fnet.SMEM_LIMIT
+    b8, n8, s8 = basin.build(levels=8, link_nodes=2, sim_hours=0.5, device="cpu")
+    with pytest.raises(FusedUnsupported, match="J > 120"):
+        fnet.check_supported(b8, n8, s8)
     # nothing falls back: the api lets it reach the caller
     cubic = dataclasses.replace(rc.make_polynomial(1.0, 2.0, 3.0, device="cpu"), kind="cubic")
     ns = api.NetworkSolver(_channels(api), theta=0.7, time_step=600.0, spatial_step=1000.0,

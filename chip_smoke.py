@@ -66,11 +66,16 @@ the main paths through the user entry points:
   tributary on the flagship at 50 m (3627 slots, 385 levels) through
   ``simulate_network(engine="fused")`` and ``NetworkSolver.run(engine=
   "fused")``, the 127-branch basin, the basin at levels=6 and a table
-  network of 3075 slots — the scratch build of kernel 5, its slot arrays in
-  device memory — and 1024 members of the tributary at 250 m through
+  network of 3075 slots — the cluster build of kernel 5, one network over a
+  thread-block cluster with its slot arrays in the blocks' shared memory —,
+  a trapezoid and a table network of 3 x 4097 slots beyond a cluster's
+  shared memory — the scratch build of kernel 5, its slot arrays in device
+  memory — and 1024 members of the tributary at 250 m through
   ``batched_simulate_network(engine="fused")`` — kernel 6's scratch build on
-  a persistent grid —, held against the plain version on the card, and the
-  scratch build forced where the shared-memory builds run, bit for bit.
+  a persistent grid —, held against the plain version on the card; the
+  cluster build timed in turns with the scratch build forced and held to its
+  bits, their probe builds, kernel 6 in the cluster build's forms, and both
+  builds forced where the shared-memory builds run, bit for bit.
 
 Before the main path, the ``kernels`` phase also holds kernel 1's latency
 build (the one a single launch takes) against its register build bit for
@@ -247,6 +252,13 @@ SCRATCH_BASIN = dict(levels=6, sim_hours=6)
 SCRATCH_TABLE_SPLIT = 1024
 SCRATCH_BIT_MEMBERS = 4
 SCRATCH_NAN_MEMBERS = 16
+# beyond a cluster's shared memory (the scratch build of kernel 5 since the
+# cluster build): the N = 8192 scaling reach split at node 4096 with the
+# tributary of scratch_table_network, 3 x 4097 slots, 8 levels
+SCRATCH_HUGE = (8192, 4096)
+# the cluster build sums the norm rank by rank: against another build every
+# field bit for bit but the norm, which agrees to this relative tolerance
+CLUSTER_ERR_RTOL = 1e-12
 
 
 def emit(phase: str, **fields) -> None:
@@ -868,16 +880,18 @@ def latency_kernel_builds(ptxas: list) -> list:
 def network_kernel_builds(ptxas: list) -> list:
     """Registers and spills of fused_network.cu's builds, by template
     arguments (RHS pairs, launch-bound block, blocks an SM, one slot a
-    thread, probe, table branches, slot arrays in a scratch; a source
-    without the last argument has no scratch build)."""
+    thread, probe, table branches, slot arrays in a scratch, one network
+    over a cluster; a source without the last arguments has no scratch or
+    cluster build)."""
     out = []
     for rec in ptxas:
-        m = re.search(r"fused_network_kernelILi(\d+)ELi(\d+)ELi(\d+)ELb([01])ELb([01])ELb([01])E(?:Lb([01])E)?",
-                      rec["kernel"])
+        m = re.search(r"fused_network_kernelILi(\d+)ELi(\d+)ELi(\d+)ELb([01])ELb([01])ELb([01])E"
+                      r"(?:Lb([01])E)?(?:Lb([01])E)?", rec["kernel"])
         if m:
             out.append(dict(rhs=int(m.group(1)), block=int(m.group(2)), min_blocks=int(m.group(3)),
                             one_slot=m.group(4) == "1", probe=m.group(5) == "1", table=m.group(6) == "1",
-                            scratch=m.group(7) == "1",
+                            scratch=m.group(7) == "1", cluster=m.group(8) == "1",
+                            static_smem_bytes=rec.get("static_smem_bytes"),
                             **{k: rec.get(k) for k in ("registers", "stack_bytes", "spill_store_bytes",
                                                        "spill_load_bytes")}))
     return out
@@ -886,7 +900,8 @@ def network_kernel_builds(ptxas: list) -> list:
 def network_packed(branches, n_junctions, settings, batch=None):
     """The network kernel's packed inputs (``batch`` None: one member) and a
     function that launches them in a given build (the C entry's test hook;
-    -1 chooses by the member count as the wrappers do) and returns the raw
+    -1 chooses by the member count as the wrappers do; ``cluster`` the
+    cluster build's forced cluster, 0 the C entry's) and returns the raw
     outputs.  Counts no launch."""
     from flowsim_tpu_torch.ops import network as net
     from flowsim_tpu_torch.ops.cuda import fused_network as fnet
@@ -895,8 +910,8 @@ def network_packed(branches, n_junctions, settings, batch=None):
     topo = fnet.check_supported(branches if batch is None else net.member_branches(branches, batch, 0),
                                 n_junctions, settings)
     p = fnet._pack(branches, n_junctions, settings, batch or [dict() for _ in branches], M, None, None, None, topo)
-    return topo, lambda build_id=-1: fnet._launch(p, M, len(branches), n_junctions, settings, topo,
-                                                  build_id=build_id)
+    return topo, lambda build_id=-1, cluster=0: fnet._launch(p, M, len(branches), n_junctions, settings, topo,
+                                                             build_id=build_id, cluster=cluster)
 
 
 def network_launch(branches, n_junctions, settings, batch=None, build_id=-1):
@@ -1585,18 +1600,23 @@ def drive_long_fused(dev, launches: dict) -> tuple[dict, list]:
     return record, kernels
 
 
-def compare_networks(kernel_out, ref_out, what: str, exact: bool = False) -> dict:
+def compare_networks(kernel_out, ref_out, what: str, exact: bool = False, err_rtol: float | None = None) -> dict:
     """A network run against a reference run: identical per-level iteration
     counts and gate series; depths, flows, junction stages and reservoir
     stages within H_TOL / Q_TOL / NETWORK_Y_TOL / STAGE_TOL, or bit-identical
-    (``exact``: the same kernel launched another way)."""
+    (``exact``: the same kernel launched another way; with ``err_rtol`` the
+    norm within that relative tolerance, another build that sums it in
+    another order)."""
     it_k, it_r = kernel_out.iterations.cpu().tolist(), ref_out.iterations.cpu().tolist()
     if it_k != it_r:
         raise AssertionError(f"{what}: per-level iteration counts differ: {it_k} vs {it_r}")
     if not torch.equal(kernel_out.gate_open, ref_out.gate_open):
         raise AssertionError(f"{what}: gate series differ")
     pairs = list(zip(kernel_out.depth, ref_out.depth)) + list(zip(kernel_out.flow, ref_out.flow)) + [
-        (kernel_out.junction_stage, ref_out.junction_stage), (kernel_out.error, ref_out.error)]
+        (kernel_out.junction_stage, ref_out.junction_stage)] + ([] if err_rtol else [(kernel_out.error, ref_out.error)])
+    if exact and err_rtol and not bool(((kernel_out.error - ref_out.error).nan_to_num().abs()
+                                        <= err_rtol * ref_out.error.nan_to_num().abs()).all()):
+        raise AssertionError(f"{what}: the norms differ by more than {err_rtol} relative")
     if exact:
         same = lambda a, b: torch.equal(a.isnan(), b.isnan()) and torch.equal(a.nan_to_num(), b.nan_to_num())
         if not all(same(a, b) for a, b in pairs + [(kernel_out.reservoir_stage, ref_out.reservoir_stage)]):
@@ -1954,14 +1974,14 @@ def check_network_kernels(dev) -> dict:
             raise AssertionError(f"the network kernel accepted {name}")
     out["refuses"] = refused
     # (ix) beyond one block's shared memory, accepted: the basin at levels=6
-    # (63 x 13 slots, 3 levels) in the scratch build, one network and two
+    # (63 x 13 slots, 3 levels) in the cluster build, one network and two
     # members, against the plain version
     b6, n6, s6 = basin.build(levels=6, sim_hours=0.5, device=dev)
     batch6 = scale_inflows(b6, [1.0, 1.1])
     topo6 = net.stacked_topology(b6)
     build6 = fnet.chosen_build(1, len(b6) * topo6.n_max, len(b6), n6, topo6.m_rhs)
-    if build6 != fnet.SCRATCH_BUILD:
-        raise AssertionError(f"the basin at levels=6 takes build {build6}, not the scratch build")
+    if build6 != fnet.CLUSTER_BUILD:
+        raise AssertionError(f"the basin at levels=6 takes build {build6}, not the cluster build")
     out["slots_beyond_shared_memory"] = dict(
         compare_networks(fnet.fused_simulate_network(b6, n6, s6), fnet.fused_simulate_network_plain(b6, n6, s6),
                          "basin levels=6"), build=build6, slots=len(b6) * topo6.n_max)
@@ -2185,7 +2205,8 @@ def drive_network_ensemble(dev, launches: dict, batched_plain_ms: float) -> tupl
     chosen = fnet.chosen_build(M, *shape)
     _, launch = network_packed(br, nj, sset, batch)
     ptxas = [k for k in network_kernel_builds(build.build_info["fused_network"]["ptxas"])
-             if k["rhs"] == topo.m_rhs and not k["probe"] and not k["table"] and not k["scratch"]]
+             if k["rhs"] == topo.m_rhs and not k["probe"] and not k["table"] and not k["scratch"]
+             and not k["cluster"]]
     # (launch-bound block, blocks an SM, one slot a thread) of each build at these slots
     bounds = {fnet.LOOP_BUILD: (256, 1, False), fnet.LATENCY_BUILD: (256, 1, True),
               fnet.RESIDENCY_BUILD: (192 if shape[0] <= 192 else 256, 2, True)}
@@ -2794,7 +2815,8 @@ def drive_table_network(dev, launches: dict, reach: dict, t_start: float) -> tup
     chosen_e = fnet.chosen_build(M, *shape_e, table=True)
     _, launch_e = network_packed(ens_br, 1, sset_e, batch)
     ptxas = [k for k in network_kernel_builds(build.build_info["fused_network_table"]["ptxas"])
-             if k["rhs"] == topo_e.m_rhs and not k["probe"] and k["table"] and not k["scratch"]]
+             if k["rhs"] == topo_e.m_rhs and not k["probe"] and k["table"] and not k["scratch"]
+             and not k["cluster"]]
     bounds = {fnet.LOOP_BUILD: (256, 1, False), fnet.LATENCY_BUILD: (256, 1, True),
               fnet.RESIDENCY_BUILD: (192 if shape_e[0] <= 192 else 256, 2, True)}
     ens_builds = dict(multiprocessors=sms, chosen_build=chosen_e)
@@ -2909,21 +2931,23 @@ def drive_table_network(dev, launches: dict, reach: dict, t_start: float) -> tup
     return rec, kernels
 
 
-def scratch_table_network(dev):
-    """The N = 2048 scaling reach on lookup tables (M = 32; the long-reach
-    phase's table reach) split at node SCRATCH_TABLE_SPLIT into two table
-    branches, joined at junction 0 by a trapezoid tributary (TRIB_*, 4 km at
-    the reach's dx and slope, 150 -> 300 m^3/s over the first hour): 3 x 1025
-    slots, beyond one block's shared memory.  Returns (branches, settings)."""
+def scratch_table_network(dev, nodes: int = LONG_TABLE_NODES, split: int = SCRATCH_TABLE_SPLIT, table: bool = True):
+    """The scaling reach of ``nodes`` nodes (``table``: on lookup tables, M =
+    32; the long-reach phase's table reach at N = 2048) split at node
+    ``split`` into two branches, joined at junction 0 by a trapezoid
+    tributary (TRIB_*, 4 km at the reach's dx and slope, 150 -> 300 m^3/s
+    over the first hour): 3 x (split + 1) slots — at the defaults 3 x 1025,
+    beyond one block's shared memory; at SCRATCH_HUGE 3 x 4097, beyond a
+    cluster's.  Returns (branches, settings)."""
     from flowsim_tpu_torch import trees
     from flowsim_tpu_torch.geometry import interpolate_stations, trapezoid_station
     from flowsim_tpu_torch.ops import boundary as bnd
     from flowsim_tpu_torch.ops import initial_conditions as ic
     from flowsim_tpu_torch.ops import network as net
 
-    geo, us, ds, h0, Q0, sset = build_long_reach(LONG_TABLE_NODES, dev)
-    tg = as_table(geo, samples=LONG_TABLE_SAMPLES)
-    cut, dx, slope = SCRATCH_TABLE_SPLIT, sset.spatial_step, float(geo.bed_slope[0])
+    geo, us, ds, h0, Q0, sset = build_long_reach(nodes, dev)
+    tg = as_table(geo, samples=LONG_TABLE_SAMPLES) if table else geo
+    cut, dx, slope = split, sset.spatial_step, float(geo.bed_slope[0])
     z_conf = float(geo.z_bed[cut])
     station = lambda z: trapezoid_station(z_bed=z, b_main=TRIB_WIDTH, m_main=TRIB_SIDE, n_main=TRIB_N,
                                           bed_slope=slope)
@@ -2949,9 +2973,11 @@ def scratch_sweep_bytes(slots: int, m_rhs: int) -> int:
     return 4 * (12 + 2 * m_rhs) * 8 * slots
 
 
-def same_network_bits(a, b, what: str) -> None:
+def same_network_bits(a, b, what: str, err_rtol: float | None = None) -> None:
     """Two network outputs (any leading member axis) bit for bit, every
-    field, NaN where the other is NaN."""
+    field, NaN where the other is NaN.  ``err_rtol``: the norm (``error``)
+    within this relative tolerance instead — two builds that sum it in
+    another order (the cluster build, rank by rank)."""
     for f, x in a._asdict().items():
         y = getattr(b, f)
         if x is None or y is None:
@@ -2959,14 +2985,78 @@ def same_network_bits(a, b, what: str) -> None:
                 raise AssertionError(f"{what}: {f} is missing from one output")
             continue
         for u, v in zip(x, y) if isinstance(x, tuple) else ((x, y),):
-            same = torch.equal(u.isnan(), v.isnan()) and torch.equal(u.nan_to_num(), v.nan_to_num()) \
-                if u.is_floating_point() else torch.equal(u, v)
+            if f == "error" and err_rtol is not None:
+                same = torch.equal(u.isnan(), v.isnan()) and bool(
+                    ((u - v).nan_to_num().abs() <= err_rtol * v.nan_to_num().abs()).all())
+            elif u.is_floating_point():
+                same = torch.equal(u.isnan(), v.isnan()) and torch.equal(u.nan_to_num(), v.nan_to_num())
+            else:
+                same = torch.equal(u, v)
             if not same:
-                raise AssertionError(f"{what}: {f} is not bit-identical")
+                raise AssertionError(f"{what}: {f} is not bit-identical"
+                                     + (f" (the norm: not within {err_rtol} relative)" if f == "error" else ""))
+
+
+def in_turns(launches: dict, order, reps: dict) -> tuple[dict, dict]:
+    """Named launches timed by CUDA events in the given order (``reps[name]``
+    back-to-back calls each time, no warm-up), so that the builds share the
+    card's state: the ms of each turn by name, and each name's outputs of its
+    last call."""
+    runs, outs = {k: [] for k in launches}, {}
+    for k in order:
+        outs.pop(k, None)
+        last = []
+        runs[k].append(time_cuda(lambda: last.__setitem__(slice(None), [launches[k]()]), reps=reps[k], warmup=0))
+        outs[k] = last[0]
+    return runs, outs
+
+
+def cluster_vs_scratch(b, j, s_, what: str, reps_cluster: int = 3, reps_scratch: int = 1, batch=None) -> dict:
+    """The cluster build (the C entry's cluster) and the scratch build forced
+    on one packed network, timed in turns (cluster, scratch, scratch,
+    cluster) and held to the same bits (the norm to CLUSTER_ERR_RTOL)."""
+    from flowsim_tpu_torch.ops.cuda import fused_network as fnet
+
+    topo, launch = network_packed(b, j, s_, batch)
+    runs, outs = in_turns({"cluster": lambda: launch(fnet.CLUSTER_BUILD), "scratch": lambda: launch(fnet.SCRATCH_BUILD)},
+                          ("cluster", "scratch", "scratch", "cluster"),
+                          dict(cluster=reps_cluster, scratch=reps_scratch))
+    o_c, o_s = (fnet._output(outs[k], topo, None) for k in ("cluster", "scratch"))
+    same_network_bits(o_c, o_s, f"{what}: cluster build vs scratch build", err_rtol=CLUSTER_ERR_RTOL)
+    it = int(o_c.iterations.sum())
+    shape = (len(b) * topo.n_max, len(b), j, topo.m_rhs)
+    table = any(type(x.geo).__name__ == "TableGeometry" for x in b)
+    cluster = fnet.cluster_of(*shape, table=table)
+    ms_c, ms_s = statistics.median(runs["cluster"]), statistics.median(runs["scratch"])
+    return dict(slots=shape[0], cluster_blocks=cluster, slots_a_rank=-(-shape[0] // cluster), iterations=it,
+                cluster_ms_runs=runs["cluster"], scratch_ms_runs=runs["scratch"], cluster_ms=ms_c, scratch_ms=ms_s,
+                cluster_us_per_newton_iteration=ms_c * 1e3 / it, scratch_us_per_newton_iteration=ms_s * 1e3 / it,
+                scratch_over_cluster=ms_s / ms_c, bit_identical_but_the_norm=True)
+
+
+def probe_pair(b, j, s_, what: str) -> dict:
+    """The probe builds of the cluster and the scratch build on one network:
+    µs per Newton iteration by phase, each probe's outputs the production
+    build's (the cluster's norm to CLUSTER_ERR_RTOL of the scratch build's)."""
+    from flowsim_tpu_torch.ops.cuda import fused_network as fnet
+
+    topo, launch = network_packed(b, j, s_)
+    rec, outs = {}, {}
+    for name, bid in (("cluster_build", fnet.CLUSTER_BUILD), ("scratch_build", fnet.SCRATCH_BUILD)):
+        prod = fnet._single(fnet._output(launch(bid), topo, None))
+        ms = time_cuda(lambda: launch(bid), reps=1, warmup=0)
+        probed, cycles, clock = fnet.fused_simulate_network_probe(b, j, s_, build_id=bid)
+        compare_networks(probed, prod, f"probe of {what}, {name}", exact=True)
+        outs[name] = probed
+        rec[name] = dict(probe_record(cycles, clock, int(prod.iterations.sum()), ms), bit_identical_to_production=True)
+    compare_networks(outs["cluster_build"], outs["scratch_build"], f"probes of {what}", exact=True,
+                     err_rtol=CLUSTER_ERR_RTOL)
+    return rec
 
 
 def drive_network_scratch(dev, launches: dict, reach: dict, large_basin) -> tuple[dict, list]:
-    """Networks beyond one block's shared memory: the scratch build of kernels 5 and 6.
+    """Networks beyond one block's shared memory: the cluster build of
+    kernel 5 and the scratch builds of kernels 5 and 6.
 
     The main path, counts at 0 before and read after: the tributary on the
     flagship at 50 m (3627 slots, 385 levels) through
@@ -2974,18 +3064,26 @@ def drive_network_scratch(dev, launches: dict, reach: dict, large_basin) -> tupl
     ...).run(engine="fused")``, the large basin (LARGE_BASIN: 5715 slots, 63
     junctions) and the basin at levels=6 (819 slots), 25 levels each, and the
     table network of :func:`scratch_table_network` through
-    ``simulate_network(engine="fused")`` — one launch of kernel 5's scratch
-    build each — and NETWORK_MC_MEMBERS members of the tributary at 250 m
-    (729 slots, 385 levels, the network Monte-Carlo's inflow draws) through
-    ``batched_simulate_network(engine="fused")``, one launch of kernel 6's.
-    Then each against the plain version on the card (the large basin
-    against the network phase's stacked ``cuda_pcr`` run, ``large_basin``),
-    kernel 5 alone by CUDA events, B = 4 against single launches, a NaN
-    member among 16, the scratch build forced where the shared-memory builds
-    run (the bits of the chosen build, and both timed in turns) and the
-    scratch builds' ptxas figures.  ``reach``: the table phase's validation
-    reach, for the mixed surveyed network.  Returns the phase record and the
-    kernel-table rows."""
+    ``simulate_network(engine="fused")`` — one launch of kernel 5's cluster
+    build each —; the N = 8192 scaling reach split at 4096 with a tributary
+    (SCRATCH_HUGE: 3 x 4097 slots, beyond a cluster's shared memory), on
+    trapezoids and on tables — one launch of kernel 5's scratch build each
+    —; and NETWORK_MC_MEMBERS members of the tributary at 250 m (729 slots,
+    385 levels, the network Monte-Carlo's inflow draws) through
+    ``batched_simulate_network(engine="fused")``, one launch of kernel 6 in
+    the build the C entry chooses (the scratch build: more members than one
+    wave of clusters).  Then each against the plain version on the card (the
+    large basin against the network phase's stacked ``cuda_pcr`` run,
+    ``large_basin``); the cluster build timed in turns with the scratch build
+    forced and held to its bits (the norm, summed rank by rank, to
+    CLUSTER_ERR_RTOL); the probe builds of both; kernel 6 in the scratch
+    build and in the cluster build's forms, in turns, and at one wave of
+    clusters; B = 4 against single launches; a NaN member among 16; the
+    launches the card refuses; the cluster and scratch builds forced where
+    the shared-memory builds run (the bits of the chosen build, and the
+    scratch build timed in turns); the ptxas figures.  ``reach``: the table
+    phase's validation reach, for the mixed surveyed network.  Returns the
+    phase record and the kernel-table rows."""
     from flowsim_tpu_torch.geometry import TableGeometry
     from flowsim_tpu_torch.models import basin, gerd_tributary
     from flowsim_tpu_torch.ops import network as net
@@ -3000,6 +3098,8 @@ def drive_network_scratch(dev, launches: dict, reach: dict, large_basin) -> tupl
     bl, njl, sl = basin.build(device=dev, **LARGE_BASIN)
     b6, n6, s6 = basin.build(device=dev, **SCRATCH_BASIN)
     bt, st = scratch_table_network(dev)
+    bh, sh_ = scratch_table_network(dev, *SCRATCH_HUGE, table=False)
+    bht, sht = scratch_table_network(dev, *SCRATCH_HUGE)
     b250, nj250, s250, _ = gerd_tributary.build(device=dev, **SCRATCH_TRIB_250)
     M = NETWORK_MC_MEMBERS
     batch = scale_inflows(b250, 0.9 + 0.2 * np.random.default_rng(NETWORK_MC_SEED).random(M))
@@ -3008,30 +3108,39 @@ def drive_network_scratch(dev, launches: dict, reach: dict, large_basin) -> tupl
         return ensemble.batched_simulate_network(b250, nj250, s250, part, engine="fused")
 
     # -- the main path
-    fnet.launch_count = fnet.batched_launch_count = 0
-    fnet.scratch_launch_count = fnet.batched_scratch_launch_count = 0
+    counters = ("launch_count", "batched_launch_count", "scratch_launch_count", "batched_scratch_launch_count",
+                "cluster_launch_count", "batched_cluster_launch_count")
+    for c in counters:
+        setattr(fnet, c, 0)
     t0 = time.perf_counter()
     out50 = net.simulate_network(b50, nj, s50, engine="fused")
     torch.cuda.synchronize()
     first_ms = (time.perf_counter() - t0) * 1e3
     out50_ns = ns50.run(tolerance=1e-6, verbose=0, engine="fused")
     outs = {"large_basin": net.simulate_network(bl, njl, sl, engine="fused"),
-            "basin_levels6": net.simulate_network(b6, n6, s6, engine="fused")}
-    trapezoid_launches = fnet.scratch_launch_count
+            "basin_levels6": net.simulate_network(b6, n6, s6, engine="fused"),
+            "beyond_a_cluster": net.simulate_network(bh, 1, sh_, engine="fused")}
+    trapezoid = (fnet.cluster_launch_count, fnet.scratch_launch_count)
     outs["table_network"] = net.simulate_network(bt, 1, st, engine="fused")
+    outs["beyond_a_cluster_table"] = net.simulate_network(bht, 1, sht, engine="fused")
     torch.cuda.synchronize()
-    table_launches = fnet.scratch_launch_count - trapezoid_launches
+    table = (fnet.cluster_launch_count - trapezoid[0], fnet.scratch_launch_count - trapezoid[1])
     out_e = run_ensemble()
     torch.cuda.synchronize()
-    launches["fused_simulate_network_scratch"] = trapezoid_launches
-    launches["fused_simulate_network_table_scratch"] = table_launches
-    launches["fused_simulate_network_batched_scratch"] = fnet.batched_scratch_launch_count
-    if (fnet.launch_count, trapezoid_launches, table_launches) != (5, 4, 1) \
-            or (fnet.batched_launch_count, fnet.batched_scratch_launch_count) != (1, 1):
-        raise AssertionError(f"networks beyond shared memory: {fnet.scratch_launch_count} of {fnet.launch_count} "
-                             f"single launches ({table_launches} on tables) and {fnet.batched_scratch_launch_count} "
-                             f"of {fnet.batched_launch_count} batched ones took the scratch build, expected 5 of 5 "
-                             "(1 on tables) and 1 of 1")
+    count = {c: getattr(fnet, c) for c in counters}
+    topo_e = net.stacked_topology(b250)
+    shape_e = (len(b250) * topo_e.n_max, len(b250), nj250, topo_e.m_rhs)
+    build_e = fnet.chosen_build(M, *shape_e)
+    launches["fused_simulate_network_cluster"], launches["fused_simulate_network_scratch"] = trapezoid
+    launches["fused_simulate_network_table_cluster"], launches["fused_simulate_network_table_scratch"] = table
+    launches["fused_simulate_network_batched_scratch"] = count["batched_scratch_launch_count"]
+    launches["fused_simulate_network_batched_cluster"] = count["batched_cluster_launch_count"]
+    if (count["launch_count"], trapezoid, table) != (7, (4, 1), (1, 1)) or count["batched_launch_count"] != 1 \
+            or (count["batched_cluster_launch_count"], count["batched_scratch_launch_count"]) \
+            != (int(build_e == fnet.CLUSTER_BUILD), int(build_e == fnet.SCRATCH_BUILD)):
+        raise AssertionError(f"networks beyond one block's shared memory: {count}; trapezoid (cluster, scratch) "
+                             f"{trapezoid}, tables {table}; expected 7 single launches, (4, 1) and (1, 1), and one "
+                             f"batched launch in build {build_e}")
 
     # -- the 50 m tributary: both entry points, all levels; the plain version on the first levels
     nt = s50.n_time_levels
@@ -3045,34 +3154,40 @@ def drive_network_scratch(dev, launches: dict, reach: dict, large_basin) -> tupl
     L = SCRATCH_PLAIN_LEVELS
     topo50 = net.stacked_topology(b50)
     slots50 = len(b50) * topo50.n_max
+    # the wrapper's mirror of the C entry's cluster, for every network the phase runs in it
+    for b, j in ((b50, nj), (bl, njl), (b6, n6), (bt, 1), (b250, nj250)):
+        tp = net.stacked_topology(b)
+        shape = (len(b) * tp.n_max, len(b), j, tp.m_rhs)
+        if fnet.cluster_blocks(*shape) != fnet.cluster_of(*shape, table=any(isinstance(x.geo, TableGeometry)
+                                                                            for x in b)):
+            raise AssertionError(f"cluster_blocks{shape} differs from the C entry's cluster")
     b50c, s50c = cut_network_levels(b50, s50, L)
     t0 = time.perf_counter()
     ref50 = fnet.fused_simulate_network_plain(b50c, nj, s50c)
     torch.cuda.synchronize()
     plain50_ms = (time.perf_counter() - t0) * 1e3
-    cmp50 = compare_networks(network_levels(out50, L), ref50, "50 m tributary: scratch build vs plain")
+    cmp50 = compare_networks(network_levels(out50, L), ref50, "50 m tributary: cluster build vs plain")
     del ref50
-    _, launch50c = network_packed(b50c, nj, s50c)
-    ms50c = time_cuda(lambda: launch50c(-1), reps=3, warmup=1)
-    _, launch50 = network_packed(b50, nj, s50)
-    ms50 = time_cuda(lambda: launch50(-1), reps=2, warmup=1)
+    turns50 = {f"levels_{L}": cluster_vs_scratch(b50c, nj, s50c, f"50 m tributary, {L} levels"),
+               f"levels_{nt}": cluster_vs_scratch(b50, nj, s50, "50 m tributary", reps_cluster=2)}
+    ms50c, ms50 = turns50[f"levels_{L}"]["cluster_ms"], turns50[f"levels_{nt}"]["cluster_ms"]
     it50 = int(out50.iterations.sum())
     trib50 = dict(
         nodes_per_branch=n_b50, slots=slots50, rhs_pairs=topo50.m_rhs, n_time_levels=nt, host_build_seconds=host_build_s,
         all_converged=True, total_iterations=it50, max_iterations_in_a_level=int(out50.iterations.max()),
-        first_launch_ms=first_ms, kernel_ms=ms50, us_per_newton_iteration=ms50 * 1e3 / it50,
-        scratch_bytes=fnet.scratch_bytes(1, slots50, topo50.m_rhs),
-        scratch_bytes_per_sweep=scratch_sweep_bytes(slots50, topo50.m_rhs), sweeps=sweeps(topo50.n_max),
+        first_launch_ms=first_ms, kernel_ms=ms50, us_per_newton_iteration=ms50 * 1e3 / it50, sweeps=sweeps(topo50.n_max),
+        in_turns_with_the_scratch_build=turns50,
         via_network_solver=dict(iterations=int(out50_ns.iterations.sum()), max_abs_dh_vs_simulate_network=max(
             float((a - b).abs().max()) for a, b in zip(out50_ns.depth, out50.depth))),
         max_junction_imbalance_m3s=float((out50.flow[0][1:, -1] + out50.flow[1][1:, -1]
                                           - out50.flow[2][1:, 0]).abs().max()),
         plain=dict(cmp50, kernel_ms=ms50c, plain_ms=plain50_ms))
 
-    # -- the basins and the table network against the plain version, timed alone
+    # -- the basins, the table network and the networks beyond a cluster against the plain version
     others = {}
     for name, (b, j, s_) in (("large_basin", (bl, njl, sl)), ("basin_levels6", (b6, n6, s6)),
-                             ("table_network", (bt, 1, st))):
+                             ("table_network", (bt, 1, st)), ("beyond_a_cluster", (bh, 1, sh_)),
+                             ("beyond_a_cluster_table", (bht, 1, sht))):
         o = outs[name]
         topo = net.stacked_topology(b)
         t0 = time.perf_counter()
@@ -3080,19 +3195,47 @@ def drive_network_scratch(dev, launches: dict, reach: dict, large_basin) -> tupl
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
         what = "stacked cuda_pcr (the network phase's run)" if name == "large_basin" else "plain"
-        cmp = compare_networks(o, ref, f"{name}: scratch build vs {what}")
-        _, launch = network_packed(b, j, s_)
-        ms = time_cuda(lambda: launch(-1), reps=3, warmup=1)
+        beyond = name.startswith("beyond")
+        cmp = compare_networks(o, ref, f"{name}: {'scratch' if beyond else 'cluster'} build vs {what}")
+        del ref
         it = int(o.iterations.sum())
-        others[name] = dict(
-            branches=len(b), junctions=j, slots=len(b) * topo.n_max, rhs_pairs=topo.m_rhs,
-            n_time_levels=s_.n_time_levels, kinds=sorted({type(br.geo).__name__ for br in b}), all_converged=True,
-            total_iterations=it, kernel_ms=ms, us_per_newton_iteration=ms * 1e3 / it,
-            scratch_bytes=fnet.scratch_bytes(1, len(b) * topo.n_max, topo.m_rhs),
-            scratch_bytes_per_sweep=scratch_sweep_bytes(len(b) * topo.n_max, topo.m_rhs),
-            sweeps=sweeps(topo.n_max), against=what,
-            plain=dict(cmp, plain_ms=None if name == "large_basin" else plain_ms), topo=topo)
+        slots = len(b) * topo.n_max
+        rec = dict(branches=len(b), junctions=j, slots=slots, rhs_pairs=topo.m_rhs, n_time_levels=s_.n_time_levels,
+                   kinds=sorted({type(br.geo).__name__ for br in b}), all_converged=True, total_iterations=it,
+                   sweeps=sweeps(topo.n_max), against=what, plain=dict(cmp, plain_ms=None if name == "large_basin"
+                                                                        else plain_ms), topo=topo)
+        if beyond:
+            if fnet.cluster_blocks(slots, len(b), j, topo.m_rhs) != 0:
+                raise AssertionError(f"{name}: {slots} slots fit a cluster")
+            _, launch = network_packed(b, j, s_)
+            ms = time_cuda(lambda: launch(-1), reps=2, warmup=1)
+            rec.update(kernel_ms=ms, us_per_newton_iteration=ms * 1e3 / it,
+                       scratch_bytes=fnet.scratch_bytes(1, slots, topo.m_rhs),
+                       scratch_bytes_per_sweep=scratch_sweep_bytes(slots, topo.m_rhs))
+        else:
+            turn = cluster_vs_scratch(b, j, s_, name)
+            rec.update(kernel_ms=turn["cluster_ms"], us_per_newton_iteration=turn["cluster_us_per_newton_iteration"],
+                       in_turns_with_the_scratch_build=turn)
+        others[name] = rec
     del large_basin
+    # refused: a cluster build forced on a network beyond a cluster's shared
+    # memory, a cluster of 17 blocks, the two-blocks-an-SM form on ranks of
+    # more than 192 slots — each raises with the C entry's code, and no
+    # other build runs in its place
+    refusals = {}
+    for name, (b, j, s_, cluster) in (("beyond_a_cluster", (bh, 1, sh_, 0)), ("cluster_of_17", (b50, nj, s50, 17)),
+                                      ("pair_form_242_slots_a_rank", (b50, nj, s50, 15 | fnet.CLUSTER_PAIR))):
+        _, launch = network_packed(b, j, s_)
+        try:
+            launch(fnet.CLUSTER_BUILD, cluster)
+        except RuntimeError as e:
+            refusals[name] = str(e)
+        else:
+            raise AssertionError(f"{name}: the cluster build was not refused")
+
+    # -- probes of the cluster and the scratch build
+    probes = {f"tributary_50m_{L}_levels": probe_pair(b50c, nj, s50c, "the 50 m tributary"),
+              "large_basin": probe_pair(bl, njl, sl, "the large basin")}
 
     # -- kernel 6: the ensemble, timed; B = 4 against single launches; two
     # members against the plain version; a NaN member among 16
@@ -3104,18 +3247,18 @@ def drive_network_scratch(dev, launches: dict, reach: dict, large_basin) -> tupl
     ens_iters = int(out_e.iterations.sum())
     ens_runs = [wall_ms(run_ensemble) for _ in range(3)]
     ens_ms = statistics.median(ens_runs)
-    topo_e = net.stacked_topology(b250)
-    shape_e = (len(b250) * topo_e.n_max, len(b250), nj250, topo_e.m_rhs)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     grid_e = fnet.scratch_grid(M, *shape_e)
     part = [{k: trees_slice(v, SCRATCH_BIT_MEMBERS) for k, v in d.items()} for d in batch]
+    if fnet.chosen_build(SCRATCH_BIT_MEMBERS, *shape_e) != fnet.CLUSTER_BUILD:
+        raise AssertionError(f"{SCRATCH_BIT_MEMBERS} members of the 250 m tributary do not take the cluster build")
     ob4 = fnet.fused_simulate_network_batched(b250, nj250, s250, part)
     for m in range(SCRATCH_BIT_MEMBERS):
         one = fnet.fused_simulate_network(net.member_branches(b250, part, m), nj250, s250)
         compare_networks(network_member(ob4, m), one, f"250 m tributary B=4 member {m} vs its single launch",
                          exact=True)
         compare_networks(network_member(out_e, m), one, f"250 m ensemble member {m} vs its single launch",
-                         exact=True)
+                         exact=True, err_rtol=None if build_e == fnet.CLUSTER_BUILD else CLUSTER_ERR_RTOL)
     del ob4
     picked, plain_recs, Lc = [0, M - 1], [], NETWORK_COMPARED_LEVELS
     t0 = time.perf_counter()
@@ -3131,15 +3274,56 @@ def drive_network_scratch(dev, launches: dict, reach: dict, large_basin) -> tupl
     batch16[0]["us"] = dataclasses.replace(batch16[0]["us"], target_series=batch16[0]["us"].target_series.clone())
     batch16[0]["us"].target_series[bad, nan_level] = float("nan")
     o16 = fnet.fused_simulate_network_batched(b250, nj250, s250, batch16)
+    build16 = fnet.chosen_build(n16, *shape_e)
     for m in range(n16):
         if m != bad:
             compare_networks(network_member(o16, m), network_member(out_e, m),
-                             f"250 m ensemble: sound member {m} beside a NaN one", exact=True)
+                             f"250 m ensemble: sound member {m} beside a NaN one", exact=True,
+                             err_rtol=None if build16 == build_e else CLUSTER_ERR_RTOL)
     if bool(o16.converged[bad, nan_level:].any()):
         raise AssertionError("250 m ensemble: the NaN member converged at a level after its NaN inflow")
+    del o16
+    # the cluster build's forms on the same members, in turns with the
+    # scratch build; and at one wave of clusters, the batch the C entry
+    # gives the cluster build at most
+    _, launch_e = network_packed(b250, nj250, s250, batch)
+    cl_e = fnet.cluster_of(*shape_e)
+    forms = {"scratch_build": (fnet.SCRATCH_BUILD, 0), f"cluster_{cl_e}": (fnet.CLUSTER_BUILD, cl_e),
+             "cluster_2_loop_form": (fnet.CLUSTER_BUILD, 2), "cluster_4": (fnet.CLUSTER_BUILD, 4),
+             "cluster_4_two_an_sm": (fnet.CLUSTER_BUILD, 4 | fnet.CLUSTER_PAIR)}
+    order = ["scratch_build", *[k for k in forms if k != "scratch_build"], "scratch_build"]
+    runs_f, ref_f = {k: [] for k in forms}, None
+    for k in order:
+        bid, cl = forms[k]
+        last = []
+        runs_f[k].append(time_cuda(lambda: last.append(launch_e(bid, cl)), reps=1, warmup=0))
+        o = fnet._output(last[0], topo_e, None)
+        if ref_f is None:
+            ref_f = o
+        else:
+            same_network_bits(o, ref_f, f"250 m ensemble, {k} vs the scratch build", err_rtol=CLUSTER_ERR_RTOL)
+        del last, o
+    del ref_f
+    wave = fnet.scratch_grid(M, *shape_e, fnet.CLUSTER_BUILD) // cl_e
+    if fnet.chosen_build(wave, *shape_e) != fnet.CLUSTER_BUILD or fnet.chosen_build(wave + 1, *shape_e) == \
+            fnet.CLUSTER_BUILD:
+        raise AssertionError(f"the C entry does not give the cluster build exactly the batches of up to one wave "
+                             f"({wave} clusters)")
+    bw = [{k: trees_slice(v, wave) for k, v in d.items()} for d in batch]
+    _, launch_w = network_packed(b250, nj250, s250, bw)
+    runs_w, outs_w = in_turns({"cluster": lambda: launch_w(fnet.CLUSTER_BUILD), "scratch":
+                               lambda: launch_w(fnet.SCRATCH_BUILD)}, ("cluster", "scratch", "scratch", "cluster"),
+                              dict(cluster=1, scratch=1))
+    same_network_bits(*(fnet._output(outs_w[k], topo_e, None) for k in ("cluster", "scratch")),
+                      f"one wave of {wave} members: cluster vs scratch build", err_rtol=CLUSTER_ERR_RTOL)
+    del outs_w
+    forms_rec = dict(ms_runs=runs_f, ms={k: statistics.median(v) for k, v in runs_f.items()}, order=order,
+                     bit_identical_but_the_norm=True,
+                     one_wave=dict(members=wave, cluster_ms_runs=runs_w["cluster"], scratch_ms_runs=runs_w["scratch"],
+                                   chosen_build=fnet.CLUSTER_BUILD))
     ensemble_rec = dict(
         members=M, nodes_per_branch=n250, slots=shape_e[0], rhs_pairs=topo_e.m_rhs, n_time_levels=nt, store="full",
-        launches=1, all_converged=True, wall_ms_runs=ens_runs, wall_ms_median=ens_ms,
+        launches=1, build=build_e, all_converged=True, wall_ms_runs=ens_runs, wall_ms_median=ens_ms,
         network_simulations_per_s=M / (ens_ms * 1e-3), total_newton_iterations=ens_iters,
         min_max_iterations_per_member=[int(v) for v in out_e.iterations.sum(dim=1).aminmax()],
         output_bytes=fnet.output_bytes(M, len(b250), topo_e.n_max, nj250, nt), multiprocessors=sms,
@@ -3147,18 +3331,18 @@ def drive_network_scratch(dev, launches: dict, reach: dict, large_basin) -> tupl
         scratch_bytes=fnet.scratch_bytes(grid_e, shape_e[0], topo_e.m_rhs),
         scratch_bytes_one_a_member=fnet.scratch_bytes(M, shape_e[0], topo_e.m_rhs),
         scratch_bytes_per_sweep=grid_e * scratch_sweep_bytes(shape_e[0], topo_e.m_rhs),
-        bit_identity_4_members=True,
+        bit_identity_4_members=True, cluster_forms_in_turns=forms_rec,
         plain_members=dict(members_of_the_timed_batch=picked, levels=Lc, plain_ms=ens_plain_ms,
                            iterations=sum(r["iterations"] for r in plain_recs),
                            max_abs_dh=max(r["max_abs_dh"] for r in plain_recs),
                            max_abs_dQ=max(r["max_abs_dQ"] for r in plain_recs),
                            max_abs_dY=max(r["max_abs_dY"] for r in plain_recs)),
-        nan_member=dict(member=bad, nan_inflow_level=nan_level, levels_converged=int(o16.converged[bad, 1:].sum()),
-                        sound_members_bit_identical=True))
-    del out_e, o16
+        nan_member=dict(member=bad, nan_inflow_level=nan_level, build=build16, sound_members_bit_identical=True))
+    del out_e
 
-    # -- the scratch build forced where the shared-memory builds run: the bits
-    # of the build the C entry chooses, and the two timed in turns
+    # -- the scratch and the cluster build forced where the shared-memory
+    # builds run: the bits of the build the C entry chooses; the scratch
+    # build timed in turns with it
     br, nj1, s1, _ = gerd_tributary.build(device=dev)
     b5, n5, s5 = basin.build(levels=5, device=dev)
     solver = reach["solver"]
@@ -3176,75 +3360,130 @@ def drive_network_scratch(dev, launches: dict, reach: dict, large_basin) -> tupl
         o_c = fnet._output(launch(chosen), topo, None)
         o_s = fnet._output(launch(fnet.SCRATCH_BUILD), topo, None)
         same_network_bits(o_s, o_c, f"{name}: scratch build vs build {chosen}")
-        iterations = int(o_s.iterations.sum())
-        del o_c, o_s
+        del o_s
+        if bb is None:
+            o_k = fnet._output(launch(fnet.CLUSTER_BUILD), topo, None)
+            same_network_bits(o_k, o_c, f"{name}: cluster build vs build {chosen}", err_rtol=CLUSTER_ERR_RTOL)
+            del o_k
+        iterations = int(o_c.iterations.sum())
+        del o_c
         runs = {"chosen_build": [], "scratch_build": []}
         ids = dict(chosen_build=chosen, scratch_build=fnet.SCRATCH_BUILD)
         for key in ("chosen_build", "scratch_build", "scratch_build", "chosen_build"):
             runs[key].append(time_cuda(lambda: launch(ids[key]), reps=1 if bb is not None else 3, warmup=1))
         forced[name] = dict(members=members, chosen_build=chosen, slots=len(b) * topo.n_max,
                             iterations=iterations, bit_identical=True,
+                            cluster_bit_identical_but_the_norm=bb is None,
+                            cluster=fnet.cluster_of(len(b) * topo.n_max, len(b), j, topo.m_rhs, table=table),
                             scratch_grid=fnet.scratch_grid(members, len(b) * topo.n_max, len(b), j, topo.m_rhs,
                                                            table=table),
                             **{f"{k}_ms_runs": v for k, v in runs.items()})
-    ptxas = {lib: [k for k in network_kernel_builds(build.build_info[lib]["ptxas"]) if k["scratch"]]
+    # B = 4 tributary members in the cluster build forced, against their
+    # single launches in it (bit for bit) and in the latency build
+    part1 = [{k: trees_slice(v, SCRATCH_BIT_MEMBERS) for k, v in d.items()} for d in batch1]
+    topo1, launch4 = network_packed(br, nj1, s1, part1)
+    o4 = fnet._output(launch4(fnet.CLUSTER_BUILD), topo1, None)
+    for m in range(SCRATCH_BIT_MEMBERS):
+        b_m = net.member_branches(br, part1, m)
+        one_c = network_launch(b_m, nj1, s1, build_id=fnet.CLUSTER_BUILD)
+        compare_networks(network_member(o4, m), one_c, f"tributary B=4 member {m}, cluster build, vs its single "
+                         "launch", exact=True)
+        compare_networks(network_member(o4, m), network_launch(b_m, nj1, s1, build_id=fnet.LATENCY_BUILD),
+                         f"tributary B=4 member {m}, cluster build, vs the latency build", exact=True,
+                         err_rtol=CLUSTER_ERR_RTOL)
+    del o4
+    forced["tributary_4_members_cluster_vs_single_launches"] = dict(bit_identical=True)
+    ptxas = {lib: [k for k in network_kernel_builds(build.build_info[lib]["ptxas"]) if k["scratch"] or k["cluster"]]
              for lib in ("fused_network", "fused_network_table")}
     record = dict(tributary_50m=trib50, **{k: {f: v for f, v in r.items() if f != "topo"} for k, r in others.items()},
-                  ensemble_250m=ensemble_rec, forced_scratch_vs_chosen_build=forced, ptxas=ptxas)
+                  ensemble_250m=ensemble_rec, probes=probes, refusals=refusals,
+                  forced_vs_chosen_build=forced, ptxas=ptxas,
+                  main_path=dict(counts=count, batch_build=build_e))
 
     # -- the kernel rows: bounds as for the other network rows, over the
-    # compared runs; each sweep's scratch bytes beside them
+    # compared runs
     tol = dict(depth_m=H_TOL, flow_m3s=Q_TOL, junction_stage_m=NETWORK_Y_TOL, iteration_counts="identical")
     b5b, by5, t5 = network_bound(cmp50["iterations"], topo50, nj, L)
-    tn = others["table_network"]
-    kinds = [isinstance(x.geo, TableGeometry) for x in bt]
+    tn, hh, ht = others["table_network"], others["beyond_a_cluster"], others["beyond_a_cluster_table"]
+    kinds = lambda bs: [isinstance(x.geo, TableGeometry) for x in bs]
     samples_read = table_samples_read(bt, outs["table_network"].depth)
-    btb, bty, tt = network_bound(tn["total_iterations"], tn["topo"], 1, st.n_time_levels, table=kinds,
+    btb, bty, tt = network_bound(tn["total_iterations"], tn["topo"], 1, st.n_time_levels, table=kinds(bt),
                                  table_bytes=8 * 7 * samples_read)
     tt["table_samples_read"] = samples_read
+    bhb, bhy, th = network_bound(hh["total_iterations"], hh["topo"], 1, sh_.n_time_levels)
+    samples_h = table_samples_read(bht, outs["beyond_a_cluster_table"].depth)
+    bhtb, bhty, tht = network_bound(ht["total_iterations"], ht["topo"], 1, sht.n_time_levels, table=kinds(bht),
+                                    table_bytes=8 * 7 * samples_h)
+    tht["table_samples_read"] = samples_h
     b6b, by6, t6 = network_bound(ens_iters, topo_e, nj250, nt, members=M)
+    src, k5, k6 = "flowsim_tpu_torch/ops/cuda/csrc/fused_network.cu", "flowsim_tpu/ops/pallas/fused_network.py:887", \
+        "flowsim_tpu/ops/pallas/fused_network.py:1904"
+    t25 = turns50[f"levels_{L}"]
     kernels = [
-        dict(name="fused_simulate_network_scratch", route="cuda",
-             source="flowsim_tpu_torch/ops/cuda/csrc/fused_network.cu",
-             replaces="flowsim_tpu/ops/pallas/fused_network.py:887",
-             launches=launches["fused_simulate_network_scratch"],
+        dict(name="fused_simulate_network_cluster", route="cuda", source=src, replaces=k5,
+             launches=launches["fused_simulate_network_cluster"],
              max_abs_err=max(cmp50["max_abs_dh"], others["large_basin"]["plain"]["max_abs_dh"],
                              others["basin_levels6"]["plain"]["max_abs_dh"]),
-             ms=ms50c, plain_ms=plain50_ms, bound_ms=b5b, bound_by=by5, library_ms=None, build="scratch",
-             bound_terms=t5, scratch_bytes_per_sweep=trib50["scratch_bytes_per_sweep"],
-             ms_385_levels=ms50, us_per_newton_iteration=trib50["us_per_newton_iteration"],
+             ms=ms50c, plain_ms=plain50_ms, bound_ms=b5b, bound_by=by5, library_ms=None, build="cluster",
+             cluster_blocks=t25["cluster_blocks"], bound_terms=t5, scratch_build_ms=t25["scratch_ms"],
+             ms_385_levels=ms50, scratch_build_ms_385_levels=turns50[f"levels_{nt}"]["scratch_ms"],
+             us_per_newton_iteration=trib50["us_per_newton_iteration"],
              large_basin_ms=others["large_basin"]["kernel_ms"],
-             large_basin_us_per_newton_iteration=others["large_basin"]["us_per_newton_iteration"],
+             large_basin_scratch_build_ms=others["large_basin"]["in_turns_with_the_scratch_build"]["scratch_ms"],
+             basin_levels6_ms=others["basin_levels6"]["kernel_ms"],
              shape=dict(network="tributary, 50 m", branches=len(b50), slots=slots50, n_time_levels=L,
                         newton_iterations=cmp50["iterations"]),
-             tolerance=tol),
-        dict(name="fused_simulate_network_table_scratch", route="cuda",
-             source="flowsim_tpu_torch/ops/cuda/csrc/fused_network.cu",
-             replaces="flowsim_tpu/ops/pallas/fused_network.py:887",
-             launches=launches["fused_simulate_network_table_scratch"], max_abs_err=tn["plain"]["max_abs_dh"],
+             tolerance=dict(tol, against_the_scratch_build=f"bit-identical, the norm to {CLUSTER_ERR_RTOL} relative")),
+        dict(name="fused_simulate_network_table_cluster", route="cuda", source=src, replaces=k5,
+             launches=launches["fused_simulate_network_table_cluster"], max_abs_err=tn["plain"]["max_abs_dh"],
              ms=tn["kernel_ms"], plain_ms=tn["plain"]["plain_ms"], bound_ms=btb, bound_by=bty, library_ms=None,
-             build="scratch (table)", bound_terms=tt, scratch_bytes_per_sweep=tn["scratch_bytes_per_sweep"],
+             build="cluster (table)", cluster_blocks=tn["in_turns_with_the_scratch_build"]["cluster_blocks"],
+             scratch_build_ms=tn["in_turns_with_the_scratch_build"]["scratch_ms"], bound_terms=tt,
              shape=dict(network="N = 2048 table reach split at 1024 + trapezoid tributary", slots=tn["slots"],
                         samples=LONG_TABLE_SAMPLES, n_time_levels=st.n_time_levels,
                         newton_iterations=tn["total_iterations"]),
+             tolerance=dict(tol, against_the_scratch_build=f"bit-identical, the norm to {CLUSTER_ERR_RTOL} relative")),
+        dict(name="fused_simulate_network_scratch", route="cuda", source=src, replaces=k5,
+             launches=launches["fused_simulate_network_scratch"], max_abs_err=hh["plain"]["max_abs_dh"],
+             ms=hh["kernel_ms"], plain_ms=hh["plain"]["plain_ms"], bound_ms=bhb, bound_by=bhy, library_ms=None,
+             build="scratch", bound_terms=th, scratch_bytes_per_sweep=hh["scratch_bytes_per_sweep"],
+             us_per_newton_iteration=hh["us_per_newton_iteration"],
+             shape=dict(network="N = 8192 scaling reach split at 4096 + trapezoid tributary", slots=hh["slots"],
+                        n_time_levels=sh_.n_time_levels, newton_iterations=hh["total_iterations"]),
              tolerance=tol),
-        dict(name="fused_simulate_network_batched_scratch", route="cuda",
-             source="flowsim_tpu_torch/ops/cuda/csrc/fused_network.cu",
-             replaces="flowsim_tpu/ops/pallas/fused_network.py:1904",
+        dict(name="fused_simulate_network_table_scratch", route="cuda", source=src, replaces=k5,
+             launches=launches["fused_simulate_network_table_scratch"], max_abs_err=ht["plain"]["max_abs_dh"],
+             ms=ht["kernel_ms"], plain_ms=ht["plain"]["plain_ms"], bound_ms=bhtb, bound_by=bhty, library_ms=None,
+             build="scratch (table)", bound_terms=tht, scratch_bytes_per_sweep=ht["scratch_bytes_per_sweep"],
+             shape=dict(network="N = 8192 table reach split at 4096 + trapezoid tributary", slots=ht["slots"],
+                        samples=LONG_TABLE_SAMPLES, n_time_levels=sht.n_time_levels,
+                        newton_iterations=ht["total_iterations"]),
+             tolerance=tol),
+        dict(name="fused_simulate_network_batched_scratch", route="cuda", source=src, replaces=k6,
              launches=launches["fused_simulate_network_batched_scratch"],
              max_abs_err=ensemble_rec["plain_members"]["max_abs_dh"], ms=ens_ms, plain_ms=ens_plain_ms,
              bound_ms=b6b, bound_by=by6, library_ms=None, build="scratch", bound_terms=t6, ms_over_bound=ens_ms / b6b,
              grid=grid_e, scratch_bytes=ensemble_rec["scratch_bytes"],
              scratch_bytes_per_sweep=ensemble_rec["scratch_bytes_per_sweep"],
+             cluster_forms_ms=forms_rec["ms"],
              shape=dict(network="tributary, 250 m", members=M, slots=shape_e[0], n_time_levels=nt,
                         newton_iterations=ens_iters, store="full"),
              plain_shape=dict(members=len(picked), n_time_levels=Lc,
                               newton_iterations=ensemble_rec["plain_members"]["iterations"]),
-             tolerance=dict(tol, against_single_launches="bit-identical")),
+             tolerance=dict(tol, against_single_launches=f"bit-identical, the norm to {CLUSTER_ERR_RTOL} relative "
+                            "(the single launches take the cluster build)")),
     ]
-    fnet.launch_count = fnet.scratch_launch_count = launches["fused_simulate_network_scratch"] \
-        + launches["fused_simulate_network_table_scratch"]
-    fnet.batched_launch_count = fnet.batched_scratch_launch_count = launches["fused_simulate_network_batched_scratch"]
+    if build_e == fnet.CLUSTER_BUILD:
+        kernels[-1]["name"] = "fused_simulate_network_batched_cluster"
+        kernels[-1]["launches"] = launches["fused_simulate_network_batched_cluster"]
+        kernels[-1]["build"] = "cluster"
+    for c, (single, batched) in (("cluster", ("fused_simulate_network_cluster", "fused_simulate_network_batched_cluster")),
+                                 ("scratch", ("fused_simulate_network_scratch", "fused_simulate_network_batched_scratch"))):
+        table_row = single.replace("network_", "network_table_")
+        setattr(fnet, f"{c}_launch_count", launches[single] + launches[table_row])
+        setattr(fnet, f"batched_{c}_launch_count", launches[batched])
+    fnet.launch_count = count["launch_count"]
+    fnet.batched_launch_count = count["batched_launch_count"]
     return record, kernels
 
 

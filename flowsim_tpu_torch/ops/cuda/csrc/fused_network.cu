@@ -28,8 +28,9 @@
 // steps — closures, assembly with the residual reduction, ceil(log2 Nmax) PCR
 // sweeps, back-substitution, Schur assembly, the J x J solve, update.  So:
 //
-//  * ONE thread block per network; slot s = b * Nmax + i is (branch, node),
-//    and a thread owns the same slots in every step and every level;
+//  * ONE thread block per network (the CLUSTER build: one cluster); slot
+//    s = b * Nmax + i is (branch, node), and a thread owns the same slots in
+//    every step and every level;
 //  * the state is float64: per slot h and Q, the level-start h, Q, A, Se and
 //    Q2A, the lateral-inflow cell averages of the level, and two
 //    component-major PCR buffers of 12 + 2 RHS doubles a slot (RHS = 1 + the
@@ -95,10 +96,30 @@
 //    resident blocks) blocks, one scratch each, block k running members k,
 //    k + grid, ... one after another, so the scratch grows with the card, not
 //    with the batch; a member's results do not depend on its block.
+//  * the CLUSTER build, for a network whose slot arrays do not fit one block's
+//    shared memory but fit a thread-block cluster's (2-16 blocks on
+//    neighbouring SMs; every network the scratch build would otherwise take up
+//    to about 11 600 slots): block rank r of the cluster owns the contiguous
+//    slots r * per .. r * per + per - 1 (slot order unchanged, a branch may
+//    span ranks) and keeps their slot arrays in its own shared memory, in the
+//    layout of the other builds with per slots.  A slot of another rank — the
+//    cell (i, i+1) at a rank's edge, the sweep's partners at i -/+ stride, the
+//    end slots the junction and Schur rows read — is read or written there
+//    through distributed shared memory (DSMEM); the junction block and the
+//    gate state live in rank 0, whose threads run the junction rows, the Schur
+//    rows and the J x J solve.  Every barrier that publishes slot data is a
+//    cluster barrier; the norm is each rank's block_sum, summed in rank order
+//    by every thread (cluster_sum), so the while exits uniformly.  A rank runs
+//    the latency form (one slot a thread, per <= 256: the fewest blocks that
+//    give it) or, at 16 blocks, the loop form; the two-blocks-an-SM form (the
+//    residency build's 192 threads) is a test hook for batches.  Members run
+//    on a persistent grid of clusters, as in the SCRATCH build.  Only the
+//    norm's summation order differs from the other builds: every other field
+//    has their bits, the norm agrees to rounding.
 //  Every build does the same operations in the same order and gives the
 //  same bits; the build id of the C entry is a test hook for chip_smoke.py.
-//  The probe build (PROBE, reach_common.cuh) of the loop and latency forms
-//  sums the cycles of each phase of an iteration.
+//  The probe build (PROBE, reach_common.cuh) of the loop, latency, scratch and
+//  cluster forms sums the cycles of each phase of an iteration.
 //
 // Table branches (irregular sections; the TABLE builds).  A branch's geometry
 // is a trapezoid (closed forms) or per-node lookup tables of M depth samples
@@ -147,6 +168,7 @@
 // C interface (ctypes): launches on the given stream, allocates nothing (the
 // SCRATCH build's scratch is the caller's), does not synchronise, returns
 // cudaGetLastError().
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -201,6 +223,102 @@ __host__ __device__ inline size_t junction_doubles(int B, int J) {
 
 __host__ __device__ inline size_t smem_doubles(int slots, int B, int J, int rhs) {
     return slot_doubles(slots, rhs) + junction_doubles(B, J);
+}
+
+// -- the CLUSTER build's cluster ----------------------------------------------
+
+namespace cg = cooperative_groups;
+
+constexpr int MAX_CLUSTER = 16;     // blocks of a cluster (above 8: non-portable)
+constexpr int PAIR_THREADS = 192;   // the two-blocks-an-SM form's block
+constexpr int CLUSTER_PAIR = 256;   // the flag of that form in the C entry's `cluster`
+
+// slots of each rank of a cluster of `blocks` blocks (the last may hold fewer)
+__host__ __device__ inline int rank_slots(int slots, int blocks) { return (slots + blocks - 1) / blocks; }
+
+// this block's rank in its cluster, and the cluster's blocks (0 and 1 outside
+// the CLUSTER build)
+template <bool CLUSTER>
+__device__ __forceinline__ int cluster_rank() {
+    if constexpr (CLUSTER) return (int)cg::this_cluster().block_rank();
+    else return 0;
+}
+template <bool CLUSTER>
+__device__ __forceinline__ int cluster_blocks() {
+    if constexpr (CLUSTER) return (int)cg::this_cluster().num_blocks();
+    else return 1;
+}
+
+// The CLUSTER build's slots of this block's rank, lo .. lo + cnt - 1, in
+// slot arrays of leading dimension lds (nothing outside the CLUSTER build)
+template <bool CLUSTER>
+struct Ranks {
+    int lo, cnt, lds;
+};
+template <>
+struct Ranks<false> {};
+
+template <bool CLUSTER>
+__device__ __forceinline__ Ranks<CLUSTER> ranks_of(int lo, int cnt, int lds) {
+    if constexpr (CLUSTER) return Ranks<CLUSTER>{lo, cnt, lds};
+    else return Ranks<CLUSTER>{};
+}
+
+// a slot's index in the network (GS) of its index in this rank (s), and
+// back (LS): the same outside the CLUSTER build
+template <bool CLUSTER>
+__device__ __forceinline__ int global_slot(Ranks<CLUSTER> r, int s) {
+    if constexpr (CLUSTER) return r.lo + s;
+    else return s;
+}
+template <bool CLUSTER>
+__device__ __forceinline__ int local_slot(Ranks<CLUSTER> r, int g) {
+    if constexpr (CLUSTER) return g - r.lo;
+    else return g;
+}
+
+// Another slot's element x of a slot array, x counted from this rank's first
+// slot: in the CLUSTER build a slot beyond the rank's range lies at the same
+// offset in its own rank's shared memory (every rank has the same layout),
+// reached through distributed shared memory.  The kernel calls these in the
+// CLUSTER build only (its AT / ATC macros).
+template <bool CLUSTER, class T>
+__device__ __forceinline__ T& slot_at(Ranks<CLUSTER> r, T* arr, int x) {
+    if constexpr (CLUSTER) {
+        if (x < 0 || x >= r.cnt) {
+            const int g = r.lo + x, q = g / r.lds;
+            return *cg::this_cluster().map_shared_rank(arr + (g - q * r.lds), q);
+        }
+    }
+    return arr[x];
+}
+// the same for component c of a PCR buffer of leading dimension lds
+template <bool CLUSTER, class T>
+__device__ __forceinline__ T& slot_at(Ranks<CLUSTER> r, T* buf, int c, int lds, int x) {
+    if constexpr (CLUSTER) {
+        if (x < 0 || x >= r.cnt) {
+            const int g = r.lo + x, q = g / lds;
+            return *cg::this_cluster().map_shared_rank(buf + (c * lds + (g - q * lds)), q);
+        }
+    }
+    return buf[c * lds + x];
+}
+
+// The CLUSTER build's residual norm: each rank's block_sum, published in its
+// shared memory; the cluster barrier that follows also publishes the
+// assembled system; then every thread adds the ranks' sums in rank order, so
+// every thread of the cluster holds the same value.  parity alternates with
+// the iteration, as block_sum's warp_part does, so that a slow reader never
+// sees the next iteration's sum.
+__device__ __forceinline__ double cluster_sum(double v, double* warp_part, int parity) {
+    __shared__ double rank_part[2];
+    cg::cluster_group cluster = cg::this_cluster();
+    const double t = block_sum(v, warp_part);
+    if (threadIdx.x == 0) rank_part[parity] = t;
+    cluster.sync();
+    double total = 0.0;
+    for (unsigned q = 0; q < cluster.num_blocks(); ++q) total += *cluster.map_shared_rank(&rank_part[parity], q);
+    return total;
 }
 
 // -- ops/rating_curve.py at a junction ---------------------------------------
@@ -341,16 +459,21 @@ __device__ __forceinline__ Geo load_geo(const double* __restrict__ geo, int n_ma
 // over the slots.  LATENCY (slots <= threads): a thread owns one slot for the
 // whole run.  RESIDENCY: the latency build's form under a launch bound that
 // caps the registers so that two blocks fit an SM.  SCRATCH: the loop build
-// with its slot arrays in device memory, on a persistent grid.
-enum { LOOP_BUILD = 0, LATENCY_BUILD = 1, RESIDENCY_BUILD = 2, SCRATCH_BUILD = 3 };
+// with its slot arrays in device memory, on a persistent grid.  CLUSTER: one
+// network over the blocks of a thread-block cluster, its slot arrays split
+// by rank in their shared memory, on a persistent grid of clusters.
+enum { LOOP_BUILD = 0, LATENCY_BUILD = 1, RESIDENCY_BUILD = 2, SCRATCH_BUILD = 3, CLUSTER_BUILD = 4 };
 
 // ONE: the latency build's one slot a thread (needs slots <= blockDim.x).
 // PROBE: the probe build (reach_common.cuh, Probe).  TABLE: a network with
 // table branches (each slot evaluates its branch's closure).  SCRATCH: the
 // slot arrays in block blockIdx.x's part of scratch_all, and the block runs
 // members blockIdx.x, blockIdx.x + gridDim.x, ... below n_members (the other
-// builds run a grid of n_members blocks, one member each).
-template <int RHS, int BLOCK, int MINB, bool ONE, bool PROBE, bool TABLE, bool SCRATCH>
+// builds run a grid of n_members blocks, one member each).  CLUSTER: the
+// slots of this block's rank in its shared memory, the other ranks' through
+// DSMEM, and the cluster runs members clusterIdx, clusterIdx + clusters, ...
+// (ONE: one slot a thread of the rank's).
+template <int RHS, int BLOCK, int MINB, bool ONE, bool PROBE, bool TABLE, bool SCRATCH, bool CLUSTER>
 __global__ void __launch_bounds__(BLOCK, MINB)
 fused_network_kernel(const double* __restrict__ geo_all,   // [M, B, 13, Nmax]
                      const double* __restrict__ h0_all,    // [M, B, Nmax]
@@ -379,16 +502,41 @@ fused_network_kernel(const double* __restrict__ geo_all,   // [M, B, 13, Nmax]
                      const double* __restrict__ tab_all,   // [T, TAB_COUNT, Nmax, M], shared (TABLE)
                      int tab_m, int n_members,
                      double* scratch_all) {                // [grid, slot_doubles] (SCRATCH)
-    static_assert(!SCRATCH || (!ONE && !PROBE), "the SCRATCH build is the loop form, without a probe");
+    static_assert(!SCRATCH || (!ONE && !CLUSTER), "the SCRATCH build is the loop form, in one block");
     constexpr int C = comp(RHS);
     extern __shared__ double smem[];
     __shared__ double warp_part[2][32];
+    const int rank = cluster_rank<CLUSTER>(), n_ranks = cluster_blocks<CLUSTER>();
 
-    // member blockIdx.x; the SCRATCH build's persistent grid then runs the
-    // block's next members, one after another
-    size_t mem = blockIdx.x;
+// a barrier that publishes slot data: the whole cluster's in the CLUSTER build
+#define NET_SYNC() do { if constexpr (CLUSTER) cg::this_cluster().sync(); else __syncthreads(); } while (0)
+// the leading dimension of the slot arrays (LD); another slot's element of a
+// slot array (AT; ATG by its index in the network) or component c of a PCR
+// buffer (ATC), x counted from this rank's first slot; a slot's index in the
+// network (GS) or in this rank (LS); the thread's index in the junction
+// block's rank (TJ): the CLUSTER build's (rk: slot_at, global_slot,
+// local_slot), and outside it the other builds' own expressions, unchanged
+// (the same index through a call moved their registers and spills)
+#define LD (CLUSTER ? lds : ld)
+#define AT(arr, x) (*(CLUSTER ? &slot_at(rk, arr, x) : &(arr)[x]))
+#define ATG(arr, g) (*(CLUSTER ? &slot_at(rk, arr, local_slot(rk, g)) : &(arr)[g]))
+#define ATC(buf, c, x) (*(CLUSTER ? &slot_at(rk, buf, c, lds, x) : &(buf)[(c) * ld + (x)]))
+#define GS(s) (CLUSTER ? global_slot(rk, s) : (s))
+#define LS(g) (CLUSTER ? local_slot(rk, g) : (g))
+#define TJ (CLUSTER ? tj : tid)
+
+    // member blockIdx.x (CLUSTER: the cluster's index); the SCRATCH and
+    // CLUSTER builds' persistent grid then runs the next members, one after
+    // another
+    size_t mem = CLUSTER ? blockIdx.x / n_ranks : blockIdx.x;
     do {
         const int ld = B * n_max;                      // slots
+        // the slot arrays' slots: this rank's lo .. lo + cnt - 1 (CLUSTER), at
+        // a leading dimension lds; every slot otherwise
+        const int lds = CLUSTER ? rank_slots(ld, n_ranks) : ld;
+        const int lo = CLUSTER ? rank * lds : 0;
+        const int cnt = CLUSTER ? max(0, min(lds, ld - lo)) : ld;
+        const Ranks<CLUSTER> rk = ranks_of<CLUSTER>(lo, cnt, lds);
         const double* geo = geo_all + mem * (size_t)B * G_ROWS * n_max;
         const double* ser = ser_all + mem * (size_t)B * 2 * nt;
         const double* par_m = par_all + mem * (size_t)B * P_COUNT;
@@ -409,23 +557,30 @@ fused_network_kernel(const double* __restrict__ geo_all,   // [M, B, 13, Nmax]
         // the scratch; the junction block and the gate state in shared memory
         double* buf0 = SCRATCH ? scratch_all + blockIdx.x * slot_doubles(ld, RHS)
                                : smem;              // the assembled system / PCR ping
-        double* buf1 = buf0 + (size_t)C * ld;       // exchange area / PCR pong / solution
-        double* sh = buf1 + (size_t)C * ld;
-        double* sQ = sh + ld;
-        double* shp = sQ + ld;
-        double* sQp = shp + ld;
-        double* sAp = sQp + ld;
-        double* sSep = sAp + ld;
-        double* sQ2Ap = sSep + ld;
-        double* sqavg = sQ2Ap + ld;
-        double* sY = SCRATCH ? smem : sqavg + ld;   // junction stage
+        double* buf1 = buf0 + (size_t)C * LD;      // exchange area / PCR pong / solution
+        double* sh = buf1 + (size_t)C * LD;
+        double* sQ = sh + LD;
+        double* shp = sQ + LD;
+        double* sQp = shp + LD;
+        double* sAp = sQp + LD;
+        double* sSep = sAp + LD;
+        double* sQ2Ap = sSep + LD;
+        double* sqavg = sQ2Ap + LD;
+        double* sY = SCRATCH ? smem : sqavg + LD;  // junction stage
+        // CLUSTER: the junction block and the gate state are rank 0's
+        if constexpr (CLUSTER) {
+            if (rank != 0) sY = cg::this_cluster().map_shared_rank(sY, 0);
+        }
         double* sYp = sY + J;                       // its level-start value
         double* sSp = sYp + J;                      // level-start signed end sum
         double* sqp = sSp + J;                      // level-start rated outflow
         double* srhs = sqp + J;                     // G, then the Schur right-hand side
         double* sdY = srhs + J;                     // dQ_out/dY, then the increment dY
-        double* sM = sdY + J;                       // the J x J Schur matrix
-        double* gopen = sM + (size_t)J * J;         // per branch: downstream gate state
+        // the J x J Schur matrix (CLUSTER: only rank 0 forms and solves it, so
+        // its own shared memory, addressed as such); per branch the downstream
+        // gate state
+        double* sM = CLUSTER ? sqavg + LD + 6 * J : sdY + J;
+        double* gopen = CLUSTER ? sdY + J + (size_t)J * J : sM + (size_t)J * J;
         double* gcool = gopen + B;
         double* gtime = gcool + B;
         double* gstage = gtime + B;
@@ -433,9 +588,15 @@ fused_network_kernel(const double* __restrict__ geo_all,   // [M, B, 13, Nmax]
         const double theta = par_m[P_THETA], dt = par_m[P_DT], tol = par_m[P_TOL];
         const double inv2dt = 1.0 / (2.0 * dt);
         const int tid = threadIdx.x, nthr = blockDim.x;
+        // the junction block's rank (rank 0) runs the junction, gate and Schur
+        // work: tj is the thread's index there, beyond every loop's bound in
+        // the other ranks
+        const bool lead = !CLUSTER || rank == 0;
+        const int tj = lead ? tid : 1 << 30;
         // the junction rows go to the threads that own no slot when there are J
         // of them (junction j on thread slots + j), else to threads 0..J-1
-        const int j0 = nthr - ld >= J ? (tid >= ld ? tid - ld : J) : tid;
+        const int j0 = CLUSTER ? (!lead ? J : nthr - cnt >= J ? (tid >= cnt ? tid - cnt : J) : tid)
+                               : nthr - ld >= J ? (tid >= ld ? tid - ld : J) : tid;
         Probe<PROBE> probe;
 
 #define TDIFF(c1, c0, p1, p0) (((c1) + (c0) - (p1) - (p0)) / (2.0 * dt))
@@ -453,7 +614,7 @@ fused_network_kernel(const double* __restrict__ geo_all,   // [M, B, 13, Nmax]
         };
 
         // -- the latency build's own slot: indices, branch, geometry in registers
-        const bool own = tid < ld;
+        const bool own = tid < (CLUSTER ? cnt : ld);
         int ob = 0, oi = 0, on_b = 0, ous_j = -1, ods_j = -1;
         double odx = 1.0, oz1 = 0.0;
         Geo og{};
@@ -461,8 +622,8 @@ fused_network_kernel(const double* __restrict__ geo_all,   // [M, B, 13, Nmax]
         double odgrid = 0.0;
         if constexpr (ONE) {
             if (own) {
-                ob = tid / n_max;
-                oi = tid - ob * n_max;
+                ob = GS(tid) / n_max;
+                oi = GS(tid) - ob * n_max;
                 on_b = BRANCH_INT(ob, BI_N);
                 ous_j = BRANCH_INT(ob, BI_US_J);
                 ods_j = BRANCH_INT(ob, BI_DS_J);
@@ -479,6 +640,11 @@ fused_network_kernel(const double* __restrict__ geo_all,   // [M, B, 13, Nmax]
         auto each_slot = [&](auto&& body) {
             if constexpr (ONE) {
                 if (own) body(tid, ob, oi);
+            } else if constexpr (CLUSTER) {
+                for (int s = tid; s < rk.cnt; s += nthr) {
+                    const int g = rk.lo + s, b = g / n_max;
+                    body(s, b, g - b * n_max);
+                }
             } else {
                 for (int s = tid; s < ld; s += nthr) {
                     const int b = s / n_max;
@@ -517,24 +683,24 @@ fused_network_kernel(const double* __restrict__ geo_all,   // [M, B, 13, Nmax]
         // the network after another
         int jend[MAX_JUNCTION_ENDS];
         int n_jend = 0;
-        if (J >= 2 && J <= 32 && tid < J) {
+        if (J >= 2 && J <= 32 && TJ < J) {
             for (int b = 0; b < B; ++b) {
-                if (BRANCH_INT(b, BI_DS_J) == tid) { if (n_jend < MAX_JUNCTION_ENDS) jend[n_jend] = 2 * b; ++n_jend; }
-                if (BRANCH_INT(b, BI_US_J) == tid) { if (n_jend < MAX_JUNCTION_ENDS) jend[n_jend] = 2 * b + 1; ++n_jend; }
+                if (BRANCH_INT(b, BI_DS_J) == TJ) { if (n_jend < MAX_JUNCTION_ENDS) jend[n_jend] = 2 * b; ++n_jend; }
+                if (BRANCH_INT(b, BI_US_J) == TJ) { if (n_jend < MAX_JUNCTION_ENDS) jend[n_jend] = 2 * b + 1; ++n_jend; }
             }
         }
 
         each_slot([&](int s, int, int) {
-            sh[s] = h0_all[mem * (size_t)ld + s];
-            sQ[s] = Q0_all[mem * (size_t)ld + s];
-            depth[s] = sh[s];
-            flow[s] = sQ[s];
+            sh[s] = h0_all[mem * (size_t)ld + GS(s)];
+            sQ[s] = Q0_all[mem * (size_t)ld + GS(s)];
+            depth[GS(s)] = sh[s];
+            flow[GS(s)] = sQ[s];
         });
-        for (int j = tid; j < J; j += nthr) {
+        for (int j = TJ; j < J; j += nthr) {
             sY[j] = Y0_all[mem * (size_t)J + j];
             Yout[j] = sY[j];
         }
-        for (int b = tid; b < B; b += nthr) {
+        for (int b = TJ; b < B; b += nthr) {
             const double* par = par_m + (size_t)b * P_COUNT;
             const double g0 = par[P_GATE_INIT];
             gopen[b] = BRANCH_INT(b, BI_DS_J) < 0 ? g0 : 0.0;
@@ -543,21 +709,21 @@ fused_network_kernel(const double* __restrict__ geo_all,   // [M, B, 13, Nmax]
             gate[b * 2 + 0] = BRANCH_INT(b, BI_US_J) < 0 ? g0 : 0.0;
             gate[b * 2 + 1] = gopen[b];
         }
-        if (tid == 0) { iters[0] = 0; errs[0] = 0.0; conv[0] = 1; }
-        __syncthreads();
+        if (TJ == 0) { iters[0] = 0; errs[0] = 0.0; conv[0] = 1; }
+        NET_SYNC();
         probe.start();
-        for (int b = tid; b < B; b += nthr)
-            gstage[b] = par_m[(size_t)b * P_COUNT + P_DS_BED_LEVEL] + sh[b * n_max + n_max - 1];
+        for (int b = TJ; b < B; b += nthr)
+            gstage[b] = par_m[(size_t)b * P_COUNT + P_DS_BED_LEVEL] + ATG(sh, b * n_max + n_max - 1);
 
         for (int k = 1; k < nt; ++k) {
             // -- level start: pads re-anchored to their branch's end
             each_slot([&](int s, int b, int i) {
                 const int n_b = ONE ? on_b : BRANCH_INT(b, BI_N);
-                if (i >= n_b) { sh[s] = sh[b * n_max + n_b - 1]; sQ[s] = sQ[b * n_max + n_b - 1]; }
+                if (i >= n_b) { sh[s] = ATG(sh, b * n_max + n_b - 1); sQ[s] = ATG(sQ, b * n_max + n_b - 1); }
             });
             // the gate controller of a gated downstream rating, on the stage the
             // previous level left
-            for (int b = tid; b < B; b += nthr) {
+            for (int b = TJ; b < B; b += nthr) {
                 if (BRANCH_INT(b, BI_DS_KIND) != BC_RATING || BRANCH_INT(b, BI_RC_KIND) != RC_GATED) continue;
                 const double* par = par_m + (size_t)b * P_COUNT;
                 const double pivot = par[P_RC_PIVOT], time = (double)k * dt;
@@ -570,7 +736,7 @@ fused_network_kernel(const double* __restrict__ geo_all,   // [M, B, 13, Nmax]
                 gcool[b] = (do_open || do_close) ? par[P_RC_COOLDOWN] : cool;
                 gtime[b] = time;
             }
-            __syncthreads();
+            NET_SYNC();
             probe.mark(PH_LEVEL);
 
             // -- previous-level state per slot; junction level-start terms
@@ -586,7 +752,7 @@ fused_network_kernel(const double* __restrict__ geo_all,   // [M, B, 13, Nmax]
                 if (qlat_mode != QLAT_NONE && i < n_max - 1) {
                     const double* qc = qlat_mode == QLAT_LEVELS ? qlat + (size_t)k * ld : qlat;
                     const double* qp = qlat_mode == QLAT_LEVELS ? qlat + (size_t)(k - 1) * ld : qlat;
-                    qa = CAVG(qc[s + 1], qc[s], qp[s + 1], qp[s]);
+                    qa = CAVG(qc[GS(s) + 1], qc[GS(s)], qp[GS(s) + 1], qp[GS(s)]);
                 }
                 sqavg[s] = qa;
                 if constexpr (ONE) { ohp0 = h; oQp0 = Q; oAp0 = sc.A; oSep0 = e.Se; oQ2Ap0 = Q2A; oqavg = qa; }
@@ -595,19 +761,20 @@ fused_network_kernel(const double* __restrict__ geo_all,   // [M, B, 13, Nmax]
                 const double* jp = jpar + (size_t)j * JP_COUNT;
                 double S = 0.0;
                 for (int b = 0; b < B; ++b) {
-                    if (BRANCH_INT(b, BI_DS_J) == j) S += sQ[b * n_max + n_max - 1];
-                    if (BRANCH_INT(b, BI_US_J) == j) S += -sQ[b * n_max];
+                    if (BRANCH_INT(b, BI_DS_J) == j) S += ATG(sQ, b * n_max + n_max - 1);
+                    if (BRANCH_INT(b, BI_US_J) == j) S += -ATG(sQ, b * n_max);
                 }
                 sYp[j] = sY[j];
                 sSp[j] = S;
                 sqp[j] = junction_q(jp, jtab, sY[j]);
             }
-            __syncthreads();
+            NET_SYNC();
             probe.mark(PH_PREV);
             if constexpr (ONE) {
                 if (own && oi < n_max - 1) {
                     const int t = tid + 1;
-                    ohp1 = shp[t]; oQp1 = sQp[t]; oAp1 = sAp[t]; oSep1 = sSep[t]; oQ2Ap1 = sQ2Ap[t];
+                    ohp1 = AT(shp, t); oQp1 = AT(sQp, t); oAp1 = AT(sAp, t); oSep1 = AT(sSep, t);
+                    oQ2Ap1 = AT(sQ2Ap, t);
                 }
             }
 
@@ -622,13 +789,13 @@ fused_network_kernel(const double* __restrict__ geo_all,   // [M, B, 13, Nmax]
                     const Sec sc = section_state(g, h);
                     const Slope e = energy_slope(g, sc, h, Q);
                     const double Q2A = Q * Q / sc.A, QA = Q / sc.A;
-                    buf1[0 * ld + s] = sc.A;      buf1[1 * ld + s] = Q2A;
-                    buf1[2 * ld + s] = e.Se;      buf1[3 * ld + s] = sc.dA_dh;
-                    buf1[4 * ld + s] = e.dSe_dA;  buf1[5 * ld + s] = e.dSe_dQ;
-                    buf1[6 * ld + s] = QA;
+                    buf1[0 * LD + s] = sc.A;      buf1[1 * LD + s] = Q2A;
+                    buf1[2 * LD + s] = e.Se;      buf1[3 * LD + s] = sc.dA_dh;
+                    buf1[4 * LD + s] = e.dSe_dA;  buf1[5 * LD + s] = e.dSe_dQ;
+                    buf1[6 * LD + s] = QA;
                     if constexpr (ONE) { oh = h; oQ = Q; osc = sc; oe = e; oQ2A = Q2A; oQA = QA; }
                 });
-                __syncthreads();
+                NET_SYNC();
                 probe.mark(PH_CLOSURES);
 
                 double sq = 0.0;
@@ -646,32 +813,33 @@ fused_network_kernel(const double* __restrict__ geo_all,   // [M, B, 13, Nmax]
                         dSe_dA0 = oe.dSe_dA; dSe_dQ0 = oe.dSe_dQ; QA0 = oQA;
                     } else {
                         h = sh[s]; Q = sQ[s];
-                        A0 = buf1[0 * ld + s]; Q2A0 = buf1[1 * ld + s]; Se0 = buf1[2 * ld + s];
-                        dA_dh0 = buf1[3 * ld + s]; dSe_dA0 = buf1[4 * ld + s];
-                        dSe_dQ0 = buf1[5 * ld + s]; QA0 = buf1[6 * ld + s];
+                        A0 = buf1[0 * LD + s]; Q2A0 = buf1[1 * LD + s]; Se0 = buf1[2 * LD + s];
+                        dA_dh0 = buf1[3 * LD + s]; dSe_dA0 = buf1[4 * LD + s];
+                        dSe_dQ0 = buf1[5 * LD + s]; QA0 = buf1[6 * LD + s];
                     }
                     // structural zeros (L row 1, U row 0) and the coupling columns
-                    buf0[2 * ld + s] = 0.0; buf0[3 * ld + s] = 0.0;
-                    buf0[8 * ld + s] = 0.0; buf0[9 * ld + s] = 0.0;
+                    buf0[2 * LD + s] = 0.0; buf0[3 * LD + s] = 0.0;
+                    buf0[8 * LD + s] = 0.0; buf0[9 * LD + s] = 0.0;
 #pragma unroll
-                    for (int r = 1; r < RHS; ++r) { buf0[(12 + 2 * r) * ld + s] = 0.0; buf0[(13 + 2 * r) * ld + s] = 0.0; }
+                    for (int r = 1; r < RHS; ++r) { buf0[(12 + 2 * r) * LD + s] = 0.0; buf0[(13 + 2 * r) * LD + s] = 0.0; }
 
                     if (i < n_max - 1) {          // cell (i, i+1): node i row 1, node i+1 row 0
-                        const int t = s + 1;
+                        const int t = s + 1;      // (CLUSTER: in the next rank at this rank's edge)
                         if (i < n_b - 1) {
-                            const double h1 = sh[t], Q1 = sQ[t];
-                            const double A1 = buf1[0 * ld + t], Q2A1 = buf1[1 * ld + t], Se1 = buf1[2 * ld + t];
-                            const double dA_dh1 = buf1[3 * ld + t], dSe_dA1 = buf1[4 * ld + t];
-                            const double dSe_dQ1 = buf1[5 * ld + t], QA1 = buf1[6 * ld + t];
+                            const double h1 = AT(sh, t), Q1 = AT(sQ, t);
+                            const double A1 = ATC(buf1, 0, t), Q2A1 = ATC(buf1, 1, t);
+                            const double Se1 = ATC(buf1, 2, t), dA_dh1 = ATC(buf1, 3, t);
+                            const double dSe_dA1 = ATC(buf1, 4, t), dSe_dQ1 = ATC(buf1, 5, t);
+                            const double QA1 = ATC(buf1, 6, t);
                             double hp0, hp1, Qp0, Qp1, Ap0, Ap1, Sep0, Sep1, Q2Ap0, Q2Ap1, qavg, z0, z1;
                             if constexpr (ONE) {
                                 hp0 = ohp0; hp1 = ohp1; Qp0 = oQp0; Qp1 = oQp1; Ap0 = oAp0; Ap1 = oAp1;
                                 Sep0 = oSep0; Sep1 = oSep1; Q2Ap0 = oQ2Ap0; Q2Ap1 = oQ2Ap1; qavg = oqavg;
                                 z0 = og.z; z1 = oz1;
                             } else {
-                                hp0 = shp[s]; hp1 = shp[t]; Qp0 = sQp[s]; Qp1 = sQp[t];
-                                Ap0 = sAp[s]; Ap1 = sAp[t]; Sep0 = sSep[s]; Sep1 = sSep[t];
-                                Q2Ap0 = sQ2Ap[s]; Q2Ap1 = sQ2Ap[t]; qavg = sqavg[s];
+                                hp0 = shp[s]; hp1 = AT(shp, t); Qp0 = sQp[s]; Qp1 = AT(sQp, t);
+                                Ap0 = sAp[s]; Ap1 = AT(sAp, t); Sep0 = sSep[s]; Sep1 = AT(sSep, t);
+                                Q2Ap0 = sQ2Ap[s]; Q2Ap1 = AT(sQ2Ap, t); qavg = sqavg[s];
                                 z0 = geo[((size_t)b * G_ROWS + G_ZBED) * n_max + i];
                                 z1 = geo[((size_t)b * G_ROWS + G_ZBED) * n_max + i + 1];
                             }
@@ -692,20 +860,20 @@ fused_network_kernel(const double* __restrict__ geo_all,   // [M, B, 13, Nmax]
                                        + 0.5 * theta * dA_dh1 * geom));
                             const double dM_dQ_i = inv2dt - th_dx * 2.0 * QA0 + G * avgA * 0.5 * theta * dSe_dQ0;
                             const double dM_dQ_i1 = inv2dt + th_dx * 2.0 * QA1 + G * avgA * 0.5 * theta * dSe_dQ1;
-                            buf0[6 * ld + s] = dA_dh0 * inv2dt;  buf0[7 * ld + s] = -th_dx;
-                            buf0[10 * ld + s] = dA_dh1 * inv2dt; buf0[11 * ld + s] = th_dx;
-                            buf0[13 * ld + s] = -Rc;
-                            buf0[0 * ld + t] = dM_dh_i;   buf0[1 * ld + t] = dM_dQ_i;
-                            buf0[4 * ld + t] = dM_dh_i1;  buf0[5 * ld + t] = dM_dQ_i1;
-                            buf0[12 * ld + t] = -Rm;
+                            buf0[6 * LD + s] = dA_dh0 * inv2dt;  buf0[7 * LD + s] = -th_dx;
+                            buf0[10 * LD + s] = dA_dh1 * inv2dt; buf0[11 * LD + s] = th_dx;
+                            buf0[13 * LD + s] = -Rc;
+                            ATC(buf0, 0, t) = dM_dh_i;   ATC(buf0, 1, t) = dM_dQ_i;
+                            ATC(buf0, 4, t) = dM_dh_i1;  ATC(buf0, 5, t) = dM_dQ_i1;
+                            ATC(buf0, 12, t) = -Rm;
                             sq += Rc * Rc + Rm * Rm;
                         } else {                  // pad cell: delta-copy rows, no residual in the norm
-                            buf0[6 * ld + s] = -1.0;  buf0[7 * ld + s] = 0.0;
-                            buf0[10 * ld + s] = 1.0;  buf0[11 * ld + s] = 0.0;
-                            buf0[13 * ld + s] = -(sh[t] - h);
-                            buf0[0 * ld + t] = 0.0;   buf0[1 * ld + t] = -1.0;
-                            buf0[4 * ld + t] = 0.0;   buf0[5 * ld + t] = 1.0;
-                            buf0[12 * ld + t] = -(sQ[t] - Q);
+                            buf0[6 * LD + s] = -1.0;  buf0[7 * LD + s] = 0.0;
+                            buf0[10 * LD + s] = 1.0;  buf0[11 * LD + s] = 0.0;
+                            buf0[13 * LD + s] = -(AT(sh, t) - h);
+                            ATC(buf0, 0, t) = 0.0;   ATC(buf0, 1, t) = -1.0;
+                            ATC(buf0, 4, t) = 0.0;   ATC(buf0, 5, t) = 1.0;
+                            ATC(buf0, 12, t) = -(AT(sQ, t) - Q);
                         }
                     }
                     if (i == 0 || i == n_max - 1) {   // the branch's end rows
@@ -713,18 +881,18 @@ fused_network_kernel(const double* __restrict__ geo_all,   // [M, B, 13, Nmax]
                         const int jid = up ? us_j : ds_j;
                         double res, df_dh, df_dQ;
                         // D row 0 of node 0 (upstream) or row 1 of node Nmax-1 (downstream)
-                        double* p_dh = &buf0[(up ? 4 : 6) * ld + s];
-                        double* p_dq = &buf0[(up ? 5 : 7) * ld + s];
-                        double* p_b = &buf0[(up ? 12 : 13) * ld + s];
-                        if (up) { buf0[0 * ld + s] = 0.0; buf0[1 * ld + s] = 0.0; }
-                        else { buf0[10 * ld + s] = 0.0; buf0[11 * ld + s] = 0.0; }
+                        double* p_dh = &buf0[(up ? 4 : 6) * LD + s];
+                        double* p_dq = &buf0[(up ? 5 : 7) * LD + s];
+                        double* p_b = &buf0[(up ? 12 : 13) * LD + s];
+                        if (up) { buf0[0 * LD + s] = 0.0; buf0[1 * LD + s] = 0.0; }
+                        else { buf0[10 * LD + s] = 0.0; buf0[11 * LD + s] = 0.0; }
                         if (jid >= 0) {
                             const double z = ONE ? og.z : geo[((size_t)b * G_ROWS + G_ZBED) * n_max + i];
                             res = h - (sY[jid] - z);
                             *p_dh = 1.0; *p_dq = 0.0; *p_b = -res;
                             // its -1 coupling column: the upstream coupling first
                             const int col = 1 + (up ? 0 : (us_j >= 0 ? 1 : 0));
-                            buf0[(12 + 2 * col + (up ? 0 : 1)) * ld + s] = -1.0;
+                            buf0[(12 + 2 * col + (up ? 0 : 1)) * LD + s] = -1.0;
                         } else {
                             Sec sc;
                             if constexpr (ONE) sc = osc;
@@ -777,8 +945,8 @@ fused_network_kernel(const double* __restrict__ geo_all,   // [M, B, 13, Nmax]
                     const double* jp = jpar + (size_t)j * JP_COUNT;
                     double S = 0.0;
                     for (int b = 0; b < B; ++b) {
-                        if (BRANCH_INT(b, BI_DS_J) == j) S += sQ[b * n_max + n_max - 1];
-                        if (BRANCH_INT(b, BI_US_J) == j) S += -sQ[b * n_max];
+                        if (BRANCH_INT(b, BI_DS_J) == j) S += ATG(sQ, b * n_max + n_max - 1);
+                        if (BRANCH_INT(b, BI_US_J) == j) S += -ATG(sQ, b * n_max);
                     }
                     const double area = jp[JP_AREA];
                     const double q = junction_q(jp, jtab, sY[j]);
@@ -791,7 +959,8 @@ fused_network_kernel(const double* __restrict__ geo_all,   // [M, B, 13, Nmax]
                 }
                 // the barrier inside publishes buf0 and retires every read of the
                 // exchange area before the first sweep overwrites it
-                err = sqrt(block_sum(sq, warp_part[it & 1]));
+                if constexpr (CLUSTER) err = sqrt(cluster_sum(sq, warp_part[it & 1], it & 1));
+                else err = sqrt(block_sum(sq, warp_part[it & 1]));
                 probe.mark(PH_ASSEMBLY);
 
                 double* src = buf0;
@@ -799,22 +968,30 @@ fused_network_kernel(const double* __restrict__ geo_all,   // [M, B, 13, Nmax]
                 int stride = 1;
                 for (int sw = 0; sw < sweeps; ++sw, stride *= 2) {
                     each_slot([&](int s, int b, int i) {
-                        pcr::sweep_node<RHS>(src + b * n_max, dst + b * n_max, ld, n_max, stride, i);
+                        if constexpr (CLUSTER) {
+                            // the partners at i -/+ stride, in any rank
+                            const bool vm = i - stride >= 0, vp = i + stride < n_max;
+                            pcr::sweep_node_at<RHS>(src + s, vm ? &AT(src, s - stride) : src,
+                                                    vp ? &AT(src, s + stride) : src, dst + s, LD, vm, vp);
+                        } else {
+                            pcr::sweep_node<RHS>(src + b * n_max, dst + b * n_max, ld, n_max, stride, i);
+                        }
                     });
-                    __syncthreads();
+                    NET_SYNC();
                     probe.mark(PH_SWEEPS);
                     double* tmp = src; src = dst; dst = tmp;
                 }
                 // the solution columns (x[2r + row]) into the free buffer
                 each_slot([&](int s, int b, int i) {
                     double x[2 * RHS];
-                    pcr::backsolve_node<RHS>(src + b * n_max, ld, i, x);
+                    if constexpr (CLUSTER) pcr::backsolve_node<RHS>(src, LD, s, x);
+                    else pcr::backsolve_node<RHS>(src + b * n_max, ld, i, x);
 #pragma unroll
-                    for (int c = 0; c < 2 * RHS; ++c) dst[c * ld + s] = x[c];
+                    for (int c = 0; c < 2 * RHS; ++c) dst[c * LD + s] = x[c];
                 });
-                __syncthreads();
+                NET_SYNC();
                 probe.mark(PH_BACKSOLVE);
-                const double* X = dst;
+                double* X = dst;
 
                 // the Schur system, in the stacked engine's order: row j from the
                 // end values of the solution columns of the branches at junction
@@ -830,12 +1007,12 @@ fused_network_kernel(const double* __restrict__ geo_all,   // [M, B, 13, Nmax]
                         for (int e = 0; e < 2; ++e) {
                             const bool up = e == 1;
                             if ((up ? us_j : ds_j) != 0) continue;
-                            const int s = b * n_max + (up ? 0 : n_max - 1);
+                            const int s = LS(b * n_max + (up ? 0 : n_max - 1));
                             const double fs = fac * (up ? -1.0 : 1.0);
-                            rhs += fs * X[1 * ld + s];
+                            rhs += fs * ATC(X, 1, s);
                             int ci = 0;
-                            if (us_j >= 0) { m += fs * X[(2 * (1 + ci) + 1) * ld + s]; ++ci; }
-                            if (ds_j >= 0) { m += fs * X[(2 * (1 + ci) + 1) * ld + s]; }
+                            if (us_j >= 0) { m += fs * ATC(X, (2 * (1 + ci) + 1), s); ++ci; }
+                            if (ds_j >= 0) { m += fs * ATC(X, (2 * (1 + ci) + 1), s); }
                         }
                     }
                     m = m - D_Y;
@@ -845,7 +1022,7 @@ fused_network_kernel(const double* __restrict__ geo_all,   // [M, B, 13, Nmax]
                     // rows and their solve need no block barrier between them),
                     // over its list of ends
                     const bool warp0 = J <= 32;
-                    for (int j = tid; j < J && (!warp0 || tid < 32); j += (warp0 ? 32 : nthr)) {
+                    for (int j = TJ; j < J && (!warp0 || TJ < 32); j += (warp0 ? 32 : nthr)) {
                         const double area = jpar[(size_t)j * JP_COUNT + JP_AREA];
                         const double fac = area > 0.0 ? -0.5 : 1.0;
                         const double D_Y = area > 0.0 ? area / dt + 0.5 * sdY[j] : -sdY[j];
@@ -854,12 +1031,12 @@ fused_network_kernel(const double* __restrict__ geo_all,   // [M, B, 13, Nmax]
                         double rhs = srhs[j];
                         auto add_end = [&](int b, bool up) {
                             const int us_j = BRANCH_INT(b, BI_US_J), ds_j = BRANCH_INT(b, BI_DS_J);
-                            const int s = b * n_max + (up ? 0 : n_max - 1);
+                            const int s = LS(b * n_max + (up ? 0 : n_max - 1));
                             const double fs = fac * (up ? -1.0 : 1.0);
-                            rhs += fs * X[1 * ld + s];
+                            rhs += fs * ATC(X, 1, s);
                             int ci = 0;
-                            if (us_j >= 0) { row[us_j] += fs * X[(2 * (1 + ci) + 1) * ld + s]; ++ci; }
-                            if (ds_j >= 0) { row[ds_j] += fs * X[(2 * (1 + ci) + 1) * ld + s]; }
+                            if (us_j >= 0) { row[us_j] += fs * ATC(X, (2 * (1 + ci) + 1), s); ++ci; }
+                            if (ds_j >= 0) { row[ds_j] += fs * ATC(X, (2 * (1 + ci) + 1), s); }
                         };
                         if (warp0 && n_jend <= MAX_JUNCTION_ENDS) {
                             for (int e = 0; e < n_jend; ++e) add_end(jend[e] >> 1, jend[e] & 1);
@@ -879,8 +1056,8 @@ fused_network_kernel(const double* __restrict__ geo_all,   // [M, B, 13, Nmax]
                         probe.mark(PH_SCHUR);
                     }
                     // dY into sdY by warp 0 (the rows above have read its dQ_out/dY)
-                    if (tid < 32) warp_gauss_jordan(sM, srhs, sdY, J, tid);
-                    __syncthreads();
+                    if (TJ < 32) warp_gauss_jordan(sM, srhs, sdY, J, tid);
+                    NET_SYNC();
                     probe.mark(PH_JSOLVE);
                 }
                 auto dY_of = [&](int j) { return J == 1 ? dY1 : sdY[j]; };
@@ -897,46 +1074,56 @@ fused_network_kernel(const double* __restrict__ geo_all,   // [M, B, 13, Nmax]
                     if (ds_j >= 0) d[ci] = dY_of(ds_j) * 1.0;
                     double dh, dq;
                     if constexpr (RHS == 2) {
-                        dh = X[0 * ld + s] - X[2 * ld + s] * d[0];
-                        dq = X[1 * ld + s] - X[3 * ld + s] * d[0];
+                        dh = X[0 * LD + s] - X[2 * LD + s] * d[0];
+                        dq = X[1 * LD + s] - X[3 * LD + s] * d[0];
                     } else {
-                        dh = X[0 * ld + s] - (X[2 * ld + s] * d[0] + X[4 * ld + s] * d[1]);
-                        dq = X[1 * ld + s] - (X[3 * ld + s] * d[0] + X[5 * ld + s] * d[1]);
+                        dh = X[0 * LD + s] - (X[2 * LD + s] * d[0] + X[4 * LD + s] * d[1]);
+                        dq = X[1 * LD + s] - (X[3 * LD + s] * d[0] + X[5 * LD + s] * d[1]);
                     }
                     const double h = ONE ? oh : sh[s], Q = ONE ? oQ : sQ[s];
                     sh[s] = h + dh;
                     sQ[s] = Q + dq;
                 });
-                for (int j = tid; j < J; j += nthr) sY[j] = sY[j] + dY_of(j);
+                for (int j = TJ; j < J; j += nthr) sY[j] = sY[j] + dY_of(j);
                 ++it;
-                __syncthreads();
+                NET_SYNC();
                 probe.mark(PH_UPDATE);
             }
 
             // -- the level's records
             each_slot([&](int s, int, int) {
-                depth[(size_t)k * ld + s] = sh[s];
-                flow[(size_t)k * ld + s] = sQ[s];
+                depth[(size_t)k * ld + GS(s)] = sh[s];
+                flow[(size_t)k * ld + GS(s)] = sQ[s];
             });
-            for (int j = tid; j < J; j += nthr) Yout[(size_t)k * J + j] = sY[j];
-            for (int b = tid; b < B; b += nthr) {
+            for (int j = TJ; j < J; j += nthr) Yout[(size_t)k * J + j] = sY[j];
+            for (int b = TJ; b < B; b += nthr) {
                 gate[((size_t)k * B + b) * 2 + 0] = gate[b * 2 + 0];
                 gate[((size_t)k * B + b) * 2 + 1] = gopen[b];
-                gstage[b] = par_m[(size_t)b * P_COUNT + P_DS_BED_LEVEL] + sh[b * n_max + n_max - 1];
+                gstage[b] = par_m[(size_t)b * P_COUNT + P_DS_BED_LEVEL] + ATG(sh, b * n_max + n_max - 1);
             }
-            if (tid == 0) {
+            if (TJ == 0) {
                 iters[k] = it;
                 errs[k] = err;
                 conv[k] = err < tol ? 1 : 0;
             }
             // the next level's pad re-sync must not overwrite an end read above
-            __syncthreads();
+            NET_SYNC();
             probe.mark(PH_LEVEL);
         }
         probe.write(probe_out);
-        // the next member's set-up must not overwrite what this one still reads
-        if constexpr (SCRATCH) __syncthreads();
-    } while (SCRATCH && (mem += gridDim.x) < (size_t)n_members);
+        // the next member's set-up must not overwrite what this one still
+        // reads, and (CLUSTER) no rank exits while another can read its
+        // shared memory
+        if constexpr (SCRATCH || CLUSTER) NET_SYNC();
+    } while ((SCRATCH || CLUSTER) && (mem += CLUSTER ? gridDim.x / n_ranks : gridDim.x) < (size_t)n_members);
+#undef NET_SYNC
+#undef AT
+#undef ATG
+#undef GS
+#undef LS
+#undef LD
+#undef TJ
+#undef ATC
 #undef TDIFF
 #undef SDIFF
 #undef CAVG
@@ -944,7 +1131,7 @@ fused_network_kernel(const double* __restrict__ geo_all,   // [M, B, 13, Nmax]
 }
 
 // Every build has one signature: a build is a kernel pointer.
-using NetKernel = decltype(&fused_network_kernel<2, MAX_THREADS, 1, false, false, false, false>);
+using NetKernel = decltype(&fused_network_kernel<2, MAX_THREADS, 1, false, false, false, false, false>);
 
 int threads_for(int slots) {
     const int t = ((slots + 31) / 32) * 32;
@@ -958,136 +1145,293 @@ int threads_for(int slots) {
 // threads, 128 at 256.  A network with more slots than threads has no
 // residency build: the loop build runs every batch of it.  The SCRATCH
 // build is the loop build's form; it runs any network, forced on one that
-// fits shared memory too.  This library's builds are those of networks with
-// table branches or those of trapezoid networks (LIB_TABLE): the same four
-// forms.
+// fits shared memory too.  The CLUSTER build (slots: a rank's) is the
+// latency form at one slot a thread, the loop form beyond, or (pair) the
+// residency build's 192-thread form.  The probe builds are those of the
+// loop, latency, scratch and cluster forms; the scratch and cluster ones
+// only in the trapezoid library.  This library's builds are those of
+// networks with table branches or those of trapezoid networks (LIB_TABLE).
 template <int RHS>
-int pick_rhs(int build, int slots, bool probe, NetKernel* out) {
+int pick_rhs(int build, int slots, bool probe, bool pair, NetKernel* out) {
     const bool one = slots <= MAX_THREADS;
-    if (probe && build != LOOP_BUILD && build != LATENCY_BUILD) return (int)cudaErrorInvalidValue;
+    if ((probe && (build == RESIDENCY_BUILD || pair)) || (pair && build != CLUSTER_BUILD))
+        return (int)cudaErrorInvalidValue;
     switch (build) {
     case LOOP_BUILD:
-        *out = probe ? &fused_network_kernel<RHS, MAX_THREADS, 1, false, true, LIB_TABLE, false>
-                     : &fused_network_kernel<RHS, MAX_THREADS, 1, false, false, LIB_TABLE, false>;
+        *out = probe ? &fused_network_kernel<RHS, MAX_THREADS, 1, false, true, LIB_TABLE, false, false>
+                     : &fused_network_kernel<RHS, MAX_THREADS, 1, false, false, LIB_TABLE, false, false>;
         return 0;
     case LATENCY_BUILD:
         if (!one) return (int)cudaErrorInvalidValue;
-        *out = probe ? &fused_network_kernel<RHS, MAX_THREADS, 1, true, true, LIB_TABLE, false>
-                     : &fused_network_kernel<RHS, MAX_THREADS, 1, true, false, LIB_TABLE, false>;
+        *out = probe ? &fused_network_kernel<RHS, MAX_THREADS, 1, true, true, LIB_TABLE, false, false>
+                     : &fused_network_kernel<RHS, MAX_THREADS, 1, true, false, LIB_TABLE, false, false>;
         return 0;
     case RESIDENCY_BUILD:
         if (!one) return (int)cudaErrorInvalidValue;
-        *out = threads_for(slots) <= 192 ? &fused_network_kernel<RHS, 192, 2, true, false, LIB_TABLE, false>
-                                         : &fused_network_kernel<RHS, MAX_THREADS, 2, true, false, LIB_TABLE, false>;
+        *out = threads_for(slots) <= 192 ? &fused_network_kernel<RHS, 192, 2, true, false, LIB_TABLE, false, false>
+                                         : &fused_network_kernel<RHS, MAX_THREADS, 2, true, false, LIB_TABLE, false, false>;
         return 0;
     case SCRATCH_BUILD:
-        *out = &fused_network_kernel<RHS, MAX_THREADS, 1, false, false, LIB_TABLE, true>;
-        return 0;
+        if (!probe) {
+            *out = &fused_network_kernel<RHS, MAX_THREADS, 1, false, false, LIB_TABLE, true, false>;
+            return 0;
+        }
+        if constexpr (!LIB_TABLE) {
+            *out = &fused_network_kernel<RHS, MAX_THREADS, 1, false, true, false, true, false>;
+            return 0;
+        }
+        return (int)cudaErrorInvalidValue;
+    case CLUSTER_BUILD:
+        if (pair) {
+            if (slots > PAIR_THREADS) return (int)cudaErrorInvalidValue;
+            *out = &fused_network_kernel<RHS, PAIR_THREADS, 2, true, false, LIB_TABLE, false, true>;
+            return 0;
+        }
+        if (!probe) {
+            *out = one ? &fused_network_kernel<RHS, MAX_THREADS, 1, true, false, LIB_TABLE, false, true>
+                       : &fused_network_kernel<RHS, MAX_THREADS, 1, false, false, LIB_TABLE, false, true>;
+            return 0;
+        }
+        if constexpr (!LIB_TABLE) {
+            *out = one ? &fused_network_kernel<RHS, MAX_THREADS, 1, true, true, false, false, true>
+                       : &fused_network_kernel<RHS, MAX_THREADS, 1, false, true, false, false, true>;
+            return 0;
+        }
+        return (int)cudaErrorInvalidValue;
     }
     return (int)cudaErrorInvalidValue;
 }
 
-int pick_build(int build, int slots, int rhs, bool probe, NetKernel* out) {
-    if (rhs == 2) return pick_rhs<2>(build, slots, probe, out);
-    if (rhs == 3) return pick_rhs<3>(build, slots, probe, out);
+int pick_build(int build, int slots, int rhs, bool probe, bool pair, NetKernel* out) {
+    if (rhs == 2) return pick_rhs<2>(build, slots, probe, pair, out);
+    if (rhs == 3) return pick_rhs<3>(build, slots, probe, pair, out);
     return (int)cudaErrorInvalidValue;
 }
 
-// dynamic shared memory of a block of this build: the slot arrays too,
-// except in the SCRATCH build
-size_t smem_bytes_of(int build, int slots, int B, int J, int rhs) {
-    return (build == SCRATCH_BUILD ? junction_doubles(B, J) : smem_doubles(slots, B, J, rhs)) * sizeof(double);
+// What a launch runs: the kernel, the threads and dynamic shared memory of a
+// block (the slot arrays too, except in the SCRATCH build; a rank's in the
+// CLUSTER build) and, in the CLUSTER build, the blocks of a cluster and its
+// form.
+struct Plan {
+    NetKernel fn = nullptr;
+    int threads = 0, blocks = 1;
+    bool pair = false;
+    size_t smem = 0;
+};
+
+// The plan of a build for a network of `slots` slots.  cluster (CLUSTER
+// build): its blocks, 2-MAX_CLUSTER (cudaErrorInvalidClusterSize otherwise),
+// plus CLUSTER_PAIR for the two-blocks-an-SM form.
+int plan_of(int build, int cluster, bool probe, int slots, int B, int J, int rhs, Plan* p) {
+    if (build == CLUSTER_BUILD) {
+        p->blocks = cluster & ~CLUSTER_PAIR;
+        p->pair = (cluster & CLUSTER_PAIR) != 0;
+        if (p->blocks < 2 || p->blocks > MAX_CLUSTER) return (int)cudaErrorInvalidClusterSize;
+    }
+    const int per = rank_slots(slots, p->blocks);
+    const int rc = pick_build(build, per, rhs, probe, p->pair, &p->fn);
+    p->threads = threads_for(per);
+    p->smem = (build == SCRATCH_BUILD ? junction_doubles(B, J) : smem_doubles(per, B, J, rhs)) * sizeof(double);
+    return rc;
 }
 
-// blocks of this build the occupancy calculator puts on one SM
-int resident_blocks(NetKernel fn, int threads, size_t smem, int* blocks) {
-    cudaError_t e = cudaFuncSetAttribute((const void*)fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, (const void*)fn, threads, smem);
-}
-
-// The most dynamic shared memory a block of the loop build may take on this
-// device: the block's opt-in limit less the kernel's static shared memory.
-int smem_limit(int slots, int rhs, size_t* limit) {
+// Whether a plan's block fits the dynamic shared memory a block may take on
+// this device: the block's opt-in limit less the kernel's static shared
+// memory.
+int smem_fits(const Plan& p, bool* fits) {
     int dev, optin, rc;
-    NetKernel fn;
     cudaFuncAttributes attr;
-    if ((rc = pick_build(LOOP_BUILD, slots, rhs, false, &fn))) return rc;
     if ((rc = (int)cudaGetDevice(&dev))) return rc;
     if ((rc = (int)cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev))) return rc;
-    if ((rc = (int)cudaFuncGetAttributes(&attr, (const void*)fn))) return rc;
-    *limit = (size_t)optin - attr.sharedSizeBytes;
+    if ((rc = (int)cudaFuncGetAttributes(&attr, (const void*)p.fn))) return rc;
+    *fits = p.smem <= (size_t)optin - attr.sharedSizeBytes;
+    return 0;
+}
+
+// The kernel's attributes a launch of the plan needs: its dynamic shared
+// memory and, above 8 blocks, a non-portable cluster size.  A block beyond
+// the card's shared memory is refused here (cudaErrorInvalidValue).
+int prepare(const Plan& p) {
+    cudaError_t e = cudaFuncSetAttribute((const void*)p.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
+    if (e == cudaSuccess && p.blocks > 8)
+        e = cudaFuncSetAttribute((const void*)p.fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    return (int)e;
+}
+
+// A launch configuration of the plan on `grid` blocks; attr receives the
+// cluster dimension of the CLUSTER build.
+cudaLaunchConfig_t config_of(const Plan& p, int grid, cudaStream_t stream, cudaLaunchAttribute* attr) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(grid);
+    cfg.blockDim = dim3(p.threads);
+    cfg.dynamicSmemBytes = p.smem;
+    cfg.stream = stream;
+    if (p.blocks > 1) {
+        attr->id = cudaLaunchAttributeClusterDimension;
+        attr->val.clusterDim.x = p.blocks;
+        attr->val.clusterDim.y = 1;
+        attr->val.clusterDim.z = 1;
+        cfg.attrs = attr;
+        cfg.numAttrs = 1;
+    }
+    return cfg;
+}
+
+// blocks of a plan the occupancy calculator puts on one SM
+int resident_blocks(const Plan& p, int* blocks) {
+    const int rc = prepare(p);
+    if (rc) return rc;
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, (const void*)p.fn, p.threads, p.smem);
+}
+
+// clusters of a CLUSTER plan the card holds at once
+int active_clusters(const Plan& p, int* clusters) {
+    const int rc = prepare(p);
+    if (rc) return rc;
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = config_of(p, p.blocks, nullptr, &attr);
+    return (int)cudaOccupancyMaxActiveClusters(clusters, (const void*)p.fn, &cfg);
+}
+
+// The cluster the CLUSTER build takes for a network: the fewest blocks (at
+// least 2) at which each rank holds at most MAX_THREADS slots, one slot a
+// thread — or, if that takes more than MAX_CLUSTER, MAX_CLUSTER blocks of the
+// loop form —, taking a block more while a rank's slot arrays do not fit a
+// block's shared memory or the card cannot schedule the cluster
+// (cudaOccupancyMaxActiveClusters).  0: no cluster holds the network.
+// clusters_at_once (if given): how many of the chosen cluster the card holds
+// at once.
+int choose_cluster(int slots, int B, int J, int rhs, int* cluster, int* clusters_at_once = nullptr) {
+    *cluster = 0;
+    const int first = (slots + MAX_THREADS - 1) / MAX_THREADS;
+    for (int cl = first < 2 ? 2 : (first > MAX_CLUSTER ? MAX_CLUSTER : first); cl <= MAX_CLUSTER; ++cl) {
+        Plan p;
+        bool fits;
+        int rc, clusters;
+        if ((rc = plan_of(CLUSTER_BUILD, cl, false, slots, B, J, rhs, &p))) return rc;
+        if ((rc = smem_fits(p, &fits))) return rc;
+        if (!fits) continue;
+        if ((rc = active_clusters(p, &clusters))) return rc;
+        if (clusters >= 1) {
+            *cluster = cl;
+            if (clusters_at_once) *clusters_at_once = clusters;
+            return 0;
+        }
+    }
     return 0;
 }
 
 // The build a launch of n_members networks takes.  A network whose slot
-// arrays do not fit one block's shared memory takes the SCRATCH build, one
-// with more slots than threads the loop build.  Else the latency build runs
-// every batch the card holds at once in it; a larger batch takes the
-// residency build when that holds more members.  A network with table
-// branches chooses the same way among its TABLE builds.
+// arrays do not fit one block's shared memory takes the CLUSTER build while
+// a cluster's shared memory holds them and the card holds the batch in one
+// wave of clusters, else the SCRATCH build; one with more slots than threads
+// the loop build.  Else the latency build runs every batch the card holds at
+// once in it; a larger batch takes the residency build when that holds more
+// members.  A network with table branches chooses the same way among its
+// TABLE builds.
 int choose_build(int n_members, int slots, int B, int J, int rhs, int* build) {
-    const size_t smem = smem_doubles(slots, B, J, rhs) * sizeof(double);
-    size_t limit;
+    Plan loop;
+    bool fits;
     int rc;
-    if ((rc = smem_limit(slots, rhs, &limit))) return rc;
-    if (smem > limit) {
-        *build = SCRATCH_BUILD;
+    if ((rc = plan_of(LOOP_BUILD, 0, false, slots, B, J, rhs, &loop)) || (rc = smem_fits(loop, &fits))) return rc;
+    if (!fits) {
+        int cluster, clusters = 0;
+        if ((rc = choose_cluster(slots, B, J, rhs, &cluster, &clusters))) return rc;
+        *build = cluster && n_members <= clusters ? CLUSTER_BUILD : SCRATCH_BUILD;
         return 0;
     }
     *build = slots <= MAX_THREADS ? LATENCY_BUILD : LOOP_BUILD;
     if (*build == LOOP_BUILD) return 0;
     int dev, sms, fast_bps, res_bps;
-    NetKernel fast, res;
+    Plan fast, res;
     if ((rc = (int)cudaGetDevice(&dev))) return rc;
     if ((rc = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))) return rc;
     if (n_members <= sms) return 0;
-    if ((rc = pick_build(*build, slots, rhs, false, &fast))) return rc;
-    if ((rc = resident_blocks(fast, threads_for(slots), smem, &fast_bps))) return rc;
+    if ((rc = plan_of(*build, 0, false, slots, B, J, rhs, &fast))) return rc;
+    if ((rc = resident_blocks(fast, &fast_bps))) return rc;
     if (n_members <= fast_bps * sms) return 0;
-    if ((rc = pick_build(RESIDENCY_BUILD, slots, rhs, false, &res))) return rc;
-    if ((rc = resident_blocks(res, threads_for(slots), smem, &res_bps))) return rc;
+    if ((rc = plan_of(RESIDENCY_BUILD, 0, false, slots, B, J, rhs, &res))) return rc;
+    if ((rc = resident_blocks(res, &res_bps))) return rc;
     if (res_bps > fast_bps) *build = RESIDENCY_BUILD;
     return 0;
 }
 
-// The grid of a launch: a block a member, or for the SCRATCH build as many
+// The cluster a CLUSTER launch takes: (0) the C entry's choice,
+// cudaErrorInvalidValue when no cluster holds the network; or `cluster`,
+// refused when its size is out of range (cudaErrorInvalidClusterSize), its
+// form does not take the network or a rank's block exceeds shared memory
+// (cudaErrorInvalidValue), or the card cannot hold one such cluster at once
+// (cudaErrorLaunchOutOfResources).
+int cluster_of(int cluster, int slots, int B, int J, int rhs, int* out) {
+    int rc, clusters;
+    bool fits;
+    Plan p;
+    *out = cluster;
+    if (cluster == 0) {
+        if ((rc = choose_cluster(slots, B, J, rhs, out))) return rc;
+        return *out == 0 ? (int)cudaErrorInvalidValue : 0;
+    }
+    if ((rc = plan_of(CLUSTER_BUILD, cluster, false, slots, B, J, rhs, &p))) return rc;
+    if ((rc = smem_fits(p, &fits))) return rc;
+    if (!fits) return (int)cudaErrorInvalidValue;
+    if ((rc = active_clusters(p, &clusters))) return rc;
+    return clusters < 1 ? (int)cudaErrorLaunchOutOfResources : 0;
+}
+
+// The grid of a launch: a block a member; for the SCRATCH build as many
 // blocks as the card holds at once, at most one a member (each with its own
-// scratch of slot_doubles(slots, rhs)).
-int grid_of(int build, int n_members, int slots, int B, int J, int rhs, int* grid) {
+// scratch of slot_doubles(slots, rhs)); for the CLUSTER build as many
+// clusters as the card holds at once, at most one a member
+// (cudaErrorLaunchOutOfResources when it holds none).
+int grid_of(const Plan& p, int build, int n_members, int* grid) {
     *grid = n_members;
-    if (build != SCRATCH_BUILD) return 0;
-    int dev, sms, bps, rc;
-    NetKernel fn;
-    if ((rc = pick_build(build, slots, rhs, false, &fn))) return rc;
-    if ((rc = (int)cudaGetDevice(&dev))) return rc;
-    if ((rc = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))) return rc;
-    if ((rc = resident_blocks(fn, threads_for(slots), smem_bytes_of(build, slots, B, J, rhs), &bps))) return rc;
-    if (bps < 1) return (int)cudaErrorInvalidConfiguration;
-    if (bps * sms < n_members) *grid = bps * sms;
+    int rc, dev, sms, bps, clusters;
+    if (build == SCRATCH_BUILD) {
+        if ((rc = (int)cudaGetDevice(&dev))) return rc;
+        if ((rc = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))) return rc;
+        if ((rc = resident_blocks(p, &bps))) return rc;
+        if (bps < 1) return (int)cudaErrorInvalidConfiguration;
+        if (bps * sms < n_members) *grid = bps * sms;
+    } else if (build == CLUSTER_BUILD) {
+        if ((rc = active_clusters(p, &clusters))) return rc;
+        if (clusters < 1) return (int)cudaErrorLaunchOutOfResources;
+        *grid = (clusters < n_members ? clusters : n_members) * p.blocks;
+    }
     return 0;
 }
 
-int launch(int build, bool probe, const double* geo, const double* h0, const double* Q0, const double* ser,
-           const double* par, const double* qlat, const double* stor, const double* stab, long long stab_stride,
-           const double* Y0, const int* bint, const double* jpar, const double* jtab, const int* tab_branch,
-           const double* tab, double* depth, double* flow, double* Y, int* iters, double* err, int* conv,
-           double* stage, double* gate, long long* probe_out, double* scratch, int n_members, int B, int n_max,
-           int J, int nt, int max_iter, int rhs, int qlat_mode, int tab_m, cudaStream_t stream) {
-    const int slots = B * n_max;
-    int rc = 0, grid;
+// The plan and grid of a launch (cluster: as flowsim_fused_network takes it),
+// with the kernel's attributes set.
+int plan_launch(int build, int cluster, bool probe, int n_members, int slots, int B, int J, int rhs, Plan* p,
+                int* grid) {
+    int rc;
+    bool fits;
+    if (build == CLUSTER_BUILD && (rc = cluster_of(cluster, slots, B, J, rhs, &cluster))) return rc;
+    if ((rc = plan_of(build, cluster, probe, slots, B, J, rhs, p))) return rc;
+    if ((rc = smem_fits(*p, &fits))) return rc;
+    if (!fits) return (int)cudaErrorInvalidValue;
+    if ((rc = prepare(*p))) return rc;
+    return grid_of(*p, build, n_members, grid);
+}
+
+int launch(int build, int cluster, bool probe, const double* geo, const double* h0, const double* Q0,
+           const double* ser, const double* par, const double* qlat, const double* stor, const double* stab,
+           long long stab_stride, const double* Y0, const int* bint, const double* jpar, const double* jtab,
+           const int* tab_branch, const double* tab, double* depth, double* flow, double* Y, int* iters,
+           double* err, int* conv, double* stage, double* gate, long long* probe_out, double* scratch,
+           int n_members, int B, int n_max, int J, int nt, int max_iter, int rhs, int qlat_mode, int tab_m,
+           cudaStream_t stream) {
+    int rc, grid;
+    Plan p;
     if (build == SCRATCH_BUILD && scratch == nullptr) return (int)cudaErrorInvalidValue;
-    NetKernel fn;
-    if ((rc = pick_build(build, slots, rhs, probe, &fn))) return rc;
-    if ((rc = grid_of(build, n_members, slots, B, J, rhs, &grid))) return rc;
-    const size_t smem = smem_bytes_of(build, slots, B, J, rhs);
-    cudaError_t e = cudaFuncSetAttribute((const void*)fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    fn<<<grid, threads_for(slots), smem, stream>>>(
-        geo, h0, Q0, ser, par, qlat, stor, stab, stab_stride, Y0, bint, jpar, jtab, depth, flow, Y,
+    if ((rc = plan_launch(build, cluster, probe, n_members, B * n_max, B, J, rhs, &p, &grid))) return rc;
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = config_of(p, grid, stream, &attr);
+    const cudaError_t e = cudaLaunchKernelEx(
+        &cfg, p.fn, geo, h0, Q0, ser, par, qlat, stor, stab, stab_stride, Y0, bint, jpar, jtab, depth, flow, Y,
         iters, err, conv, stage, gate, probe_out, B, n_max, J, nt, max_iter, pcr::n_sweeps(n_max), qlat_mode,
         tab_branch, tab, tab_m, n_members, scratch);
-    return (int)cudaGetLastError();
+    return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
 int check_args(int n_members, int B, int n_max, int J, int nt, int qlat_mode, const void* qlat,
@@ -1111,6 +1455,7 @@ extern "C" int flowsim_fused_network_junction_params() { return JP_COUNT; }
 extern "C" int flowsim_fused_network_probe_phases() { return PH_COUNT; }
 extern "C" int flowsim_fused_network_tables() { return TAB_COUNT; }
 // dynamic shared memory of one block of the shared-memory builds, in bytes
+// (of one rank of the CLUSTER build, with slots its rank_slots)
 extern "C" long long flowsim_fused_network_smem_bytes(int slots, int B, int J, int rhs) {
     return (long long)(smem_doubles(slots, B, J, rhs) * sizeof(double));
 }
@@ -1127,7 +1472,8 @@ extern "C" long long flowsim_fused_network_scratch_bytes(int slots, int rhs) {
         (double*)gate
 
 // One block per member (the SCRATCH build: a block per member up to the
-// blocks the card holds at once, grid_of): n_members = 1 is
+// blocks the card holds at once; the CLUSTER build: a cluster per member up
+// to the clusters it holds at once; grid_of): n_members = 1 is
 // fused_simulate_network, M is fused_simulate_network_batched.  Every
 // per-member array carries the leading
 // member axis (the storage tables only when stab_stride != 0); bint, jpar,
@@ -1135,10 +1481,12 @@ extern "C" long long flowsim_fused_network_scratch_bytes(int slots, int rhs) {
 // caller.  tab_m: 0 for a network of trapezoid branches (tab and tab_branch
 // null), else the depth samples M of every table branch's tables, tab [T, 7,
 // Nmax, M], and tab_branch [B] each branch's index among them (-1: trapezoid).
-// build: 0-3; the wrappers pass what flowsim_fused_network_chosen_build
+// build: 0-4; the wrappers pass what flowsim_fused_network_chosen_build
 // answers, a forced build is a test hook (chip_smoke.py times the builds
-// against each other and holds them to the same bits).
-// scratch: null, or for the SCRATCH build grid x
+// against each other and holds them to the same bits).  cluster (build 4):
+// 0 for the C entry's cluster (flowsim_fused_network_cluster), or a forced
+// one, a test hook: its blocks (2-16), plus 256 for the two-blocks-an-SM
+// form.  scratch: null, or for the SCRATCH build grid x
 // flowsim_fused_network_scratch_bytes of device memory (grid:
 // flowsim_fused_network_grid).
 extern "C" int flowsim_fused_network(const void* geo, const void* h0, const void* Q0, const void* ser,
@@ -1148,37 +1496,38 @@ extern "C" int flowsim_fused_network(const void* geo, const void* h0, const void
                                      void* depth, void* flow, void* Y, void* iters, void* err, void* conv,
                                      void* stage, void* gate, void* scratch, int n_members, int B, int n_max, int J,
                                      int nt, int max_iter, int rhs, int qlat_mode, int tab_m, int build,
-                                     void* stream) {
+                                     int cluster, void* stream) {
     const int rc = check_args(n_members, B, n_max, J, nt, qlat_mode, qlat, stage, stor, stab, jtab, tab_branch, tab,
                               tab_m);
     if (rc) return rc;
-    return launch(build, false, FLOWSIM_NET_ARGS, nullptr, (double*)scratch, n_members, B, n_max, J, nt, max_iter,
-                  rhs, qlat_mode, tab_m, (cudaStream_t)stream);
+    return launch(build, cluster, false, FLOWSIM_NET_ARGS, nullptr, (double*)scratch, n_members, B, n_max, J, nt,
+                  max_iter, rhs, qlat_mode, tab_m, (cudaStream_t)stream);
 }
 
-// The probe build of the loop (build 0) or latency (build 1) form: the same
-// launch, and the cycles of each phase of thread 0 of block 0 summed over the
-// run into probe [PH_COUNT] (device memory); clock_khz receives the SM clock
-// rate the cycles count at (cudaDevAttrClockRate).
+// The probe build of the loop (build 0), latency (1), scratch (3) or cluster
+// (4, not its two-blocks-an-SM form; 3 and 4 in the trapezoid library) form:
+// the same launch, and the cycles of each phase of thread 0 of block 0 (the
+// first cluster's rank 0) summed over the run into probe [PH_COUNT] (device
+// memory); clock_khz receives the SM clock rate the cycles count at
+// (cudaDevAttrClockRate).
 extern "C" int flowsim_fused_network_probe(const void* geo, const void* h0, const void* Q0, const void* ser,
                                            const void* par, const void* qlat, const void* stor, const void* stab,
                                            long long stab_stride, const void* Y0, const void* bint,
                                            const void* jpar, const void* jtab, const void* tab_branch,
                                            const void* tab, void* depth, void* flow, void* Y, void* iters,
-                                           void* err, void* conv, void* stage, void* gate, void* probe,
-                                           int* clock_khz, int n_members, int B, int n_max, int J, int nt,
-                                           int max_iter, int rhs, int qlat_mode, int tab_m, int build,
-                                           void* stream) {
+                                           void* err, void* conv, void* stage, void* gate, void* scratch,
+                                           void* probe, int* clock_khz, int n_members, int B, int n_max, int J,
+                                           int nt, int max_iter, int rhs, int qlat_mode, int tab_m, int build,
+                                           int cluster, void* stream) {
     int rc = check_args(n_members, B, n_max, J, nt, qlat_mode, qlat, stage, stor, stab, jtab, tab_branch, tab,
                         tab_m);
     if (rc) return rc;
-    if (probe == nullptr || clock_khz == nullptr || (build != LOOP_BUILD && build != LATENCY_BUILD))
-        return (int)cudaErrorInvalidValue;
+    if (probe == nullptr || clock_khz == nullptr) return (int)cudaErrorInvalidValue;
     int dev;
     if ((rc = (int)cudaGetDevice(&dev))) return rc;
     if ((rc = (int)cudaDeviceGetAttribute(clock_khz, cudaDevAttrClockRate, dev))) return rc;
-    return launch(build, true, FLOWSIM_NET_ARGS, (long long*)probe, nullptr, n_members, B, n_max, J, nt, max_iter,
-                  rhs, qlat_mode, tab_m, (cudaStream_t)stream);
+    return launch(build, cluster, true, FLOWSIM_NET_ARGS, (long long*)probe, (double*)scratch, n_members, B, n_max,
+                  J, nt, max_iter, rhs, qlat_mode, tab_m, (cudaStream_t)stream);
 }
 #undef FLOWSIM_NET_ARGS
 
@@ -1188,20 +1537,36 @@ extern "C" int flowsim_fused_network_chosen_build(int n_members, int slots, int 
     return choose_build(n_members, slots, B, J, rhs, build);
 }
 
-// Resident blocks per SM of a build at this network's block size and shared
-// memory, from the CUDA occupancy calculator.
-extern "C" int flowsim_fused_network_resident_blocks(int slots, int B, int J, int rhs, int build, int* blocks) {
+// The cluster the CLUSTER build launches with `cluster` (0: the C entry's
+// choice, the fewest blocks at one slot a thread): its blocks, plus 256 for
+// the two-blocks-an-SM form.
+extern "C" int flowsim_fused_network_cluster(int slots, int B, int J, int rhs, int cluster, int* out) {
+    if (slots <= 0 || B <= 0 || J <= 0 || out == nullptr) return (int)cudaErrorInvalidValue;
+    return cluster_of(cluster, slots, B, J, rhs, out);
+}
+
+// Resident blocks per SM of a build (cluster: as flowsim_fused_network takes
+// it) at this network's block size and shared memory, from the CUDA
+// occupancy calculator.
+extern "C" int flowsim_fused_network_resident_blocks(int slots, int B, int J, int rhs, int build, int cluster,
+                                                     int* blocks) {
     if (slots <= 0 || B <= 0 || J <= 0 || blocks == nullptr) return (int)cudaErrorInvalidValue;
-    NetKernel fn;
-    const int rc = pick_build(build, slots, rhs, false, &fn);
-    return rc ? rc : resident_blocks(fn, threads_for(slots), smem_bytes_of(build, slots, B, J, rhs), blocks);
+    int rc;
+    Plan p;
+    if (build == CLUSTER_BUILD && (rc = cluster_of(cluster, slots, B, J, rhs, &cluster))) return rc;
+    if ((rc = plan_of(build, cluster, false, slots, B, J, rhs, &p))) return rc;
+    return resident_blocks(p, blocks);
 }
 
 // The grid flowsim_fused_network launches for n_members members in a build
-// (0-3): n_members, or for the SCRATCH build at most the blocks the card
-// holds at once — the blocks whose scratch the caller allocates.
-extern "C" int flowsim_fused_network_grid(int n_members, int slots, int B, int J, int rhs, int build, int* grid) {
+// (0-4; cluster as it takes it): n_members, for the SCRATCH build at most the
+// blocks the card holds at once — the blocks whose scratch the caller
+// allocates —, for the CLUSTER build the blocks of at most the clusters it
+// holds at once.
+extern "C" int flowsim_fused_network_grid(int n_members, int slots, int B, int J, int rhs, int build, int cluster,
+                                          int* grid) {
     if (n_members <= 0 || slots <= 0 || B <= 0 || J <= 0 || build < 0 || grid == nullptr)
         return (int)cudaErrorInvalidValue;
-    return grid_of(build, n_members, slots, B, J, rhs, grid);
+    Plan p;
+    return plan_launch(build, cluster, false, n_members, slots, B, J, rhs, &p, grid);
 }

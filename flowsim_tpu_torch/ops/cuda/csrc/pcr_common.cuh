@@ -106,6 +106,70 @@ __device__ __forceinline__ void sweep_node(const double* __restrict__ src,
 #undef PCR_P
 }
 
+// sweep_node with its node and partners given as pointers to their
+// component 0 (component c lies c * ld further on): own and dst at node i,
+// pm and pp at i - s and i + s, read only where vm and vp say they exist.
+// The CLUSTER build of fused_network.cu passes partners that lie in another
+// block's shared memory (distributed shared memory).  The same arithmetic,
+// operation for operation, as sweep_node, which keeps its own indexing so
+// that its callers' code is what it was.
+template <int RHS>
+__device__ __forceinline__ void sweep_node_at(const double* own, const double* pm, const double* pp,
+                                              double* dst, int ld, bool vm, bool vp) {
+#define PCR_OWN(c) own[(c) * ld]
+#define PCR_M(c, dflt) (vm ? pm[(c) * ld] : (dflt))
+#define PCR_P(c, dflt) (vp ? pp[(c) * ld] : (dflt))
+    const double l00 = PCR_OWN(0), l01 = PCR_OWN(1), l10 = PCR_OWN(2), l11 = PCR_OWN(3);
+    const double u00 = PCR_OWN(8), u01 = PCR_OWN(9), u10 = PCR_OWN(10), u11 = PCR_OWN(11);
+
+    double mi00, mi01, mi10, mi11, pi00, pi01, pi10, pi11;
+    inv2(PCR_M(4, 1.0), PCR_M(5, 0.0), PCR_M(6, 0.0), PCR_M(7, 1.0), mi00, mi01, mi10, mi11);
+    inv2(PCR_P(4, 1.0), PCR_P(5, 0.0), PCR_P(6, 0.0), PCR_P(7, 1.0), pi00, pi01, pi10, pi11);
+
+    const double a00 = -(l00 * mi00 + l01 * mi10);
+    const double a01 = -(l00 * mi01 + l01 * mi11);
+    const double a10 = -(l10 * mi00 + l11 * mi10);
+    const double a11 = -(l10 * mi01 + l11 * mi11);
+    const double c00 = -(u00 * pi00 + u01 * pi10);
+    const double c01 = -(u00 * pi01 + u01 * pi11);
+    const double c10 = -(u10 * pi00 + u11 * pi10);
+    const double c11 = -(u10 * pi01 + u11 * pi11);
+
+    {
+        const double m00 = PCR_M(0, 0.0), m01 = PCR_M(1, 0.0), m10 = PCR_M(2, 0.0), m11 = PCR_M(3, 0.0);
+        dst[0 * ld] = a00 * m00 + a01 * m10;
+        dst[1 * ld] = a00 * m01 + a01 * m11;
+        dst[2 * ld] = a10 * m00 + a11 * m10;
+        dst[3 * ld] = a10 * m01 + a11 * m11;
+    }
+    {
+        const double p00 = PCR_P(8, 0.0), p01 = PCR_P(9, 0.0), p10 = PCR_P(10, 0.0), p11 = PCR_P(11, 0.0);
+        dst[8 * ld] = c00 * p00 + c01 * p10;
+        dst[9 * ld] = c00 * p01 + c01 * p11;
+        dst[10 * ld] = c10 * p00 + c11 * p10;
+        dst[11 * ld] = c10 * p01 + c11 * p11;
+    }
+    {
+        const double m00 = PCR_M(8, 0.0), m01 = PCR_M(9, 0.0), m10 = PCR_M(10, 0.0), m11 = PCR_M(11, 0.0);
+        const double p00 = PCR_P(0, 0.0), p01 = PCR_P(1, 0.0), p10 = PCR_P(2, 0.0), p11 = PCR_P(3, 0.0);
+        dst[4 * ld] = (PCR_OWN(4) + (a00 * m00 + a01 * m10)) + (c00 * p00 + c01 * p10);
+        dst[5 * ld] = (PCR_OWN(5) + (a00 * m01 + a01 * m11)) + (c00 * p01 + c01 * p11);
+        dst[6 * ld] = (PCR_OWN(6) + (a10 * m00 + a11 * m10)) + (c10 * p00 + c11 * p10);
+        dst[7 * ld] = (PCR_OWN(7) + (a10 * m01 + a11 * m11)) + (c10 * p01 + c11 * p11);
+    }
+#pragma unroll
+    for (int r = 0; r < RHS; ++r) {
+        const int c0 = 12 + 2 * r, c1 = c0 + 1;
+        const double m0 = PCR_M(c0, 0.0), m1 = PCR_M(c1, 0.0);
+        const double p0 = PCR_P(c0, 0.0), p1 = PCR_P(c1, 0.0);
+        dst[c0 * ld] = (PCR_OWN(c0) + (a00 * m0 + a01 * m1)) + (c00 * p0 + c01 * p1);
+        dst[c1 * ld] = (PCR_OWN(c1) + (a10 * m0 + a11 * m1)) + (c10 * p0 + c11 * p1);
+    }
+#undef PCR_OWN
+#undef PCR_M
+#undef PCR_P
+}
+
 // One sweep over several nodes a thread: sweep_node for the nodes first,
 // first + step, ... below n, in that order.  The long build of
 // fused_newton.cu runs it on buffers in device memory (a thread of its

@@ -47,12 +47,26 @@ network's size and the member count (every build gives the same bits):
   :func:`scratch_bytes`), each block running its members one after another.
   The junction block and the gate state stay in shared memory, so a network
   may have up to :data:`MAX_JUNCTIONS` junctions and branches of up to 8192
-  nodes, the JAX kernel's own limits.
+  nodes, the JAX kernel's own limits.  The C entry takes it for a network
+  whose slot arrays exceed a cluster's shared memory too, and for a batch
+  of networks beyond one block's larger than the card holds in one wave of
+  clusters;
+* the **cluster build** (:data:`CLUSTER_BUILD`) for a network whose slot
+  arrays do not fit one block's shared memory but fit a thread-block
+  cluster's (:func:`cluster_blocks`: 2-16 blocks, each holding a contiguous
+  range of the slots in its shared memory and reading the other ranks'
+  through distributed shared memory): one slot a thread of each rank up to
+  4096 slots, the loop form over 16 blocks beyond.  It allocates no
+  scratch.  Every field but the norm has the other builds' bits; the norm,
+  summed rank by rank, agrees to rounding.
 
-A forced ``build_id`` (``_launch``) is a test hook: ``chip_smoke.py`` times
-the builds against each other and holds them to the same bits.
-:func:`fused_simulate_network_probe` runs the probe build, which sums the
-cycles of each phase of an iteration.
+A forced ``build_id`` (``_launch``, with ``cluster`` for the cluster build:
+its blocks, plus :data:`CLUSTER_PAIR` for the two-blocks-an-SM form) is a
+test hook: ``chip_smoke.py`` times the builds against each other and holds
+them to the same bits.  :func:`fused_simulate_network_probe` runs the probe
+build, which sums the cycles of each phase of an iteration.  A launch the
+card refuses raises :class:`RuntimeError` with the C entry's return code
+(:func:`launch_error`); nothing else runs in its place.
 
 On CUDA tensors the wrappers launch the kernel or raise.  The plain versions —
 :func:`fused_simulate_network_plain` (the stacked engine with the ``"pcr"``
@@ -79,12 +93,25 @@ MAX_THREADS = 256
 # the kernel's builds (csrc/fused_network.cu).  The C entry chooses by the
 # member count; a forced build id is a test hook for chip_smoke.py, which
 # times the builds against each other and holds them to the same bits.
-LOOP_BUILD, LATENCY_BUILD, RESIDENCY_BUILD, SCRATCH_BUILD = 0, 1, 2, 3
+LOOP_BUILD, LATENCY_BUILD, RESIDENCY_BUILD, SCRATCH_BUILD, CLUSTER_BUILD = 0, 1, 2, 3, 4
 CHOOSE_BUILD = -1
 PROBE_PHASES = fn.PROBE_PHASES
 # dynamic shared memory a block may take: 227 KB less the static reduction
-# area; a network that needs more takes the scratch build
+# area; a network that needs more takes the cluster or the scratch build
 SMEM_LIMIT = 232448 - 512
+# the cluster build: at most 16 blocks a cluster; a block's dynamic shared
+# memory less its static reduction areas (the block's and the rank sums');
+# the flag of the two-blocks-an-SM form in a forced cluster
+MAX_CLUSTER = 16
+CLUSTER_SMEM_LIMIT = 232448 - 528
+CLUSTER_PAIR = 256
+_BUILD_NAMES = {LOOP_BUILD: "loop build", LATENCY_BUILD: "latency build", RESIDENCY_BUILD: "residency build",
+                SCRATCH_BUILD: "scratch build", CLUSTER_BUILD: "cluster build"}
+# what the C entry's refusals mean (cudaError_t)
+_REFUSALS = {1: "cudaErrorInvalidValue: the build does not take this network or form, or its block exceeds the "
+                "card's shared memory",
+             701: "cudaErrorLaunchOutOfResources: the card cannot hold one cluster of this shape at once",
+             912: f"cudaErrorInvalidClusterSize: a cluster has 2-{MAX_CLUSTER} blocks"}
 # the JAX kernel's junction limit (flowsim_tpu/ops/pallas/fused_network.py:1103):
 # the J x J Schur matrix stays in shared memory, about 121 KB at J = 120
 MAX_JUNCTIONS = 120
@@ -104,11 +131,13 @@ _JP_AREA, _JP_KIND, _JP_SHIFT, _JP_PIVOT, _JP_BUFFER, _JP_FD, _JP_C0, _JP_H0, _J
 
 # kernel launches made by fused_simulate_network and by
 # fused_simulate_network_batched (not by their plain versions), and those of
-# them that took the scratch build
+# them that took the scratch build and the cluster build
 launch_count = 0
 batched_launch_count = 0
 scratch_launch_count = 0
 batched_scratch_launch_count = 0
+cluster_launch_count = 0
+batched_cluster_launch_count = 0
 
 
 def smem_bytes(slots: int, n_branches: int, n_junctions: int, m_rhs: int) -> int:
@@ -123,6 +152,32 @@ def scratch_bytes(n_blocks: int, slots: int, m_rhs: int) -> int:
     (branch, node) slot two PCR buffers of 12 + 2 m_rhs doubles and 8
     doubles of state."""
     return 8 * n_blocks * slots * (2 * (12 + 2 * m_rhs) + 8)
+
+
+def cluster_blocks(slots: int, n_branches: int, n_junctions: int, m_rhs: int) -> int:
+    """The blocks of the cluster the C entry gives a network in the cluster
+    build, as far as shared memory decides: the fewest (at least 2) at which
+    a rank holds at most :data:`MAX_THREADS` slots (one slot a thread), or
+    :data:`MAX_CLUSTER` of the loop form beyond, a block more while a rank's
+    slot arrays and the junction block (:func:`smem_bytes`) exceed
+    :data:`CLUSTER_SMEM_LIMIT`; 0 when no cluster holds them (the scratch
+    build's networks).  The card may refuse a cluster it cannot schedule,
+    which this does not know."""
+    first = min(max(2, -(-slots // MAX_THREADS)), MAX_CLUSTER)
+    for blocks in range(first, MAX_CLUSTER + 1):
+        if smem_bytes(-(-slots // blocks), n_branches, n_junctions, m_rhs) <= CLUSTER_SMEM_LIMIT:
+            return blocks
+    return 0
+
+
+def launch_error(rc: int, build_id: int, cluster: int = 0) -> str:
+    """The message of a launch the C entry refused with ``rc``: the build,
+    the cluster (its blocks and form) and what the code means."""
+    what = _BUILD_NAMES.get(build_id, f"build {build_id}")
+    if build_id == CLUSTER_BUILD and cluster:
+        what += f" ({cluster & ~CLUSTER_PAIR} blocks a cluster" + (", two an SM)" if cluster & CLUSTER_PAIR else ")")
+    return (f"fused_simulate_network launch failed in the {what}: CUDA error {rc} "
+            f"({_REFUSALS.get(rc, 'see cudaGetErrorString')}); no other build or plain version runs in its place")
 
 
 def fused_simulate_network_plain(branches, n_junctions, settings, Y0=None, junction_area=None,
@@ -143,17 +198,15 @@ def _lib(table: bool = False):
     f = lib.flowsim_fused_network
     if not getattr(f, "_typed", False):
         head = [ctypes.c_void_p] * 8 + [ctypes.c_longlong] + [ctypes.c_void_p] * 14
-        f.argtypes = head + [ctypes.c_void_p] + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+        f.argtypes = head + [ctypes.c_void_p] + [ctypes.c_int] * 11 + [ctypes.c_void_p]
         f.restype = ctypes.c_int
-        lib.flowsim_fused_network_probe.argtypes = head + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)] \
-            + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+        lib.flowsim_fused_network_probe.argtypes = head + [ctypes.c_void_p] * 2 + [ctypes.POINTER(ctypes.c_int)] \
+            + [ctypes.c_int] * 11 + [ctypes.c_void_p]
         lib.flowsim_fused_network_probe.restype = ctypes.c_int
-        lib.flowsim_fused_network_resident_blocks.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
-        lib.flowsim_fused_network_resident_blocks.restype = ctypes.c_int
-        lib.flowsim_fused_network_chosen_build.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
-        lib.flowsim_fused_network_chosen_build.restype = ctypes.c_int
-        lib.flowsim_fused_network_grid.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
-        lib.flowsim_fused_network_grid.restype = ctypes.c_int
+        out = [ctypes.POINTER(ctypes.c_int)]
+        for name, ints in (("resident_blocks", 6), ("chosen_build", 5), ("grid", 7), ("cluster", 5)):
+            getattr(lib, f"flowsim_fused_network_{name}").argtypes = [ctypes.c_int] * ints + out
+            getattr(lib, f"flowsim_fused_network_{name}").restype = ctypes.c_int
         for aux in (lib.flowsim_fused_network_branch_ints, lib.flowsim_fused_network_junction_params,
                     lib.flowsim_fused_network_probe_phases, lib.flowsim_fused_network_tables):
             aux.argtypes = []
@@ -444,39 +497,46 @@ def _c_args(p, o):
             *(o[k].data_ptr() for k in ("depth", "flow", "Y", "iters", "err", "conv", "stage", "gate")))
 
 
-def _launch(p, M, B, J, settings, topo, build_id=CHOOSE_BUILD, probe=None):
+def _launch(p, M, B, J, settings, topo, build_id=CHOOSE_BUILD, probe=None, cluster=0):
     """One launch for M members; returns the raw output tensors.
     ``build_id``: :data:`CHOOSE_BUILD` (the C entry chooses by the network's
     size and the member count, :func:`chosen_build`) or a forced build, a
-    test hook.  The scratch build's scratch (:func:`scratch_bytes` of
-    :func:`scratch_grid` blocks) is allocated here, counted with the outputs
-    against the card's free memory.  ``probe``: ``None``, or an int64
+    test hook; ``cluster`` (the cluster build): 0 for the C entry's cluster
+    (:func:`cluster_of`) or a forced one, a test hook.  The scratch build's
+    scratch (:func:`scratch_bytes` of :func:`scratch_grid` blocks) is
+    allocated here, counted with the outputs against the card's free memory;
+    the cluster build allocates none.  ``probe``: ``None``, or an int64
     tensor ``[len(PROBE_PHASES)]`` on the device that the probe build of the
-    loop or latency build fills with cycles; the SM clock in kHz is then
-    returned after the outputs."""
+    loop, latency, scratch or cluster build fills with cycles; the SM clock
+    in kHz is then returned after the outputs.  A refused launch raises
+    :class:`RuntimeError` (:func:`launch_error`)."""
     nt, Nmax = settings.n_time_levels, topo.n_max
     dev = p["geo"].device
     table = p["tab_m"] != 0
+    shape = (B * Nmax, B, J, topo.m_rhs)
     with torch.cuda.device(dev):
         if build_id == CHOOSE_BUILD:
             build_id = _chosen(p, M, B, J, topo)
-        blocks = scratch_grid(M, B * Nmax, B, J, topo.m_rhs, build_id, table=table) \
-            if build_id == SCRATCH_BUILD else 0
+        if build_id == CLUSTER_BUILD:
+            cluster = cluster_of(*shape, cluster, table=table)
+        blocks = scratch_grid(M, *shape, build_id, table=table) if build_id == SCRATCH_BUILD else 0
         check_output_memory(M, B, Nmax, J, nt, torch.cuda.mem_get_info()[0], blocks, topo.m_rhs)
         scratch = torch.empty(scratch_bytes(blocks, B * Nmax, topo.m_rhs) // 8, dtype=torch.float64,
                               device=dev) if blocks else None
         o = _outputs(M, B, J, nt, Nmax, dev)
         qlat = p["qlat"]
         tail = (M, B, Nmax, J, nt, int(settings.max_iter), topo.m_rhs, 0 if qlat is None else qlat.dim() - 2,
-                p["tab_m"], build_id, torch.cuda.current_stream().cuda_stream)
+                p["tab_m"], build_id, cluster, torch.cuda.current_stream().cuda_stream)
         lib = _lib(table)
         clock = ctypes.c_int(0)
+        scratch_ptr = None if scratch is None else scratch.data_ptr()
         if probe is None:
-            rc = lib.flowsim_fused_network(*_c_args(p, o), None if scratch is None else scratch.data_ptr(), *tail)
+            rc = lib.flowsim_fused_network(*_c_args(p, o), scratch_ptr, *tail)
         else:
-            rc = lib.flowsim_fused_network_probe(*_c_args(p, o), probe.data_ptr(), ctypes.byref(clock), *tail)
+            rc = lib.flowsim_fused_network_probe(*_c_args(p, o), scratch_ptr, probe.data_ptr(), ctypes.byref(clock),
+                                                 *tail)
     if rc != 0:
-        raise RuntimeError(f"fused_simulate_network launch failed: CUDA error {rc}")
+        raise RuntimeError(launch_error(rc, build_id, cluster))
     raw = tuple(o[k] for k in ("depth", "flow", "Y", "iters", "err", "conv", "stage", "gate"))
     return raw if probe is None else (*raw, clock.value)
 
@@ -484,11 +544,13 @@ def _launch(p, M, B, J, settings, topo, build_id=CHOOSE_BUILD, probe=None):
 def chosen_build(n_members: int, slots: int, n_branches: int, n_junctions: int, m_rhs: int,
                  table: bool = False) -> int:
     """The build the C entry takes for ``n_members`` members of a network of
-    this shape (the scratch build when the slot arrays do not fit one block's
-    shared memory, the loop build for more slots than threads; else the
-    latency build, or the residency build for a batch larger than the card
-    holds in the latency one); ``table``: a network with table branches,
-    which chooses among the table builds the same way."""
+    this shape (when the slot arrays do not fit one block's shared memory,
+    the cluster build while a cluster holds them and the card holds the
+    batch in one wave of clusters, else the scratch build; the loop build
+    for more slots than threads; else the latency build, or the residency
+    build for a batch larger than the card holds in the latency one);
+    ``table``: a network with table branches, which chooses among the table
+    builds the same way."""
     out = ctypes.c_int(0)
     rc = _lib(table).flowsim_fused_network_chosen_build(n_members, slots, n_branches, n_junctions, m_rhs,
                                                         ctypes.byref(out))
@@ -498,12 +560,12 @@ def chosen_build(n_members: int, slots: int, n_branches: int, n_junctions: int, 
 
 
 def resident_blocks(slots: int, n_branches: int, n_junctions: int, m_rhs: int, build_id: int,
-                    table: bool = False) -> int:
-    """Blocks of a kernel build (``table``: its table build) that one SM
-    holds for this network's block size and shared memory, from the CUDA
-    occupancy calculator."""
+                    table: bool = False, cluster: int = 0) -> int:
+    """Blocks of a kernel build (``table``: its table build; ``cluster`` as
+    :func:`_launch` takes it) that one SM holds for this network's block
+    size and shared memory, from the CUDA occupancy calculator."""
     out = ctypes.c_int(0)
-    rc = _lib(table).flowsim_fused_network_resident_blocks(slots, n_branches, n_junctions, m_rhs, build_id,
+    rc = _lib(table).flowsim_fused_network_resident_blocks(slots, n_branches, n_junctions, m_rhs, build_id, cluster,
                                                            ctypes.byref(out))
     if rc != 0:
         raise RuntimeError(f"occupancy query failed: CUDA error {rc}")
@@ -511,16 +573,35 @@ def resident_blocks(slots: int, n_branches: int, n_junctions: int, m_rhs: int, b
 
 
 def scratch_grid(n_members: int, slots: int, n_branches: int, n_junctions: int, m_rhs: int,
-                 build_id: int = SCRATCH_BUILD, table: bool = False) -> int:
+                 build_id: int = SCRATCH_BUILD, table: bool = False, cluster: int = 0) -> int:
     """The grid the C entry launches for ``n_members`` members in a build:
-    ``n_members``, or in the scratch build at most the blocks the card holds
-    at once (the occupancy calculator's blocks an SM times the SMs), each with
-    a scratch of its own."""
+    ``n_members``; in the scratch build at most the blocks the card holds at
+    once (the occupancy calculator's blocks an SM times the SMs), each with
+    a scratch of its own; in the cluster build (``cluster`` as
+    :func:`_launch` takes it) the blocks of at most the clusters it holds at
+    once.  Raises :class:`RuntimeError` (:func:`launch_error`) for a launch
+    the C entry refuses."""
     out = ctypes.c_int(0)
-    rc = _lib(table).flowsim_fused_network_grid(n_members, slots, n_branches, n_junctions, m_rhs, build_id,
+    rc = _lib(table).flowsim_fused_network_grid(n_members, slots, n_branches, n_junctions, m_rhs, build_id, cluster,
                                                 ctypes.byref(out))
     if rc != 0:
-        raise RuntimeError(f"grid query failed: CUDA error {rc}")
+        raise RuntimeError(launch_error(rc, build_id, cluster))
+    return out.value
+
+
+def cluster_of(slots: int, n_branches: int, n_junctions: int, m_rhs: int, cluster: int = 0,
+               table: bool = False) -> int:
+    """The cluster the C entry launches the cluster build with: ``cluster``
+    checked, or (0) its choice (:func:`cluster_blocks`, and a cluster the
+    card can schedule); its blocks, plus :data:`CLUSTER_PAIR` for the
+    two-blocks-an-SM form.  Raises :class:`RuntimeError`
+    (:func:`launch_error`) when no cluster holds the network or the forced
+    one is out of range."""
+    out = ctypes.c_int(0)
+    rc = _lib(table).flowsim_fused_network_cluster(slots, n_branches, n_junctions, m_rhs, cluster,
+                                                   ctypes.byref(out))
+    if rc != 0:
+        raise RuntimeError(launch_error(rc, CLUSTER_BUILD, cluster))
     return out.value
 
 
@@ -559,7 +640,7 @@ def fused_simulate_network(branches, n_junctions, settings, Y0=None, junction_ar
     :class:`FusedUnsupported` outside the kernel's scope (:func:`check_supported`)
     and ``ValueError`` for inputs of the wrong shape, before any launch.  CPU
     tensors take the plain version."""
-    global launch_count, scratch_launch_count
+    global launch_count, scratch_launch_count, cluster_launch_count
     net._check_supported(branches, n_junctions, settings)
     net.check_junction_inputs(junction_area, junction_rating, n_junctions)
     topo = check_supported(branches, n_junctions, settings, junction_rating)
@@ -573,6 +654,7 @@ def fused_simulate_network(branches, n_junctions, settings, Y0=None, junction_ar
     raw = _launch(p, 1, len(branches), n_junctions, settings, topo, build_id=build_id)
     launch_count += 1
     scratch_launch_count += build_id == SCRATCH_BUILD
+    cluster_launch_count += build_id == CLUSTER_BUILD
     return _single(_output(raw, topo, junction_rating))
 
 
@@ -589,13 +671,16 @@ def _single(out) -> net.NetworkOutput:
 
 
 def fused_simulate_network_probe(branches, n_junctions, settings, build_id=LATENCY_BUILD, Y0=None,
-                                 junction_area=None, junction_rating=None):
+                                 junction_area=None, junction_rating=None, cluster=0):
     """A measurement hook: one launch of the probe build of the loop
-    (:data:`LOOP_BUILD`) or latency (:data:`LATENCY_BUILD`) build on CUDA
-    tensors.  Returns ``(NetworkOutput, cycles, clock_khz)``: ``cycles`` maps
-    each of :data:`PROBE_PHASES` to the SM cycles thread 0 spent in it over
-    the run, ``clock_khz`` is the clock rate they count at.  Its outputs are
-    the production build's bits.  Counts no launch."""
+    (:data:`LOOP_BUILD`), latency (:data:`LATENCY_BUILD`), scratch
+    (:data:`SCRATCH_BUILD`) or cluster (:data:`CLUSTER_BUILD`, ``cluster``
+    as :func:`_launch` takes it) build on CUDA tensors; the scratch and
+    cluster ones for trapezoid networks.  Returns ``(NetworkOutput, cycles,
+    clock_khz)``: ``cycles`` maps each of :data:`PROBE_PHASES` to the SM
+    cycles thread 0 (of the first cluster's rank 0) spent in it over the
+    run, ``clock_khz`` is the clock rate they count at.  Its outputs are the
+    production build's bits.  Counts no launch."""
     net._check_supported(branches, n_junctions, settings)
     net.check_junction_inputs(junction_area, junction_rating, n_junctions)
     topo = check_supported(branches, n_junctions, settings, junction_rating)
@@ -604,7 +689,8 @@ def fused_simulate_network_probe(branches, n_junctions, settings, build_id=LATEN
     p = _pack(branches, n_junctions, settings, [dict() for _ in branches], 1, Y0, junction_area,
               junction_rating, topo)
     probe = torch.zeros(len(PROBE_PHASES), dtype=torch.int64, device=dev)
-    *raw, clock_khz = _launch(p, 1, len(branches), n_junctions, settings, topo, build_id=build_id, probe=probe)
+    *raw, clock_khz = _launch(p, 1, len(branches), n_junctions, settings, topo, build_id=build_id, probe=probe,
+                              cluster=cluster)
     return _single(_output(raw, topo, junction_rating)), dict(zip(PROBE_PHASES, probe.tolist())), clock_khz
 
 
@@ -626,7 +712,7 @@ def fused_simulate_network_batched(branches, n_junctions, settings, batch, Y0=No
     and flow ``[M, nt, N_b]`` per branch).  Raises :class:`FusedUnsupported`
     outside the kernel's scope and ``MemoryError`` when the outputs (with the
     scratch build's scratch) would not fit the card.  CPU tensors take the plain version."""
-    global batched_launch_count, batched_scratch_launch_count
+    global batched_launch_count, batched_scratch_launch_count, batched_cluster_launch_count
     M = net.check_batch(branches, batch, settings)
     net._check_supported(branches, n_junctions, settings)
     net.check_junction_inputs(junction_area, junction_rating, n_junctions)
@@ -641,4 +727,5 @@ def fused_simulate_network_batched(branches, n_junctions, settings, batch, Y0=No
     raw = _launch(p, M, len(branches), n_junctions, settings, topo, build_id=build_id)
     batched_launch_count += 1
     batched_scratch_launch_count += build_id == SCRATCH_BUILD
+    batched_cluster_launch_count += build_id == CLUSTER_BUILD
     return _output(raw, topo, junction_rating)

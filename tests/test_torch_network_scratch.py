@@ -17,7 +17,11 @@ tensors the wrappers run the kernel's plain version, so here:
   shapes the card runs: the tributary on the 50 m flagship, the large basin,
   1024 members of the 250 m tributary on a grid of 132 blocks;
 * ``gerd_tributary.network_solver`` at 250 m assembles the branches of
-  ``gerd_tributary.build``.
+  ``gerd_tributary.build``;
+* the cluster build's reckoning as pure functions: the cluster the wrapper
+  expects for each network the card runs (``cluster_blocks``), no scratch
+  counted inside a cluster's shared memory and the scratch build's beyond
+  it, just below and above the limit; the messages of refused launches.
 
 One JAX network simulation is compiled, once, in a module-scoped fixture.
 """
@@ -156,3 +160,72 @@ def test_network_solver_at_250m_assembles_the_branches_of_build():
         assert a.dx == b.dx and a.geo.n_nodes == b.geo.n_nodes == int(b.h0.shape[0])
         for f in ("z_bed", "b_main", "n_main", "curvature"):
             assert float((getattr(a.geo, f) - getattr(b.geo, f)).abs().max()) <= 1e-10, f
+
+
+# (slots, branches, junctions, RHS pairs): the cluster of each network the
+# card runs beyond one block's shared memory — the fewest blocks at one slot
+# a thread, 16 of the loop form beyond 4096 slots, none beyond a cluster's
+# shared memory
+CLUSTERS = {
+    "tributary_50m": ((3627, 3, 1, 2), 15),
+    "large_basin": ((5715, 127, 63, 3), 16),
+    "basin_levels6": ((819, 63, 31, 3), 4),
+    "table_network": ((3075, 3, 1, 2), 13),
+    "tributary_250m": ((729, 3, 1, 2), 3),
+    "beyond_a_cluster": ((12291, 3, 1, 2), 0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CLUSTERS))
+def test_cluster_blocks_of_the_networks_the_card_runs(case):
+    shape, blocks = CLUSTERS[case]
+    assert fnet.smem_bytes(*shape) > fnet.SMEM_LIMIT
+    assert fnet.cluster_blocks(*shape) == blocks
+    if blocks:
+        assert fnet.smem_bytes(-(-shape[0] // blocks), *shape[1:]) <= fnet.CLUSTER_SMEM_LIMIT
+
+
+# (branches, junctions, RHS pairs, levels): a tributary and the large basin's
+# junction layout, each at the branch length where its slot arrays stop
+# fitting a cluster's shared memory
+CLUSTER_LIMITS = {"tributary": (3, 1, 2, 385), "large_basin": (127, 63, 3, 25)}
+
+
+@pytest.mark.parametrize("case", sorted(CLUSTER_LIMITS))
+def test_cluster_build_counts_no_scratch_within_a_clusters_shared_memory(case):
+    B, J, m_rhs, nt = CLUSTER_LIMITS[case]
+    fits = lambda n_max: fnet.cluster_blocks(B * n_max, B, J, m_rhs) > 0
+    n_max = 2
+    while fits(n_max + 1):
+        n_max += 1
+    assert fnet.cluster_blocks(B * n_max, B, J, m_rhs) == fnet.MAX_CLUSTER
+    # the cluster build allocates no scratch; beyond, the scratch build's grid
+    # of 132 blocks (an H100's SMs at one block each) has one a block
+    for n, blocks in ((n_max, 0), (n_max + 1, 132)):
+        assert fits(n) == (blocks == 0)
+        out = fnet.output_bytes(1, B, n, J, nt)
+        fnet.check_output_memory(1, B, n, J, nt, out + fnet.scratch_bytes(blocks, B * n, m_rhs), blocks, m_rhs)
+        if blocks:
+            with pytest.raises(MemoryError, match="scratch"):
+                fnet.check_output_memory(1, B, n, J, nt, out, blocks, m_rhs)
+        else:
+            fnet.check_output_memory(1, B, n, J, nt, out, blocks, m_rhs)
+
+
+# (C return code, build, cluster): what each refusal names
+REFUSALS = {
+    "cluster_of_17": (912, fnet.CLUSTER_BUILD, 17, ("cluster build (17 blocks a cluster)", "2-16 blocks")),
+    "no_cluster_at_once": (701, fnet.CLUSTER_BUILD, 16, ("16 blocks a cluster)", "cannot hold one cluster")),
+    "two_an_sm_on_242_slots": (1, fnet.CLUSTER_BUILD, 15 | fnet.CLUSTER_PAIR,
+                               ("15 blocks a cluster, two an SM)", "does not take this network")),
+    "scratch_build": (1, fnet.SCRATCH_BUILD, 0, ("scratch build:", "does not take this network")),
+}
+
+
+@pytest.mark.parametrize("case", sorted(REFUSALS))
+def test_a_refused_launch_names_its_build_and_code(case):
+    rc, build_id, cluster, words = REFUSALS[case]
+    msg = fnet.launch_error(rc, build_id, cluster)
+    assert f"CUDA error {rc} " in msg and "no other build or plain version runs in its place" in msg
+    for w in words:
+        assert w in msg

@@ -27,10 +27,13 @@ the main paths through the user entry points:
   ``api.PreissmannSolver.run(engine="fused")``, the long reach at N = 2048,
   4096 and 8192 through ``fused_simulate`` and 1024 members of the N = 2048
   reach through ``batched_simulate(engine="fused")`` — the long build of
-  kernels 1 and 3, its state in a scratch of device memory — against the
-  plain engine, the long build forced at N <= 964 against the register
-  build bit for bit (trapezoid, storage and table reaches), and the N = 2048
-  reach on lookup tables;
+  kernel 1, its state in a scratch of device memory, and the cluster build
+  of kernel 3, each member over a thread-block cluster with its state in
+  their shared memory — against the plain engine, the cluster build in
+  turns with the long build (a block and a scratch a member), the
+  cluster build forced on single launches, the long and the cluster build
+  forced at N <= 964 against the register build bit for bit (trapezoid,
+  storage and table reaches), and the N = 2048 reach on lookup tables;
 * the reservoir: ``models.example.build()`` (a flood wave routed into a lumped
   storage) with ``engine="fused"`` against ``engine="plain"``, and the same
   reservoir with a power outflow rating fitted through ``api.RatingCurve``;
@@ -49,7 +52,9 @@ the main paths through the user entry points:
   levels) through ``api.PreissmannSolver.run(engine="fused")`` — the table
   path of kernel 1 — and its 10 240-member roughness ensemble
   (``table_roughness_ensemble`` -> ``batched_simulate(engine="fused")``, M =
-  96) — the table path of kernel 3 —, with a mixed-station reach, lateral
+  96) — the table path of kernel 3, its bracket build, timed in turns with
+  the residency build it replaced and both probed —, with a mixed-station
+  reach, lateral
   inflow, store="boundaries", the boundary pairs and storage rows on tables,
   and batched launches bit-identical to single ones; the single run and 4
   members of the ensemble are held against the plain engine on all 193 levels;
@@ -103,6 +108,7 @@ those, to compare two checkouts on one card.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import inspect
 import json
@@ -284,6 +290,13 @@ def time_cuda(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def readings(fn, n: int = 3) -> list:
+    """``n`` readings of one launch each by CUDA events, after one launch: in
+    a comparison in turns each build's median of them, since a stall of the
+    host inside a reading adds to it."""
+    return [time_cuda(fn, reps=1, warmup=int(not r)) for r in range(n)]
+
+
 def wall_ms(fn) -> float:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -311,8 +324,15 @@ SIM_FIELDS = ("depth", "flow", "error", "iterations", "converged", "gate_open")
 
 
 def same_bits(a, b, what: str, fields=SIM_FIELDS) -> None:
+    """Every field bit for bit (NaN at the same places: a member that
+    diverged)."""
     for f in fields:
-        if not torch.equal(getattr(a, f), getattr(b, f)):
+        x, y = getattr(a, f), getattr(b, f)
+        if x.is_floating_point() and not torch.equal(x.isnan(), y.isnan()):
+            raise AssertionError(f"{what}: {f} is NaN at different places")
+        if x.is_floating_point():
+            x, y = torch.where(x.isnan(), 0.0, x), torch.where(y.isnan(), 0.0, y)
+        if not torch.equal(x, y):
             raise AssertionError(f"{what}: {f} is not bit-identical")
 
 
@@ -370,7 +390,8 @@ def check_latency_build(dev) -> dict:
     return dict(cases=out, chosen_build_at_n121=choices)
 
 
-KERNEL1_BUILD_NAMES = {0: "register_build", 1: "residency_build", 2: "latency_build", 3: "long_build"}
+KERNEL1_BUILD_NAMES = {0: "register_build", 1: "residency_build", 2: "latency_build", 3: "long_build",
+                      4: "bracket_build", 5: "cluster_build"}
 
 
 def kernel1_build_ids(fn) -> list:
@@ -831,22 +852,30 @@ def compare_members(batched_out, member_outs, what: str, exact: bool) -> dict:
                 max_abs_dstage=dstage, bit_identical=exact)
 
 
-def batched_launch(geob, us_b, ds_bc, h0, Q0, sset, build_id):
-    """What ``fused_simulate_batched(..., us_batched=True)`` launches (or with
-    ``us_b`` shared, what it launches without), with the kernel build forced
-    instead of chosen by the member count: the register build on a batch that
-    the wrapper gives the residency build, to time the two on the same
-    members.  Counts no launch."""
+def batched_packed(geob, us_b, ds_bc, h0, Q0, sset) -> tuple:
+    """``fused_newton.launch``'s arguments for what
+    ``fused_simulate_batched(..., us_batched=True)`` launches (or with
+    ``us_b`` shared, what it launches without), packed once."""
     from flowsim_tpu_torch.ops.cuda import fused_newton as fn
 
     n_members, n = geob.z_bed.shape
     nt, lead = sset.n_time_levels, (geob.z_bed.shape[0],)
     par, rc_kind, us_rc_kind = fn.pack_params(us_b, ds_bc, sset, batch_shape=lead)
-    return fn.launch(fn.pack_geometry(geob), h0.expand(n_members, n).contiguous(),
-                     Q0.expand(n_members, n).contiguous(), fn.series(us_b, nt, h0.device, lead),
-                     fn.series(ds_bc, nt, h0.device, lead), par, None, sset, us_b.kind, ds_bc.kind,
-                     rc_kind, us_rc_kind, fn.pack_storage(us_b, ds_bc, batch_shape=lead),
-                     fn.pack_tables(geob, n_members), build_id=build_id)
+    return (fn.pack_geometry(geob), h0.expand(n_members, n).contiguous(), Q0.expand(n_members, n).contiguous(),
+            fn.series(us_b, nt, h0.device, lead), fn.series(ds_bc, nt, h0.device, lead), par, None, sset,
+            us_b.kind, ds_bc.kind, rc_kind, us_rc_kind, fn.pack_storage(us_b, ds_bc, batch_shape=lead),
+            fn.pack_tables(geob, n_members))
+
+
+def batched_launch(geob, us_b, ds_bc, h0, Q0, sset, build_id):
+    """:func:`batched_packed` launched with the kernel build forced instead
+    of chosen by the member count: the register build on a batch that the
+    wrapper gives the residency build, to time the two on the same members.
+    Counts no launch."""
+    from flowsim_tpu_torch.ops.cuda import fused_newton as fn
+
+    return fn.launch(*batched_packed(geob, us_b, ds_bc, h0, Q0, sset), build_id=build_id)
+
 
 
 def kernel_builds(ptxas: list) -> list:
@@ -861,6 +890,19 @@ def kernel_builds(ptxas: list) -> list:
                             table=m.group(4) == "1",
                             **{k: rec.get(k) for k in ("registers", "stack_bytes", "spill_store_bytes",
                                                        "spill_load_bytes")}))
+    return out
+
+
+def bracket_kernel_builds(ptxas: list) -> list:
+    """Registers and spills of fused_newton.cu's bracket build and its probe
+    build, by template argument (probe)."""
+    out = []
+    for rec in ptxas:
+        m = re.search(r"fused_bracket_kernelILb([01])E", rec["kernel"])
+        if m:
+            out.append(dict(probe=m.group(1) == "1",
+                            **{k: rec.get(k) for k in ("registers", "stack_bytes", "spill_store_bytes",
+                                                       "spill_load_bytes", "static_smem_bytes")}))
     return out
 
 
@@ -1358,9 +1400,10 @@ def same_stages(a, b, what: str) -> None:
 
 
 def check_long_build(dev) -> dict:
-    """Kernel 1's long build forced at N <= 964, one node a thread, against
-    its register build, bit for bit (depth, flow, error, iterations,
-    converged, gate, reservoir stages): the flagship (N = 121, 25 levels),
+    """Kernel 1's long build and its cluster build (2 blocks) forced at N <=
+    964, one node a thread, against its register build, bit for bit (depth,
+    flow, error, iterations, converged, gate, reservoir stages): the
+    flagship (N = 121, 25 levels),
     the flagship with lateral inflow per level and store="boundaries" (13
     levels), the flagship at spatial_step=125 (N = 964, 13 levels), four
     storage cases (12 levels), the scaling reach on lookup tables (N = 121
@@ -1395,10 +1438,14 @@ def check_long_build(dev) -> dict:
         lng = fn.launch(*packed, build_id=fn.LONG_BUILD)
         same_bits(lng, reg, f"long vs register build, {name}")
         same_stages(lng, reg, f"long vs register build, {name}")
+        clu = fn.launch(*packed, build_id=fn.CLUSTER_BUILD)
+        same_bits(clu, reg, f"cluster vs register build, {name}")
+        same_stages(clu, reg, f"cluster vs register build, {name}")
         if not bool(lng.converged.all()):
             raise AssertionError(f"{name}: not converged")
-        out[name] = dict(n_nodes=int(args[3].shape[0]), levels=int(lng.iterations.shape[1]),
-                         iterations=int(lng.iterations.sum()), bit_identical=True)
+        n = int(args[3].shape[0])
+        out[name] = dict(n_nodes=n, levels=int(lng.iterations.shape[1]), iterations=int(lng.iterations.sum()),
+                         cluster_blocks=fn.cluster_blocks(n), bit_identical=True)
         if name.startswith("flagship"):   # the two builds on the same launch, by CUDA events, in turns
             ids = dict(register_build=fn.REGISTER_BUILD, long_build=fn.LONG_BUILD)
             runs = {b: [] for b in ids}
@@ -1409,20 +1456,155 @@ def check_long_build(dev) -> dict:
     reg = batched_launch(geob, s.us_params, s.ds_params, s.h0, s.Q0, flag[5], fn.REGISTER_BUILD)
     lng = batched_launch(geob, s.us_params, s.ds_params, s.h0, s.Q0, flag[5], fn.LONG_BUILD)
     same_bits(lng, reg, "kernel 3: long vs register build")
+    same_bits(batched_launch(geob, s.us_params, s.ds_params, s.h0, s.Q0, flag[5], fn.CLUSTER_BUILD), reg,
+              "kernel 3: cluster vs register build")
     out["batched_4x25"] = dict(members=4, iterations=int(lng.iterations.sum()), bit_identical=True)
     return out
 
 
 def long_kernel_builds(ptxas: list) -> list:
-    """Registers and spills of fused_newton.cu's long builds, by template
-    arguments (storage rows, table geometry)."""
+    """Registers and spills of fused_newton.cu's long and cluster builds, by
+    template arguments (storage rows, table geometry; the cluster build's
+    probe)."""
     out = []
     for rec in ptxas:
-        m = re.search(r"fused_long_kernelILb([01])ELb([01])E", rec["kernel"])
+        m = re.search(r"fused_(long|cluster)_kernelILb([01])ELb([01])E(?:Lb([01])E)?", rec["kernel"])
         if m:
-            out.append(dict(storage=m.group(1) == "1", table=m.group(2) == "1",
+            out.append(dict(build=m.group(1), storage=m.group(2) == "1", table=m.group(3) == "1",
+                            **({"probe": m.group(4) == "1"} if m.group(1) == "cluster" else {}),
                             **{k: rec.get(k) for k in ("registers", "stack_bytes", "spill_store_bytes",
                                                        "spill_load_bytes")}))
+    return out
+
+
+def long_builds_in_turns(dev, geob, us, ds, h0, Q0, sset, chosen_out) -> dict:
+    """Kernel 3's builds for the long ensemble on the same packed members:
+    the cluster build and the long build (a block and a scratch a member),
+    each held to the other's bits and the chosen one to the main path's run;
+    then by CUDA events in turns (cluster, long, long, cluster), three
+    readings a turn (:func:`readings`), each build's median.  Fails unless
+    the chosen build is the faster: its median no more than the spread of
+    its readings above the other's.  Each build's plan (grid, cluster) is
+    held against the wrapper's pure reckoning (``fused_newton.launch_grid``,
+    ``cluster_blocks``), and the state each holds is reported: the scratch
+    it allocates, or the shared memory of the clusters of its grid."""
+    from flowsim_tpu_torch.ops.cuda import fused_newton as fn
+
+    n_members, n = geob.z_bed.shape
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    packed = batched_packed(geob, us, ds, h0, Q0, sset)
+    ids = dict(cluster_build=fn.CLUSTER_BUILD, long_build=fn.LONG_BUILD)
+    chosen = KERNEL1_BUILD_NAMES[fn.chosen_build(n_members, n)]
+    outs = {b: fn.launch(*packed, build_id=i) for b, i in ids.items()}
+    same_bits(outs["cluster_build"], outs["long_build"], "long ensemble: cluster vs long build")
+    same_bits(chosen_out, outs[chosen], f"long ensemble: the main path's run vs the {chosen} forced")
+    cluster_out = outs["cluster_build"]
+    del outs
+    rec = dict(chosen_build=chosen, bits="every field of every build")
+    for b, i in ids.items():
+        build_id, grid, cluster = fn.plan(n_members, n, False, False, i)
+        clusters = grid // cluster if i == fn.CLUSTER_BUILD else None
+        mirror = fn.launch_grid(i, n_members, n, sms, clusters_at_once=clusters)
+        if build_id != i or mirror != grid or (i == fn.CLUSTER_BUILD and (cluster != fn.cluster_blocks(n)
+                                                                          or clusters > sms // cluster)):
+            raise AssertionError(f"{b}: the C entry launches grid {grid}, cluster {cluster}; the wrapper's "
+                                 f"reckoning gives grid {mirror}, cluster {fn.cluster_blocks(n)}")
+        state = (grid * fn.rank_nodes(n, cluster) * fn.CLUSTER_BYTES_PER_NODE if i == fn.CLUSTER_BUILD
+                 else fn.scratch_bytes(grid, n))
+        rec[b] = dict(grid=grid, cluster_blocks=cluster, clusters_at_once=clusters, ms_runs=[],
+                      state_bytes=state, state_in="shared memory" if i == fn.CLUSTER_BUILD else "scratch")
+    for b in ("cluster_build", "long_build", "long_build", "cluster_build"):
+        rec[b]["ms_runs"] += readings(lambda: fn.launch(*packed, build_id=ids[b]))
+    for b in ids:
+        rec[b]["ms"] = statistics.median(rec[b]["ms_runs"])
+    rec["fastest_build"] = min(ids, key=lambda b: rec[b]["ms"])
+    spread = max(rec[chosen]["ms_runs"]) - min(rec[chosen]["ms_runs"])
+    if rec[chosen]["ms"] > rec[rec["fastest_build"]]["ms"] + spread:
+        raise AssertionError(f"long ensemble: the C entry chooses the {chosen} ({rec[chosen]['ms']:.3f} ms), "
+                             f"slower than the {rec['fastest_build']} ({rec[rec['fastest_build']]['ms']:.3f} ms) "
+                             f"by more than its spread ({spread:.3f} ms)")
+    # the cluster build's probe build: thread 0 of rank 0 of the first
+    # cluster, over the members that cluster runs
+    cycles = torch.zeros(len(fn.PROBE_PHASES), dtype=torch.int64, device=dev)
+    clock = ctypes.c_int(0)
+    po = fn.launch(*packed, build_id=fn.CLUSTER_BUILD, probe=(cycles, clock))
+    same_bits(po, cluster_out, "long ensemble: the cluster build's probe build")
+    its = int(po.iterations[::rec["cluster_build"]["clusters_at_once"]].sum())
+    rec["cluster_build"]["probe_rank_0_of_cluster_0"] = dict(
+        probe_record(dict(zip(fn.PROBE_PHASES, cycles.tolist())), clock.value, its, rec["cluster_build"]["ms"]),
+        members=len(range(0, n_members, rec["cluster_build"]["clusters_at_once"])))
+    del cluster_out, po
+    # the cluster of every long shape the card runs, as the wrapper reckons it
+    rec["cluster_blocks_by_n"] = {}
+    for nn in (fn.MAX_N + 1, 2048, 2409, 4096, 8192):
+        cl = fn.plan(2, nn, False, False, fn.CLUSTER_BUILD)[2]
+        if cl != fn.cluster_blocks(nn):
+            raise AssertionError(f"N={nn}: the C entry's cluster has {cl} blocks, cluster_blocks says "
+                                 f"{fn.cluster_blocks(nn)}")
+        rec["cluster_blocks_by_n"][nn] = cl
+    return rec
+
+
+def forced_cluster_singles(dev, cases: dict) -> dict:
+    """The cluster build forced on single launches that take the long build
+    (kernel 1): bit for bit, and by CUDA events in turns (cluster, long,
+    long, cluster), three readings a turn (:func:`readings`), each build's
+    median."""
+    from flowsim_tpu_torch.ops.cuda import fused_newton as fn
+
+    out = {}
+    for name, args in cases.items():
+        packed = pack_one(*args)
+        n = int(args[3].shape[0])
+        clu, lng = (fn.launch(*packed, build_id=b) for b in (fn.CLUSTER_BUILD, fn.LONG_BUILD))
+        same_bits(clu, lng, f"{name}: cluster vs long build")
+        same_stages(clu, lng, f"{name}: cluster vs long build")
+        del clu, lng
+        runs = {"cluster_build": [], "long_build": []}
+        for b in ("cluster_build", "long_build", "long_build", "cluster_build"):
+            bid = fn.CLUSTER_BUILD if b == "cluster_build" else fn.LONG_BUILD
+            runs[b] += readings(lambda: fn.launch(*packed, build_id=bid))
+        out[name] = dict(n_nodes=n, cluster_blocks=fn.cluster_blocks(n), chosen_build=KERNEL1_BUILD_NAMES[
+            fn.chosen_build(1, n)], bit_identical=True, **{f"{b}_ms_runs": v for b, v in runs.items()},
+            **{f"{b}_ms": statistics.median(v) for b, v in runs.items()})
+    return out
+
+
+def refused_launches(dev, refused_n_8193: str) -> dict:
+    """The launches refused by name: N = 8193 (by the wrapper); the builds
+    forced where they do not apply (the bracket build on trapezoids, a probe
+    of the cluster build on tables, a probe of the long build), by the C
+    entry's own rules through ``fused_newton.plan`` before anything is
+    allocated, and the plan of the bracket build on trapezoids asked of it
+    directly."""
+    from flowsim_tpu_torch.models.gerd_roseires import model
+    from flowsim_tpu_torch.ops.cuda import fused_newton as fn
+
+    out = dict(n_8193=refused_n_8193)
+    s, c = model.build(device=dev, sim_duration=3600 * 2)
+    args = (c.geometry, s.us_params, s.ds_params, s.h0, s.Q0, s.settings(tolerance=1e-6, max_iter=100))
+    packed = pack_one(*args)
+    tpacked = pack_one(as_table(c.geometry, samples=32), *args[1:])
+    probe = (torch.zeros(len(fn.PROBE_PHASES), dtype=torch.int64, device=dev), ctypes.c_int(0))
+    for name, pk, kw in (("bracket_build_on_trapezoids", packed, dict(build_id=fn.BRACKET_BUILD)),
+                         ("cluster_build_probe_on_tables", tpacked, dict(build_id=fn.CLUSTER_BUILD, probe=probe)),
+                         ("long_build_probe", packed, dict(build_id=fn.LONG_BUILD, probe=probe))):
+        try:
+            fn.launch(*pk, **kw)
+        except fn.FusedUnsupported as e:
+            if fn.BUILD_NAMES[kw["build_id"]] not in str(e):
+                raise AssertionError(f"{name}: the refusal does not name the build: {e}")
+            out[name] = str(e)
+        else:
+            raise AssertionError(f"{name}: launched")
+    try:
+        fn.plan(1, 121, False, False, fn.BRACKET_BUILD)
+    except fn.FusedUnsupported as e:
+        if "bracket build" not in str(e):
+            raise AssertionError(f"the C entry's refusal does not name the build: {e}")
+        out["c_entry_bracket_build_on_trapezoids"] = str(e)
+    else:
+        raise AssertionError("the C entry planned the bracket build on trapezoids")
     return out
 
 
@@ -1434,10 +1616,13 @@ def drive_long_fused(dev, launches: dict) -> tuple[dict, list]:
     ``batched_simulate(engine="fused", store="boundaries")`` — with the counts
     set to 0 just before and read just after; then each held against the
     plain engine (the flagship on its first 25 levels, the reaches on all 8,
-    members 0 and 1023), 4 members against single launches bit for bit, the
-    N = 2048 reach on lookup tables, the long build forced at N <= 964
-    against the register build (:func:`check_long_build`), the times and the
-    refusal at N = 8193.  Returns (record, kernel rows)."""
+    members 0 and 1023), 4 members (the cluster build) against single
+    launches (the long build) bit for bit, the builds of the
+    ensemble in turns (:func:`long_builds_in_turns`), the N = 2048 reach on
+    lookup tables, the long and the cluster build forced at N <= 964 against
+    the register build (:func:`check_long_build`), the cluster build forced
+    on single launches (:func:`forced_cluster_singles`), the times and the
+    refusals (:func:`refused_launches`).  Returns (record, kernel rows)."""
     from flowsim_tpu_torch import trees
     from flowsim_tpu_torch.models.gerd_roseires import model
     from flowsim_tpu_torch.ops.cuda import build, fused_batched
@@ -1459,7 +1644,7 @@ def drive_long_fused(dev, launches: dict) -> tuple[dict, list]:
 
     # -- the main path: counts to 0, drive, read the counts
     fn.launch_count = fn.long_launch_count = 0
-    fused_batched.launch_count = fused_batched.long_launch_count = 0
+    fused_batched.launch_count = fused_batched.long_launch_count = fused_batched.cluster_launch_count = 0
     unconverged = None
     try:
         out50 = s50.run(engine="fused", tolerance=1e-6, verbose=0)
@@ -1472,11 +1657,14 @@ def drive_long_fused(dev, launches: dict) -> tuple[dict, list]:
     torch.cuda.synchronize()
     launches["fused_simulate_long"] = fn.long_launch_count
     launches["fused_simulate_batched_long"] = fused_batched.long_launch_count
+    launches["fused_simulate_batched_cluster"] = fused_batched.cluster_launch_count
     if (fn.launch_count, fn.long_launch_count) != (1 + len(LONG_FUSED_NODES),) * 2 \
-            or (fused_batched.launch_count, fused_batched.long_launch_count) != (1, 1):
-        raise AssertionError(f"long reaches: {fn.long_launch_count} of {fn.launch_count} single and "
-                             f"{fused_batched.long_launch_count} of {fused_batched.launch_count} batched launches "
-                             f"took the long build, expected {1 + len(LONG_FUSED_NODES)} and 1")
+            or (fused_batched.launch_count, fused_batched.long_launch_count) != (1, 1) \
+            or fused_batched.cluster_launch_count != 1:
+        raise AssertionError(f"long reaches: {fn.long_launch_count} of {fn.launch_count} single launches took the "
+                             f"long build, expected {1 + len(LONG_FUSED_NODES)}; {fused_batched.long_launch_count} "
+                             f"of {fused_batched.launch_count} batched launches a long-reach build, "
+                             f"{fused_batched.cluster_launch_count} the cluster build, expected 1 and 1")
 
     # -- the flagship at 50 m: all 385 levels, the plain engine on the first 25
     n50, nt50 = s50.number_of_nodes, s50.number_of_time_levels
@@ -1532,8 +1720,11 @@ def drive_long_fused(dev, launches: dict) -> tuple[dict, list]:
     ens_runs = [wall_ms(run_ensemble) for _ in range(3)]
     ens_ms = statistics.median(ens_runs)
     ens_iters = int(out_e.iterations.sum())
+    # single launches take the long build, a batch the cluster build
     singles = [fn.fused_simulate(trees.member(geob, m), us, ds, h0, Q0, sset_b) for m in range(LONG_BIT_MEMBERS)]
     bits = compare_members(run_ensemble(LONG_BIT_MEMBERS), singles, "long ensemble vs single launches", exact=True)
+    bits["chosen_build"] = KERNEL1_BUILD_NAMES[fn.chosen_build(LONG_BIT_MEMBERS, LONG_ENSEMBLE_NODES)]
+    builds_rec = long_builds_in_turns(dev, geob, us, ds, h0, Q0, sset_b, out_e)
     picked = [0, B - 1]
     t0 = time.perf_counter()
     plains = [fn.fused_simulate_plain(trees.member(geob, m), us, ds, h0, Q0, sset_b) for m in picked]
@@ -1542,12 +1733,12 @@ def drive_long_fused(dev, launches: dict) -> tuple[dict, list]:
     ens_cmp = compare_members(prs_out_member(out_e, picked), plains, "long ensemble vs plain", exact=False)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     bps = fn.resident_blocks(LONG_ENSEMBLE_NODES, False, fn.LONG_BUILD)
+    chosen_e = builds_rec["chosen_build"]
     ensemble_rec = dict(members=B, n_nodes=LONG_ENSEMBLE_NODES, n_time_levels=sset.n_time_levels,
-                        store="boundaries", launches=1, wall_ms_runs=ens_runs, wall_ms_median=ens_ms,
-                        simulations_per_s=B / (ens_ms * 1e-3), total_newton_iterations=ens_iters,
-                        resident_blocks_per_sm=bps, members_in_flight=bps * sms,
-                        scratch_bytes=fn.scratch_bytes(B, LONG_ENSEMBLE_NODES),
-                        against_single_launches=bits,
+                        store="boundaries", launches=1, build=chosen_e, wall_ms_runs=ens_runs,
+                        wall_ms_median=ens_ms, simulations_per_s=B / (ens_ms * 1e-3),
+                        total_newton_iterations=ens_iters, long_build_resident_blocks_per_sm=bps,
+                        multiprocessors=sms, builds=builds_rec, against_single_launches=bits,
                         members_0_and_last_vs_plain=dict(ens_cmp, plain_ms=ens_plain_ms))
 
     # -- the limits: the build the C entry takes, and N = 8193 refused by name
@@ -1562,9 +1753,12 @@ def drive_long_fused(dev, launches: dict) -> tuple[dict, list]:
         raise AssertionError(f"fused_simulate accepted N = {fn.LONG_MAX_N + 1}")
     t0 = time.perf_counter()
     forced = check_long_build(dev)
+    single_cluster = forced_cluster_singles(dev, {**{f"n_{n}": reaches[n] for n in (2048, 8192)},
+                                                  "flagship_50m": args50})
     record = dict(flagship_50m=flagship, reaches=reach_recs, table_reach=table_rec, ensemble=ensemble_rec,
-                  forced_long_build_vs_register_build=dict(forced, seconds=time.perf_counter() - t0),
-                  refuses_n_8193=refused, ptxas=long_kernel_builds(build.build_info["fused_newton"]["ptxas"]))
+                  forced_long_and_cluster_builds_vs_register_build=dict(forced, seconds=time.perf_counter() - t0),
+                  forced_cluster_build_single_launches=single_cluster, refused=refused_launches(dev, refused),
+                  ptxas=long_kernel_builds(build.build_info["fused_newton"]["ptxas"]))
 
     # -- the kernel rows: kernel 1's long build at N = 8192, kernel 3's on the ensemble
     n_par = fn._N_PARAMS
@@ -1589,9 +1783,12 @@ def drive_long_fused(dev, launches: dict) -> tuple[dict, list]:
              source="flowsim_tpu_torch/ops/cuda/csrc/fused_newton.cu",
              replaces="flowsim_tpu/ops/pallas/fused_newton.py:2269",
              launches=launches["fused_simulate_batched_long"], max_abs_err=ens_cmp["max_abs_dh"], ms=ens_ms,
-             plain_ms=ens_plain_ms, bound_ms=b3, bound_by=by3, library_ms=None, build="long",
-             ms_over_bound=ens_ms / b3, resident_blocks_per_sm=bps,
-             scratch_bytes_per_sweep=B * LONG_SWEEP_BYTES_PER_NODE * ne,
+             plain_ms=ens_plain_ms, bound_ms=b3, bound_by=by3, library_ms=None, build=chosen_e,
+             cluster_launches=launches["fused_simulate_batched_cluster"],
+             kernel_alone_ms=builds_rec[chosen_e]["ms"], ms_over_bound=ens_ms / b3,
+             kernel_alone_ms_by_build={b: r["ms"] for b, r in builds_rec.items() if isinstance(r, dict) and "ms" in r},
+             state_bytes={b: r["state_bytes"] for b, r in builds_rec.items()
+                                    if isinstance(r, dict) and "ms" in r},
              shape=dict(members=B, n_nodes=ne, n_time_levels=nt, newton_iterations=ens_iters, store="boundaries"),
              plain_shape=dict(members=len(picked), n_nodes=ne, n_time_levels=nt,
                               newton_iterations=ens_cmp["iterations"]),
@@ -2406,8 +2603,11 @@ def drive_table(dev, launches: dict) -> tuple[dict, list, dict]:
     card (the single run and 4 of the 10 240 members, on all their levels)
     and timed, a mixed-station reach through the api, lateral inflow
     with store="boundaries", the boundary pairs and storage rows on tables,
-    B = 16 against 16 single launches bit for bit, and a NaN member beside
-    sound ones.  Returns the phase record, the kernel-table rows and the
+    B = 16 against 16 single launches bit for bit (the wrapper's build and
+    the bracket build forced), and a NaN member beside sound ones; every
+    table build on the 10 240 members against the chosen one bit for bit,
+    the bracket and the residency build in turns by CUDA events, their probe
+    builds, and the bracket build forced on the single run.  Returns the phase record, the kernel-table rows and the
     reach's geometry (``solver``, and ``geo96``, ``h96``, ``Q96`` at M = 96)
     for the network phase, which slices it rather than building it again."""
     from flowsim_tpu_torch import api, trees
@@ -2446,13 +2646,17 @@ def drive_table(dev, launches: dict) -> tuple[dict, list, dict]:
     torch.cuda.synchronize()
     launches["fused_simulate_table"] = fn.launch_count
     fn.launch_count = 0
+    fused_batched.bracket_launch_count = 0
     out_e = run_ensemble()
     torch.cuda.synchronize()
     launches["fused_simulate_batched_table"] = fused_batched.launch_count
+    launches["fused_simulate_batched_bracket"] = fused_batched.bracket_launch_count
     if launches["fused_simulate_table"] != 1 or launches["fused_simulate_batched_table"] != 1 \
-            or fn.launch_count != 0:
+            or fn.launch_count != 0 \
+            or fused_batched.bracket_launch_count != 1:
         raise AssertionError(f"table main path: {launches['fused_simulate_table']} single and "
-                             f"{fused_batched.launch_count} batched launches, expected 1 and 1")
+                             f"{fused_batched.launch_count} batched launches ({fused_batched.bracket_launch_count} "
+                             "in the bracket build), expected 1 and 1, in the bracket build")
     total_it = int(out.iterations.sum())
     if out.depth.shape != (nt, n) or not bool(out.converged.all()) or not bool(torch.isfinite(out.depth).all()):
         raise AssertionError("table reach: not converged or not finite")
@@ -2481,6 +2685,16 @@ def drive_table(dev, launches: dict) -> tuple[dict, list, dict]:
     # the latency build's closures are the trapezoid's: tables take the register build
     if fn.chosen_build(1, n, table=True) != fn.REGISTER_BUILD:
         raise AssertionError("one table launch does not take the register build")
+    # the bracket build forced on the single launch (kernel 1 keeps the
+    # register build): its bits, and the two in turns by CUDA events
+    same_bits(fn.launch(*packed, build_id=fn.BRACKET_BUILD), fn.launch(*packed, build_id=fn.REGISTER_BUILD),
+              "table reach: bracket vs register build")
+    forced = {"bracket_build": [], "register_build": []}
+    for b in ("bracket_build", "register_build", "register_build", "bracket_build"):
+        bid = fn.BRACKET_BUILD if b == "bracket_build" else fn.REGISTER_BUILD
+        forced[b] += readings(lambda: fn.launch(*packed, build_id=bid))
+    events["forced_in_turns"] = dict(bit_identical=True, **{f"{b}_ms_runs": v for b, v in forced.items()},
+                                     **{f"{b}_ms": statistics.median(v) for b, v in forced.items()})
     rec["single"].update(kernel_alone_cuda_events=events, plain_compared_levels=nt, plain_ms=plain_ms, **cmp)
 
     # -- through the api: a mixed-station reach
@@ -2503,10 +2717,24 @@ def drive_table(dev, launches: dict) -> tuple[dict, list, dict]:
         raise AssertionError(f"lateral inflow on tables: shape {tuple(out_q.depth.shape)}, moved {moved}")
     checks["lateral_inflow_store_boundaries"]["moved_outflow_by"] = moved
     # every boundary pair and the storage rows, on the tables of the same prismatic reaches
+    bracket_cases = {"lateral_inflow_store_boundaries": (*a25b, q)}
     for name in BOUNDARY_CASES:
         b = build_boundary_case(api, name, device=dev)
         ba = (as_table(b.channel.geometry), b.us_params, b.ds_params, b.h0, b.Q0, b.settings(1e-8, 100))
         checks["boundary_" + name] = compare_runs(fused_simulate(*ba), fused_simulate_plain(*ba), "table " + name)
+        bracket_cases["boundary_" + name] = ba
+    # the bracket build (kernel 3's table batches) forced on those single
+    # launches and on the gated_blend flagship's reach on tables, against
+    # the register build bit for bit: every option and boundary row
+    from flowsim_tpu_torch.models.gerd_roseires import model
+    sg, cg = model.build(device=dev, sim_duration=3600 * 24, smooth=False)
+    bracket_cases["gated_blend_25_levels"] = (as_table(cg.geometry), sg.us_params, sg.ds_params, sg.h0, sg.Q0,
+                                              sg.settings(tolerance=1e-6, max_iter=100))
+    for name, a in bracket_cases.items():
+        pk = pack_one(*a)
+        same_bits(fn.launch(*pk, build_id=fn.BRACKET_BUILD), fn.launch(*pk, build_id=fn.REGISTER_BUILD),
+                  f"bracket vs register build, table {name}")
+    checks["bracket_build_forced_bit_identical"] = sorted(bracket_cases)
     for name in ("ds_curve_rating_losses", "both_ends"):
         sa = build_storage_case(name, dev)
         sa = (as_table(sa[0], depth_max=30.0), *sa[1:])
@@ -2521,6 +2749,11 @@ def drive_table(dev, launches: dict) -> tuple[dict, list, dict]:
     singles = [fused_simulate(trees.member(g16, m), *bargs) for m in range(TABLE_SMALL_BATCH)]
     batched = dict(bit_identity_16_members=compare_members(out16, singles, "table batch vs single launches",
                                                        exact=True))
+    # the 16 members in the bracket build forced (the wrapper gives a batch
+    # of 16 the register build), against the same single launches
+    b16 = batched_launch(g16, solver.us_params, solver.ds_params, h96, Q96, sset16, fn.BRACKET_BUILD)
+    batched["bit_identity_16_members_bracket_build"] = compare_members(
+        b16, singles, "table batch in the bracket build vs single launches", exact=True)
     if not bool(out16.converged.all()):
         raise AssertionError("table batch: a member did not converge")
     # members of the main path's ensemble against the plain engine, every level
@@ -2547,28 +2780,47 @@ def drive_table(dev, launches: dict) -> tuple[dict, list, dict]:
                     "table batch: sound members beside a NaN one", exact=True)
     if bool(out_nan.converged[bad, 1:].any()):
         raise AssertionError("table batch: the NaN member converged at some level")
+    nan_b = batched_launch(g16, solver.us_params, solver.ds_params, h_nan, Q96, sset16, fn.BRACKET_BUILD)
+    same_bits(nan_b, out_nan, "table batch with a NaN member: bracket vs register build")
     batched["nan_member"] = dict(member=bad, levels_converged=int(out_nan.converged[bad, 1:].sum()),
                                  sound_members_bit_identical=True)
     # the 10 240 members: timed, and the build the C entry chose against the register build
     ens_runs = [wall_ms(run_ensemble) for _ in range(3)]
     ens_ms = statistics.median(ens_runs)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    table_builds = (("register_build", fn.REGISTER_BUILD), ("residency_build", fn.RESIDENCY_BUILD),
+                    ("bracket_build", fn.BRACKET_BUILD))
     builds = {name: dict(resident_blocks_per_sm=fn.resident_blocks(n, False, bid, table=True))
-              for name, bid in (("register_build", fn.REGISTER_BUILD), ("residency_build", fn.RESIDENCY_BUILD))}
+              for name, bid in table_builds}
     chosen = fn.chosen_build(B, n, table=True)
     bl = (geob, solver.us_params, solver.ds_params, h96, Q96, sset_b)
-    reg = batched_launch(*bl, fn.REGISTER_BUILD)
-    if not (torch.equal(reg.depth, out_e.depth) and torch.equal(reg.flow, out_e.flow)
-            and torch.equal(reg.iterations, out_e.iterations)):
-        raise AssertionError("table ensemble: the register build and the chosen build disagree")
-    del reg
+    for name, bid in table_builds:   # every build on the whole batch: the main path's bits
+        same_bits(batched_launch(*bl, bid), out_e, f"table ensemble: the {name} vs the chosen build")
     builds["register_build"]["ensemble_ms"] = wall_ms(lambda: batched_launch(*bl, fn.REGISTER_BUILD))
-    builds["ptxas"] = [k for k in kernel_builds(build.build_info["fused_newton"]["ptxas"]) if k["table"]]
+    # the kernel alone by CUDA events, the chosen and the old build in turns
+    pk = batched_packed(*bl)
+    for name in ("bracket_build", "residency_build", "residency_build", "bracket_build"):
+        bid = dict(table_builds)[name]
+        builds[name].setdefault("kernel_alone_ms_runs", []).extend(readings(lambda: fn.launch(*pk, build_id=bid)))
+    for name in ("bracket_build", "residency_build"):
+        builds[name]["kernel_alone_ms"] = statistics.median(builds[name]["kernel_alone_ms_runs"])
+    # the probe builds on the 10 240 members (four blocks an SM, as in the
+    # run): thread 0 of block 0's cycles, member 0's iterations
+    for name in ("residency_build", "bracket_build"):
+        cycles = torch.zeros(len(fn.PROBE_PHASES), dtype=torch.int64, device=dev)
+        clock = ctypes.c_int(0)
+        po = fn.launch(*pk, build_id=dict(table_builds)[name], probe=(cycles, clock))
+        same_bits(po, out_e, f"table ensemble: the {name}'s probe build")
+        builds[name]["probe_member_0"] = probe_record(dict(zip(fn.PROBE_PHASES, cycles.tolist())), clock.value,
+                                                      int(po.iterations[0].sum()), builds[name]["kernel_alone_ms"])
+    del pk, po
+    builds["ptxas"] = [k for k in kernel_builds(build.build_info["fused_newton"]["ptxas"]) if k["table"]] \
+        + [dict(k, bracket_build=True) for k in bracket_kernel_builds(build.build_info["fused_newton"]["ptxas"])]
     batched["ensemble"] = dict(members=B, samples=TABLE_BATCH_SAMPLES, n_time_levels=nt, store="boundaries",
                                launches=1, all_converged=True, wall_ms_runs=ens_runs, wall_ms_median=ens_ms,
                                simulations_per_s=B / (ens_ms * 1e-3), total_newton_iterations=ens_iters,
                                chosen_build=KERNEL1_BUILD_NAMES[chosen], multiprocessors=sms, builds=builds,
-                               register_build_bit_identical=True)
+                               every_build_bit_identical=True)
     rec["batched"] = batched
 
     # -- bounds: operations as FLOPS_TABLE_ASSEMBLY and block Thomas per node
@@ -2611,6 +2863,9 @@ def drive_table(dev, launches: dict) -> tuple[dict, list, dict]:
              ms=ens_ms, plain_ms=batched_plain_ms, bound_ms=bb, bound_by=bby, library_ms=None, bound_terms=bterms,
              table_closures="flowsim_tpu/ops/pallas/fused_newton.py:341 _section_df_table_rows, :2061-2078",
              build=KERNEL1_BUILD_NAMES[chosen], ms_over_bound=ens_ms / bb,
+             bracket_launches=launches["fused_simulate_batched_bracket"],
+             kernel_alone_ms=builds[KERNEL1_BUILD_NAMES[chosen]].get("kernel_alone_ms"),
+             residency_build_kernel_alone_ms=builds["residency_build"]["kernel_alone_ms"],
              register_build_ms=builds["register_build"]["ensemble_ms"],
              shape=dict(members=B, n_nodes=n, samples=Mb, n_time_levels=nt, newton_iterations=ens_iters,
                         store="boundaries"),
@@ -3514,11 +3769,16 @@ def main() -> int:
     emit("device", nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
          python=sys.version.split()[0])
 
-    # -- phase 2: build (one nvcc per source, started together) -------------
+    # -- phase 2: build (one nvcc per source, started together); the network
+    #    libraries, the slowest, finish while the checks of kernels 1-4 run
     t0 = time.perf_counter()
-    info = build.build_all()
+    build.start_all()
+    network_libs = ("fused_network", "fused_network_table")
+    for name in build.SOURCES:
+        if name not in network_libs:
+            build.load(name)
     emit("build", seconds=time.perf_counter() - t0, flags=" ".join(build.NVCC_FLAGS),
-         sources={n: dict(seconds=i["seconds"], ptxas=i["ptxas"]) for n, i in info.items()})
+         sources={n: dict(seconds=i["seconds"], ptxas=i["ptxas"]) for n, i in build.build_info.items()})
 
     # -- phase 3: each kernel against its plain version ----------------------
     pcr_checks = []
@@ -3742,6 +4002,12 @@ def main() -> int:
         members=8 * copies, distinct_members=8, levels=sset.n_time_levels,
         register_build_holds=reg_bps * sms, sound_members_beside_diverged_ones_bit_identical=True)
     del out_r, out_rd
+    t0 = time.perf_counter()
+    for name in network_libs:
+        build.load(name)
+    emit("build_network", waited_seconds=time.perf_counter() - t0,
+         sources={n: dict(seconds=build.build_info[n]["seconds"], ptxas=build.build_info[n]["ptxas"])
+                  for n in network_libs})
     t0 = time.perf_counter()
     network_checks = dict(check_network_kernels(dev), seconds=time.perf_counter() - t0)
     t0 = time.perf_counter()

@@ -38,6 +38,8 @@ SOURCES = ("pcr_kernel", "fused_newton", "tiled_pcr", "fused_network", "fused_ne
 VARIANTS = {"fused_network_table": ("fused_network", ("-DFLOWSIM_NETWORK_TABLE=1",))}
 
 _libs: dict[str, ctypes.CDLL] = {}
+# builds started by start_all and not yet finished: load() finishes them
+_started: dict[str, tuple] = {}
 # per source: {"seconds": build time (0 when reused), "ptxas": [per-kernel
 # register/spill records], "path": the .so}
 build_info: dict[str, dict] = {}
@@ -144,17 +146,27 @@ def finish_build(name: str, started) -> ctypes.CDLL:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library of ``csrc/<name>.cu``, built first if needed (or
+    its build started by :func:`start_all` waited for)."""
     lib = _libs.get(name)
     if lib is None:
-        lib = finish_build(name, start_build(name))
+        lib = finish_build(name, _started.pop(name, None) or start_build(name))
     return lib
+
+
+def start_all() -> None:
+    """Start one nvcc for every kernel source not built yet, all together,
+    without waiting: :func:`load` finishes each at its first use, so work
+    that needs the quick sources can run while the slow ones compile."""
+    for n in SOURCES:
+        if n not in _libs and n not in _started:
+            _started[n] = start_build(n)
 
 
 def build_all() -> dict[str, dict]:
     """Build every kernel source in parallel (one nvcc each, all started
     together) and load them; returns :data:`build_info`."""
-    started = {n: start_build(n) for n in SOURCES if n not in _libs}
-    for n, st in started.items():
-        finish_build(n, st)
+    start_all()
+    for n in SOURCES:
+        load(n)
     return build_info

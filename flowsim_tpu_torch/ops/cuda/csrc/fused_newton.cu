@@ -97,7 +97,8 @@
 //
 // Builds.  One arithmetic, the same bits; choose_build_id picks by the shape,
 // the geometry and the member count (table geometry: the register build, and
-// the residency build past one wave of it; N > 964: the long build).  The
+// the bracket build past one wave of it; N > 964: the long build for one
+// simulation, the cluster build for a batch).  The
 // register build (one thread a node, 248 registers, two blocks an SM) runs
 // every shape up to 964 nodes.  At N <= 128 without
 // storage a launch that one wave of the latency build holds (one block an SM:
@@ -121,10 +122,15 @@
 // about 2.0 s in the residency build against 2.84 s in the register build.
 // With a lumped storage the boundary thread's bisection sets the pace: the
 // 21-node reservoir example runs at 21 us per iteration (1.8 ms for 87).
-// PERF.md keeps the readings.
+// 10 240 members of the 121-node table reach at M = 96: 101.8 ms in the
+// bracket build against 134.3 ms in the residency build; 1024 members of
+// the 2048-node reach: 47.5 ms in the cluster build against 70.7 ms in the
+// long build (58.0 with its grid capped to the L2).  PERF.md keeps the
+// readings.
 //
 // C interface (ctypes): launches on the given stream, allocates nothing,
 // does not synchronise, returns cudaGetLastError().
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -163,10 +169,14 @@ struct NodePrev { double h, Q, A, Se, Q2A; };
 // The rows of cell (i, i+1) in the system buf (component-major, ld doubles a
 // component): node i's row 1 (continuity) and node i+1's row 0 (momentum).
 // dzdx = (z[i+1] - z[i]) / dx; qavg the cell's lateral inflow (qlat).
-// Returns the cell's squared residuals.
+// Returns the cell's squared residuals.  ROW_AT (the cluster build): node
+// i+1's row goes to bj, its component 0 wherever it lies (another rank's
+// shared memory at a rank's last node), component c at bj[c * ld].
+template <bool ROW_AT = false>
 __device__ __forceinline__ double cell_rows(double* buf, int ld, int i, double theta, double dt, double dx,
                                             const NodeIt& c0, const NodeIt& c1, const NodePrev& p0,
-                                            const NodePrev& p1, double dzdx, bool qlat, double qavg) {
+                                            const NodePrev& p1, double dzdx, bool qlat, double qavg,
+                                            double* bj = nullptr) {
 #define TDIFF(c1, c0, p1, p0) (((c1) + (c0) - (p1) - (p0)) / (2.0 * dt))
 #define SDIFF(c1, c0, p1, p0) ((theta * ((c1) - (c0)) + (1.0 - theta) * ((p1) - (p0))) / dx)
 #define CAVG(c1, c0, p1, p0) (0.5 * theta * ((c1) + (c0)) + 0.5 * (1.0 - theta) * ((p1) + (p0)))
@@ -198,9 +208,15 @@ __device__ __forceinline__ double cell_rows(double* buf, int ld, int i, double t
     buf[10 * ld + i] = dC_dh_i1; buf[11 * ld + i] = th_dx;
     buf[13 * ld + i] = -Rc;
     // node i+1, row 0: momentum of cell i
-    buf[0 * ld + j] = dM_dh_i;   buf[1 * ld + j] = dM_dQ_i;
-    buf[4 * ld + j] = dM_dh_i1;  buf[5 * ld + j] = dM_dQ_i1;
-    buf[12 * ld + j] = -Rm;
+    if constexpr (ROW_AT) {
+        bj[0 * ld] = dM_dh_i;   bj[1 * ld] = dM_dQ_i;
+        bj[4 * ld] = dM_dh_i1;  bj[5 * ld] = dM_dQ_i1;
+        bj[12 * ld] = -Rm;
+    } else {
+        buf[0 * ld + j] = dM_dh_i;   buf[1 * ld + j] = dM_dQ_i;
+        buf[4 * ld + j] = dM_dh_i1;  buf[5 * ld + j] = dM_dQ_i1;
+        buf[12 * ld + j] = -Rm;
+    }
     return Rc * Rc + Rm * Rm;
 #undef TDIFF
 #undef SDIFF
@@ -248,7 +264,8 @@ fused_simulate_kernel(const double* __restrict__ geo_all,   // [S, 13, N] / [S, 
                       const double* __restrict__ tab_dk,      // [S, N, M] (TABLE)
                       int tab_m,                              // M samples a table row
                       long long* __restrict__ probe_out,    // [PH_COUNT] cycles (probe build)
-                      double* __restrict__ scratch_all) {   // the long build's alone
+                      double* __restrict__ scratch_all,     // the long build's alone
+                      int n_sims) {                          // the cluster build's alone
     extern __shared__ double smem[];
     __shared__ double warp_part[2][32];
 
@@ -773,7 +790,7 @@ fused_latency_kernel(const double* __restrict__ geo_all, const double* __restric
                      int us_nr, int ds_nr,
                      const double* __restrict__ tab_shared, const double* __restrict__ tab_k,
                      const double* __restrict__ tab_neq, const double* __restrict__ tab_dk, int tab_m,
-                     long long* __restrict__ probe_out, double* __restrict__ scratch_all) {
+                     long long* __restrict__ probe_out, double* __restrict__ scratch_all, int n_sims) {
     extern __shared__ double smem[];
     __shared__ double warp_part[2][32];
 
@@ -990,17 +1007,315 @@ fused_latency_kernel(const double* __restrict__ geo_all, const double* __restric
 #undef STORE_LEVEL
 }
 
+// -- the bracket build ------------------------------------------------------------
+//
+// Kernel 3's table path on a batch past one wave of the register build (the
+// TPU kernel's _section_df_table_rows, fused_newton.py:341, inside
+// _kernel_batched): N <= 128 nodes of lookup tables, no storage, one thread a
+// node, four blocks an SM.  The residency build it replaces re-read the two
+// bracket rows of all seven tables (14 scattered doubles a node, three of the
+// tables per member) from L2 at every evaluation, inverted each partner's D
+// twice a sweep and held the previous level's state in registers, spilling
+// at 128.  This build:
+//
+//  * keeps each node's bracket index and its 14 bracket values in shared
+//    memory (section_state_cached), re-read from device memory only when the
+//    index moves — within a level it rarely does; the values and the
+//    lo + frac * (hi - lo) expression are section_state's, so are the bits;
+//  * sweeps with the carried inverse (18 components a buffer), as kernel 1's
+//    latency build, each node's own rows held by its thread in registers
+//    from sweep to sweep (pcr::sweep_node_carried_own): at four blocks an SM
+//    the sweeps are bound by shared-memory traffic, 30 % less that way;
+//  * keeps the previous level's state per node in shared memory, written at
+//    the level start and read by the cells, and the closures' results in the
+//    exchange area for the assembly and the boundary rows (no Sec held across
+//    a barrier): one level-start barrier, not two, and fewer live registers.
+//
+// 57 doubles and an int a node: 55.7 KB at N = 121, so four blocks fit an
+// SM's 228 KB.  The residual norm is block_sum over the same threads, so
+// every loop decision and every field has the residency build's bits.
+constexpr int BRACKET_BLOCK = 128;
+constexpr int BRACKET_MINB = 4;
+// a node's cached bracket: lo and hi of each table, [BK_COUNT][N]
+enum { BK_A, BK_P = 2, BK_T = 4, BK_DR = 6, BK_K = 8, BK_NEQ = 10, BK_DK = 12, BK_COUNT = 14 };
+constexpr int BRACKET_DOUBLES_PER_NODE = 2 * pcr::CARRY_COMP + 2 + X_COUNT + BK_COUNT;
+
+// section_state(const TabGeo&) with node i's bracket cached at cache[c * ld
+// + i] and its index at cidx[i] (-1: none yet): the same index (a NaN depth
+// gives 0), the same values, the same expressions.
+__device__ __forceinline__ Sec section_state_cached(const TabGeo& g, double depth, double* cache, int* cidx,
+                                                    int ld, int i) {
+    const double x = depth / g.dgrid;
+    const double jf = fmin(fmax(floor(x), 0.0), g.jmax);
+    const int j = (int)jf;
+    const double frac = x - jf;
+    if (j != cidx[i]) {
+        cidx[i] = j;
+        const double* rows[7] = {g.ts + TS_A * g.nm, g.ts + TS_P * g.nm, g.ts + TS_T * g.nm,
+                                 g.ts + TS_DR * g.nm, g.k, g.neq, g.dk};
+#pragma unroll
+        for (int t = 0; t < 7; ++t) {
+            cache[(2 * t) * ld + i] = rows[t][j];
+            cache[(2 * t + 1) * ld + i] = rows[t][j + 1];
+        }
+    }
+    auto lerp = [&](int c) {
+        const double lo = cache[c * ld + i];
+        return lo + frac * (cache[(c + 1) * ld + i] - lo);
+    };
+    const bool wet = depth > 0.0;
+    Sec s;
+    s.A = wet ? lerp(BK_A) : 0.0;
+    s.P = wet ? lerp(BK_P) : 0.0;
+    s.T = wet ? lerp(BK_T) : 0.0;
+    s.K = wet ? lerp(BK_K) : 0.0;
+    s.n_eq = lerp(BK_NEQ);
+    s.dK_dA = lerp(BK_DK);
+    s.dR_dA = lerp(BK_DR);
+    s.R = safe_div(s.A, s.P);
+    s.dA_dh = s.T;
+    return s;
+}
+
+// The bracket build: the register build's signature (storage arguments not
+// read: a run with storage never takes it); 32 ceil(N / 32) threads, node
+// threadIdx.x.  PROBE: its probe build (the previous level's barrier is
+// PH_PREV; PH_LEVEL reads 0).
+template <bool PROBE>
+__global__ void __launch_bounds__(BRACKET_BLOCK, BRACKET_MINB)
+fused_bracket_kernel(const double* __restrict__ geo_all, const double* __restrict__ h0_all,
+                     const double* __restrict__ Q0_all, const double* __restrict__ us_all,
+                     const double* __restrict__ ds_all, const double* __restrict__ par_all,
+                     const double* __restrict__ qlat_all, double* __restrict__ depth_all,
+                     double* __restrict__ flow_all, int* __restrict__ iters_all, double* __restrict__ err_all,
+                     int* __restrict__ conv_all, double* __restrict__ gate_all, double* stage_all,
+                     const double* __restrict__ stor_all, const double* __restrict__ stab_all,
+                     long long stab_stride, int n, int nt, int max_iter, int sweeps,
+                     int us_kind, int ds_kind, int rc_kind, int us_rc_kind,
+                     int store_boundaries, int qlat_mode,
+                     int us_sflags, int ds_sflags, int us_nv, int us_na, int ds_nv, int ds_na,
+                     int us_nr, int ds_nr,
+                     const double* __restrict__ tab_shared, const double* __restrict__ tab_k,
+                     const double* __restrict__ tab_neq, const double* __restrict__ tab_dk, int tab_m,
+                     long long* __restrict__ probe_out, double* __restrict__ scratch_all, int n_sims) {
+    extern __shared__ double smem[];
+    __shared__ double warp_part[2][32];
+
+    const size_t sim = blockIdx.x;
+    const double* geo = geo_all + sim * (size_t)TG_ROWS * n;
+    const double* us_series = us_all + sim * (size_t)nt;
+    const double* ds_series = ds_all + sim * (size_t)nt;
+    const double* par = par_all + sim * (size_t)P_COUNT;
+    const int width = store_boundaries ? 2 : n;
+    double* depth = depth_all + sim * (size_t)nt * width;
+    double* flow = flow_all + sim * (size_t)nt * width;
+    const double* qlat = qlat_mode == QLAT_NONE ? nullptr
+        : qlat_all + sim * (size_t)(qlat_mode == QLAT_LEVELS ? nt : 1) * n;
+    int* iters = iters_all + sim * (size_t)nt;
+    double* errs = err_all + sim * (size_t)nt;
+    int* conv = conv_all + sim * (size_t)nt;
+    double* gate = gate_all + sim * (size_t)nt;
+
+    double* buf0 = smem;                                 // the assembled system / sweep ping
+    double* buf1 = buf0 + (size_t)pcr::CARRY_COMP * n;   // closures of every node / sweep pong
+    double* sh = buf1 + (size_t)pcr::CARRY_COMP * n;     // depth per node
+    double* sQ = sh + n;                                 // discharge per node
+    double* prev = sQ + n;                               // previous level [X_COUNT][N]
+    double* cache = prev + (size_t)X_COUNT * n;          // brackets [BK_COUNT][N]
+    int* cidx = (int*)(cache + (size_t)BK_COUNT * n);    // bracket index per node
+
+    const int i = threadIdx.x;
+    const bool node = i < n;
+    const bool cell = i < n - 1;
+    const bool first = i == 0;
+    const bool last = i == n - 1;
+
+    const double theta = par[P_THETA], dt = par[P_DT], dx = par[P_DX], tol = par[P_TOL];
+    Bc us_bc{par[P_US_BED_LEVEL], par[P_US_BED_SLOPE], par[P_US_INIT_DEPTH], us_kind};
+    Bc ds_bc{par[P_DS_BED_LEVEL], par[P_DS_BED_SLOPE], par[P_DS_INIT_DEPTH], ds_kind};
+    Rating rat{par[P_RC_LOW0], par[P_RC_LOW1], par[P_RC_LOW2],
+               par[P_RC_HIGH0], par[P_RC_HIGH1], par[P_RC_HIGH2],
+               par[P_RC_SHIFT], par[P_RC_PIVOT], par[P_RC_BUFFER], par[P_RC_FD],
+               par[P_RC_COOLDOWN], rc_kind};
+    const bool gated = (ds_kind == BC_RATING) && (rc_kind == RC_GATED);
+
+    TabGeo g{};
+    double z1 = 0.0;  // bed level of node i+1
+    if (node) {
+        const size_t nm = (size_t)n * tab_m;
+        const size_t row = (size_t)i * tab_m;
+        g.ts = tab_shared + row;
+        g.k = tab_k + sim * nm + row;
+        g.neq = tab_neq + sim * nm + row;
+        g.dk = tab_dk + sim * nm + row;
+        g.nm = nm;
+        g.z = geo[TG_ZBED * n + i];     g.curv = geo[TG_CURV * n + i];
+        g.dgrid = geo[TG_DMAX * n + i] / (double)(tab_m - 1);
+        g.jmax = (double)(tab_m - 2);
+        if (cell) z1 = geo[G_ZBED * n + i + 1];
+        sh[i] = h0_all[sim * (size_t)n + i];
+        sQ[i] = Q0_all[sim * (size_t)n + i];
+        cidx[i] = -1;
+    }
+#define STORE_LEVEL(k)                                                      \
+    if (store_boundaries) {                                                 \
+        if (first) { depth[(size_t)(k) * 2] = sh[0]; flow[(size_t)(k) * 2] = sQ[0]; }          \
+        if (last) { depth[(size_t)(k) * 2 + 1] = sh[i]; flow[(size_t)(k) * 2 + 1] = sQ[i]; }   \
+    } else if (node) {                                                      \
+        depth[(size_t)(k) * n + i] = sh[i];                                 \
+        flow[(size_t)(k) * n + i] = sQ[i];                                  \
+    }
+    STORE_LEVEL(0)
+    GateCtl gc{par[P_GATE_INIT]};
+    if (first) { iters[0] = 0; errs[0] = 0.0; conv[0] = 1; gate[0] = gc.open; }
+    __syncthreads();
+    Probe<PROBE> probe;
+    probe.start();
+    double gate_stage = ds_bc.bed_level + sh[n - 1];
+
+    for (int k = 1; k < nt; ++k) {
+        if (gated) gc.step(rat, k, dt, gate_stage);
+
+        // -- previous-level state of this node, read by the cells i-1 and i
+        if (node) {
+            const double hp = sh[i], Qp = sQ[i];
+            const Sec s = section_state_cached(g, hp, cache, cidx, n, i);
+            const Slope e = energy_slope(g, s, hp, Qp);
+            prev[X_H * n + i] = hp;   prev[X_Q * n + i] = Qp;
+            prev[X_A * n + i] = s.A;  prev[X_SE * n + i] = e.Se;
+            prev[X_Q2A * n + i] = Qp * Qp / s.A;
+        }
+        const double us_target = us_series[k], ds_target = ds_series[k];
+        double qavg = 0.0;
+        if (cell && qlat_mode != QLAT_NONE) {
+            const double* qc = qlat_mode == QLAT_LEVELS ? qlat + (size_t)k * n : qlat;
+            const double* qp = qlat_mode == QLAT_LEVELS ? qlat + (size_t)(k - 1) * n : qlat;
+            qavg = 0.5 * theta * (qc[i + 1] + qc[i]) + 0.5 * (1.0 - theta) * (qp[i + 1] + qp[i]);
+        }
+        __syncthreads();
+        probe.mark(PH_PREV);
+
+        double err = CUDART_INF;
+        int it = 0;
+        while (err >= tol && it < max_iter) {
+            double h = 0.0, Q = 0.0;
+            if (node) {
+                h = sh[i]; Q = sQ[i];
+                const Sec s = section_state_cached(g, h, cache, cidx, n, i);
+                const Slope e = energy_slope(g, s, h, Q);
+                buf1[0 * n + i] = s.A;      buf1[1 * n + i] = Q * Q / s.A;
+                buf1[2 * n + i] = e.Se;     buf1[3 * n + i] = s.dA_dh;
+                buf1[4 * n + i] = e.dSe_dA; buf1[5 * n + i] = e.dSe_dQ;
+                buf1[6 * n + i] = Q / s.A;  buf1[7 * n + i] = s.K;
+                buf1[8 * n + i] = s.dK_dA;
+            }
+            __syncthreads();
+            probe.mark(PH_CLOSURES);
+
+            double sq = 0.0;
+            if (node) {
+                // structural zeros: L row 1 and U row 0
+                buf0[2 * n + i] = 0.0; buf0[3 * n + i] = 0.0;
+                buf0[8 * n + i] = 0.0; buf0[9 * n + i] = 0.0;
+            }
+            if (cell) {
+                auto it_of = [&](int m, double hm, double Qm) {
+                    return NodeIt{hm, Qm, buf1[0 * n + m], buf1[1 * n + m], buf1[2 * n + m],
+                                  buf1[3 * n + m], buf1[4 * n + m], buf1[5 * n + m], buf1[6 * n + m]};
+                };
+                auto prev_of = [&](int m) {
+                    return NodePrev{prev[X_H * n + m], prev[X_Q * n + m], prev[X_A * n + m],
+                                    prev[X_SE * n + m], prev[X_Q2A * n + m]};
+                };
+                const int j = i + 1;
+                sq = cell_rows(buf0, n, i, theta, dt, dx, it_of(i, h, Q), it_of(j, sh[j], sQ[j]), prev_of(i),
+                               prev_of(j), (z1 - g.z) / dx, qlat_mode != QLAT_NONE, qavg);
+            }
+            if (node && (first || last)) {   // the boundary rows read the node's conveyance
+                Sec s{};
+                s.A = buf1[0 * n + i]; s.T = buf1[3 * n + i]; s.dA_dh = s.T;
+                s.K = buf1[7 * n + i]; s.dK_dA = buf1[8 * n + i];
+                double res, df_dh, df_dQ;
+                if (first) {  // upstream row: D row 0 of node 0
+                    Rating us_rat{};
+                    if (us_kind == BC_RATING)
+                        us_rat = Rating{par[P_URC_LOW0], par[P_URC_LOW1], par[P_URC_LOW2],
+                                        par[P_URC_HIGH0], par[P_URC_HIGH1], par[P_URC_HIGH2],
+                                        par[P_URC_SHIFT], par[P_URC_PIVOT], par[P_URC_BUFFER],
+                                        par[P_URC_FD], 0.0, us_rc_kind};
+                    buf0[0 * n + i] = 0.0;   buf0[1 * n + i] = 0.0;
+                    boundary_row(us_bc, us_rat, s, h, Q, us_target, gc.open, res, df_dh, df_dQ);
+                    buf0[4 * n + i] = df_dh; buf0[5 * n + i] = df_dQ;
+                    buf0[12 * n + i] = -res;
+                    sq += res * res;
+                }
+                if (last) {   // downstream row: D row 1 of node N-1
+                    buf0[10 * n + i] = 0.0;   buf0[11 * n + i] = 0.0;
+                    boundary_row(ds_bc, rat, s, h, Q, ds_target, gc.open, res, df_dh, df_dQ);
+                    buf0[6 * n + i] = df_dh;  buf0[7 * n + i] = df_dQ;
+                    buf0[13 * n + i] = -res;
+                    sq += res * res;
+                }
+            }
+            // the barrier inside also publishes buf0 and retires every read
+            // of the exchange area before the first sweep overwrites it
+            err = sqrt(block_sum(sq, warp_part[it & 1]));
+            probe.mark(PH_ASSEMBLY);
+
+            // the node's own rows stay in registers from sweep to sweep
+            double own[pcr::CARRY_COMP];
+            double* src = buf0;
+            double* dst = buf1;
+            int stride = 1;
+            for (int sw = 0; sw < sweeps; ++sw, stride *= 2) {
+                if (node) {
+                    if (sw == 0) {
+#pragma unroll
+                        for (int c = 0; c < COMP; ++c) own[c] = src[c * n + i];
+                        pcr::sweep_node_carried_own<false>(src, dst, n, n, stride, i, own);
+                    } else {
+                        pcr::sweep_node_carried_own<true>(src, dst, n, n, stride, i, own);
+                    }
+                }
+                __syncthreads();
+                probe.mark(PH_SWEEPS);
+                double* t = src; src = dst; dst = t;
+            }
+            if (node) {   // backsolve_carried on the rows in registers
+                const int v = pcr::INV_COMP;
+                sh[i] = h + (own[v + 0] * own[12] + own[v + 1] * own[13]);
+                sQ[i] = Q + (own[v + 2] * own[12] + own[v + 3] * own[13]);
+            }
+            ++it;
+            __syncthreads();
+            probe.mark(PH_BACKSOLVE);   // back-substitution and update
+        }
+
+        STORE_LEVEL(k)
+        gate_stage = ds_bc.bed_level + sh[n - 1];
+        if (first) {
+            iters[k] = it;
+            errs[k] = err;
+            conv[k] = err < tol ? 1 : 0;
+            gate[k] = gc.open;
+        }
+    }
+    probe.write(probe_out);
+#undef STORE_LEVEL
+}
+
 // -- the long build -------------------------------------------------------------
 //
-// Reaches of REGISTER_MAX_N < N <= LONG_MAX_N nodes (the TPU kernel's
-// MAX_VMEM_N), and any N when a caller forces it.  The register build keeps
-// 240 B a node in shared memory with one thread a node, so it stops at 964
-// nodes; this build keeps the same per-node state in a scratch of device
-// memory that the wrapper allocates (torch.empty), LONG_DOUBLES_PER_NODE
-// doubles a node a simulation: the two PCR buffers, h and Q as in the
-// register build, and the previous level's state and the cell's lateral
-// inflow, which the register build holds in registers (a thread here owns
-// up to eight nodes).  2.4 MB at N = 8192: it stays in the card's 50 MB L2.
+// One simulation of REGISTER_MAX_N < N <= LONG_MAX_N nodes (the TPU
+// kernel's MAX_VMEM_N), and any N when a caller forces it.  The register
+// build keeps 240 B a node in shared memory with one thread a node, so it
+// stops at 964 nodes; this build keeps the same per-node state in a scratch
+// of device memory that the wrapper allocates (torch.empty), one a block of
+// the grid, LONG_DOUBLES_PER_NODE doubles a node: the two PCR buffers, h and
+// Q as in the register build, and the previous level's state and the cell's
+// lateral inflow, which the register build holds in registers (a thread
+// here owns up to eight nodes).  2.4 MB at N = 8192: one stays in the card's
+// 50 MB L2; a batch's 132 do not, and a batch takes the cluster build below.
 //
 //  * one block of LONG_BLOCK = 1024 threads a simulation; thread t owns the
 //    nodes t, t + 1024, ... and runs each phase over them in that order;
@@ -1019,8 +1334,6 @@ fused_latency_kernel(const double* __restrict__ geo_all, const double* __restric
 // What bounds it: the chain of an iteration, as for the register build, now
 // with L2 latency on every exchange and ceil(log2 N) sweeps of up to eight
 // nodes a thread; 64 registers a thread at 1024 threads, the rest spilled.
-// A thread-block cluster sharing distributed shared memory, or TMA staging
-// of the sweeps, would take the buffers out of L2: not done here.
 constexpr int REGISTER_MAX_N = 964;     // 240 B a node in 227 KB
 constexpr int LONG_MAX_N = 8192;
 constexpr int LONG_BLOCK = 1024;
@@ -1059,9 +1372,9 @@ node_geo(const double* __restrict__ geo, int n, int i, size_t sim, const double*
     return g;
 }
 
-// The long build: the register build's signature; scratch_all [S,
-// LONG_DOUBLES_PER_NODE, N] is its per-simulation state.  STORAGE and TABLE
-// as in the register build; no probe build.
+// The long build: the register build's signature; scratch_all [n_sims,
+// LONG_DOUBLES_PER_NODE, N] is its per-simulation state, block b running
+// simulation b.  STORAGE and TABLE as in the register build; no probe build.
 template <bool STORAGE, bool TABLE>
 __global__ void __launch_bounds__(LONG_BLOCK, 1)
 fused_long_kernel(const double* __restrict__ geo_all, const double* __restrict__ h0_all,
@@ -1078,7 +1391,7 @@ fused_long_kernel(const double* __restrict__ geo_all, const double* __restrict__
                   int us_nr, int ds_nr,
                   const double* __restrict__ tab_shared, const double* __restrict__ tab_k,
                   const double* __restrict__ tab_neq, const double* __restrict__ tab_dk, int tab_m,
-                  long long* __restrict__ probe_out, double* scratch_all) {
+                  long long* __restrict__ probe_out, double* scratch_all, int n_sims) {
     __shared__ double warp_part[2][32];
 
     const size_t sim = blockIdx.x;
@@ -1273,15 +1586,350 @@ fused_long_kernel(const double* __restrict__ geo_all, const double* __restrict__
 #undef STORE_LEVEL
 }
 
-// Every build has one signature: a build is a kernel pointer, its block and
-// its dynamic shared memory.
+// -- the cluster build ------------------------------------------------------------
+//
+// Kernel 3 (and, forced, kernel 1) at 965 <= N <= 8192: one member over a
+// thread-block cluster of C blocks, its per-node state — the long build's,
+// LONG_DOUBLES_PER_NODE doubles a node — in the blocks' shared memory
+// instead of a scratch of device memory.  The long build's batch keeps 132
+// scratches of 288 B a node in flight (78 MB at N = 2048), beyond the card's
+// 50 MB L2, and even one member waits on L2 latency at every exchange.
+//
+//  * rank r of the cluster owns the nodes r * rn .. r * rn + rn - 1, rn =
+//    blockDim.x, a multiple of 32, one node a thread; C is the fewest blocks
+//    (at least 2) at which rn <= CLUSTER_BLOCK (3 at N = 2048, 6 at 4096, 11
+//    at 8192; above 8 a non-portable cluster size);
+//  * each rank keeps its nodes of the two PCR buffers, h, Q, the previous
+//    level's state and the cell inflow in its shared memory, in the long
+//    build's layout with leading dimension rn; a partner across the rank's
+//    edge (node i+1 in the assembly, i -/+ s in a sweep) is read, and node
+//    i+1's cell row written, through distributed shared memory;
+//  * each node's operations are the long build's, in its order (its own
+//    rows held in registers from sweep to sweep, pcr::sweep_node_at_own, and
+//    the boundary node's section kept from the closures rather than formed
+//    again: the same values); phases are separated by cluster barriers; the
+//    storage and boundary rows stay with the ranks that own nodes 0 and N-1;
+//  * the residual norm in the long build's association: the cluster's thread
+//    g < LONG_BLOCK adds the squared residuals of the nodes g, g + 1024, ...
+//    in order (those from node 1024 on through DSMEM, one double a node
+//    more), its warp's tree follows, and thread 0 of every rank adds the 32
+//    warps' partials in order after the first sweep's barrier, ready for the
+//    loop test after the last: the long build's norm, so every field of
+//    every simulation has the long build's bits (and, forced at N <= 964,
+//    the register build's);
+//  * the grid is persistent: as many clusters as the card holds at once,
+//    each running the members clusterIdx, clusterIdx + clusters, ...
+constexpr int CLUSTER_BLOCK = 768;      // nodes (threads) a rank: 768 x 296 B within 227 KB
+constexpr int CLUSTER_DOUBLES_PER_NODE = LONG_DOUBLES_PER_NODE + 1;   // and the node's squared residuals
+constexpr int MAX_LONG_CLUSTER = 16;    // blocks of a cluster (above 8: non-portable)
+static_assert(LONG_MAX_N <= MAX_LONG_CLUSTER * CLUSTER_BLOCK, "every long reach fits a cluster");
+
+namespace cg = cooperative_groups;
+
+__host__ __device__ inline int round32(int x) { return (x + 31) / 32 * 32; }
+
+// nodes a rank of a cluster of `blocks` blocks holds at N nodes
+__host__ __device__ inline int rank_nodes(int n, int blocks) { return round32((n + blocks - 1) / blocks); }
+
+// The cluster build: the register build's signature.  PROBE: its probe
+// build (trapezoid geometry without storage): thread 0 of rank 0 of the
+// first cluster, over all its members; the closures' barrier ends the
+// previous iteration's back-substitution and this level's previous state
+// with them, the level's last back-substitution ends at PH_BACKSOLVE.
+template <bool STORAGE, bool TABLE, bool PROBE>
+__global__ void __launch_bounds__(CLUSTER_BLOCK, 1)
+fused_cluster_kernel(const double* __restrict__ geo_all, const double* __restrict__ h0_all,
+                     const double* __restrict__ Q0_all, const double* __restrict__ us_all,
+                     const double* __restrict__ ds_all, const double* __restrict__ par_all,
+                     const double* __restrict__ qlat_all, double* __restrict__ depth_all,
+                     double* __restrict__ flow_all, int* __restrict__ iters_all, double* __restrict__ err_all,
+                     int* __restrict__ conv_all, double* __restrict__ gate_all, double* stage_all,
+                     const double* __restrict__ stor_all, const double* __restrict__ stab_all,
+                     long long stab_stride, int n, int nt, int max_iter, int sweeps,
+                     int us_kind, int ds_kind, int rc_kind, int us_rc_kind,
+                     int store_boundaries, int qlat_mode,
+                     int us_sflags, int ds_sflags, int us_nv, int us_na, int ds_nv, int ds_na,
+                     int us_nr, int ds_nr,
+                     const double* __restrict__ tab_shared, const double* __restrict__ tab_k,
+                     const double* __restrict__ tab_neq, const double* __restrict__ tab_dk, int tab_m,
+                     long long* __restrict__ probe_out, double* scratch_all, int n_sims) {
+    extern __shared__ double smem[];
+    __shared__ double warp_part[2][32];
+    __shared__ double err_part[2];
+
+    cg::cluster_group cluster = cg::this_cluster();
+    const int rank = (int)cluster.block_rank(), n_ranks = (int)cluster.num_blocks();
+    const int rn = blockDim.x;              // nodes a rank
+    const int t0 = threadIdx.x;
+    const int i = rank * rn + t0;           // this thread's node
+    const bool node = i < n;
+    const bool cell = i < n - 1;
+    const bool first = i == 0;
+    const bool last = i == n - 1;
+
+    double* buf0 = smem;                       // the system / PCR ping, [COMP][rn]
+    double* buf1 = buf0 + (size_t)COMP * rn;   // neighbour exchange / PCR pong
+    double* sh = buf1 + (size_t)COMP * rn;     // depth per node
+    double* sQ = sh + rn;                      // discharge per node
+    double* prev = sQ + rn;                    // [L_COUNT][rn]
+    double* sqn = prev + (size_t)L_COUNT * rn;  // a node's squared residuals (from node LONG_BLOCK on)
+    // node m's element of the array at `base` (component c at [c * rn]),
+    // in whichever rank holds it
+    auto at = [&](double* base, int m) -> double* {
+        const int q = m / rn, x = m - q * rn;
+        return q == rank ? base + x : cluster.map_shared_rank(base + x, q);
+    };
+    Probe<PROBE> probe;
+    probe.start();
+
+    for (size_t sim = blockIdx.x / n_ranks; sim < (size_t)n_sims; sim += gridDim.x / n_ranks) {
+    const double* geo = geo_all + sim * (size_t)(TABLE ? (int)TG_ROWS : (int)G_ROWS) * n;
+    const double* us_series = us_all + sim * (size_t)nt;
+    const double* ds_series = ds_all + sim * (size_t)nt;
+    const double* par = par_all + sim * (size_t)P_COUNT;
+    const int width = store_boundaries ? 2 : n;
+    double* depth = depth_all + sim * (size_t)nt * width;
+    double* flow = flow_all + sim * (size_t)nt * width;
+    const double* qlat = qlat_mode == QLAT_NONE ? nullptr
+        : qlat_all + sim * (size_t)(qlat_mode == QLAT_LEVELS ? nt : 1) * n;
+    int* iters = iters_all + sim * (size_t)nt;
+    double* errs = err_all + sim * (size_t)nt;
+    int* conv = conv_all + sim * (size_t)nt;
+    double* gate = gate_all + sim * (size_t)nt;
+    double* stage = stage_all + sim * (size_t)nt * 2;
+    const bool us_stor = STORAGE && (us_kind == BC_FIXED) && (us_sflags & ST_ON);
+    const bool ds_stor = STORAGE && (ds_kind == BC_FIXED) && (ds_sflags & ST_ON);
+
+    const double theta = par[P_THETA], dt = par[P_DT], dx = par[P_DX], tol = par[P_TOL];
+    Bc us_bc{par[P_US_BED_LEVEL], par[P_US_BED_SLOPE], par[P_US_INIT_DEPTH], us_kind};
+    Bc ds_bc{par[P_DS_BED_LEVEL], par[P_DS_BED_SLOPE], par[P_DS_INIT_DEPTH], ds_kind};
+    Rating rat{par[P_RC_LOW0], par[P_RC_LOW1], par[P_RC_LOW2],
+               par[P_RC_HIGH0], par[P_RC_HIGH1], par[P_RC_HIGH2],
+               par[P_RC_SHIFT], par[P_RC_PIVOT], par[P_RC_BUFFER], par[P_RC_FD],
+               par[P_RC_COOLDOWN], rc_kind};
+    const bool gated = (ds_kind == BC_RATING) && (rc_kind == RC_GATED);
+    auto geo_of = [&](int m) { return node_geo<TABLE>(geo, n, m, sim, tab_shared, tab_k, tab_neq, tab_dk, tab_m); };
+
+    if (node) {
+        sh[t0] = h0_all[sim * (size_t)n + i];
+        sQ[t0] = Q0_all[sim * (size_t)n + i];
+    }
+#define STORE_LEVEL(k)                                                                     \
+    if (store_boundaries) {                                                                \
+        if (first) { depth[(size_t)(k) * 2] = sh[t0]; flow[(size_t)(k) * 2] = sQ[t0]; }     \
+        if (last) { depth[(size_t)(k) * 2 + 1] = sh[t0]; flow[(size_t)(k) * 2 + 1] = sQ[t0]; } \
+    } else if (node) {                                                                     \
+        depth[(size_t)(k) * n + i] = sh[t0];                                               \
+        flow[(size_t)(k) * n + i] = sQ[t0];                                                \
+    }
+    STORE_LEVEL(0)
+    GateCtl gc{par[P_GATE_INIT]};
+    if (first) { iters[0] = 0; errs[0] = 0.0; conv[0] = 1; gate[0] = gc.open; }
+    cluster.sync();
+    probe.mark(PH_LEVEL);
+    double gate_stage = ds_bc.bed_level + *at(sh, n - 1);
+
+    for (int k = 1; k < nt; ++k) {
+        if (gated) gc.step(rat, k, dt, gate_stage);
+
+        // -- previous-level state and the cell's lateral inflow of this node
+        //    (published by the closures' barrier)
+        if (node) {
+            const auto g = geo_of(i);
+            const double hp = sh[t0], Qp = sQ[t0];
+            const Sec s = section_state(g, hp);
+            const Slope e = energy_slope(g, s, hp, Qp);
+            prev[L_H * rn + t0] = hp;   prev[L_Q * rn + t0] = Qp;
+            prev[L_A * rn + t0] = s.A;  prev[L_SE * rn + t0] = e.Se;
+            prev[L_Q2A * rn + t0] = Qp * Qp / s.A;
+            if (cell && qlat_mode != QLAT_NONE) {
+                const double* qc = qlat_mode == QLAT_LEVELS ? qlat + (size_t)k * n : qlat;
+                const double* qp = qlat_mode == QLAT_LEVELS ? qlat + (size_t)(k - 1) * n : qlat;
+                prev[L_QAVG * rn + t0] = 0.5 * theta * (qc[i + 1] + qc[i]) + 0.5 * (1.0 - theta) * (qp[i + 1] + qp[i]);
+            }
+        }
+        const double us_target = us_series[k], ds_target = ds_series[k];
+
+        double err = CUDART_INF;
+        int it = 0;
+        while (err >= tol && it < max_iter) {
+            if (node) {
+                const auto g = geo_of(i);
+                const double h = sh[t0], Q = sQ[t0];
+                const Sec s = section_state(g, h);
+                const Slope e = energy_slope(g, s, h, Q);
+                buf1[0 * rn + t0] = s.A;      buf1[1 * rn + t0] = Q * Q / s.A;
+                buf1[2 * rn + t0] = e.Se;     buf1[3 * rn + t0] = s.dA_dh;
+                buf1[4 * rn + t0] = e.dSe_dA; buf1[5 * rn + t0] = e.dSe_dQ;
+                buf1[6 * rn + t0] = Q / s.A;
+                if (first || last) {   // what the boundary and storage rows read of the section
+                    buf1[7 * rn + t0] = s.R;      buf1[8 * rn + t0] = s.n_eq;
+                    buf1[9 * rn + t0] = s.dR_dA;  buf1[10 * rn + t0] = s.K;
+                    buf1[11 * rn + t0] = s.dK_dA;
+                }
+            }
+            cluster.sync();
+            probe.mark(PH_CLOSURES);
+
+            double sq = 0.0;
+            if (node) {
+                const double h = sh[t0], Q = sQ[t0];
+                double sq_i = 0.0;
+                buf0[2 * rn + t0] = 0.0; buf0[3 * rn + t0] = 0.0;
+                buf0[8 * rn + t0] = 0.0; buf0[9 * rn + t0] = 0.0;
+                auto prev_of = [&](const double* p) {
+                    return NodePrev{p[L_H * rn], p[L_Q * rn], p[L_A * rn], p[L_SE * rn], p[L_Q2A * rn]};
+                };
+                if (cell) {
+                    const int j = i + 1;
+                    auto it_of = [&](const double* c, double hm, double Qm) {
+                        return NodeIt{hm, Qm, c[0 * rn], c[1 * rn], c[2 * rn], c[3 * rn], c[4 * rn], c[5 * rn],
+                                      c[6 * rn]};
+                    };
+                    sq_i = cell_rows<true>(buf0, rn, t0, theta, dt, dx, it_of(buf1 + t0, h, Q),
+                                           it_of(at(buf1, j), *at(sh, j), *at(sQ, j)), prev_of(prev + t0),
+                                           prev_of(at(prev, j)), (geo[G_ZBED * n + j] - geo[G_ZBED * n + i]) / dx,
+                                           qlat_mode != QLAT_NONE, prev[L_QAVG * rn + t0], at(buf0, j));
+                }
+                if (first || last) {
+                    // the boundary node's section at this iterate, kept by the
+                    // closures (the long build forms it again: the same bits)
+                    Sec s{};
+                    s.A = buf1[0 * rn + t0];   s.dA_dh = buf1[3 * rn + t0];
+                    s.R = buf1[7 * rn + t0];   s.n_eq = buf1[8 * rn + t0];
+                    s.dR_dA = buf1[9 * rn + t0];
+                    s.K = buf1[10 * rn + t0];  s.dK_dA = buf1[11 * rn + t0];
+                    const double hp = prev[L_H * rn + t0], Qp = prev[L_Q * rn + t0];
+                    double res, df_dh, df_dQ;
+                    if (first) {   // upstream row: D row 0 of node 0
+                        Rating us_rat{};
+                        if (us_kind == BC_RATING)
+                            us_rat = Rating{par[P_URC_LOW0], par[P_URC_LOW1], par[P_URC_LOW2],
+                                            par[P_URC_HIGH0], par[P_URC_HIGH1], par[P_URC_HIGH2],
+                                            par[P_URC_SHIFT], par[P_URC_PIVOT], par[P_URC_BUFFER],
+                                            par[P_URC_FD], 0.0, us_rc_kind};
+                        buf0[0 * rn + t0] = 0.0;   buf0[1 * rn + t0] = 0.0;
+                        if (us_stor) {
+                            const double Y_old = k == 1 ? hp + us_bc.bed_level : stage[(size_t)(k - 1) * 2 + 1];
+                            res = storage_row(stor_all + sim * (size_t)(2 * SP_COUNT),
+                                              stab_all + sim * (size_t)stab_stride, us_sflags, us_nv, us_na, us_nr,
+                                              -1.0, us_bc.bed_level, dt, Qp, Y_old, s.A, s.R, s.n_eq, s.dR_dA,
+                                              s.dA_dh, h, Q, &buf0[4 * rn + t0], &buf0[5 * rn + t0],
+                                              &buf0[12 * rn + t0], &stage[(size_t)k * 2 + 1]);
+                            if (!ds_stor) stage[(size_t)k * 2] = stage[(size_t)k * 2 + 1];
+                        } else {
+                            boundary_row(us_bc, us_rat, s, h, Q, us_target, gc.open, res, df_dh, df_dQ);
+                            buf0[4 * rn + t0] = df_dh; buf0[5 * rn + t0] = df_dQ;
+                            buf0[12 * rn + t0] = -res;
+                        }
+                        sq_i += res * res;
+                    }
+                    if (last) {   // downstream row: D row 1 of node N-1
+                        buf0[10 * rn + t0] = 0.0;   buf0[11 * rn + t0] = 0.0;
+                        if (ds_stor) {
+                            const double Y_old = k == 1 ? h + ds_bc.bed_level : stage[(size_t)(k - 1) * 2];
+                            res = storage_row(stor_all + sim * (size_t)(2 * SP_COUNT) + SP_COUNT,
+                                              stab_all + sim * (size_t)stab_stride + 2 * (us_nv + us_na) + us_nr,
+                                              ds_sflags, ds_nv, ds_na, ds_nr, 1.0, ds_bc.bed_level, dt, Qp, Y_old,
+                                              s.A, s.R, s.n_eq, s.dR_dA, s.dA_dh, h, Q, &buf0[6 * rn + t0],
+                                              &buf0[7 * rn + t0], &buf0[13 * rn + t0], &stage[(size_t)k * 2]);
+                        } else {
+                            boundary_row(ds_bc, rat, s, h, Q, ds_target, gc.open, res, df_dh, df_dQ);
+                            buf0[6 * rn + t0] = df_dh;  buf0[7 * rn + t0] = df_dQ;
+                            buf0[13 * rn + t0] = -res;
+                        }
+                        sq_i += res * res;
+                    }
+                }
+                sq += sq_i;
+            }
+            // the long build's norm: its thread g (< LONG_BLOCK) adds the
+            // nodes g, g + LONG_BLOCK, ... in order, then block_sum.  Here
+            // the cluster's thread g, whose node is g, does that (a node from
+            // LONG_BLOCK on published in sqn); the warps of those threads
+            // keep their partials, and thread 0 of every rank adds them after
+            // the first sweep's barrier
+            if (node && i >= LONG_BLOCK) sqn[t0] = sq;
+            cluster.sync();   // publishes the system and sqn
+            probe.mark(PH_ASSEMBLY);
+            if (i < LONG_BLOCK) {   // whole warps: rn and LONG_BLOCK are multiples of 32
+                double v = 0.0;
+                v += sq;
+                for (int m = i + LONG_BLOCK; m < n; m += LONG_BLOCK) v += *at(sqn, m);
+#pragma unroll
+                for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+                if ((t0 & 31) == 0) warp_part[it & 1][t0 >> 5] = v;
+            }
+
+            // the node's own rows stay in registers from sweep to sweep
+            double own[COMP];
+#pragma unroll
+            for (int c = 0; c < COMP; ++c) own[c] = node ? buf0[c * rn + t0] : 0.0;
+            double* src = buf0;
+            double* dst = buf1;
+            int stride = 1;
+            for (int sw = 0; sw < sweeps; ++sw, stride *= 2) {
+                if (node) {
+                    const bool vm = i - stride >= 0, vp = i + stride < n;
+                    pcr::sweep_node_at_own<1>(own, vm ? at(src, i - stride) : src, vp ? at(src, i + stride) : src,
+                                              dst + t0, rn, vm, vp);
+                }
+                cluster.sync();
+                probe.mark(PH_SWEEPS);
+                double* t = src; src = dst; dst = t;
+                if (sw == 0 && t0 == 0) {   // block_sum's sum of the long build's warps, in order
+                    double total = 0.0;
+                    for (int g = 0; g < LONG_BLOCK && g < n_ranks * rn; g += 32) {
+                        const int q = g / rn;
+                        total += *cluster.map_shared_rank(&warp_part[it & 1][(g - q * rn) >> 5], q);
+                    }
+                    err_part[it & 1] = total;
+                }
+            }
+            if (sweeps < 2) __syncthreads();
+            err = sqrt(err_part[it & 1]);   // published by a later sweep's barrier
+            if (node) {   // backsolve_node on the rows in registers
+                double i00, i01, i10, i11;
+                pcr::inv2(own[4], own[5], own[6], own[7], i00, i01, i10, i11);
+                sh[t0] = sh[t0] + (i00 * own[12] + i01 * own[13]);
+                sQ[t0] = sQ[t0] + (i10 * own[12] + i11 * own[13]);
+            }
+            ++it;
+            // no barrier: the next closures touch this thread's node alone,
+            // and the barrier after them orders every other read
+        }
+
+        cluster.sync();   // every rank's update done: node N-1 is read below
+        probe.mark(PH_BACKSOLVE);
+        STORE_LEVEL(k)
+        gate_stage = ds_bc.bed_level + *at(sh, n - 1);
+        if (first) {
+            iters[k] = it;
+            errs[k] = err;
+            conv[k] = err < tol ? 1 : 0;
+            gate[k] = gc.open;
+        }
+    }
+    // no rank starts the next member, or exits, while another reads its state
+    cluster.sync();
+#undef STORE_LEVEL
+    }
+    probe.write(probe_out);
+}
+
+// Every build has one signature: a build is a kernel pointer, its block, its
+// dynamic shared memory and (the cluster build) the blocks of its cluster.
 using KernelFn = decltype(&fused_simulate_kernel<128, false, 1, false, false>);
-struct Build { KernelFn fn; int threads; size_t smem; };
+struct Build { KernelFn fn; int threads; size_t smem; int cluster = 1; };
 
 // REGISTER_BUILD: N <= REGISTER_MAX_N; RESIDENCY_BUILD: N <= 128 without
 // storage; LATENCY_BUILD: N <= 128 without storage, trapezoid geometry;
-// LONG_BUILD: every N up to LONG_MAX_N, with a scratch in device memory.
-enum { REGISTER_BUILD = 0, RESIDENCY_BUILD = 1, LATENCY_BUILD = 2, LONG_BUILD = 3 };
+// LONG_BUILD: every N up to LONG_MAX_N, with a scratch in device memory a
+// simulation; BRACKET_BUILD: N <= 128 without storage, table geometry;
+// CLUSTER_BUILD: every N up to LONG_MAX_N, one simulation over a
+// thread-block cluster, on a persistent grid of clusters.
+enum { REGISTER_BUILD = 0, RESIDENCY_BUILD = 1, LATENCY_BUILD = 2, LONG_BUILD = 3, BRACKET_BUILD = 4,
+       CLUSTER_BUILD = 5 };
 
 int threads_for(int n) { return ((n + 31) / 32) * 32; }
 size_t smem_for(int n) { return (size_t)SMEM_DOUBLES_PER_NODE * n * sizeof(double); }
@@ -1305,18 +1953,42 @@ KernelFn long_build(bool storage, bool table) {
     return storage ? &fused_long_kernel<true, false> : &fused_long_kernel<false, false>;
 }
 
+KernelFn cluster_build(bool storage, bool table) {
+    if (table) return storage ? &fused_cluster_kernel<true, true, false> : &fused_cluster_kernel<false, true, false>;
+    return storage ? &fused_cluster_kernel<true, false, false> : &fused_cluster_kernel<false, false, false>;
+}
+
+// the blocks of the cluster build's cluster at N nodes: the fewest (at least
+// 2) at which a rank holds at most CLUSTER_BLOCK nodes
+int cluster_blocks_for(int n) {
+    int c = 2;
+    while (rank_nodes(n, c) > CLUSTER_BLOCK) ++c;
+    return c;
+}
+
 // REGISTER_BUILD: the block size alone is the launch bound, so a small reach
 // gets the full register budget (250 registers at N <= 128: two blocks an SM)
 // and only a long one is squeezed to 64.  RESIDENCY_BUILD: four blocks an SM,
 // 128 registers, the rest spilled.  A probe build exists for N <= 128 without
-// storage, of the register and the latency builds, trapezoid geometry.  Table
-// geometry (table) has the register and the residency builds: the latency
+// storage, of the register and the latency builds (trapezoid geometry) and of
+// the residency and the bracket builds (table geometry).  Table geometry
+// (table) has the register, residency and bracket builds: the latency
 // build's closures are the trapezoid's own.  LONG_BUILD: 1024 threads, no
-// dynamic shared memory, every shape, no probe build.
+// dynamic shared memory, every shape, no probe build.  CLUSTER_BUILD: its
+// cluster (cluster_blocks_for), rank_nodes threads and CLUSTER_DOUBLES_PER_NODE
+// doubles of shared memory a rank node, every shape; a probe build of
+// trapezoid geometry without storage.
 int pick_build(int n, bool storage, bool table, int build, bool probe, Build* out) {
     if (build == LONG_BUILD) {
         if (probe) return (int)cudaErrorInvalidValue;
         *out = Build{long_build(storage, table), LONG_BLOCK, 0};
+        return 0;
+    }
+    if (build == CLUSTER_BUILD) {
+        if (probe && (storage || table)) return (int)cudaErrorInvalidValue;
+        const int c = cluster_blocks_for(n), rn = rank_nodes(n, c);
+        *out = Build{probe ? &fused_cluster_kernel<false, false, true> : cluster_build(storage, table), rn,
+                     (size_t)CLUSTER_DOUBLES_PER_NODE * rn * sizeof(double), c};
         return 0;
     }
     if (n > REGISTER_MAX_N) return (int)cudaErrorInvalidValue;
@@ -1328,13 +2000,20 @@ int pick_build(int n, bool storage, bool table, int build, bool probe, Build* ou
                      (size_t)LAT_DOUBLES_PER_NODE * np * sizeof(double)};
         return 0;
     }
-    if (probe && (!small || build != REGISTER_BUILD || table)) return (int)cudaErrorInvalidValue;
+    if (build == BRACKET_BUILD) {
+        if (!small || !table) return (int)cudaErrorInvalidValue;
+        *out = Build{probe ? &fused_bracket_kernel<true> : &fused_bracket_kernel<false>, threads_for(n),
+                     (size_t)BRACKET_DOUBLES_PER_NODE * n * sizeof(double) + (size_t)n * sizeof(int)};
+        return 0;
+    }
+    if (probe && (!small || build != (table ? RESIDENCY_BUILD : REGISTER_BUILD))) return (int)cudaErrorInvalidValue;
     out->threads = threads_for(n);
     out->smem = smem_for(n);
     if (build == RESIDENCY_BUILD) {
         if (!small) return (int)cudaErrorInvalidValue;
-        out->fn = table ? &fused_simulate_kernel<128, false, 4, false, true>
-                        : &fused_simulate_kernel<128, false, 4, false, false>;
+        if (probe) out->fn = &fused_simulate_kernel<128, false, 4, true, true>;
+        else out->fn = table ? &fused_simulate_kernel<128, false, 4, false, true>
+                             : &fused_simulate_kernel<128, false, 4, false, false>;
         return 0;
     }
     if (build != REGISTER_BUILD) return (int)cudaErrorInvalidValue;
@@ -1343,27 +2022,85 @@ int pick_build(int n, bool storage, bool table, int build, bool probe, Build* ou
     return 0;
 }
 
-// blocks of this build the occupancy calculator puts on one SM
-int resident_blocks(const Build& b, int* blocks) {
+// The kernel's attributes a launch of the build needs: its dynamic shared
+// memory and, above 8 blocks a cluster, a non-portable cluster size.  A
+// block beyond the card's shared memory is refused here.
+int prepare(const Build& b) {
     cudaError_t e = cudaFuncSetAttribute((const void*)b.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)b.smem);
-    if (e != cudaSuccess) return (int)e;
+    if (e == cudaSuccess && b.cluster > 8)
+        e = cudaFuncSetAttribute((const void*)b.fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    return (int)e;
+}
+
+// blocks of this build the occupancy calculator puts on one SM
+int resident_blocks(const Build& b, int* blocks) {
+    const int rc = prepare(b);
+    if (rc) return rc;
     return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, (const void*)b.fn, b.threads, b.smem);
 }
 
+// A launch configuration of the build on `grid` blocks; attr receives the
+// cluster dimension of the cluster build.
+cudaLaunchConfig_t config_of(const Build& b, int grid, cudaStream_t stream, cudaLaunchAttribute* attr) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(grid);
+    cfg.blockDim = dim3(b.threads);
+    cfg.dynamicSmemBytes = b.smem;
+    cfg.stream = stream;
+    if (b.cluster > 1) {
+        attr->id = cudaLaunchAttributeClusterDimension;
+        attr->val.clusterDim.x = b.cluster;
+        attr->val.clusterDim.y = 1;
+        attr->val.clusterDim.z = 1;
+        cfg.attrs = attr;
+        cfg.numAttrs = 1;
+    }
+    return cfg;
+}
+
+// clusters of the cluster build the card holds at once
+int active_clusters(const Build& b, int* clusters) {
+    const int rc = prepare(b);
+    if (rc) return rc;
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = config_of(b, b.cluster, nullptr, &attr);
+    return (int)cudaOccupancyMaxActiveClusters(clusters, (const void*)b.fn, &cfg);
+}
+
+// The grid of a launch of n_sims simulations: a block a simulation (the
+// long build's each with its own scratch); the cluster build the blocks of
+// as many clusters as the card holds at once, at most one a simulation
+// (cudaErrorLaunchOutOfResources when it holds none).
+int grid_of(const Build& b, int build, int n_sims, int* grid) {
+    *grid = n_sims;
+    int rc, clusters;
+    if (build == CLUSTER_BUILD) {
+        if ((rc = active_clusters(b, &clusters))) return rc;
+        if (clusters < 1) return (int)cudaErrorLaunchOutOfResources;
+        *grid = (clusters < n_sims ? clusters : n_sims) * b.cluster;
+    }
+    return 0;
+}
+
 // The build a launch of n_sims simulations takes (fused_newton.chosen_build
-// asks it through flowsim_fused_chosen_build): at N > REGISTER_MAX_N the long
-// build; at N <= 128 without storage the latency build while the batch fits
-// the card in one wave of it, then the register build while it fits in one
-// wave of that, then the residency build where it holds more members; every
-// other shape the register build.  Table geometry skips the latency build:
-// the register build, then the residency build.
+// asks it through flowsim_fused_chosen_build): at N > REGISTER_MAX_N the
+// long build for one simulation and the cluster build for a batch (a card
+// that cannot hold one of its clusters refuses the launch: grid_of); at N <= 128 without storage the latency
+// build while the batch fits the card in one wave of it, then the register
+// build while it fits in one wave of that, then the residency build where it
+// holds more members; every other shape the register build.  Table geometry
+// skips the latency build and takes the bracket build past one wave of the
+// register build.
 int choose_build_id(int n_sims, int n, bool storage, bool table, int* build) {
     *build = REGISTER_BUILD;
-    if (n > REGISTER_MAX_N) { *build = LONG_BUILD; return 0; }
-    if (n > LATENCY_MAX_N || storage) return 0;
     int dev, sms, lat_bps, reg_bps, res_bps, rc;
     Build b;
+    if (n > REGISTER_MAX_N) {
+        *build = n_sims == 1 ? LONG_BUILD : CLUSTER_BUILD;
+        return 0;
+    }
+    if (n > LATENCY_MAX_N || storage) return 0;
     if ((rc = (int)cudaGetDevice(&dev))) return rc;
     if ((rc = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))) return rc;
     if (!table) {
@@ -1374,10 +2111,20 @@ int choose_build_id(int n_sims, int n, bool storage, bool table, int* build) {
     if ((rc = pick_build(n, false, table, REGISTER_BUILD, false, &b)) || (rc = resident_blocks(b, &reg_bps)))
         return rc;
     if (n_sims <= reg_bps * sms) return 0;
-    if ((rc = pick_build(n, false, table, RESIDENCY_BUILD, false, &b)) || (rc = resident_blocks(b, &res_bps)))
-        return rc;
-    if (res_bps > reg_bps) *build = RESIDENCY_BUILD;
+    const int many = table ? BRACKET_BUILD : RESIDENCY_BUILD;
+    if ((rc = pick_build(n, false, table, many, false, &b)) || (rc = resident_blocks(b, &res_bps))) return rc;
+    if (res_bps > reg_bps) *build = many;
     return 0;
+}
+
+// The build (build -1: choose_build_id), the kernel and the grid of a launch,
+// with the kernel's attributes set.
+int plan_launch(int n_sims, int n, bool storage, bool table, bool probe, int* build, Build* b, int* grid) {
+    int rc;
+    if (*build < 0 && (rc = choose_build_id(n_sims, n, storage, table, build))) return rc;
+    if ((rc = pick_build(n, storage, table, *build, probe, b))) return rc;
+    if ((rc = prepare(*b))) return rc;
+    return grid_of(*b, *build, n_sims, grid);
 }
 
 }  // namespace
@@ -1390,6 +2137,12 @@ extern "C" int flowsim_fused_latency_max_n() { return LATENCY_MAX_N; }
 extern "C" int flowsim_fused_register_max_n() { return REGISTER_MAX_N; }
 extern "C" int flowsim_fused_long_max_n() { return LONG_MAX_N; }
 extern "C" int flowsim_fused_long_scratch_bytes_per_node() { return LONG_DOUBLES_PER_NODE * (int)sizeof(double); }
+extern "C" int flowsim_fused_bracket_bytes_per_node() {
+    return BRACKET_DOUBLES_PER_NODE * (int)sizeof(double) + (int)sizeof(int);
+}
+extern "C" int flowsim_fused_cluster_block() { return CLUSTER_BLOCK; }
+extern "C" int flowsim_fused_cluster_bytes_per_node() { return CLUSTER_DOUBLES_PER_NODE * (int)sizeof(double); }
+extern "C" int flowsim_fused_max_cluster() { return MAX_LONG_CLUSTER; }
 
 #define FLOWSIM_SIM_PARAMS const void* geo, const void* h0, const void* Q0, const void* us, const void* ds, \
         const void* par, const void* qlat, void* depth, void* flow, void* iters, void* err, void* conv, \
@@ -1418,57 +2171,59 @@ int check_args(int n_sims, int n, int nt, int qlat_mode, const void* qlat, const
     return 0;
 }
 
-// build -1: choose_build_id; else that build (a test hook).  The long build
-// needs the scratch [n_sims, LONG_DOUBLES_PER_NODE, N].
+// build -1: choose_build_id; else that build (a test hook).  The long
+// build needs the scratch [n_sims, LONG_DOUBLES_PER_NODE, N].
 int launch(int build, bool probe, long long* probe_out, FLOWSIM_SIM_PARAMS, void* stream) {
     int rc = check_args(n_sims, n, nt, qlat_mode, qlat, st, stage, stor, stab, tab_shared, tab_k, tab_neq, tab_dk,
                         tab_m);
     if (rc) return rc;
     const bool storage = (st[0] | st[1]) & ST_ON;
     const bool table = tab_m != 0;
-    if (build < 0 && (rc = choose_build_id(n_sims, n, storage, table, &build))) return rc;
-    if (build == LONG_BUILD && scratch == nullptr) return (int)cudaErrorInvalidValue;
     Build b;
-    if ((rc = pick_build(n, storage, table, build, probe, &b))) return rc;
-    cudaError_t e = cudaFuncSetAttribute((const void*)b.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)b.smem);
-    if (e != cudaSuccess) return (int)e;
-    b.fn<<<n_sims, b.threads, b.smem, (cudaStream_t)stream>>>(
-        (const double*)geo, (const double*)h0, (const double*)Q0, (const double*)us,
+    int grid;
+    if ((rc = plan_launch(n_sims, n, storage, table, probe, &build, &b, &grid))) return rc;
+    if (build == LONG_BUILD && scratch == nullptr) return (int)cudaErrorInvalidValue;
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = config_of(b, grid, (cudaStream_t)stream, &attr);
+    const cudaError_t e = cudaLaunchKernelEx(
+        &cfg, b.fn, (const double*)geo, (const double*)h0, (const double*)Q0, (const double*)us,
         (const double*)ds, (const double*)par, (const double*)qlat, (double*)depth, (double*)flow,
         (int*)iters, (double*)err, (int*)conv, (double*)gate, (double*)stage, (const double*)stor,
         (const double*)stab, stab_stride, n, nt, max_iter, pcr::n_sweeps(n), us_kind, ds_kind,
         rc_kind, us_rc_kind, store_boundaries, qlat_mode, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
         (const double*)tab_shared, (const double*)tab_k, (const double*)tab_neq, (const double*)tab_dk, tab_m,
-        probe_out, (double*)scratch);
-    return (int)cudaGetLastError();
+        probe_out, (double*)scratch, n_sims);
+    return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // One block per simulation: n_sims = 1 is fused_simulate, n_sims = B is
-// fused_simulate_batched.  Every array carries a leading n_sims axis (the
-// storage tables only when stab_stride != 0).  st: the eight storage ints
-// {us flags, ds flags, us nv, us na, ds nv, ds na, us nr, ds nr} (nr: the
-// doubles of a poly_n or table outflow rating after the end's tables); stage
-// [n_sims, nt, 2] is filled with NaN by the caller.  tab_m: 0 for trapezoid
-// geometry (geo [n_sims, 13, N]); M for table geometry (geo [n_sims, 4, N]:
-// bed level, table span, bed slope, curvature), with tab_shared [4, N, M]
-// (A, P, T, dR/dA) and tab_k, tab_neq, tab_dk [n_sims, N, M] (K, n_eq,
-// dK/dA).  scratch: [n_sims, LONG_DOUBLES_PER_NODE, N] doubles for the long
-// build (null otherwise).  build: -1 chooses by the shape, the geometry and
-// the member count (choose_build_id: what the wrappers do); 0-3 forces a
-// build, so that chip_smoke.py can time the builds against each other and
-// hold the long build to the register build's bits.
+// fused_simulate_batched (the cluster build: a cluster per simulation up to
+// the clusters the card holds at once).  Every array carries a
+// leading n_sims axis (the storage tables only when stab_stride != 0).  st:
+// the eight storage ints {us flags, ds flags, us nv, us na, ds nv, ds na, us
+// nr, ds nr} (nr: the doubles of a poly_n or table outflow rating after the
+// end's tables); stage [n_sims, nt, 2] is filled with NaN by the caller.
+// tab_m: 0 for trapezoid geometry (geo [n_sims, 13, N]); M for table
+// geometry (geo [n_sims, 4, N]: bed level, table span, bed slope,
+// curvature), with tab_shared [4, N, M] (A, P, T, dR/dA) and tab_k, tab_neq,
+// tab_dk [n_sims, N, M] (K, n_eq, dK/dA).  scratch: [n_sims,
+// LONG_DOUBLES_PER_NODE, N] doubles for the long build (null otherwise).
+// build: -1 chooses by the shape, the geometry and the member count
+// (choose_build_id: what the wrappers do); 0-5 forces a build, so that chip_smoke.py can time the builds against each
+// other and hold them to one another's bits.
 extern "C" int flowsim_fused_simulate(FLOWSIM_SIM_PARAMS, int build, void* stream) {
     return launch(build, false, nullptr, FLOWSIM_SIM_ARGS, stream);
 }
 
-// The probe build of the register or the latency build (build -1: the one the
-// C entry chooses) at N <= 128 without storage: the same launch, and the
-// cycles of each phase of thread 0 of block 0 summed over the run into probe
-// [PH_COUNT] (device memory); clock_khz receives the SM clock rate the cycles
-// count at.
+// The probe build of the register or the latency build (trapezoid geometry)
+// or of the residency or the bracket build (table geometry) at N <= 128
+// without storage (build -1: the one the C entry chooses), or of the cluster
+// build (trapezoid geometry without storage, any N): the same launch, and
+// the cycles of each phase of thread 0 of block 0 summed over the run into
+// probe [PH_COUNT] (device memory); clock_khz receives the SM clock rate the
+// cycles count at.
 extern "C" int flowsim_fused_simulate_probe(FLOWSIM_SIM_PARAMS, int build, void* probe, int* clock_khz,
                                             void* stream) {
     if (probe == nullptr || clock_khz == nullptr) return (int)cudaErrorInvalidValue;
@@ -1493,4 +2248,22 @@ extern "C" int flowsim_fused_resident_blocks(int n, int storage, int table, int 
 extern "C" int flowsim_fused_chosen_build(int n_sims, int n, int storage, int table, int* build) {
     if (n_sims <= 0 || n <= 1 || n > LONG_MAX_N || build == nullptr) return (int)cudaErrorInvalidValue;
     return choose_build_id(n_sims, n, storage != 0, table != 0, build);
+}
+
+// What flowsim_fused_simulate (probe 0) or flowsim_fused_simulate_probe
+// (probe 1) launches for n_sims simulations of N nodes in `build` (-1: the
+// C entry's choice): the build (out_build), its grid and the blocks of its
+// cluster (1 outside the cluster build).  Refused, as the launch would be,
+// with the CUDA error of the refusal: cudaErrorInvalidValue where the build
+// does not take the shape, the geometry or the probe.
+extern "C" int flowsim_fused_plan(int n_sims, int n, int storage, int table, int build, int probe, int* out_build,
+                                  int* grid, int* cluster) {
+    if (n_sims <= 0 || n <= 1 || n > LONG_MAX_N || out_build == nullptr || grid == nullptr || cluster == nullptr)
+        return (int)cudaErrorInvalidValue;
+    Build b;
+    *out_build = build;
+    *cluster = build == CLUSTER_BUILD ? cluster_blocks_for(n) : 1;
+    const int rc = plan_launch(n_sims, n, storage != 0, table != 0, probe != 0, out_build, &b, grid);
+    if (!rc) *cluster = b.cluster;
+    return rc;
 }

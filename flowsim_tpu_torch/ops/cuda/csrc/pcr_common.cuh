@@ -170,6 +170,73 @@ __device__ __forceinline__ void sweep_node_at(const double* own, const double* p
 #undef PCR_P
 }
 
+// sweep_node_at with the node's own rows held by its thread across the
+// sweeps in o[0..13] (components 0-13): the partners are read as there, the
+// node's new rows replace o and are written to dst for the next sweep's
+// partners.  The same arithmetic; a sweep reads 28 doubles a node, not 42
+// (the cluster build of fused_newton.cu, before the first sweep loading o
+// from the assembled system).
+template <int RHS>
+__device__ __forceinline__ void sweep_node_at_own(double* o, const double* pm, const double* pp, double* dst,
+                                                  int ld, bool vm, bool vp) {
+#define PCR_M(c, dflt) (vm ? pm[(c) * ld] : (dflt))
+#define PCR_P(c, dflt) (vp ? pp[(c) * ld] : (dflt))
+    const double l00 = o[0], l01 = o[1], l10 = o[2], l11 = o[3];
+    const double u00 = o[8], u01 = o[9], u10 = o[10], u11 = o[11];
+
+    double mi00, mi01, mi10, mi11, pi00, pi01, pi10, pi11;
+    inv2(PCR_M(4, 1.0), PCR_M(5, 0.0), PCR_M(6, 0.0), PCR_M(7, 1.0), mi00, mi01, mi10, mi11);
+    inv2(PCR_P(4, 1.0), PCR_P(5, 0.0), PCR_P(6, 0.0), PCR_P(7, 1.0), pi00, pi01, pi10, pi11);
+
+    const double a00 = -(l00 * mi00 + l01 * mi10);
+    const double a01 = -(l00 * mi01 + l01 * mi11);
+    const double a10 = -(l10 * mi00 + l11 * mi10);
+    const double a11 = -(l10 * mi01 + l11 * mi11);
+    const double c00 = -(u00 * pi00 + u01 * pi10);
+    const double c01 = -(u00 * pi01 + u01 * pi11);
+    const double c10 = -(u10 * pi00 + u11 * pi10);
+    const double c11 = -(u10 * pi01 + u11 * pi11);
+
+    double nw[12 + 2 * RHS];
+    {
+        const double m00 = PCR_M(0, 0.0), m01 = PCR_M(1, 0.0), m10 = PCR_M(2, 0.0), m11 = PCR_M(3, 0.0);
+        nw[0] = a00 * m00 + a01 * m10;
+        nw[1] = a00 * m01 + a01 * m11;
+        nw[2] = a10 * m00 + a11 * m10;
+        nw[3] = a10 * m01 + a11 * m11;
+    }
+    {
+        const double p00 = PCR_P(8, 0.0), p01 = PCR_P(9, 0.0), p10 = PCR_P(10, 0.0), p11 = PCR_P(11, 0.0);
+        nw[8] = c00 * p00 + c01 * p10;
+        nw[9] = c00 * p01 + c01 * p11;
+        nw[10] = c10 * p00 + c11 * p10;
+        nw[11] = c10 * p01 + c11 * p11;
+    }
+    {
+        const double m00 = PCR_M(8, 0.0), m01 = PCR_M(9, 0.0), m10 = PCR_M(10, 0.0), m11 = PCR_M(11, 0.0);
+        const double p00 = PCR_P(0, 0.0), p01 = PCR_P(1, 0.0), p10 = PCR_P(2, 0.0), p11 = PCR_P(3, 0.0);
+        nw[4] = (o[4] + (a00 * m00 + a01 * m10)) + (c00 * p00 + c01 * p10);
+        nw[5] = (o[5] + (a00 * m01 + a01 * m11)) + (c00 * p01 + c01 * p11);
+        nw[6] = (o[6] + (a10 * m00 + a11 * m10)) + (c10 * p00 + c11 * p10);
+        nw[7] = (o[7] + (a10 * m01 + a11 * m11)) + (c10 * p01 + c11 * p11);
+    }
+#pragma unroll
+    for (int r = 0; r < RHS; ++r) {
+        const int c0 = 12 + 2 * r, c1 = c0 + 1;
+        const double m0 = PCR_M(c0, 0.0), m1 = PCR_M(c1, 0.0);
+        const double p0 = PCR_P(c0, 0.0), p1 = PCR_P(c1, 0.0);
+        nw[c0] = (o[c0] + (a00 * m0 + a01 * m1)) + (c00 * p0 + c01 * p1);
+        nw[c1] = (o[c1] + (a10 * m0 + a11 * m1)) + (c10 * p0 + c11 * p1);
+    }
+#pragma unroll
+    for (int c = 0; c < 12 + 2 * RHS; ++c) {
+        o[c] = nw[c];
+        dst[c * ld] = nw[c];
+    }
+#undef PCR_M
+#undef PCR_P
+}
+
 // One sweep over several nodes a thread: sweep_node for the nodes first,
 // first + step, ... below n, in that order.  The long build of
 // fused_newton.cu runs it on buffers in device memory (a thread of its
@@ -276,6 +343,89 @@ __device__ __forceinline__ void sweep_node_carried(const double* __restrict__ sr
     dst[12 * ld + i] = (PCR_OWN(12) + (a00 * mb0 + a01 * mb1)) + (c00 * pb0 + c01 * pb1);
     dst[13 * ld + i] = (PCR_OWN(13) + (a10 * mb0 + a11 * mb1)) + (c10 * pb0 + c11 * pb1);
 #undef PCR_OWN
+#undef PCR_M
+#undef PCR_P
+}
+
+// sweep_node_carried with node i's own rows held by its thread across the
+// sweeps in o[0..13] (L, D, U, b as components 0-13) and its inverse of D in
+// o[14..17]: the partners are read from src as there, the node's new rows
+// replace o, and dst receives what the next sweep's partners read (L, U, b
+// and the inverse; not D, which only its own thread reads).  The same
+// arithmetic, operation for operation; a sweep reads 28 doubles of shared
+// memory a node and writes 14, where sweep_node_carried reads 42 and writes
+// 18 (the bracket build of fused_newton.cu, whose sweeps that traffic bounds
+// at four blocks an SM).  Before the first sweep the caller loads o[0..13]
+// from the assembled system.
+template <bool CARRIED>
+__device__ __forceinline__ void sweep_node_carried_own(const double* __restrict__ src, double* __restrict__ dst,
+                                                       int ld, int n, int s, int i, double* o) {
+    const int im = i - s, ip = i + s;
+    const bool vm = im >= 0, vp = ip < n;
+#define PCR_M(c, dflt) (vm ? src[(c) * ld + im] : (dflt))
+#define PCR_P(c, dflt) (vp ? src[(c) * ld + ip] : (dflt))
+    const double l00 = o[0], l01 = o[1], l10 = o[2], l11 = o[3];
+    const double u00 = o[8], u01 = o[9], u10 = o[10], u11 = o[11];
+    double mi00, mi01, mi10, mi11, pi00, pi01, pi10, pi11;
+    if (CARRIED) {
+        double e00, e01, e10, e11;
+        inv2(1.0, 0.0, 0.0, 1.0, e00, e01, e10, e11);
+        mi00 = PCR_M(INV_COMP + 0, e00); mi01 = PCR_M(INV_COMP + 1, e01);
+        mi10 = PCR_M(INV_COMP + 2, e10); mi11 = PCR_M(INV_COMP + 3, e11);
+        pi00 = PCR_P(INV_COMP + 0, e00); pi01 = PCR_P(INV_COMP + 1, e01);
+        pi10 = PCR_P(INV_COMP + 2, e10); pi11 = PCR_P(INV_COMP + 3, e11);
+    } else {
+        inv2(PCR_M(4, 1.0), PCR_M(5, 0.0), PCR_M(6, 0.0), PCR_M(7, 1.0), mi00, mi01, mi10, mi11);
+        inv2(PCR_P(4, 1.0), PCR_P(5, 0.0), PCR_P(6, 0.0), PCR_P(7, 1.0), pi00, pi01, pi10, pi11);
+    }
+    const double a00 = -(l00 * mi00 + l01 * mi10);
+    const double a01 = -(l00 * mi01 + l01 * mi11);
+    const double a10 = -(l10 * mi00 + l11 * mi10);
+    const double a11 = -(l10 * mi01 + l11 * mi11);
+    const double c00 = -(u00 * pi00 + u01 * pi10);
+    const double c01 = -(u00 * pi01 + u01 * pi11);
+    const double c10 = -(u10 * pi00 + u11 * pi10);
+    const double c11 = -(u10 * pi01 + u11 * pi11);
+    double nl[4], nu[4];
+    {
+        const double m00 = PCR_M(0, 0.0), m01 = PCR_M(1, 0.0), m10 = PCR_M(2, 0.0), m11 = PCR_M(3, 0.0);
+        nl[0] = a00 * m00 + a01 * m10;
+        nl[1] = a00 * m01 + a01 * m11;
+        nl[2] = a10 * m00 + a11 * m10;
+        nl[3] = a10 * m01 + a11 * m11;
+    }
+    {
+        const double p00 = PCR_P(8, 0.0), p01 = PCR_P(9, 0.0), p10 = PCR_P(10, 0.0), p11 = PCR_P(11, 0.0);
+        nu[0] = c00 * p00 + c01 * p10;
+        nu[1] = c00 * p01 + c01 * p11;
+        nu[2] = c10 * p00 + c11 * p10;
+        nu[3] = c10 * p01 + c11 * p11;
+    }
+    const double m00 = PCR_M(8, 0.0), m01 = PCR_M(9, 0.0), m10 = PCR_M(10, 0.0), m11 = PCR_M(11, 0.0);
+    const double p00 = PCR_P(0, 0.0), p01 = PCR_P(1, 0.0), p10 = PCR_P(2, 0.0), p11 = PCR_P(3, 0.0);
+    const double d00 = (o[4] + (a00 * m00 + a01 * m10)) + (c00 * p00 + c01 * p10);
+    const double d01 = (o[5] + (a00 * m01 + a01 * m11)) + (c00 * p01 + c01 * p11);
+    const double d10 = (o[6] + (a10 * m00 + a11 * m10)) + (c10 * p00 + c11 * p10);
+    const double d11 = (o[7] + (a10 * m01 + a11 * m11)) + (c10 * p01 + c11 * p11);
+    double i00, i01, i10, i11;
+    inv2(d00, d01, d10, d11, i00, i01, i10, i11);
+    const double mb0 = PCR_M(12, 0.0), mb1 = PCR_M(13, 0.0);
+    const double pb0 = PCR_P(12, 0.0), pb1 = PCR_P(13, 0.0);
+    const double b0 = (o[12] + (a00 * mb0 + a01 * mb1)) + (c00 * pb0 + c01 * pb1);
+    const double b1 = (o[13] + (a10 * mb0 + a11 * mb1)) + (c10 * pb0 + c11 * pb1);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+        o[c] = nl[c];
+        o[8 + c] = nu[c];
+        dst[c * ld + i] = nl[c];
+        dst[(8 + c) * ld + i] = nu[c];
+    }
+    o[4] = d00; o[5] = d01; o[6] = d10; o[7] = d11;
+    o[INV_COMP + 0] = i00; o[INV_COMP + 1] = i01; o[INV_COMP + 2] = i10; o[INV_COMP + 3] = i11;
+    o[12] = b0; o[13] = b1;
+    dst[(INV_COMP + 0) * ld + i] = i00; dst[(INV_COMP + 1) * ld + i] = i01;
+    dst[(INV_COMP + 2) * ld + i] = i10; dst[(INV_COMP + 3) * ld + i] = i11;
+    dst[12 * ld + i] = b0; dst[13 * ld + i] = b1;
 #undef PCR_M
 #undef PCR_P
 }

@@ -27,12 +27,17 @@ table builds.  Its members must share the four tables that the geometry alone
 sets (A, P, T, dR/dA), packed once; each member's K, n_eq and dK/dA are its
 own, so a batched launch gives each member the bits of its single launch.
 The TPU kernel's factored form (member 0's tables times a per-member
-conveyance scale) would round differently and is not carried over.
+conveyance scale) would round differently and is not carried over.  Past one
+wave of the register build a table batch takes the kernel's bracket build
+(each node's table bracket cached in shared memory, carried-inverse sweeps).
 
-Reaches of more than ``fused_newton.MAX_N`` nodes run in the kernel's long
-build on the same grid, each member with its own scratch in device memory
-(``fused_newton.scratch_bytes``), counted with the outputs against the
-card's free memory before anything is allocated.
+Reaches of more than ``fused_newton.MAX_N`` nodes run, as a batch, in the
+kernel's cluster build: each member over a thread-block cluster of 2-16
+blocks (``fused_newton.cluster_blocks``), its state in their shared memory,
+on a persistent grid of as many clusters as the card holds at once.  One
+simulation there takes the long build (its state in a scratch of device
+memory, ``fused_newton.scratch_bytes``, counted with the outputs against the
+card's free memory before anything is allocated).
 
 The boundary *kinds* and the settings are shared by all members; everything
 else may differ (a lumped storage's outflow rating keeps one kind and one
@@ -56,10 +61,13 @@ from flowsim_tpu_torch.ops.cuda import fused_newton as fn
 from flowsim_tpu_torch.ops.cuda.fused_newton import FusedUnsupported
 
 # number of kernel launches made by fused_simulate_batched (not by its plain
-# version, and not by fused_simulate), and of those the launches that took
-# the long build (N > fused_newton.MAX_N)
+# version, and not by fused_simulate); of those the launches at N >
+# fused_newton.MAX_N (the long-reach builds), and those that took the cluster
+# build and the bracket build
 launch_count = 0
 long_launch_count = 0
+cluster_launch_count = 0
+bracket_launch_count = 0
 
 
 def _check_batched_boundary(name, flag, bc, batched, n_members, nt):
@@ -157,7 +165,7 @@ def fused_simulate_batched(geo_batch, us_bc, ds_bc, h0, Q0, settings, us_batched
     ``MemoryError`` when the outputs would not fit the card's free memory.
     CPU tensors take the plain version.
     """
-    global launch_count, long_launch_count
+    global launch_count, long_launch_count, cluster_launch_count, bracket_launch_count
     if not isinstance(geo_batch, (TrapezoidGeometry, TableGeometry)):
         raise FusedUnsupported(
             f"unknown geometry class {type(geo_batch).__name__!r}: the batched fused kernel takes "
@@ -186,11 +194,16 @@ def fused_simulate_batched(geo_batch, us_bc, ds_bc, h0, Q0, settings, us_batched
     tables = fn.pack_tables(geo_batch, n_members)
     par, rc_kind, us_rc_kind = fn.pack_params(us_bc, ds_bc, settings, batch_shape=lead)
     storage = fn.pack_storage(us_bc, ds_bc, batch_shape=lead)
+    st = storage[2]
+    with torch.cuda.device(dev):
+        build_id = fn.chosen_build(n_members, n, bool((st[0] | st[1]) & fn._ST_ON), bool(tables[2]))
     out = fn.launch(fn.pack_geometry(geo_batch), h0.expand(n_members, n).contiguous(),
                     Q0.expand(n_members, n).contiguous(), fn.series(us_bc, nt, dev, lead),
                     fn.series(ds_bc, nt, dev, lead), par,
                     None if qlat is None else qlat.contiguous(), settings,
-                    us_bc.kind, ds_bc.kind, rc_kind, us_rc_kind, storage, tables)
+                    us_bc.kind, ds_bc.kind, rc_kind, us_rc_kind, storage, tables, build_id=build_id)
     launch_count += 1
-    long_launch_count += fn.uses_long_build(n)
+    long_launch_count += n > fn.MAX_N
+    cluster_launch_count += build_id == fn.CLUSTER_BUILD
+    bracket_launch_count += build_id == fn.BRACKET_BUILD
     return out

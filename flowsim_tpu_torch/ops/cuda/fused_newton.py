@@ -23,8 +23,11 @@ level, table span, bed slope, curvature) and its seven lookup tables, which
 stay in device memory (:func:`pack_tables`).
 
 Reaches of up to :data:`MAX_N` nodes keep their state in shared memory; from
-there to :data:`LONG_MAX_N` (the TPU kernel's limit) the long build keeps it
-in a scratch of device memory that :func:`launch` allocates.  A lumped
+there to :data:`LONG_MAX_N` (the TPU kernel's limit) one simulation takes the
+long build, its state in a scratch of device memory that :func:`launch`
+allocates, and a batch the cluster build, one
+member over a thread-block cluster with its state in the blocks' shared
+memory (:func:`cluster_blocks`).  A lumped
 storage's outflow rating may be of any kind but ``gated_blend``
 (:func:`pack_storage` packs poly_n coefficients and rating tables after the
 storage's own tables).
@@ -51,6 +54,16 @@ MAX_N = 964
 # inflow, in a scratch of device memory the wrapper allocates per simulation
 LONG_MAX_N = 8192
 LONG_SCRATCH_BYTES_PER_NODE = (2 * 14 + 2 + 6) * 8
+# the cluster build: the long build's state, and each node's squared
+# residuals, in the shared memory of a thread-block cluster of 2-16 blocks,
+# each rank at most CLUSTER_BLOCK nodes (a multiple of 32, one a thread)
+CLUSTER_BLOCK = 768
+CLUSTER_BYTES_PER_NODE = LONG_SCRATCH_BYTES_PER_NODE + 8
+MAX_CLUSTER = 16
+# the bracket build's shared memory a node: two carried-inverse PCR buffers
+# of 18 components, h, Q, 5 doubles of the previous level, the 14 bracket
+# values and the bracket index
+BRACKET_BYTES_PER_NODE = (2 * 18 + 2 + 5 + 14) * 8 + 4
 
 _GEO_ROWS = ("z_bed", "b_main", "m_main", "n_main", "compound", "h_bank", "b_fp_left",
              "b_fp_right", "m_fp", "n_left", "n_right", "bed_slope", "curvature")
@@ -78,11 +91,21 @@ _STORAGE_RC_KINDS = ("polynomial", "blended_poly", "poly_n", "power", "table")
 # register build.  At N <= LATENCY_MAX_N without storage a launch that fits
 # the card in one wave of the latency build (two threads a node for the
 # closures) takes it; a larger batch the register build while one wave of
-# that holds it, then the residency build (four blocks an SM, not two).
-# Above MAX_N the long build (1024 threads, up to 8 nodes a thread, its state
-# in device memory); a test hook forces it at any N.
-REGISTER_BUILD, RESIDENCY_BUILD, LATENCY_BUILD, LONG_BUILD = 0, 1, 2, 3
+# that holds it, then the residency build (four blocks an SM, not two); on
+# lookup tables the bracket build instead (each node's bracket cached in
+# shared memory, carried-inverse sweeps).  Above MAX_N one simulation takes
+# the long build (1024 threads, up to 8 nodes a thread, its state in device
+# memory) and a batch the cluster build.  A test hook forces a build at any
+# shape it takes; the C entry refuses it elsewhere (plan).
+REGISTER_BUILD, RESIDENCY_BUILD, LATENCY_BUILD, LONG_BUILD, BRACKET_BUILD, CLUSTER_BUILD = range(6)
+BUILD_NAMES = {REGISTER_BUILD: "register build", RESIDENCY_BUILD: "residency build", LATENCY_BUILD: "latency build",
+               LONG_BUILD: "long build", BRACKET_BUILD: "bracket build", CLUSTER_BUILD: "cluster build"}
 LATENCY_MAX_N = 128
+# what the C entry's refusals mean (cudaError_t)
+_REFUSALS = {1: "cudaErrorInvalidValue: the build does not take this shape, or its block exceeds the card's "
+                "shared memory",
+             701: "cudaErrorLaunchOutOfResources: the card cannot hold one cluster of this shape at once",
+             912: f"cudaErrorInvalidClusterSize: a cluster has 2-{MAX_CLUSTER} blocks"}
 
 # phases of an iteration in the probe build, as the network kernel's
 # (ops/cuda/fused_network.py): kernel 1 has no junction, and its
@@ -189,10 +212,14 @@ def _lib():
         lib.flowsim_fused_resident_blocks.restype = ctypes.c_int
         lib.flowsim_fused_chosen_build.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
         lib.flowsim_fused_chosen_build.restype = ctypes.c_int
+        lib.flowsim_fused_plan.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)] * 3
+        lib.flowsim_fused_plan.restype = ctypes.c_int
         for aux in (lib.flowsim_fused_param_count, lib.flowsim_fused_smem_bytes_per_node,
                     lib.flowsim_fused_storage_param_count, lib.flowsim_fused_probe_phases,
                     lib.flowsim_fused_latency_max_n, lib.flowsim_fused_register_max_n,
-                    lib.flowsim_fused_long_max_n, lib.flowsim_fused_long_scratch_bytes_per_node):
+                    lib.flowsim_fused_long_max_n, lib.flowsim_fused_long_scratch_bytes_per_node,
+                    lib.flowsim_fused_bracket_bytes_per_node, lib.flowsim_fused_cluster_block,
+                    lib.flowsim_fused_cluster_bytes_per_node, lib.flowsim_fused_max_cluster):
             aux.argtypes = []
             aux.restype = ctypes.c_int
         if lib.flowsim_fused_param_count() != _N_PARAMS \
@@ -200,10 +227,14 @@ def _lib():
                 or lib.flowsim_fused_probe_phases() != len(PROBE_PHASES) \
                 or lib.flowsim_fused_latency_max_n() != LATENCY_MAX_N \
                 or lib.flowsim_fused_register_max_n() != MAX_N \
-                or lib.flowsim_fused_long_max_n() != LONG_MAX_N:
+                or lib.flowsim_fused_long_max_n() != LONG_MAX_N \
+                or lib.flowsim_fused_cluster_block() != CLUSTER_BLOCK \
+                or lib.flowsim_fused_max_cluster() != MAX_CLUSTER:
             raise RuntimeError("parameter layout of fused_newton.cu and its wrapper differ")
         if lib.flowsim_fused_smem_bytes_per_node() != SMEM_BYTES_PER_NODE \
-                or lib.flowsim_fused_long_scratch_bytes_per_node() != LONG_SCRATCH_BYTES_PER_NODE:
+                or lib.flowsim_fused_long_scratch_bytes_per_node() != LONG_SCRATCH_BYTES_PER_NODE \
+                or lib.flowsim_fused_bracket_bytes_per_node() != BRACKET_BYTES_PER_NODE \
+                or lib.flowsim_fused_cluster_bytes_per_node() != CLUSTER_BYTES_PER_NODE:
             raise RuntimeError("memory layout of fused_newton.cu and its wrapper differ")
         fn._typed = True
     return lib
@@ -389,17 +420,71 @@ def scratch_bytes(n_sims: int, n: int) -> int:
     return n_sims * n * LONG_SCRATCH_BYTES_PER_NODE
 
 
-def uses_long_build(n: int, build_id: int = -1) -> bool:
-    """Whether a launch at N nodes takes the long build: the C entry takes it
-    above :data:`MAX_N` (``choose_build_id``), and a test hook may force it."""
-    return build_id == LONG_BUILD or (build_id < 0 and n > MAX_N)
+def uses_long_build(n: int, build_id: int = -1, n_sims: int = 1) -> bool:
+    """Whether ``n_sims`` simulations at N nodes take the long build, and so
+    hold a scratch: the C entry takes it above :data:`MAX_N` for one
+    simulation (``choose_build_id``; a batch there takes the cluster build,
+    whose state lies in shared memory), and a test hook may force it."""
+    return build_id == LONG_BUILD or (build_id < 0 and n > MAX_N and n_sims == 1)
+
+
+def rank_nodes(n: int, blocks: int) -> int:
+    """Nodes a rank of the cluster build holds at N nodes over ``blocks``
+    blocks: ceil(N / blocks) rounded up to a whole warp (one node a
+    thread)."""
+    per_rank = -(-n // blocks)
+    return (per_rank + 31) // 32 * 32
+
+
+def cluster_blocks(n: int) -> int:
+    """The blocks of the cluster build's cluster at N nodes, as the C entry
+    takes them (``cluster_blocks_for``): the fewest, at least 2, at which a
+    rank holds at most :data:`CLUSTER_BLOCK` nodes — so that its share of the
+    state, :data:`CLUSTER_BYTES_PER_NODE` a node, fits a block's shared
+    memory (3 at N = 2048, 6 at 4096, 11 at 8192)."""
+    blocks = 2
+    while rank_nodes(n, blocks) > CLUSTER_BLOCK:
+        blocks += 1
+    return blocks
+
+
+def launch_grid(build_id: int, n_sims: int, n: int, sms: int, clusters_at_once: int | None = None) -> int:
+    """The grid the C entry launches (``grid_of``) for ``n_sims`` simulations
+    of N nodes in a build on a card of ``sms`` SMs: one block a simulation;
+    the cluster build's persistent grid the blocks of at most
+    ``clusters_at_once`` clusters — the card's answer, which its layout of
+    SMs may put below ``sms // cluster_blocks(n)``, the default here."""
+    if build_id == CLUSTER_BUILD:
+        blocks = cluster_blocks(n)
+        clusters = sms // blocks if clusters_at_once is None else clusters_at_once
+        return min(n_sims, clusters) * blocks
+    return n_sims
+
+
+def launch_error(rc: int, build_id: int, cluster: int = 1) -> str:
+    """The message of a launch the C entry refused with ``rc``: the build,
+    its cluster and what the code means."""
+    what = BUILD_NAMES.get(build_id, f"build {build_id}")
+    if build_id == CLUSTER_BUILD:
+        what += f" ({cluster} blocks a cluster)"
+    return (f"fused_simulate launch failed in the {what}: CUDA error {rc} "
+            f"({_REFUSALS.get(rc, 'see cudaGetErrorString')}); no other build or plain version runs in its place")
+
+
+def refusal(rc: int, build_id: int, cluster: int = 1) -> Exception:
+    """The exception of a launch the C entry refused with ``rc``, with
+    :func:`launch_error`'s text: :class:`FusedUnsupported` where the build
+    does not take the shape, the geometry or the probe
+    (cudaErrorInvalidValue), :class:`RuntimeError` for any other error."""
+    msg = launch_error(rc, build_id, cluster)
+    return FusedUnsupported(msg) if rc == 1 else RuntimeError(msg)
 
 
 def check_output_memory(n_sims: int, n: int, nt: int, store: str, free_bytes: int,
                         long_build: bool = False) -> None:
     """Refuse, before anything is allocated, a launch whose outputs (and,
-    with ``long_build``, the long build's scratch) exceed the free memory of
-    the card."""
+    with ``long_build``, the long build's scratch: :func:`uses_long_build`)
+    exceed the free memory of the card."""
     out = output_bytes(n_sims, n, nt, store)
     scratch = scratch_bytes(n_sims, n) if long_build else 0
     if out + scratch > free_bytes:
@@ -426,16 +511,33 @@ def resident_blocks(n: int, storage: bool = False, build_id: int = REGISTER_BUIL
 def chosen_build(n_sims: int, n: int, storage: bool = False, table: bool = False) -> int:
     """The build the kernel's C entry takes for ``n_sims`` simulations of
     ``n`` nodes (``choose_build_id`` in ``csrc/fused_newton.cu``): above
-    :data:`MAX_N` the long build; with storage or N >
-    :data:`LATENCY_MAX_N` the register build; else the
-    latency build while one wave of it holds the batch (trapezoid geometry;
-    ``table`` skips it), the register build while one wave of that does,
-    then the residency build where it holds more members an SM."""
+    :data:`MAX_N` the long build for one simulation and the cluster build
+    for a batch; with storage or N > :data:`LATENCY_MAX_N` the register
+    build; else the latency build while one wave of it holds the batch
+    (trapezoid geometry; ``table`` skips it), the register build while one
+    wave of that does, then the residency build (``table``: the bracket
+    build) where it holds more members an SM."""
     out = ctypes.c_int(0)
     rc = _lib().flowsim_fused_chosen_build(n_sims, n, int(storage), int(table), ctypes.byref(out))
     if rc != 0:
         raise RuntimeError(f"build choice failed: CUDA error {rc}")
     return out.value
+
+
+def plan(n_sims: int, n: int, storage: bool = False, table: bool = False, build_id: int = -1,
+         probe: bool = False) -> tuple[int, int, int]:
+    """What the C entry launches for ``n_sims`` simulations of ``n`` nodes in
+    ``build_id`` (-1: its choice; ``probe``: its probe build):
+    ``(build, grid, cluster)`` — the grid's blocks and the blocks of a
+    cluster (1 outside the cluster build).  Raises what :func:`refusal`
+    gives for a launch the C entry would refuse: a forced build that does
+    not take the shape is refused here, by the C entry's own rules."""
+    b, grid, cluster = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+    rc = _lib().flowsim_fused_plan(n_sims, n, int(storage), int(table), build_id, int(probe), ctypes.byref(b),
+                                   ctypes.byref(grid), ctypes.byref(cluster))
+    if rc != 0:
+        raise refusal(rc, b.value, cluster.value)
+    return b.value, grid.value, cluster.value
 
 
 def launch(geo_rows, h0, Q0, us_series, ds_series, par, qlat, settings, us_kind, ds_kind,
@@ -450,15 +552,17 @@ def launch(geo_rows, h0, Q0, us_series, ds_series, par, qlat, settings, us_kind,
     ``[S, 13, N]``, else ``(shared [4, N, M], (K, n_eq, dK/dA) each
     [S, N, M], M)`` for table rows ``[S, 4, N]``.  ``build_id`` -1 lets the kernel's C
     entry choose its build (:func:`chosen_build`: what every wrapper does); a
-    build id forces one, a test hook for timing the builds against each
-    other and for holding the long build to the register build's bits.  The
-    long build's scratch (:func:`scratch_bytes`) is allocated here, counted
-    with the outputs against the card's free memory.  ``probe``: ``None``, or ``(cycles, clock)`` — an int64 tensor
-    ``[len(PROBE_PHASES)]`` on the device and a ``ctypes.c_int`` — for one
-    launch of the probe build of that build (the register or the latency build;
-    N <= 128, no storage), which fills them with the cycles of each phase and
-    the SM clock in kHz.  Returns a SimOutput whose fields carry the ``S``
-    axis."""
+    build id forces one (:func:`plan` refuses one that does not take the
+    shape), a test hook for timing the builds against each other and for
+    holding them to one another's bits.  The long build's scratch
+    (:func:`scratch_bytes`) is allocated here, counted with the outputs
+    against the card's free memory.  ``probe``: ``None``, or ``(cycles, clock)`` — an
+    int64 tensor ``[len(PROBE_PHASES)]`` on the device and a
+    ``ctypes.c_int`` — for one launch of the probe build of that build (the
+    register or latency build on trapezoids, the residency or bracket build
+    on tables, N <= 128; the cluster build on trapezoids; no storage), which
+    fills them with the cycles of each phase and the SM clock in kHz.  Returns a SimOutput whose fields
+    carry the ``S`` axis."""
     dev = geo_rows.device
     n_sims, _, n = geo_rows.shape
     nt = settings.n_time_levels
@@ -487,8 +591,10 @@ def launch(geo_rows, h0, Q0, us_series, ds_series, par, qlat, settings, us_kind,
             raise ValueError(
                 f"{name}: need a contiguous float64 {expect[name]} tensor on {dev}; got "
                 f"{tuple(t.shape)} {t.dtype} on {t.device}")
-    long_build = uses_long_build(n, build_id)
+    storage_on = bool((st_ints[0] | st_ints[1]) & _ST_ON)
     with torch.cuda.device(dev):
+        build_id, grid, cluster = plan(n_sims, n, storage_on, bool(tab_m), build_id, probe is not None)
+        long_build = build_id == LONG_BUILD
         check_output_memory(n_sims, n, nt, settings.store, torch.cuda.mem_get_info()[0], long_build)
         scratch = torch.empty((n_sims, LONG_SCRATCH_BYTES_PER_NODE // 8, n), dtype=torch.float64,
                               device=dev) if long_build else None
@@ -518,7 +624,7 @@ def launch(geo_rows, h0, Q0, us_series, ds_series, par, qlat, settings, us_kind,
             rc = _lib().flowsim_fused_simulate_probe(*args, build_id, probe[0].data_ptr(), ctypes.byref(probe[1]),
                                                      stream)
     if rc != 0:
-        raise RuntimeError(f"fused_simulate launch failed: CUDA error {rc}")
+        raise refusal(rc, build_id, cluster)
     return prs.SimOutput(
         depth=depth, flow=flow, iterations=iters, error=error, converged=conv.bool(),
         reservoir_stage=stage[..., 0], gate_open=gate, rcond=None,

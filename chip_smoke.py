@@ -206,7 +206,7 @@ TABLE_LENGTH, TABLE_SLOPE, TABLE_NODES = 40000.0, 2e-4, 121
 TABLE_LEVELS, TABLE_DT, TABLE_THETA, TABLE_TOL = 193, 1800.0, 0.7, 1e-8
 TABLE_BATCH_SAMPLES, TABLE_BATCH_TOL = 96, 1e-6
 TABLE_OPTION_LEVELS = 25       # lateral inflow with store="boundaries"
-TABLE_PLAIN_MEMBERS = 4        # members of the timed ensemble held against the plain engine
+TABLE_PLAIN_MEMBERS = 2        # members of the timed ensemble held against the plain engine
 TABLE_SMALL_BATCH = 16         # the JAX case's members
 TABLE_N_RANGE = (0.025, 0.04)
 JUNCTION_RATING_KINDS = ("polynomial", "blended_poly", "poly_n", "power", "table")
@@ -224,6 +224,8 @@ TRIB_LENGTH, TRIB_WIDTH, TRIB_SIDE, TRIB_N, TRIB_FLOWS = 4000.0, 40.0, 2.0, 0.03
 TABLE_NET_COMPARED_LEVELS = 49
 TABLE_NET_SMALL_BATCH = 16
 TABLE_NET_BIT_MEMBERS = 4
+# the bracket build's other forms (bracket_forms): members, depth samples
+BRACKET_FORM_MEMBERS, BRACKET_FORM_SAMPLES = 4, 96
 
 
 # reaches of 965-8192 nodes in kernels 1 and 3 (their long build): the JAX
@@ -239,16 +241,13 @@ LONG_FLAGSHIP_PLAIN_LEVELS = 25
 LONG_TABLE_NODES, LONG_TABLE_SAMPLES = 2048, 32
 LONG_ENSEMBLE_MEMBERS, LONG_ENSEMBLE_NODES, LONG_ENSEMBLE_N_RANGE = 1024, 2048, (0.02, 0.06)
 LONG_BIT_MEMBERS = 4
-# bytes one PCR sweep moves in the long build's scratch, a node: its own 14
-# components and its two partners' 14 read, 14 written
-LONG_SWEEP_BYTES_PER_NODE = 4 * 14 * 8
 
 # networks beyond one block's shared memory (the scratch build of kernels 5
 # and 6): the tributary on the flagship at 50 m (split at node 1200: 1201 /
 # 201 / 1209 nodes, 3627 slots, 385 levels; the plain version on its first
 # 25) and at 250 m (split at node 240: 241 / 41 / 243 nodes, 729 slots) for
 # the network Monte-Carlo's members (members 0 and 1023 against the plain
-# version on NETWORK_COMPARED_LEVELS levels); the basin at levels=6 (63 x 13
+# version on SCRATCH_PLAIN_LEVELS levels); the basin at levels=6 (63 x 13
 # slots) and LARGE_BASIN (127 x 45), 25 levels; the N = 2048 scaling reach on
 # tables (M = 32) split at node 1024 with a trapezoid tributary (3 x 1025)
 SCRATCH_TRIB_50 = dict(split_node=1200, spatial_step=50.0)
@@ -267,8 +266,16 @@ SCRATCH_HUGE = (8192, 4096)
 CLUSTER_ERR_RTOL = 1e-12
 
 
+# the host's clock at the end of the last phase, and each phase's seconds
+# (from the end of the one before): the "done" line prints them all
+PHASE_SECONDS = {"_since": time.perf_counter()}
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    now = time.perf_counter()
+    PHASE_SECONDS[phase] = now - PHASE_SECONDS["_since"]
+    PHASE_SECONDS["_since"] = now
+    print(json.dumps({"phase": phase, "phase_seconds": PHASE_SECONDS[phase], **fields}), flush=True)
 
 
 def sweeps(n: int) -> int:
@@ -391,7 +398,7 @@ def check_latency_build(dev) -> dict:
 
 
 KERNEL1_BUILD_NAMES = {0: "register_build", 1: "residency_build", 2: "latency_build", 3: "long_build",
-                      4: "bracket_build", 5: "cluster_build"}
+                      4: "bracket_build", 5: "cluster_build", 6: "reach_build"}
 
 
 def kernel1_build_ids(fn) -> list:
@@ -919,20 +926,34 @@ def latency_kernel_builds(ptxas: list) -> list:
     return out
 
 
+def reach_kernel_builds(ptxas: list) -> list:
+    """Registers and spills of fused_newton.cu's reach build, by template
+    arguments (storage rows, table geometry, probe, closure lanes a node)."""
+    out = []
+    for rec in ptxas:
+        m = re.search(r"fused_reach_kernelILb([01])ELb([01])ELb([01])ELi(\d+)E", rec["kernel"])
+        if m:
+            out.append(dict(storage=m.group(1) == "1", table=m.group(2) == "1", probe=m.group(3) == "1",
+                            lanes=int(m.group(4)),
+                            **{k: rec.get(k) for k in ("registers", "stack_bytes", "spill_store_bytes",
+                                                       "spill_load_bytes", "static_smem_bytes")}))
+    return out
+
+
 def network_kernel_builds(ptxas: list) -> list:
     """Registers and spills of fused_network.cu's builds, by template
     arguments (RHS pairs, launch-bound block, blocks an SM, one slot a
     thread, probe, table branches, slot arrays in a scratch, one network
-    over a cluster; a source without the last arguments has no scratch or
-    cluster build)."""
+    over a cluster, the bracket cache; a source without the last arguments
+    has no scratch, cluster or bracket build)."""
     out = []
     for rec in ptxas:
         m = re.search(r"fused_network_kernelILi(\d+)ELi(\d+)ELi(\d+)ELb([01])ELb([01])ELb([01])E"
-                      r"(?:Lb([01])E)?(?:Lb([01])E)?", rec["kernel"])
+                      r"(?:Lb([01])E)?(?:Lb([01])E)?(?:Lb([01])E)?", rec["kernel"])
         if m:
             out.append(dict(rhs=int(m.group(1)), block=int(m.group(2)), min_blocks=int(m.group(3)),
                             one_slot=m.group(4) == "1", probe=m.group(5) == "1", table=m.group(6) == "1",
-                            scratch=m.group(7) == "1", cluster=m.group(8) == "1",
+                            scratch=m.group(7) == "1", cluster=m.group(8) == "1", bracket=m.group(9) == "1",
                             static_smem_bytes=rec.get("static_smem_bytes"),
                             **{k: rec.get(k) for k in ("registers", "stack_bytes", "spill_store_bytes",
                                                        "spill_load_bytes")}))
@@ -1400,8 +1421,9 @@ def same_stages(a, b, what: str) -> None:
 
 
 def check_long_build(dev) -> dict:
-    """Kernel 1's long build and its cluster build (2 blocks) forced at N <=
-    964, one node a thread, against its register build, bit for bit (depth,
+    """Kernel 1's long build, its reach build (16 blocks) and its cluster
+    build (2 blocks) forced at N <= 964, against its register build, bit for
+    bit (depth,
     flow, error, iterations, converged, gate, reservoir stages): the
     flagship (N = 121, 25 levels),
     the flagship with lateral inflow per level and store="boundaries" (13
@@ -1441,11 +1463,14 @@ def check_long_build(dev) -> dict:
         clu = fn.launch(*packed, build_id=fn.CLUSTER_BUILD)
         same_bits(clu, reg, f"cluster vs register build, {name}")
         same_stages(clu, reg, f"cluster vs register build, {name}")
+        rch = fn.launch(*packed, build_id=fn.REACH_BUILD)
+        same_bits(rch, reg, f"reach vs register build, {name}")
+        same_stages(rch, reg, f"reach vs register build, {name}")
         if not bool(lng.converged.all()):
             raise AssertionError(f"{name}: not converged")
         n = int(args[3].shape[0])
         out[name] = dict(n_nodes=n, levels=int(lng.iterations.shape[1]), iterations=int(lng.iterations.sum()),
-                         cluster_blocks=fn.cluster_blocks(n), bit_identical=True)
+                         cluster_blocks=fn.cluster_blocks(n), reach_blocks=fn.REACH_RANKS, bit_identical=True)
         if name.startswith("flagship"):   # the two builds on the same launch, by CUDA events, in turns
             ids = dict(register_build=fn.REGISTER_BUILD, long_build=fn.LONG_BUILD)
             runs = {b: [] for b in ids}
@@ -1458,6 +1483,8 @@ def check_long_build(dev) -> dict:
     same_bits(lng, reg, "kernel 3: long vs register build")
     same_bits(batched_launch(geob, s.us_params, s.ds_params, s.h0, s.Q0, flag[5], fn.CLUSTER_BUILD), reg,
               "kernel 3: cluster vs register build")
+    same_bits(batched_launch(geob, s.us_params, s.ds_params, s.h0, s.Q0, flag[5], fn.REACH_BUILD), reg,
+              "kernel 3: reach vs register build (a cluster a member)")
     out["batched_4x25"] = dict(members=4, iterations=int(lng.iterations.sum()), bit_identical=True)
     return out
 
@@ -1465,7 +1492,7 @@ def check_long_build(dev) -> dict:
 def long_kernel_builds(ptxas: list) -> list:
     """Registers and spills of fused_newton.cu's long and cluster builds, by
     template arguments (storage rows, table geometry; the cluster build's
-    probe)."""
+    probe); the reach build's: :func:`reach_kernel_builds`."""
     out = []
     for rec in ptxas:
         m = re.search(r"fused_(long|cluster)_kernelILb([01])ELb([01])E(?:Lb([01])E)?", rec["kernel"])
@@ -1545,35 +1572,54 @@ def long_builds_in_turns(dev, geob, us, ds, h0, Q0, sset, chosen_out) -> dict:
     return rec
 
 
-def forced_cluster_singles(dev, cases: dict) -> dict:
-    """The cluster build forced on single launches that take the long build
-    (kernel 1): bit for bit, and by CUDA events in turns (cluster, long,
-    long, cluster), three readings a turn (:func:`readings`), each build's
-    median."""
+def single_builds_in_turns(dev, cases: dict, main_outs: dict) -> dict:
+    """Kernel 1's single launches of 965-8192 nodes: the reach build the C
+    entry takes against the long build and the batch's cluster build, both
+    forced, bit for bit (and the reach build against ``main_outs``, the main
+    path's run of the case, where given), then by CUDA events in turns
+    (reach, cluster, long, long, cluster, reach), three readings a turn
+    (:func:`readings`), each build's median.  Fails unless the reach build
+    is the fastest."""
     from flowsim_tpu_torch.ops.cuda import fused_newton as fn
 
+    ids = dict(reach_build=fn.REACH_BUILD, cluster_build=fn.CLUSTER_BUILD, long_build=fn.LONG_BUILD)
     out = {}
     for name, args in cases.items():
         packed = pack_one(*args)
         n = int(args[3].shape[0])
-        clu, lng = (fn.launch(*packed, build_id=b) for b in (fn.CLUSTER_BUILD, fn.LONG_BUILD))
-        same_bits(clu, lng, f"{name}: cluster vs long build")
-        same_stages(clu, lng, f"{name}: cluster vs long build")
-        del clu, lng
-        runs = {"cluster_build": [], "long_build": []}
-        for b in ("cluster_build", "long_build", "long_build", "cluster_build"):
-            bid = fn.CLUSTER_BUILD if b == "cluster_build" else fn.LONG_BUILD
-            runs[b] += readings(lambda: fn.launch(*packed, build_id=bid))
-        out[name] = dict(n_nodes=n, cluster_blocks=fn.cluster_blocks(n), chosen_build=KERNEL1_BUILD_NAMES[
-            fn.chosen_build(1, n)], bit_identical=True, **{f"{b}_ms_runs": v for b, v in runs.items()},
-            **{f"{b}_ms": statistics.median(v) for b, v in runs.items()})
+        build_id, grid, cluster = fn.plan(1, n)
+        if (build_id, grid, cluster) != (fn.REACH_BUILD, fn.launch_grid(fn.REACH_BUILD, 1, n, 0), fn.REACH_RANKS):
+            raise AssertionError(f"{name}: the C entry launches build {build_id}, grid {grid}, cluster {cluster}; "
+                                 f"the wrapper's reckoning: the reach build over {fn.REACH_RANKS} blocks")
+        outs = {b: fn.launch(*packed, build_id=i) for b, i in ids.items()}
+        for b in ("cluster_build", "long_build"):
+            same_bits(outs["reach_build"], outs[b], f"{name}: reach vs {b}")
+            same_stages(outs["reach_build"], outs[b], f"{name}: reach vs {b}")
+        if name in main_outs:
+            same_bits(main_outs[name], prs_out_member(outs["reach_build"], 0),
+                      f"{name}: the main path's run vs the reach build")
+        iterations = int(outs["reach_build"].iterations.sum())
+        del outs
+        runs = {b: [] for b in ids}
+        for b in ("reach_build", "cluster_build", "long_build", "long_build", "cluster_build", "reach_build"):
+            runs[b] += readings(lambda: fn.launch(*packed, build_id=ids[b]))
+        rec = dict(n_nodes=n, iterations=iterations, reach_blocks=fn.REACH_RANKS, reach_lanes=fn.reach_lanes(n),
+                   cluster_blocks=fn.cluster_blocks(n), bits="every field of the three builds",
+                   **{f"{b}_ms_runs": v for b, v in runs.items()},
+                   **{f"{b}_ms": statistics.median(v) for b, v in runs.items()})
+        rec["reach_us_per_newton_iteration"] = rec["reach_build_ms"] * 1e3 / iterations
+        if rec["reach_build_ms"] >= min(rec["cluster_build_ms"], rec["long_build_ms"]):
+            raise AssertionError(f"{name}: the reach build ({rec['reach_build_ms']:.3f} ms) is not faster than the "
+                                 f"cluster ({rec['cluster_build_ms']:.3f}) and the long build "
+                                 f"({rec['long_build_ms']:.3f}) in turns")
+        out[name] = rec
     return out
 
 
 def refused_launches(dev, refused_n_8193: str) -> dict:
     """The launches refused by name: N = 8193 (by the wrapper); the builds
     forced where they do not apply (the bracket build on trapezoids, a probe
-    of the cluster build on tables, a probe of the long build), by the C
+    of the cluster or the reach build on tables, a probe of the long build), by the C
     entry's own rules through ``fused_newton.plan`` before anything is
     allocated, and the plan of the bracket build on trapezoids asked of it
     directly."""
@@ -1588,6 +1634,7 @@ def refused_launches(dev, refused_n_8193: str) -> dict:
     probe = (torch.zeros(len(fn.PROBE_PHASES), dtype=torch.int64, device=dev), ctypes.c_int(0))
     for name, pk, kw in (("bracket_build_on_trapezoids", packed, dict(build_id=fn.BRACKET_BUILD)),
                          ("cluster_build_probe_on_tables", tpacked, dict(build_id=fn.CLUSTER_BUILD, probe=probe)),
+                         ("reach_build_probe_on_tables", tpacked, dict(build_id=fn.REACH_BUILD, probe=probe)),
                          ("long_build_probe", packed, dict(build_id=fn.LONG_BUILD, probe=probe))):
         try:
             fn.launch(*pk, **kw)
@@ -1609,20 +1656,23 @@ def refused_launches(dev, refused_n_8193: str) -> dict:
 
 
 def drive_long_fused(dev, launches: dict) -> tuple[dict, list]:
-    """Reaches of 965-8192 nodes through kernels 1 and 3 (their long build):
-    the main path — the flagship at 50 m through ``api.PreissmannSolver.run(
-    engine="fused")`` (385 levels), the scaling reach at N = 2048 / 4096 / 8192
-    through ``fused_simulate`` and 1024 members of the N = 2048 reach through
-    ``batched_simulate(engine="fused", store="boundaries")`` — with the counts
-    set to 0 just before and read just after; then each held against the
-    plain engine (the flagship on its first 25 levels, the reaches on all 8,
-    members 0 and 1023), 4 members (the cluster build) against single
-    launches (the long build) bit for bit, the builds of the
-    ensemble in turns (:func:`long_builds_in_turns`), the N = 2048 reach on
-    lookup tables, the long and the cluster build forced at N <= 964 against
-    the register build (:func:`check_long_build`), the cluster build forced
-    on single launches (:func:`forced_cluster_singles`), the times and the
-    refusals (:func:`refused_launches`).  Returns (record, kernel rows)."""
+    """Reaches of 965-8192 nodes through kernels 1 and 3: the main path — the
+    flagship at 50 m through ``api.PreissmannSolver.run(engine="fused")`` (385
+    levels), the scaling reach at N = 2048 / 4096 / 8192 through
+    ``fused_simulate`` (each one launch of the reach build) and 1024 members
+    of the N = 2048 reach through ``batched_simulate(engine="fused",
+    store="boundaries")`` (the cluster build) — with the counts set to 0 just
+    before and read just after; then each held against the plain engine (the
+    flagship on its first 25 levels, the reaches on all 8, members 0 and
+    1023), 4 members (the cluster build) against single launches (the reach
+    build) bit for bit, the builds of the ensemble in turns
+    (:func:`long_builds_in_turns`), the N = 2048 reach on lookup tables, the
+    long, reach and cluster builds forced at N <= 964 against the register
+    build (:func:`check_long_build`), the reach build against the long and
+    the cluster build forced on the single launches, in turns
+    (:func:`single_builds_in_turns`), the reach build's probe build, the
+    times and the refusals (:func:`refused_launches`).  Returns (record,
+    kernel rows)."""
     from flowsim_tpu_torch import trees
     from flowsim_tpu_torch.models.gerd_roseires import model
     from flowsim_tpu_torch.ops.cuda import build, fused_batched
@@ -1643,7 +1693,7 @@ def drive_long_fused(dev, launches: dict) -> tuple[dict, list]:
                                          engine="fused")
 
     # -- the main path: counts to 0, drive, read the counts
-    fn.launch_count = fn.long_launch_count = 0
+    fn.launch_count = fn.long_launch_count = fn.reach_launch_count = 0
     fused_batched.launch_count = fused_batched.long_launch_count = fused_batched.cluster_launch_count = 0
     unconverged = None
     try:
@@ -1656,22 +1706,27 @@ def drive_long_fused(dev, launches: dict) -> tuple[dict, list]:
     out_e = run_ensemble()
     torch.cuda.synchronize()
     launches["fused_simulate_long"] = fn.long_launch_count
+    launches["fused_simulate_reach"] = fn.reach_launch_count
     launches["fused_simulate_batched_long"] = fused_batched.long_launch_count
     launches["fused_simulate_batched_cluster"] = fused_batched.cluster_launch_count
-    if (fn.launch_count, fn.long_launch_count) != (1 + len(LONG_FUSED_NODES),) * 2 \
+    if (fn.launch_count, fn.long_launch_count, fn.reach_launch_count) != (1 + len(LONG_FUSED_NODES),) * 3 \
             or (fused_batched.launch_count, fused_batched.long_launch_count) != (1, 1) \
             or fused_batched.cluster_launch_count != 1:
-        raise AssertionError(f"long reaches: {fn.long_launch_count} of {fn.launch_count} single launches took the "
-                             f"long build, expected {1 + len(LONG_FUSED_NODES)}; {fused_batched.long_launch_count} "
-                             f"of {fused_batched.launch_count} batched launches a long-reach build, "
-                             f"{fused_batched.cluster_launch_count} the cluster build, expected 1 and 1")
+        raise AssertionError(f"long reaches: {fn.reach_launch_count} of {fn.long_launch_count} long single launches "
+                             f"({fn.launch_count} in all) took the reach build, expected {1 + len(LONG_FUSED_NODES)}; "
+                             f"{fused_batched.long_launch_count} of {fused_batched.launch_count} batched launches a "
+                             f"long-reach build, {fused_batched.cluster_launch_count} the cluster build, expected 1 "
+                             "and 1")
 
     # -- the flagship at 50 m: all 385 levels, the plain engine on the first 25
     n50, nt50 = s50.number_of_nodes, s50.number_of_time_levels
     if out50.depth.shape != (nt50, n50) or not bool(torch.isfinite(out50.depth).all()):
         raise AssertionError(f"flagship at {LONG_FLAGSHIP_STEP} m: output of the wrong shape or not finite")
     args50 = (c50.geometry, s50.us_params, s50.ds_params, s50.h0, s50.Q0, s50.settings(tolerance=1e-6, max_iter=100))
-    ms50 = wall_ms(lambda: fn.fused_simulate(*args50))
+    again = {}
+    ms50 = wall_ms(lambda: again.update(out=fn.fused_simulate(*args50)))
+    if not (torch.equal(again["out"].depth, out50.depth) and torch.equal(again["out"].iterations, out50.iterations)):
+        raise AssertionError("flagship at 50 m: fused_simulate differs from the api's run")
     it50 = int(out50.iterations.sum())
     cut50 = cut_levels(args50, LONG_FLAGSHIP_PLAIN_LEVELS)
     out_c = fn.fused_simulate(*cut50)
@@ -1699,9 +1754,9 @@ def drive_long_fused(dev, launches: dict) -> tuple[dict, list]:
         packed = pack_one(*args)
         ms = time_cuda(lambda: fn.launch(*packed), reps=5, warmup=3)
         reach_recs[f"n_{n}"] = dict(rec, kernel_ms=ms, us_per_newton_iteration=ms * 1e3 / rec["iterations"],
-                                    plain_ms=plain_ms, chosen_build=fn.chosen_build(1, n),
-                                    scratch_bytes=fn.scratch_bytes(1, n),
-                                    scratch_bytes_per_sweep=LONG_SWEEP_BYTES_PER_NODE * n)
+                                    plain_ms=plain_ms, chosen_build=KERNEL1_BUILD_NAMES[fn.chosen_build(1, n)],
+                                    shared_memory_bytes=fn.REACH_RANKS * fn.reach_rank_nodes(n)
+                                    * fn.REACH_BYTES_PER_NODE)
     # on lookup tables: the N = 2048 reach's two end sections sampled at M = 32
     t0 = time.perf_counter()
     tg = as_table(reaches[LONG_TABLE_NODES][0], samples=LONG_TABLE_SAMPLES)
@@ -1720,7 +1775,7 @@ def drive_long_fused(dev, launches: dict) -> tuple[dict, list]:
     ens_runs = [wall_ms(run_ensemble) for _ in range(3)]
     ens_ms = statistics.median(ens_runs)
     ens_iters = int(out_e.iterations.sum())
-    # single launches take the long build, a batch the cluster build
+    # single launches take the reach build, a batch the cluster build
     singles = [fn.fused_simulate(trees.member(geob, m), us, ds, h0, Q0, sset_b) for m in range(LONG_BIT_MEMBERS)]
     bits = compare_members(run_ensemble(LONG_BIT_MEMBERS), singles, "long ensemble vs single launches", exact=True)
     bits["chosen_build"] = KERNEL1_BUILD_NAMES[fn.chosen_build(LONG_BIT_MEMBERS, LONG_ENSEMBLE_NODES)]
@@ -1742,7 +1797,7 @@ def drive_long_fused(dev, launches: dict) -> tuple[dict, list]:
                         members_0_and_last_vs_plain=dict(ens_cmp, plain_ms=ens_plain_ms))
 
     # -- the limits: the build the C entry takes, and N = 8193 refused by name
-    for n, want in ((fn.MAX_N, fn.REGISTER_BUILD), (fn.MAX_N + 1, fn.LONG_BUILD), (fn.LONG_MAX_N, fn.LONG_BUILD)):
+    for n, want in ((fn.MAX_N, fn.REGISTER_BUILD), (fn.MAX_N + 1, fn.REACH_BUILD), (fn.LONG_MAX_N, fn.REACH_BUILD)):
         if fn.chosen_build(1, n) != want:
             raise AssertionError(f"N={n}: the C entry does not take build {want}")
     try:
@@ -1753,14 +1808,26 @@ def drive_long_fused(dev, launches: dict) -> tuple[dict, list]:
         raise AssertionError(f"fused_simulate accepted N = {fn.LONG_MAX_N + 1}")
     t0 = time.perf_counter()
     forced = check_long_build(dev)
-    single_cluster = forced_cluster_singles(dev, {**{f"n_{n}": reaches[n] for n in (2048, 8192)},
-                                                  "flagship_50m": args50})
+    forced_s = time.perf_counter() - t0
+    singles = single_builds_in_turns(dev, {**{f"n_{n}": reaches[n] for n in LONG_FUSED_NODES}, "flagship_50m": args50},
+                                     {f"n_{n}": outs[n] for n in LONG_FUSED_NODES})
+    # the reach build's probe build on the flagship at 50 m: thread 0 of rank 0
+    cycles = torch.zeros(len(fn.PROBE_PHASES), dtype=torch.int64, device=dev)
+    clock = ctypes.c_int(0)
+    po = fn.launch(*pack_one(*args50), build_id=fn.REACH_BUILD, probe=(cycles, clock))
+    if not (torch.equal(po.depth[0], out50.depth) and torch.equal(po.iterations[0], out50.iterations)):
+        raise AssertionError("flagship at 50 m: the reach build's probe build differs from the api's run")
+    probe50 = probe_record(dict(zip(fn.PROBE_PHASES, cycles.tolist())), clock.value, it50,
+                           singles["flagship_50m"]["reach_build_ms"])
+    del po
     record = dict(flagship_50m=flagship, reaches=reach_recs, table_reach=table_rec, ensemble=ensemble_rec,
-                  forced_long_and_cluster_builds_vs_register_build=dict(forced, seconds=time.perf_counter() - t0),
-                  forced_cluster_build_single_launches=single_cluster, refused=refused_launches(dev, refused),
-                  ptxas=long_kernel_builds(build.build_info["fused_newton"]["ptxas"]))
+                  forced_long_reach_and_cluster_builds_vs_register_build=dict(forced, seconds=forced_s),
+                  single_launches_reach_vs_cluster_and_long_builds=singles, reach_probe_flagship_50m=probe50,
+                  refused=refused_launches(dev, refused),
+                  ptxas=long_kernel_builds(build.build_info["fused_newton"]["ptxas"]),
+                  ptxas_reach=reach_kernel_builds(build.build_info["fused_newton"]["ptxas"]))
 
-    # -- the kernel rows: kernel 1's long build at N = 8192, kernel 3's on the ensemble
+    # -- the kernel rows: kernel 1's long reaches at N = 8192 (the reach build), kernel 3's on the ensemble
     n_par = fn._N_PARAMS
     big = reach_recs[f"n_{max(LONG_FUSED_NODES)}"]
     n, nt = max(LONG_FUSED_NODES), sset.n_time_levels
@@ -1774,10 +1841,13 @@ def drive_long_fused(dev, launches: dict) -> tuple[dict, list]:
         dict(name="fused_simulate_long", route="cuda", source="flowsim_tpu_torch/ops/cuda/csrc/fused_newton.cu",
              replaces="flowsim_tpu/ops/pallas/fused_newton.py:1413", launches=launches["fused_simulate_long"],
              max_abs_err=max(r["max_abs_dh"] for r in reach_recs.values()), ms=big["kernel_ms"],
-             plain_ms=big["plain_ms"], bound_ms=b1, bound_by=by1, library_ms=None, build="long",
+             plain_ms=big["plain_ms"], bound_ms=b1, bound_by=by1, library_ms=None, build=big["chosen_build"],
+             reach_launches=launches["fused_simulate_reach"],
              ms_by_n={k: r["kernel_ms"] for k, r in reach_recs.items()},
              us_per_newton_iteration_by_n={k: r["us_per_newton_iteration"] for k, r in reach_recs.items()},
-             scratch_bytes_per_sweep=big["scratch_bytes_per_sweep"],
+             in_turns_ms={k: {b: r[f"{b}_ms"] for b in ("reach_build", "cluster_build", "long_build")}
+                          for k, r in singles.items()},
+             flagship_50m_wall_ms=ms50,
              shape=dict(n_nodes=n, n_time_levels=nt, newton_iterations=big["iterations"]), tolerance=tol),
         dict(name="fused_simulate_batched_long", route="cuda",
              source="flowsim_tpu_torch/ops/cuda/csrc/fused_newton.cu",
@@ -2235,7 +2305,7 @@ def drive_probe(dev, tributary_builds=(0, 1)) -> dict:
     args = (channel.geometry, solver.us_params, solver.ds_params, solver.h0, solver.Q0,
             solver.settings(tolerance=1e-6, max_iter=100))
     for key, bid in kernel1_probe_builds(fused_newton).items():
-        prod = fused_newton._launch_one(*args, None, build_id=bid)
+        prod, _ = fused_newton._launch_one(*args, None, build_id=bid)
         ms = time_cuda(lambda: fused_newton._launch_one(*args, None, build_id=bid), reps=3, warmup=1)
         probed, cycles, clock = fused_newton.fused_simulate_probe(*args, build_id=bid)
         same_bits(probed, prod, f"probe of the flagship, build {bid}")
@@ -2956,15 +3026,19 @@ def drive_table_network(dev, launches: dict, reach: dict, t_start: float) -> tup
     tributary (mixed) and without it (all-table) — through
     ``simulate_network(engine="fused")`` (one launch of kernel 5 each), and
     the mixed network at M = 96 with NETWORK_MC_MEMBERS members through
-    ``batched_simulate_network(engine="fused")`` (one launch of kernel 6).
-    The branches are sliced from the table phase's geometry, not built
-    again.  Then both networks against the stacked engine with the "pcr"
+    ``batched_simulate_network(engine="fused")`` (one launch of kernel 6, in
+    its bracket build).  The branches are sliced from the table phase's
+    geometry, not built again.  Then both networks against the stacked engine with the "pcr"
     solve on the card (the kernel's plain version) on their first
     TABLE_NET_COMPARED_LEVELS levels, kernel 5
     alone by CUDA events, every build the C entry can take for a table
     network forced (the same bits), the probe builds, and the ensemble:
-    timed, every build on its members, B = 4 against single launches, two of
-    its members against the plain version, a NaN member among 15 sound ones.
+    timed, every build on its members, the bracket build in turns with the
+    residency build (:func:`table_ensemble_builds`, with its probe build),
+    its forms for three RHS pairs, 256 threads and storage ends on other
+    networks (:func:`bracket_forms`), B = 4 against single launches, two of
+    its members against the plain version, a NaN member among 15 sound ones
+    (also in the bracket build forced).
     Returns the phase record and the kernel-table rows."""
     from flowsim_tpu_torch.geometry import TableGeometry
     from flowsim_tpu_torch.ops import network as net
@@ -2989,7 +3063,7 @@ def drive_table_network(dev, launches: dict, reach: dict, t_start: float) -> tup
 
     # -- the main path
     fnet.launch_count = 0
-    fnet.batched_launch_count = 0
+    fnet.batched_launch_count = fnet.batched_bracket_launch_count = 0
     outs = {k: net.simulate_network(b, 1, sset, engine="fused") for k, b in nets.items()}
     torch.cuda.synchronize()
     single_launches = fnet.launch_count
@@ -2997,9 +3071,12 @@ def drive_table_network(dev, launches: dict, reach: dict, t_start: float) -> tup
     torch.cuda.synchronize()
     launches["fused_simulate_network_table"] = single_launches
     launches["fused_simulate_network_batched_table"] = fnet.batched_launch_count
-    if single_launches != 2 or fnet.batched_launch_count != 1 or fnet.launch_count != 2:
+    launches["fused_simulate_network_batched_bracket"] = fnet.batched_bracket_launch_count
+    if single_launches != 2 or fnet.batched_launch_count != 1 or fnet.launch_count != 2 \
+            or fnet.batched_bracket_launch_count != 1:
         raise AssertionError(f"table network main path: {fnet.launch_count} single and "
-                             f"{fnet.batched_launch_count} batched launches, expected 2 and 1")
+                             f"{fnet.batched_launch_count} batched launches ({fnet.batched_bracket_launch_count} in "
+                             "the bracket build), expected 2 and 1 (1)")
     nt = sset.n_time_levels
     for k, b in nets.items():
         o = outs[k]
@@ -3072,11 +3149,14 @@ def drive_table_network(dev, launches: dict, reach: dict, t_start: float) -> tup
     ptxas = [k for k in network_kernel_builds(build.build_info["fused_network_table"]["ptxas"])
              if k["rhs"] == topo_e.m_rhs and not k["probe"] and k["table"] and not k["scratch"]
              and not k["cluster"]]
-    bounds = {fnet.LOOP_BUILD: (256, 1, False), fnet.LATENCY_BUILD: (256, 1, True),
-              fnet.RESIDENCY_BUILD: (192 if shape_e[0] <= 192 else 256, 2, True)}
+    blk = 192 if shape_e[0] <= 192 else 256
+    bounds = {fnet.LOOP_BUILD: (256, 1, False, False), fnet.LATENCY_BUILD: (256, 1, True, False),
+              fnet.RESIDENCY_BUILD: (blk, 2, True, False), fnet.BRACKET_BUILD: (blk, 2, True, True)}
     ens_builds = dict(multiprocessors=sms, chosen_build=chosen_e)
+    if chosen_e != fnet.BRACKET_BUILD:
+        raise AssertionError(f"table network ensemble: the C entry chooses build {chosen_e}, not the bracket build")
     for name, bid in (("loop_build", fnet.LOOP_BUILD), ("latency_build", fnet.LATENCY_BUILD),
-                      ("residency_build", fnet.RESIDENCY_BUILD)):
+                      ("residency_build", fnet.RESIDENCY_BUILD), ("bracket_build", fnet.BRACKET_BUILD)):
         ob = fnet._output(launch_e(bid), topo_e, None)
         for a, c in zip((*ob.depth, *ob.flow, ob.junction_stage, ob.error, ob.iterations),
                         (*out_e.depth, *out_e.flow, out_e.junction_stage, out_e.error, out_e.iterations)):
@@ -3084,11 +3164,15 @@ def drive_table_network(dev, launches: dict, reach: dict, t_start: float) -> tup
                 raise AssertionError(f"table network ensemble: the {name} disagrees with the wrapper's build")
         del ob
         bps = fnet.resident_blocks(*shape_e, bid, table=True)
-        blk, minb, one = bounds[bid]
+        b_, minb, one, bracket = bounds[bid]
         ens_builds[name] = dict(build_id=bid, resident_blocks_per_sm=bps, members_in_flight=bps * sms,
                                 ms=time_cuda(lambda: launch_e(bid), reps=2, warmup=1), bit_identical=True,
-                                ptxas=[k for k in ptxas
-                                       if (k["block"], k["min_blocks"], k["one_slot"]) == (blk, minb, one)])
+                                ptxas=[k for k in ptxas if (k["block"], k["min_blocks"], k["one_slot"], k["bracket"])
+                                       == (b_, minb, one, bracket)])
+    # the bracket build against the residency build by CUDA events in turns,
+    # its probe build on the batch; its other forms on other networks
+    ens_builds["in_turns"] = table_ensemble_builds(dev, ens_br, sset_e, batch, chosen_out=out_e)
+    ens_builds["other_forms"] = bracket_forms(dev)
     # B = 4 against single launches, and the timed batch's first members against them
     part = [{k: trees_slice(v, TABLE_NET_BIT_MEMBERS) for k, v in d.items()} for d in batch]
     ob4 = fnet.fused_simulate_network_batched(ens_br, 1, sset_e, part)
@@ -3121,6 +3205,10 @@ def drive_table_network(dev, launches: dict, reach: dict, t_start: float) -> tup
                              f"table network: sound member {m} beside a NaN one", exact=True)
     if bool(o16.converged[bad, nan_level:].any()):
         raise AssertionError("table network: the NaN member converged at a level after its NaN inflow")
+    # and the bracket build forced on the same 16 members: the same bits,
+    # NaN where they are NaN
+    same_network_bits(network_launch(ens_br, 1, sset_e, batch16, build_id=fnet.BRACKET_BUILD), o16,
+                      "table network: the bracket build beside a NaN member")
     rec["ensemble"] = dict(
         members=M, branches=len(ens_br), kinds=[type(br.geo).__name__ for br in ens_br],
         samples=int(reach["geo96"].area.shape[-1]), n_time_levels=nt, tolerance=sset_e.tolerance, store="full",
@@ -3174,7 +3262,11 @@ def drive_table_network(dev, launches: dict, reach: dict, t_start: float) -> tup
              launches=launches["fused_simulate_network_batched_table"],
              max_abs_err=rec["ensemble"]["plain_members"]["max_abs_dh"], ms=ens_ms, plain_ms=ens_plain_ms,
              bound_ms=eb, bound_by=eby, library_ms=None, bound_terms=eterms, ms_over_bound=ens_ms / eb,
-             build=chosen_e, build_ms={k: v["ms"] for k, v in ens_builds.items() if isinstance(v, dict)},
+             build=chosen_e, build_ms={k: v["ms"] for k, v in ens_builds.items()
+                                       if isinstance(v, dict) and "ms" in v},
+             bracket_launches=launches["fused_simulate_network_batched_bracket"],
+             kernel_alone_ms_in_turns={k: v["ms"] for k, v in ens_builds["in_turns"].items()
+                                       if isinstance(v, dict) and "ms" in v},
              shape=dict(members=M, branches=len(ens_br), samples=rec["ensemble"]["samples"], n_time_levels=nt,
                         newton_iterations=ens_iters, store="full"),
              plain_shape=dict(members=len(picked), n_time_levels=L,
@@ -3515,7 +3607,7 @@ def drive_network_scratch(dev, launches: dict, reach: dict, large_basin) -> tupl
         compare_networks(network_member(out_e, m), one, f"250 m ensemble member {m} vs its single launch",
                          exact=True, err_rtol=None if build_e == fnet.CLUSTER_BUILD else CLUSTER_ERR_RTOL)
     del ob4
-    picked, plain_recs, Lc = [0, M - 1], [], NETWORK_COMPARED_LEVELS
+    picked, plain_recs, Lc = [0, M - 1], [], SCRATCH_PLAIN_LEVELS
     t0 = time.perf_counter()
     for m in picked:
         bm, sm = cut_network_levels(net.member_branches(b250, batch, m), s250, Lc)
@@ -4449,13 +4541,121 @@ def main() -> int:
     if "jax" in sys.modules or "flowsim_tpu" in sys.modules or "pandas" in sys.modules:
         raise AssertionError("chip_smoke.py must not import jax, flowsim_tpu or pandas")
 
-    emit("done", seconds=time.perf_counter() - t_start)
+    emit("done", seconds=time.perf_counter() - t_start,
+         phase_seconds={k: v for k, v in PHASE_SECONDS.items() if k != "_since"})
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def table_ensemble_builds(dev, ens_br, sset_e, batch, chosen_out=None, rounds: int = 3) -> dict:
+    """Kernel 6's table path on a batch (the surveyed mixed network's
+    ensemble): the bracket build against the residency build, both forced,
+    bit for bit (and against ``chosen_out``, the main path's run, when
+    given), then by CUDA events in turns (forward, backward, forward,
+    backward), ``rounds`` readings a turn (:func:`readings`), each build's
+    median; and the bracket build's probe build on the same batch (thread 0
+    of block 0, member 0), its bits those of the production launch."""
+    from flowsim_tpu_torch.ops.cuda import fused_network as fnet
+
+    topo, launch = network_packed(ens_br, 1, sset_e, batch)
+    ids = dict(bracket_build=fnet.BRACKET_BUILD, residency_build=fnet.RESIDENCY_BUILD)
+    ref = fnet._output(launch(fnet.RESIDENCY_BUILD), topo, None)
+    same_network_bits(fnet._output(launch(fnet.BRACKET_BUILD), topo, None), ref,
+                      "table ensemble: the bracket build vs the residency build")
+    if chosen_out is not None:
+        same_network_bits(chosen_out, ref, "table ensemble: the main path's run vs the residency build")
+    rec = {b: dict(build_id=i, ms_runs=[]) for b, i in ids.items()}
+    order = list(ids)
+    for r in range(4):
+        for b in (order if r % 2 == 0 else order[::-1]):
+            rec[b]["ms_runs"] += readings(lambda: launch(ids[b]), n=rounds)
+    for b in ids:
+        rec[b]["ms"] = statistics.median(rec[b]["ms_runs"])
+    # the bracket build's probe build on the batch
+    shape = (len(ens_br) * topo.n_max, len(ens_br), 1, topo.m_rhs)
+    members = int(ref.iterations.shape[0])
+    p = fnet._pack(ens_br, 1, sset_e, batch, members, None, None, None, topo)
+    cycles = torch.zeros(len(fnet.PROBE_PHASES), dtype=torch.int64, device=dev)
+    *raw, clock = fnet._launch(p, members, len(ens_br), 1, sset_e, topo, build_id=fnet.BRACKET_BUILD, probe=cycles)
+    same_network_bits(fnet._output(tuple(raw), topo, None), ref, "table ensemble: bracket probe")
+    rec["bracket_build"]["probe_member_0"] = probe_record(
+        dict(zip(fnet.PROBE_PHASES, cycles.tolist())), clock, int(ref.iterations[0].sum()),
+        rec["bracket_build"]["ms"])
+    for b, i in ids.items():
+        rec[b]["smem_bytes_per_block"] = fnet.bracket_smem_bytes(*shape) if i == fnet.BRACKET_BUILD \
+            else fnet.smem_bytes(*shape)
+        rec[b]["resident_blocks_per_sm"] = fnet.resident_blocks(*shape, i, table=True)
+    rec["bracket_build"]["bytes_per_slot"] = fnet.bracket_smem_bytes(1, 0, 0, topo.m_rhs)
+    rec["fastest"] = min(ids, key=lambda b: rec[b]["ms"])
+    rec["bits"] = "every field of every member"
+    return rec
+
+
+def bracket_forms(dev) -> dict:
+    """The bracket build's forms that the surveyed ensemble does not run,
+    forced against the residency build forced, bit for bit, on
+    BRACKET_FORM_MEMBERS members (inflows scaled 0.9-1.1) over two hours (9
+    levels of 900 s): the 15-branch basin (levels=4: 195 slots,
+    so the 256-thread instance, and three RHS pairs) and the 7-branch basin
+    draining into a lumped storage with a power outflow rating (the storage
+    end rows; :func:`storage_outlet_networks`), every branch lowered to
+    lookup tables (:func:`as_table`, M = BRACKET_FORM_SAMPLES).  Counts no
+    launch."""
+    from flowsim_tpu_torch.models import basin
+    from flowsim_tpu_torch.ops.cuda import fused_network as fnet
+
+    nets = dict(basin_levels4=basin.build(levels=4, sim_hours=2, device=dev),
+                storage_outlet_power=storage_outlet_networks(dev)["power"])
+    out = {}
+    for name, (br, nj, st) in nets.items():
+        br = [dataclasses.replace(b, geo=as_table(b.geo, samples=BRACKET_FORM_SAMPLES)) for b in br]
+        batch = scale_inflows(br, np.linspace(0.9, 1.1, BRACKET_FORM_MEMBERS))
+        topo, launch = network_packed(br, nj, st, batch)
+        res = fnet._output(launch(fnet.RESIDENCY_BUILD), topo, None)
+        same_network_bits(fnet._output(launch(fnet.BRACKET_BUILD), topo, None), res,
+                          f"bracket forms, {name}: the bracket build vs the residency build")
+        if not bool(res.converged.all()):
+            raise AssertionError(f"bracket forms, {name}: not converged at every level")
+        slots = len(br) * topo.n_max
+        out[name] = dict(branches=len(br), junctions=nj, slots=slots, rhs_pairs=topo.m_rhs,
+                         block_threads=192 if slots <= 192 else 256, storage_end=br[0].ds.storage is not None,
+                         members=BRACKET_FORM_MEMBERS, levels=st.n_time_levels, samples=BRACKET_FORM_SAMPLES,
+                         iterations=int(res.iterations.sum()), bits="every field of every member")
+    if (out["basin_levels4"]["rhs_pairs"], out["basin_levels4"]["block_threads"]) != (3, 256) \
+            or not out["storage_outlet_power"]["storage_end"]:
+        raise AssertionError(f"bracket forms: not the forms meant: {out}")
+    return out
+
+
+def table_network_times(dev, rounds: int = 3) -> dict:
+    """Kernel 6's table path alone: NETWORK_MC_MEMBERS members of the
+    surveyed mixed network at M = TABLE_BATCH_SAMPLES (the ``table_network``
+    phase's ensemble, its tables sampled by the api at M = 96 rather than
+    sliced from the M = 1024 reach), the bracket and the residency build in
+    turns (:func:`table_ensemble_builds`).  ``python3 chip_smoke.py
+    --table-network-times`` prints only this."""
+    import functools
+
+    from flowsim_tpu_torch import api
+    from flowsim_tpu_torch.ops import initial_conditions as ic
+
+    sampled = api.build_table_geometry
+    api.build_table_geometry = functools.partial(sampled, samples=TABLE_BATCH_SAMPLES)
+    try:
+        solver = table_reach_solver(dev)
+    finally:
+        api.build_table_geometry = sampled
+    geo96 = solver.channel.geometry
+    h96, Q96 = ic.initial_conditions(geo96, "steady-state", 400.0, solver.spatial_step)
+    ens_br = surveyed_network(dict(solver=solver), geo96, h96, Q96, True)
+    sset_e = solver.settings(TABLE_BATCH_TOL, 100)
+    batch = scale_inflows(ens_br, 0.9 + 0.2 * np.random.default_rng(NETWORK_MC_SEED).random(NETWORK_MC_MEMBERS))
+    return dict(members=NETWORK_MC_MEMBERS, samples=TABLE_BATCH_SAMPLES,
+                **table_ensemble_builds(dev, ens_br, sset_e, batch, rounds=rounds))
 
 
 def network_times(dev, rounds: int = 3) -> dict:
@@ -4477,17 +4677,63 @@ def network_times(dev, rounds: int = 3) -> dict:
     return out
 
 
+def ptxas_figures(dev) -> dict:
+    """Every kernel's ptxas figures (registers, stack, spills, static shared
+    memory) by source, each source built as ``main`` builds it (one nvcc a
+    source, all started together).  ``python3 chip_smoke.py --ptxas`` prints
+    only this, so that two checkouts' builds can be compared."""
+    from flowsim_tpu_torch.ops.cuda import build
+
+    build.start_all()
+    for name in build.SOURCES:
+        build.load(name)
+    return {n: dict(seconds=i["seconds"], ptxas=i["ptxas"]) for n, i in build.build_info.items()}
+
+
+def ptxas_key(kernel: str) -> str:
+    """A kernel's mangled name without the anonymous namespace's hash (which
+    changes with the source) and without a trailing defaulted ``false``
+    template argument of the network kernel (the bracket build's flag): the
+    same key for the same build in two checkouts."""
+    k = re.sub(r"_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]{8}", "", kernel).split("EEvPK")[0]
+    m = re.match(r"(.*fused_network_kernelI)((?:L[ib]\d+E)+)$", k)
+    if m:
+        args = re.findall(r"L[ib]\d+E", m.group(2))
+        k = m.group(1) + "".join(args[:8] if len(args) > 8 and args[8:] == ["Lb0E"] else args)
+    return k
+
+
+def ptxas_changes(parent: dict, change: dict) -> dict:
+    """Two checkouts' :func:`ptxas_figures` compared build by build
+    (:func:`ptxas_key`): per source the builds with the same registers,
+    stack and spills, those that differ (both figures), and the builds only
+    one checkout has."""
+    keys = ("registers", "stack_bytes", "spill_store_bytes", "spill_load_bytes")
+    out = {}
+    for src in sorted(set(parent) | set(change)):
+        a = {ptxas_key(r["kernel"]): r for r in parent.get(src, {}).get("ptxas", [])}
+        b = {ptxas_key(r["kernel"]): r for r in change.get(src, {}).get("ptxas", [])}
+        diff = {k: dict(parent={f: a[k].get(f) for f in keys}, change={f: b[k].get(f) for f in keys})
+                for k in a if k in b and any(a[k].get(f) != b[k].get(f) for f in keys)}
+        out[src] = dict(same=sum(1 for k in a if k in b) - len(diff), differ=diff,
+                        parent_only=sorted(k for k in a if k not in b), change_only=sorted(k for k in b if k not in a))
+    return out
+
+
 # the measurement modes: the argument, the key of the printed JSON, the measurement
 MODES = {"--kernel1-times": ("kernel1_times", kernel1_times), "--kernel2-times": ("kernel2_times", kernel2_times),
-         "--network-times": ("network_times", network_times), "--sass": ("sass", lambda dev: sass_counts())}
+         "--network-times": ("network_times", network_times), "--sass": ("sass", lambda dev: sass_counts()),
+         "--table-network-times": ("table_network_times", table_network_times),
+         "--ptxas": ("ptxas", ptxas_figures)}
 
 
 def modes_main(flags) -> int:
     """``--kernel1-times`` / ``--kernel2-times`` / ``--network-times`` /
-    ``--sass`` (any of them): the card's name and power limit, then one JSON
-    line with each asked measurement (:func:`kernel1_times`,
-    :func:`kernel2_times`, :func:`network_times`, :func:`sass_counts`) as the
-    last line."""
+    ``--sass`` / ``--table-network-times`` / ``--ptxas`` (any of them): the
+    card's name and power limit, then one JSON line with each asked
+    measurement (:func:`kernel1_times`, :func:`kernel2_times`,
+    :func:`network_times`, :func:`sass_counts`, :func:`table_network_times`,
+    :func:`ptxas_figures`) as the last line."""
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1

@@ -116,6 +116,22 @@
 //    on a persistent grid of clusters, as in the SCRATCH build.  Only the
 //    norm's summation order differs from the other builds: every other field
 //    has their bits, the norm agrees to rounding.
+//  * the BRACKET build (table library only), for a network with table
+//    branches where the RESIDENCY build would run (a batch past one wave of
+//    the latency build: the surveyed network ensembles): the residency
+//    build's form, two blocks an SM, with each table slot's bracket index
+//    and its 14 bracket values cached in shared memory after the junction
+//    block (section_state_cached: the tables are re-read only when the depth
+//    leaves the bracket; the same values and expressions), and the sweeps
+//    with the carried inverse and the slot's own rows in registers
+//    (pcr::sweep_node_at_carried, the inverse in D's place, so the buffers
+//    keep their size); its level-start state lies in the assembly buffer
+//    (components 7-11, free from a level's start to its first assembly) and
+//    the end rows read the section the closures left beside the exchange
+//    area, so no Sec is held in registers: 388 B a slot at RHS = 2, two
+//    blocks an SM (three ran slower: 96 registers).  The residency build
+//    read two rows of seven tables through L2 at every closure and inverted
+//    every partner's D twice a sweep.  The same bits.
 //  Every build does the same operations in the same order and gives the
 //  same bits; the build id of the C entry is a test hook for chip_smoke.py.
 //  The probe build (PROBE, reach_common.cuh) of the loop, latency, scratch and
@@ -232,6 +248,9 @@ namespace cg = cooperative_groups;
 constexpr int MAX_CLUSTER = 16;     // blocks of a cluster (above 8: non-portable)
 constexpr int PAIR_THREADS = 192;   // the two-blocks-an-SM form's block
 constexpr int CLUSTER_PAIR = 256;   // the flag of that form in the C entry's `cluster`
+// the BRACKET build's blocks an SM in its launch bound: two beat three on
+// an H100 (PERF.md)
+constexpr int BRACKET_MINB = 2;
 
 // slots of each rank of a cluster of `blocks` blocks (the last may hold fewer)
 __host__ __device__ inline int rank_slots(int slots, int blocks) { return (slots + blocks - 1) / blocks; }
@@ -442,6 +461,28 @@ __device__ __forceinline__ Sec section_state(const SlotGeo& s, double depth) {
     return section_state(s.g, depth);
 }
 
+// A slot's section: in the BRACKET build a table slot's bracket cached in
+// shared memory at cache[c * ld + x], its index at cidx[x]
+// (section_state_cached: the same values and expressions); every other
+// slot, and every other build, section_state.
+template <bool BRACKET, class GEO>
+__device__ __forceinline__ Sec slot_section(const GEO& g, double depth, double* cache, int* cidx, int ld, int x) {
+    if constexpr (BRACKET) {
+        if (g.row != nullptr)
+            return section_state_cached(tab_geo(g.row, g.nm, g.g.z, g.curv, g.dgrid, g.jmax), depth, cache, cidx,
+                                        ld, x);
+    }
+    return section_state(g, depth);
+}
+
+// The BRACKET build's dynamic shared memory: the two PCR buffers, h and Q a
+// slot (its level-start state lies in the assembly buffer), the junction
+// block, then each slot's bracket, BK_COUNT doubles and an int.
+__host__ __device__ inline size_t bracket_smem_bytes(int slots, int B, int J, int rhs) {
+    return ((size_t)slots * (2 * comp(rhs) + 2) + junction_doubles(B, J)) * sizeof(double)
+        + (size_t)slots * (BK_COUNT * sizeof(double) + sizeof(int));
+}
+
 __device__ __forceinline__ Geo load_geo(const double* __restrict__ geo, int n_max, int b, int i) {
     const double* r = geo + (size_t)b * G_ROWS * n_max + i;
     Geo g;
@@ -462,7 +503,8 @@ __device__ __forceinline__ Geo load_geo(const double* __restrict__ geo, int n_ma
 // with its slot arrays in device memory, on a persistent grid.  CLUSTER: one
 // network over the blocks of a thread-block cluster, its slot arrays split
 // by rank in their shared memory, on a persistent grid of clusters.
-enum { LOOP_BUILD = 0, LATENCY_BUILD = 1, RESIDENCY_BUILD = 2, SCRATCH_BUILD = 3, CLUSTER_BUILD = 4 };
+enum { LOOP_BUILD = 0, LATENCY_BUILD = 1, RESIDENCY_BUILD = 2, SCRATCH_BUILD = 3, CLUSTER_BUILD = 4,
+       BRACKET_BUILD = 5 };
 
 // ONE: the latency build's one slot a thread (needs slots <= blockDim.x).
 // PROBE: the probe build (reach_common.cuh, Probe).  TABLE: a network with
@@ -472,8 +514,12 @@ enum { LOOP_BUILD = 0, LATENCY_BUILD = 1, RESIDENCY_BUILD = 2, SCRATCH_BUILD = 3
 // builds run a grid of n_members blocks, one member each).  CLUSTER: the
 // slots of this block's rank in its shared memory, the other ranks' through
 // DSMEM, and the cluster runs members clusterIdx, clusterIdx + clusters, ...
-// (ONE: one slot a thread of the rank's).
-template <int RHS, int BLOCK, int MINB, bool ONE, bool PROBE, bool TABLE, bool SCRATCH, bool CLUSTER>
+// (ONE: one slot a thread of the rank's).  BRACKET (with ONE and TABLE): each
+// table slot's bracket cached in shared memory after the junction block,
+// and the sweeps with the carried inverse and the slot's own rows in
+// registers (pcr::sweep_node_at_carried).
+template <int RHS, int BLOCK, int MINB, bool ONE, bool PROBE, bool TABLE, bool SCRATCH, bool CLUSTER,
+          bool BRACKET = false>
 __global__ void __launch_bounds__(BLOCK, MINB)
 fused_network_kernel(const double* __restrict__ geo_all,   // [M, B, 13, Nmax]
                      const double* __restrict__ h0_all,    // [M, B, Nmax]
@@ -503,6 +549,7 @@ fused_network_kernel(const double* __restrict__ geo_all,   // [M, B, 13, Nmax]
                      int tab_m, int n_members,
                      double* scratch_all) {                // [grid, slot_doubles] (SCRATCH)
     static_assert(!SCRATCH || (!ONE && !CLUSTER), "the SCRATCH build is the loop form, in one block");
+    static_assert(!BRACKET || (ONE && TABLE && !SCRATCH && !CLUSTER), "the BRACKET build is a TABLE latency form");
     constexpr int C = comp(RHS);
     extern __shared__ double smem[];
     __shared__ double warp_part[2][32];
@@ -560,13 +607,16 @@ fused_network_kernel(const double* __restrict__ geo_all,   // [M, B, 13, Nmax]
         double* buf1 = buf0 + (size_t)C * LD;      // exchange area / PCR pong / solution
         double* sh = buf1 + (size_t)C * LD;
         double* sQ = sh + LD;
-        double* shp = sQ + LD;
-        double* sQp = shp + LD;
-        double* sAp = sQp + LD;
-        double* sSep = sAp + LD;
-        double* sQ2Ap = sSep + LD;
+        // the level-start state (BRACKET: in components 7-11 of the assembly
+        // buffer, free from the level's start to its first assembly, since
+        // only the cell i-1 reads it there, into registers; no inflow array)
+        double* shp = BRACKET ? buf0 + 7 * (size_t)LD : sQ + LD;
+        double* sQp = BRACKET ? buf0 + 8 * (size_t)LD : shp + LD;
+        double* sAp = BRACKET ? buf0 + 9 * (size_t)LD : sQp + LD;
+        double* sSep = BRACKET ? buf0 + 10 * (size_t)LD : sAp + LD;
+        double* sQ2Ap = BRACKET ? buf0 + 11 * (size_t)LD : sSep + LD;
         double* sqavg = sQ2Ap + LD;
-        double* sY = SCRATCH ? smem : sqavg + LD;  // junction stage
+        double* sY = SCRATCH ? smem : BRACKET ? sQ + LD : sqavg + LD;  // junction stage
         // CLUSTER: the junction block and the gate state are rank 0's
         if constexpr (CLUSTER) {
             if (rank != 0) sY = cg::this_cluster().map_shared_rank(sY, 0);
@@ -584,6 +634,9 @@ fused_network_kernel(const double* __restrict__ geo_all,   // [M, B, 13, Nmax]
         double* gcool = gopen + B;
         double* gtime = gcool + B;
         double* gstage = gtime + B;
+        // BRACKET: each slot's bracket, [BK_COUNT][ld], and its index
+        double* bcache = gstage + B;
+        int* bcidx = (int*)(bcache + (size_t)BK_COUNT * ld);
 
         const double theta = par_m[P_THETA], dt = par_m[P_DT], tol = par_m[P_TOL];
         const double inv2dt = 1.0 / (2.0 * dt);
@@ -695,6 +748,7 @@ fused_network_kernel(const double* __restrict__ geo_all,   // [M, B, 13, Nmax]
             sQ[s] = Q0_all[mem * (size_t)ld + GS(s)];
             depth[GS(s)] = sh[s];
             flow[GS(s)] = sQ[s];
+            if constexpr (BRACKET) bcidx[s] = -1;
         });
         for (int j = TJ; j < J; j += nthr) {
             sY[j] = Y0_all[mem * (size_t)J + j];
@@ -743,7 +797,7 @@ fused_network_kernel(const double* __restrict__ geo_all,   // [M, B, 13, Nmax]
             each_slot([&](int s, int b, int i) {
                 const double h = sh[s], Q = sQ[s];
                 const auto g = geo_at(b, i);
-                const Sec sc = section_state(g, h);
+                const Sec sc = slot_section<BRACKET>(g, h, bcache, bcidx, ld, s);
                 const Slope e = energy_slope(g, sc, h, Q);
                 const double Q2A = Q * Q / sc.A;
                 shp[s] = h; sQp[s] = Q;
@@ -754,7 +808,7 @@ fused_network_kernel(const double* __restrict__ geo_all,   // [M, B, 13, Nmax]
                     const double* qp = qlat_mode == QLAT_LEVELS ? qlat + (size_t)(k - 1) * ld : qlat;
                     qa = CAVG(qc[GS(s) + 1], qc[GS(s)], qp[GS(s) + 1], qp[GS(s)]);
                 }
-                sqavg[s] = qa;
+                if constexpr (!BRACKET) sqavg[s] = qa;
                 if constexpr (ONE) { ohp0 = h; oQp0 = Q; oAp0 = sc.A; oSep0 = e.Se; oQ2Ap0 = Q2A; oqavg = qa; }
             });
             for (int j = j0; j < J; j += nthr) {
@@ -786,14 +840,25 @@ fused_network_kernel(const double* __restrict__ geo_all,   // [M, B, 13, Nmax]
                 each_slot([&](int s, int b, int i) {
                     const double h = sh[s], Q = sQ[s];
                     const auto g = geo_at(b, i);
-                    const Sec sc = section_state(g, h);
+                    const Sec sc = slot_section<BRACKET>(g, h, bcache, bcidx, ld, s);
                     const Slope e = energy_slope(g, sc, h, Q);
                     const double Q2A = Q * Q / sc.A, QA = Q / sc.A;
                     buf1[0 * LD + s] = sc.A;      buf1[1 * LD + s] = Q2A;
                     buf1[2 * LD + s] = e.Se;      buf1[3 * LD + s] = sc.dA_dh;
                     buf1[4 * LD + s] = e.dSe_dA;  buf1[5 * LD + s] = e.dSe_dQ;
                     buf1[6 * LD + s] = QA;
-                    if constexpr (ONE) { oh = h; oQ = Q; osc = sc; oe = e; oQ2A = Q2A; oQA = QA; }
+                    if constexpr (BRACKET) {
+                        // what an end row reads of the section, beside the
+                        // exchange area (no Sec held in registers)
+                        oh = h; oQ = Q;
+                        if (i == 0 || i == n_max - 1) {
+                            buf1[7 * LD + s] = sc.R;      buf1[8 * LD + s] = sc.n_eq;
+                            buf1[9 * LD + s] = sc.dR_dA;  buf1[10 * LD + s] = sc.K;
+                            buf1[11 * LD + s] = sc.dK_dA;
+                        }
+                    } else if constexpr (ONE) {
+                        oh = h; oQ = Q; osc = sc; oe = e; oQ2A = Q2A; oQA = QA;
+                    }
                 });
                 NET_SYNC();
                 probe.mark(PH_CLOSURES);
@@ -808,7 +873,7 @@ fused_network_kernel(const double* __restrict__ geo_all,   // [M, B, 13, Nmax]
                     const double th_dx = theta / dx;
                     // this slot's own values: registers in the latency build
                     double h, Q, A0, Q2A0, Se0, dA_dh0, dSe_dA0, dSe_dQ0, QA0;
-                    if constexpr (ONE) {
+                    if constexpr (ONE && !BRACKET) {
                         h = oh; Q = oQ; A0 = osc.A; Q2A0 = oQ2A; Se0 = oe.Se; dA_dh0 = osc.dA_dh;
                         dSe_dA0 = oe.dSe_dA; dSe_dQ0 = oe.dSe_dQ; QA0 = oQA;
                     } else {
@@ -895,7 +960,12 @@ fused_network_kernel(const double* __restrict__ geo_all,   // [M, B, 13, Nmax]
                             buf0[(12 + 2 * col + (up ? 0 : 1)) * LD + s] = -1.0;
                         } else {
                             Sec sc;
-                            if constexpr (ONE) sc = osc;
+                            if constexpr (BRACKET) {   // what the closures kept
+                                sc.A = buf1[0 * LD + s];   sc.T = buf1[3 * LD + s];   sc.dA_dh = sc.T;
+                                sc.R = buf1[7 * LD + s];   sc.n_eq = buf1[8 * LD + s];
+                                sc.dR_dA = buf1[9 * LD + s];
+                                sc.K = buf1[10 * LD + s];  sc.dK_dA = buf1[11 * LD + s];
+                            } else if constexpr (ONE) sc = osc;
                             else if constexpr (TABLE) sc = section_state(geo_at(b, i), h);
                             else sc = section_state(load_geo(geo, n_max, b, i), h);
                             const int kind = BRANCH_INT(b, up ? BI_US_KIND : BI_DS_KIND);
@@ -966,9 +1036,24 @@ fused_network_kernel(const double* __restrict__ geo_all,   // [M, B, 13, Nmax]
                 double* src = buf0;
                 double* dst = buf1;
                 int stride = 1;
+                // BRACKET: the slot's own rows and its inverse of D in registers
+                double o[C + 4];
+                if constexpr (BRACKET) {
+                    if (own) {
+#pragma unroll
+                        for (int c = 0; c < C; ++c) o[c] = buf0[c * ld + tid];
+                    }
+                }
                 for (int sw = 0; sw < sweeps; ++sw, stride *= 2) {
                     each_slot([&](int s, int b, int i) {
-                        if constexpr (CLUSTER) {
+                        if constexpr (BRACKET) {
+                            // the partners at i -/+ stride in the branch's segment
+                            const bool vm = i - stride >= 0, vp = i + stride < n_max;
+                            const double* pm = vm ? src + (s - stride) : src;
+                            const double* pp = vp ? src + (s + stride) : src;
+                            if (sw == 0) pcr::sweep_node_at_carried<RHS, false>(o, pm, pp, dst + s, ld, vm, vp);
+                            else pcr::sweep_node_at_carried<RHS, true>(o, pm, pp, dst + s, ld, vm, vp);
+                        } else if constexpr (CLUSTER) {
                             // the partners at i -/+ stride, in any rank
                             const bool vm = i - stride >= 0, vp = i + stride < n_max;
                             pcr::sweep_node_at<RHS>(src + s, vm ? &AT(src, s - stride) : src,
@@ -984,7 +1069,13 @@ fused_network_kernel(const double* __restrict__ geo_all,   // [M, B, 13, Nmax]
                 // the solution columns (x[2r + row]) into the free buffer
                 each_slot([&](int s, int b, int i) {
                     double x[2 * RHS];
-                    if constexpr (CLUSTER) pcr::backsolve_node<RHS>(src, LD, s, x);
+                    if constexpr (BRACKET) {   // backsolve_node on the rows in registers
+#pragma unroll
+                        for (int r = 0; r < RHS; ++r) {
+                            x[2 * r] = o[C + 0] * o[12 + 2 * r] + o[C + 1] * o[13 + 2 * r];
+                            x[2 * r + 1] = o[C + 2] * o[12 + 2 * r] + o[C + 3] * o[13 + 2 * r];
+                        }
+                    } else if constexpr (CLUSTER) pcr::backsolve_node<RHS>(src, LD, s, x);
                     else pcr::backsolve_node<RHS>(src + b * n_max, ld, i, x);
 #pragma unroll
                     for (int c = 0; c < 2 * RHS; ++c) dst[c * LD + s] = x[c];
@@ -1181,6 +1272,18 @@ int pick_rhs(int build, int slots, bool probe, bool pair, NetKernel* out) {
             return 0;
         }
         return (int)cudaErrorInvalidValue;
+    case BRACKET_BUILD:
+        if constexpr (LIB_TABLE) {
+            if (!one) return (int)cudaErrorInvalidValue;
+            if (threads_for(slots) <= 192)
+                *out = probe ? &fused_network_kernel<RHS, 192, BRACKET_MINB, true, true, true, false, false, true>
+                             : &fused_network_kernel<RHS, 192, BRACKET_MINB, true, false, true, false, false, true>;
+            else
+                *out = probe ? &fused_network_kernel<RHS, MAX_THREADS, BRACKET_MINB, true, true, true, false, false, true>
+                             : &fused_network_kernel<RHS, MAX_THREADS, BRACKET_MINB, true, false, true, false, false, true>;
+            return 0;
+        }
+        return (int)cudaErrorInvalidValue;
     case CLUSTER_BUILD:
         if (pair) {
             if (slots > PAIR_THREADS) return (int)cudaErrorInvalidValue;
@@ -1231,7 +1334,8 @@ int plan_of(int build, int cluster, bool probe, int slots, int B, int J, int rhs
     const int per = rank_slots(slots, p->blocks);
     const int rc = pick_build(build, per, rhs, probe, p->pair, &p->fn);
     p->threads = threads_for(per);
-    p->smem = (build == SCRATCH_BUILD ? junction_doubles(B, J) : smem_doubles(per, B, J, rhs)) * sizeof(double);
+    p->smem = build == BRACKET_BUILD ? bracket_smem_bytes(per, B, J, rhs)
+        : (build == SCRATCH_BUILD ? junction_doubles(B, J) : smem_doubles(per, B, J, rhs)) * sizeof(double);
     return rc;
 }
 
@@ -1350,9 +1454,13 @@ int choose_build(int n_members, int slots, int B, int J, int rhs, int* build) {
     if ((rc = plan_of(*build, 0, false, slots, B, J, rhs, &fast))) return rc;
     if ((rc = resident_blocks(fast, &fast_bps))) return rc;
     if (n_members <= fast_bps * sms) return 0;
-    if ((rc = plan_of(RESIDENCY_BUILD, 0, false, slots, B, J, rhs, &res))) return rc;
+    // past one wave of the latency build: the residency build, and for a
+    // network with table branches the bracket build
+    const int many = LIB_TABLE ? BRACKET_BUILD : RESIDENCY_BUILD;
+    if ((rc = plan_of(many, 0, false, slots, B, J, rhs, &res)) || (rc = smem_fits(res, &fits))) return rc;
+    if (!fits) return 0;
     if ((rc = resident_blocks(res, &res_bps))) return rc;
-    if (res_bps > fast_bps) *build = RESIDENCY_BUILD;
+    if (res_bps > fast_bps) *build = many;
     return 0;
 }
 
@@ -1481,12 +1589,13 @@ extern "C" long long flowsim_fused_network_scratch_bytes(int slots, int rhs) {
 // caller.  tab_m: 0 for a network of trapezoid branches (tab and tab_branch
 // null), else the depth samples M of every table branch's tables, tab [T, 7,
 // Nmax, M], and tab_branch [B] each branch's index among them (-1: trapezoid).
-// build: 0-4; the wrappers pass what flowsim_fused_network_chosen_build
-// answers, a forced build is a test hook (chip_smoke.py times the builds
-// against each other and holds them to the same bits).  cluster (build 4):
-// 0 for the C entry's cluster (flowsim_fused_network_cluster), or a forced
-// one, a test hook: its blocks (2-16), plus 256 for the two-blocks-an-SM
-// form.  scratch: null, or for the SCRATCH build grid x
+// build: 0-5 (5 in the table library only); the wrappers pass what
+// flowsim_fused_network_chosen_build answers, a forced build is a test hook
+// (chip_smoke.py times the builds against each other and holds them to the
+// same bits).  cluster (build 4): 0 for the C entry's cluster
+// (flowsim_fused_network_cluster), or a forced one, a test hook: its blocks
+// (2-16), plus 256 for the two-blocks-an-SM form.  scratch: null, or for
+// the SCRATCH build grid x
 // flowsim_fused_network_scratch_bytes of device memory (grid:
 // flowsim_fused_network_grid).
 extern "C" int flowsim_fused_network(const void* geo, const void* h0, const void* Q0, const void* ser,
@@ -1530,6 +1639,11 @@ extern "C" int flowsim_fused_network_probe(const void* geo, const void* h0, cons
                   J, nt, max_iter, rhs, qlat_mode, tab_m, (cudaStream_t)stream);
 }
 #undef FLOWSIM_NET_ARGS
+
+// dynamic shared memory of one block of the BRACKET build, in bytes
+extern "C" long long flowsim_fused_network_bracket_smem_bytes(int slots, int B, int J, int rhs) {
+    return (long long)bracket_smem_bytes(slots, B, J, rhs);
+}
 
 // The build flowsim_fused_network takes for n_members members (build -1).
 extern "C" int flowsim_fused_network_chosen_build(int n_members, int slots, int B, int J, int rhs, int* build) {

@@ -32,8 +32,9 @@
 //  * the second PCR buffer doubles as the neighbour-exchange area during
 //    assembly, which keeps the footprint at 30 doubles (240 B) per node and
 //    lets N <= 964 fit the 227 KB of one SM (longer reaches, up to the TPU
-//    kernel's 8192 nodes, take the long build below: the same state in a
-//    scratch of device memory, several nodes a thread);
+//    kernel's 8192 nodes, take the reach build below: the state spread over
+//    the shared memory of a thread-block cluster, since one simulation has
+//    the whole card);
 //  * every thread computes the same reduced residual norm from the same
 //    per-warp partial sums, so the loop condition is uniform and no thread
 //    can leave a barrier behind;
@@ -97,8 +98,9 @@
 //
 // Builds.  One arithmetic, the same bits; choose_build_id picks by the shape,
 // the geometry and the member count (table geometry: the register build, and
-// the bracket build past one wave of it; N > 964: the long build for one
-// simulation, the cluster build for a batch).  The
+// the bracket build past one wave of it; N > 964: the reach build for one
+// simulation, the cluster build for a batch; the long build, which kept a
+// reach on one SM with its state in device memory, only forced).  The
 // register build (one thread a node, 248 registers, two blocks an SM) runs
 // every shape up to 964 nodes.  At N <= 128 without
 // storage a launch that one wave of the latency build holds (one block an SM:
@@ -125,8 +127,10 @@
 // 10 240 members of the 121-node table reach at M = 96: 101.8 ms in the
 // bracket build against 134.3 ms in the residency build; 1024 members of
 // the 2048-node reach: 47.5 ms in the cluster build against 70.7 ms in the
-// long build (58.0 with its grid capped to the L2).  PERF.md keeps the
-// readings.
+// long build (58.0 with its grid capped to the L2).  One reach of 965-8192
+// nodes in the reach build: the flagship refined to 50 m (N = 2409, 5506
+// iterations) about 173 ms against 964 ms in the long build and 323 ms in
+// the cluster build forced.  PERF.md keeps the readings.
 //
 // C interface (ctypes): launches on the given stream, allocates nothing,
 // does not synchronise, returns cudaGetLastError().
@@ -580,8 +584,9 @@ __device__ __forceinline__ GeoL geo_terms(const double* __restrict__ geo, int n,
 }
 
 // the closures of one node: Sec and Slope's fields that kernel 1 reads, and
-// Q/A, Q^2/A
-struct ClosL { double A, T, K, dK_dA, Se, dSe_dA, dSe_dQ, QA, Q2A; };
+// Q/A, Q^2/A (R, n_eq and dR_dA: what a storage row reads of the section, in
+// the reach build)
+struct ClosL { double A, T, K, dK_dA, Se, dSe_dA, dSe_dQ, QA, Q2A, R, n_eq, dR_dA; };
 
 // slot t's value, held by lane t % LANES of the node in v[t / LANES]
 __device__ __forceinline__ double from_slot(const double* v, int t) {
@@ -755,6 +760,7 @@ __device__ __forceinline__ ClosL closures_lanes(const GeoL& g, double h, double 
 
     ClosL c;
     c.A = A; c.T = T; c.K = K; c.dK_dA = dK_dA; c.QA = QA; c.Q2A = d10[1];
+    c.R = R; c.n_eq = n_eq; c.dR_dA = dR_dA;
     const double Sf = Kpos ? FS : 0.0;
     const double dSf_dA = Kpos ? -2.0 * FS * dKK : 0.0;
     const double dSf_dQ = Kpos ? dSfQ : 0.0;
@@ -1024,7 +1030,7 @@ fused_latency_kernel(const double* __restrict__ geo_all, const double* __restric
 //    lo + frac * (hi - lo) expression are section_state's, so are the bits;
 //  * sweeps with the carried inverse (18 components a buffer), as kernel 1's
 //    latency build, each node's own rows held by its thread in registers
-//    from sweep to sweep (pcr::sweep_node_carried_own): at four blocks an SM
+//    from sweep to sweep (pcr::sweep_node_at_carried): at four blocks an SM
 //    the sweeps are bound by shared-memory traffic, 30 % less that way;
 //  * keeps the previous level's state per node in shared memory, written at
 //    the level start and read by the cells, and the closures' results in the
@@ -1036,46 +1042,7 @@ fused_latency_kernel(const double* __restrict__ geo_all, const double* __restric
 // every loop decision and every field has the residency build's bits.
 constexpr int BRACKET_BLOCK = 128;
 constexpr int BRACKET_MINB = 4;
-// a node's cached bracket: lo and hi of each table, [BK_COUNT][N]
-enum { BK_A, BK_P = 2, BK_T = 4, BK_DR = 6, BK_K = 8, BK_NEQ = 10, BK_DK = 12, BK_COUNT = 14 };
 constexpr int BRACKET_DOUBLES_PER_NODE = 2 * pcr::CARRY_COMP + 2 + X_COUNT + BK_COUNT;
-
-// section_state(const TabGeo&) with node i's bracket cached at cache[c * ld
-// + i] and its index at cidx[i] (-1: none yet): the same index (a NaN depth
-// gives 0), the same values, the same expressions.
-__device__ __forceinline__ Sec section_state_cached(const TabGeo& g, double depth, double* cache, int* cidx,
-                                                    int ld, int i) {
-    const double x = depth / g.dgrid;
-    const double jf = fmin(fmax(floor(x), 0.0), g.jmax);
-    const int j = (int)jf;
-    const double frac = x - jf;
-    if (j != cidx[i]) {
-        cidx[i] = j;
-        const double* rows[7] = {g.ts + TS_A * g.nm, g.ts + TS_P * g.nm, g.ts + TS_T * g.nm,
-                                 g.ts + TS_DR * g.nm, g.k, g.neq, g.dk};
-#pragma unroll
-        for (int t = 0; t < 7; ++t) {
-            cache[(2 * t) * ld + i] = rows[t][j];
-            cache[(2 * t + 1) * ld + i] = rows[t][j + 1];
-        }
-    }
-    auto lerp = [&](int c) {
-        const double lo = cache[c * ld + i];
-        return lo + frac * (cache[(c + 1) * ld + i] - lo);
-    };
-    const bool wet = depth > 0.0;
-    Sec s;
-    s.A = wet ? lerp(BK_A) : 0.0;
-    s.P = wet ? lerp(BK_P) : 0.0;
-    s.T = wet ? lerp(BK_T) : 0.0;
-    s.K = wet ? lerp(BK_K) : 0.0;
-    s.n_eq = lerp(BK_NEQ);
-    s.dK_dA = lerp(BK_DK);
-    s.dR_dA = lerp(BK_DR);
-    s.R = safe_div(s.A, s.P);
-    s.dA_dh = s.T;
-    return s;
-}
 
 // The bracket build: the register build's signature (storage arguments not
 // read: a run with storage never takes it); 32 ceil(N / 32) threads, node
@@ -1269,12 +1236,15 @@ fused_bracket_kernel(const double* __restrict__ geo_all, const double* __restric
             int stride = 1;
             for (int sw = 0; sw < sweeps; ++sw, stride *= 2) {
                 if (node) {
+                    const bool vm = i - stride >= 0, vp = i + stride < n;
+                    const double* pm = vm ? src + (i - stride) : src;
+                    const double* pp = vp ? src + (i + stride) : src;
                     if (sw == 0) {
 #pragma unroll
                         for (int c = 0; c < COMP; ++c) own[c] = src[c * n + i];
-                        pcr::sweep_node_carried_own<false>(src, dst, n, n, stride, i, own);
+                        pcr::sweep_node_at_carried<1, false, pcr::INV_COMP>(own, pm, pp, dst + i, n, vm, vp);
                     } else {
-                        pcr::sweep_node_carried_own<true>(src, dst, n, n, stride, i, own);
+                        pcr::sweep_node_at_carried<1, true, pcr::INV_COMP>(own, pm, pp, dst + i, n, vm, vp);
                     }
                 }
                 __syncthreads();
@@ -1917,6 +1887,374 @@ fused_cluster_kernel(const double* __restrict__ geo_all, const double* __restric
     probe.write(probe_out);
 }
 
+// -- the reach build --------------------------------------------------------------
+//
+// Kernel 1 at 965 <= N <= 8192: one simulation, which has the whole card,
+// over a thread-block cluster of C blocks sized for the latency of an
+// iteration rather than for fit (REACH_RANKS: 16 blocks, the most a cluster
+// takes, non-portable above 8).  The long build above runs such a reach on
+// one SM of 132, up to eight nodes a thread with its state in device memory;
+// the cluster build fits a batch's member to the fewest blocks that hold it,
+// one thread a node, with a cluster barrier after every step.  This build:
+//
+//  * lays the nodes out cyclically: rank q of C (a power of two) holds the
+//    nodes q, q + C, q + 2C, ... (node i at index i / C of rank i % C), rn =
+//    32 ceil(N / 32 C) a rank.  A PCR sweep of stride s >= C then finds both
+//    partners (i -/+ s, index -/+ s / C) in its own rank and ends on a block
+//    barrier with no DSMEM read; only the first log2 C sweeps, whose partners
+//    lie in other ranks, end on a cluster barrier (4 of 12 at N = 2409 and C
+//    = 16).  The assembly reads node i+1's closures and previous state, and
+//    writes its cell row, in rank (q + 1) % C through DSMEM;
+//  * forms the closures on LN = LANES = 2 threads a node, the latency
+//    build's closures_lanes (trapezoid geometry; on tables the lead lane
+//    forms section_state), 2 rn threads a rank, the assembly, the sweeps and
+//    the update one thread a node on the first rn — up to 256 nodes a rank
+//    (N <= 4096), under a launch bound of 512 threads (128 registers).  At
+//    N > 4096 (512 nodes a rank) LN = 1: one thread a node for every phase,
+//    section_state as the long build forms it, 512 threads (1024 threads
+//    would leave 64 registers, and closures_lanes spilled 1.8 KB there);
+//  * sweeps with the carried inverse, each node's own rows in registers
+//    (pcr::sweep_node_at_carried: 14 components a buffer, the inverse in D's
+//    place), and the storage and boundary rows read the section the closures
+//    kept (what the long build forms again: the same bits);
+//  * keeps the long build's norm association: each node's squared residuals
+//    are published (sqn), and during the first sweep the threads that have no
+//    node in the sweeps (LN = 2; at LN = 1 every thread, after its sweep)
+//    form the long build's 32 warp partials (its thread g adds the nodes g,
+//    g + 1024, ... in order, then the warp's shuffle tree); one thread adds
+//    the 32 partials in order after that sweep's barrier, ready for the loop
+//    test after the last.
+//
+// So every field has the long build's bits (and, forced at N <= 964, the
+// register build's).  37 doubles a node (296 B); one cluster a simulation (a
+// forced batch: a grid of one cluster a member).
+constexpr int REACH_RANKS = 16;
+constexpr int REACH_BLOCK = 512;            // the launch bound: 128 registers
+constexpr int REACH_MAX_RANK_NODES = 512;   // one thread a node
+constexpr int REACH_DOUBLES_PER_NODE = 2 * COMP + 2 + L_COUNT + 1;
+static_assert(LONG_MAX_N <= REACH_RANKS * REACH_MAX_RANK_NODES, "every long reach fits the reach build");
+
+// The reach build: the register build's signature.  LN: the closures' lanes
+// a node (2: closures_lanes; 1: section_state), blockDim.x = LN rn.  PROBE:
+// its probe build (trapezoid geometry without storage; thread 0 of rank 0:
+// the closures' barrier ends the previous level's state with them).
+template <bool STORAGE, bool TABLE, bool PROBE, int LN>
+__global__ void __launch_bounds__(REACH_BLOCK, 1)
+fused_reach_kernel(const double* __restrict__ geo_all, const double* __restrict__ h0_all,
+                   const double* __restrict__ Q0_all, const double* __restrict__ us_all,
+                   const double* __restrict__ ds_all, const double* __restrict__ par_all,
+                   const double* __restrict__ qlat_all, double* __restrict__ depth_all,
+                   double* __restrict__ flow_all, int* __restrict__ iters_all, double* __restrict__ err_all,
+                   int* __restrict__ conv_all, double* __restrict__ gate_all, double* stage_all,
+                   const double* __restrict__ stor_all, const double* __restrict__ stab_all,
+                   long long stab_stride, int n, int nt, int max_iter, int sweeps,
+                   int us_kind, int ds_kind, int rc_kind, int us_rc_kind,
+                   int store_boundaries, int qlat_mode,
+                   int us_sflags, int ds_sflags, int us_nv, int us_na, int ds_nv, int ds_na,
+                   int us_nr, int ds_nr,
+                   const double* __restrict__ tab_shared, const double* __restrict__ tab_k,
+                   const double* __restrict__ tab_neq, const double* __restrict__ tab_dk, int tab_m,
+                   long long* __restrict__ probe_out, double* scratch_all, int n_sims) {
+    extern __shared__ double smem[];
+    __shared__ double warp_part[2][32];
+    __shared__ double err_part[2];
+
+    cg::cluster_group cluster = cg::this_cluster();
+    const int q = (int)cluster.block_rank(), C = (int)cluster.num_blocks();
+    const int lg = __ffs(C) - 1;           // C = 2^lg
+    const int rn = blockDim.x / LN;        // nodes a rank, a multiple of 32
+    const int t0 = threadIdx.x;
+    // the node of the assembly, the norm, the sweeps and the update (t0 < rn)
+    const bool rows = t0 < rn;
+    const int i = (t0 << lg) + q;
+    const bool node = rows && i < n;
+    const bool cell = rows && i < n - 1;
+    const bool first = rows && i == 0;
+    const bool last = rows && i == n - 1;
+    // the closures' node (index ci of this rank, LN lanes each; a padding
+    // node computes as node N-1 and stores nothing)
+    const int ci = t0 / LN, lane = t0 % LN;
+    const int gi = (ci << lg) + q;
+    const bool clead = gi < n && lane == 0;
+
+    double* buf0 = smem;                         // the system / sweep ping, [COMP][rn]
+    double* buf1 = buf0 + (size_t)COMP * rn;     // closures / sweep pong
+    double* sh = buf1 + (size_t)COMP * rn;       // depth per node
+    double* sQ = sh + rn;                        // discharge per node
+    double* prev = sQ + rn;                      // [L_COUNT][rn]
+    double* sqn = prev + (size_t)L_COUNT * rn;   // a node's squared residuals
+    // the threads that form the norm's partials: those with no node in the
+    // sweeps (LN = 2), else every thread
+    const int g0 = LN > 1 ? rn : 0;
+    // node m's element of the array at `base` (component c at [c * rn]), in
+    // whichever rank holds it
+    auto at = [&](double* base, int m) -> double* {
+        const int r = m & (C - 1), x = m >> lg;
+        return r == q ? base + x : cluster.map_shared_rank(base + x, r);
+    };
+
+    const size_t sim = blockIdx.x / C;
+    const double* geo = geo_all + sim * (size_t)(TABLE ? (int)TG_ROWS : (int)G_ROWS) * n;
+    const double* us_series = us_all + sim * (size_t)nt;
+    const double* ds_series = ds_all + sim * (size_t)nt;
+    const double* par = par_all + sim * (size_t)P_COUNT;
+    const int width = store_boundaries ? 2 : n;
+    double* depth = depth_all + sim * (size_t)nt * width;
+    double* flow = flow_all + sim * (size_t)nt * width;
+    const double* qlat = qlat_mode == QLAT_NONE ? nullptr
+        : qlat_all + sim * (size_t)(qlat_mode == QLAT_LEVELS ? nt : 1) * n;
+    int* iters = iters_all + sim * (size_t)nt;
+    double* errs = err_all + sim * (size_t)nt;
+    int* conv = conv_all + sim * (size_t)nt;
+    double* gate = gate_all + sim * (size_t)nt;
+    double* stage = stage_all + sim * (size_t)nt * 2;
+    const bool us_stor = STORAGE && (us_kind == BC_FIXED) && (us_sflags & ST_ON);
+    const bool ds_stor = STORAGE && (ds_kind == BC_FIXED) && (ds_sflags & ST_ON);
+
+    const double theta = par[P_THETA], dt = par[P_DT], dx = par[P_DX], tol = par[P_TOL];
+    Bc us_bc{par[P_US_BED_LEVEL], par[P_US_BED_SLOPE], par[P_US_INIT_DEPTH], us_kind};
+    Bc ds_bc{par[P_DS_BED_LEVEL], par[P_DS_BED_SLOPE], par[P_DS_INIT_DEPTH], ds_kind};
+    Rating rat{par[P_RC_LOW0], par[P_RC_LOW1], par[P_RC_LOW2],
+               par[P_RC_HIGH0], par[P_RC_HIGH1], par[P_RC_HIGH2],
+               par[P_RC_SHIFT], par[P_RC_PIVOT], par[P_RC_BUFFER], par[P_RC_FD],
+               par[P_RC_COOLDOWN], rc_kind};
+    const bool gated = (ds_kind == BC_RATING) && (rc_kind == RC_GATED);
+
+    // the closures' node's geometry, held for the run, and the cell's bed slope
+    constexpr bool ONE_LANE = TABLE || LN == 1;   // section_state on the lead lane
+    const int cc = gi < n ? gi : n - 1;
+    typename std::conditional<TABLE, TabGeo, typename std::conditional<LN == 1, Geo, GeoL>::type>::type g;
+    if constexpr (ONE_LANE) g = node_geo<TABLE>(geo, n, cc, sim, tab_shared, tab_k, tab_neq, tab_dk, tab_m);
+    else g = geo_terms(geo, n, cc);
+    const double gz = cell ? (geo[G_ZBED * n + i + 1] - geo[G_ZBED * n + i]) / dx : 0.0;
+    const double cbrt1 = cbrt_polished(1.0);
+    const double icbrt1 = 1.0 / cbrt1;
+    // node ci's closures at (h, Q), every lane of the node calling
+    auto closures = [&](double h, double Q) {
+        ClosL c{};
+        if constexpr (ONE_LANE) {
+            if (clead) {
+                const Sec s = section_state(g, h);
+                const Slope e = energy_slope(g, s, h, Q);
+                c.A = s.A; c.T = s.dA_dh; c.K = s.K; c.dK_dA = s.dK_dA;
+                c.Se = e.Se; c.dSe_dA = e.dSe_dA; c.dSe_dQ = e.dSe_dQ;
+                c.QA = Q / s.A; c.Q2A = Q * Q / s.A;
+                c.R = s.R; c.n_eq = s.n_eq; c.dR_dA = s.dR_dA;
+            }
+        } else {
+            c = closures_lanes(g, h, Q, lane, cbrt1, icbrt1);
+        }
+        return c;
+    };
+
+    if (rows) {
+        sh[t0] = node ? h0_all[sim * (size_t)n + i] : 0.0;
+        sQ[t0] = node ? Q0_all[sim * (size_t)n + i] : 0.0;
+    }
+#define STORE_LEVEL(k)                                                                     \
+    if (store_boundaries) {                                                                \
+        if (first) { depth[(size_t)(k) * 2] = sh[t0]; flow[(size_t)(k) * 2] = sQ[t0]; }     \
+        if (last) { depth[(size_t)(k) * 2 + 1] = sh[t0]; flow[(size_t)(k) * 2 + 1] = sQ[t0]; } \
+    } else if (node) {                                                                     \
+        depth[(size_t)(k) * n + i] = sh[t0];                                               \
+        flow[(size_t)(k) * n + i] = sQ[t0];                                                \
+    }
+    STORE_LEVEL(0)
+    GateCtl gc{par[P_GATE_INIT]};
+    if (first) { iters[0] = 0; errs[0] = 0.0; conv[0] = 1; gate[0] = gc.open; }
+    Probe<PROBE> probe;
+    probe.start();
+    cluster.sync();
+    probe.mark(PH_LEVEL);
+    double gate_stage = ds_bc.bed_level + *at(sh, n - 1);
+
+    for (int k = 1; k < nt; ++k) {
+        if (gated) gc.step(rat, k, dt, gate_stage);
+
+        // -- previous-level state of node ci, and the cell's lateral inflow
+        //    of node i (published by the closures' barrier)
+        {
+            const double hp = sh[ci], Qp = sQ[ci];
+            const ClosL cp = closures(hp, Qp);
+            if (clead) {
+                prev[L_H * rn + ci] = hp;    prev[L_Q * rn + ci] = Qp;
+                prev[L_A * rn + ci] = cp.A;  prev[L_SE * rn + ci] = cp.Se;
+                prev[L_Q2A * rn + ci] = cp.Q2A;
+            }
+        }
+        if (cell && qlat_mode != QLAT_NONE) {
+            const double* qc = qlat_mode == QLAT_LEVELS ? qlat + (size_t)k * n : qlat;
+            const double* qp = qlat_mode == QLAT_LEVELS ? qlat + (size_t)(k - 1) * n : qlat;
+            prev[L_QAVG * rn + t0] = 0.5 * theta * (qc[i + 1] + qc[i]) + 0.5 * (1.0 - theta) * (qp[i + 1] + qp[i]);
+        }
+        const double us_target = us_series[k], ds_target = ds_series[k];
+
+        double err = CUDART_INF;
+        int it = 0;
+        while (err >= tol && it < max_iter) {
+            {
+                const ClosL c = closures(sh[ci], sQ[ci]);
+                if (clead) {
+                    buf1[0 * rn + ci] = c.A;      buf1[1 * rn + ci] = c.Q2A;
+                    buf1[2 * rn + ci] = c.Se;     buf1[3 * rn + ci] = c.T;
+                    buf1[4 * rn + ci] = c.dSe_dA; buf1[5 * rn + ci] = c.dSe_dQ;
+                    buf1[6 * rn + ci] = c.QA;
+                    if (gi == 0 || gi == n - 1) {   // what the boundary and storage rows read of the section
+                        buf1[7 * rn + ci] = c.R;      buf1[8 * rn + ci] = c.n_eq;
+                        buf1[9 * rn + ci] = c.dR_dA;  buf1[10 * rn + ci] = c.K;
+                        buf1[11 * rn + ci] = c.dK_dA;
+                    }
+                }
+            }
+            cluster.sync();
+            probe.mark(PH_CLOSURES);
+
+            double sq = 0.0;
+            if (node) {
+                const double h = sh[t0], Q = sQ[t0];
+                double sq_i = 0.0;
+                buf0[2 * rn + t0] = 0.0; buf0[3 * rn + t0] = 0.0;
+                buf0[8 * rn + t0] = 0.0; buf0[9 * rn + t0] = 0.0;
+                auto prev_of = [&](const double* p) {
+                    return NodePrev{p[L_H * rn], p[L_Q * rn], p[L_A * rn], p[L_SE * rn], p[L_Q2A * rn]};
+                };
+                if (cell) {
+                    const int j = i + 1;
+                    auto it_of = [&](const double* c, double hm, double Qm) {
+                        return NodeIt{hm, Qm, c[0 * rn], c[1 * rn], c[2 * rn], c[3 * rn], c[4 * rn], c[5 * rn],
+                                      c[6 * rn]};
+                    };
+                    sq_i = cell_rows<true>(buf0, rn, t0, theta, dt, dx, it_of(buf1 + t0, h, Q),
+                                           it_of(at(buf1, j), *at(sh, j), *at(sQ, j)), prev_of(prev + t0),
+                                           prev_of(at(prev, j)), gz, qlat_mode != QLAT_NONE,
+                                           prev[L_QAVG * rn + t0], at(buf0, j));
+                }
+                if (first || last) {
+                    // the boundary node's section at this iterate, kept by the
+                    // closures (the long build forms it again: the same bits)
+                    Sec s{};
+                    s.A = buf1[0 * rn + t0];   s.T = buf1[3 * rn + t0];   s.dA_dh = s.T;
+                    s.R = buf1[7 * rn + t0];   s.n_eq = buf1[8 * rn + t0];
+                    s.dR_dA = buf1[9 * rn + t0];
+                    s.K = buf1[10 * rn + t0];  s.dK_dA = buf1[11 * rn + t0];
+                    const double hp = prev[L_H * rn + t0], Qp = prev[L_Q * rn + t0];
+                    double res, df_dh, df_dQ;
+                    if (first) {   // upstream row: D row 0 of node 0
+                        Rating us_rat{};
+                        if (us_kind == BC_RATING)
+                            us_rat = Rating{par[P_URC_LOW0], par[P_URC_LOW1], par[P_URC_LOW2],
+                                            par[P_URC_HIGH0], par[P_URC_HIGH1], par[P_URC_HIGH2],
+                                            par[P_URC_SHIFT], par[P_URC_PIVOT], par[P_URC_BUFFER],
+                                            par[P_URC_FD], 0.0, us_rc_kind};
+                        buf0[0 * rn + t0] = 0.0;   buf0[1 * rn + t0] = 0.0;
+                        if (us_stor) {
+                            const double Y_old = k == 1 ? hp + us_bc.bed_level : stage[(size_t)(k - 1) * 2 + 1];
+                            res = storage_row(stor_all + sim * (size_t)(2 * SP_COUNT),
+                                              stab_all + sim * (size_t)stab_stride, us_sflags, us_nv, us_na, us_nr,
+                                              -1.0, us_bc.bed_level, dt, Qp, Y_old, s.A, s.R, s.n_eq, s.dR_dA,
+                                              s.dA_dh, h, Q, &buf0[4 * rn + t0], &buf0[5 * rn + t0],
+                                              &buf0[12 * rn + t0], &stage[(size_t)k * 2 + 1]);
+                            if (!ds_stor) stage[(size_t)k * 2] = stage[(size_t)k * 2 + 1];
+                        } else {
+                            boundary_row(us_bc, us_rat, s, h, Q, us_target, gc.open, res, df_dh, df_dQ);
+                            buf0[4 * rn + t0] = df_dh; buf0[5 * rn + t0] = df_dQ;
+                            buf0[12 * rn + t0] = -res;
+                        }
+                        sq_i += res * res;
+                    }
+                    if (last) {   // downstream row: D row 1 of node N-1
+                        buf0[10 * rn + t0] = 0.0;   buf0[11 * rn + t0] = 0.0;
+                        if (ds_stor) {
+                            const double Y_old = k == 1 ? h + ds_bc.bed_level : stage[(size_t)(k - 1) * 2];
+                            res = storage_row(stor_all + sim * (size_t)(2 * SP_COUNT) + SP_COUNT,
+                                              stab_all + sim * (size_t)stab_stride + 2 * (us_nv + us_na) + us_nr,
+                                              ds_sflags, ds_nv, ds_na, ds_nr, 1.0, ds_bc.bed_level, dt, Qp, Y_old,
+                                              s.A, s.R, s.n_eq, s.dR_dA, s.dA_dh, h, Q, &buf0[6 * rn + t0],
+                                              &buf0[7 * rn + t0], &buf0[13 * rn + t0], &stage[(size_t)k * 2]);
+                        } else {
+                            boundary_row(ds_bc, rat, s, h, Q, ds_target, gc.open, res, df_dh, df_dQ);
+                            buf0[6 * rn + t0] = df_dh;  buf0[7 * rn + t0] = df_dQ;
+                            buf0[13 * rn + t0] = -res;
+                        }
+                        sq_i += res * res;
+                    }
+                }
+                sq += sq_i;
+            }
+            if (rows) sqn[t0] = sq;
+            cluster.sync();   // publishes the system and sqn
+            probe.mark(PH_ASSEMBLY);
+
+            // the node's own rows, and its inverse of D, in registers from
+            // sweep to sweep
+            double o[COMP + 4];
+#pragma unroll
+            for (int c = 0; c < COMP; ++c) o[c] = node ? buf0[c * rn + t0] : 0.0;
+            double* src = buf0;
+            double* dst = buf1;
+            int stride = 1;
+            for (int sw = 0; sw < sweeps; ++sw, stride *= 2) {
+                if (node) {
+                    const bool vm = i - stride >= 0, vp = i + stride < n;
+                    const double* pm = vm ? at(src, i - stride) : src;
+                    const double* pp = vp ? at(src, i + stride) : src;
+                    if (sw == 0) pcr::sweep_node_at_carried<1, false>(o, pm, pp, dst + t0, rn, vm, vp);
+                    else pcr::sweep_node_at_carried<1, true>(o, pm, pp, dst + t0, rn, vm, vp);
+                }
+                if (sw == 0 && t0 >= g0) {
+                    // the long build's partial of its warp w (threads 32 w ..
+                    // 32 w + 31): lane l adds the nodes 32 w + l, + LONG_BLOCK,
+                    // ... in order, then the shuffle tree; warp w's partial is
+                    // kept by rank w % C at w / C
+                    const int l = t0 & 31, nw = ((int)blockDim.x - g0) >> 5;
+                    for (int w = (((t0 - g0) >> 5) << lg) + q; w < 32 && 32 * w < n; w += nw << lg) {
+                        double v = 0.0;
+                        for (int m = 32 * w + l; m < n; m += LONG_BLOCK) v += *at(sqn, m);
+#pragma unroll
+                        for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+                        if (l == 0) warp_part[it & 1][w >> lg] = v;
+                    }
+                }
+                // partners in other ranks below stride C; in this rank from there on
+                if (stride < C) cluster.sync();
+                else __syncthreads();
+                probe.mark(PH_SWEEPS);
+                if (sw == 0 && t0 == (int)blockDim.x - 1) {   // block_sum's sum of the long build's warps, in order
+                    double total = 0.0;
+                    for (int w = 0; w < 32 && 32 * w < n; ++w)
+                        total += *cluster.map_shared_rank(&warp_part[it & 1][w >> lg], w & (C - 1));
+                    err_part[it & 1] = total;
+                }
+                double* t = src; src = dst; dst = t;
+            }
+            if (sweeps < 2) __syncthreads();
+            err = sqrt(err_part[it & 1]);   // published by a later sweep's barrier
+            if (node) {   // backsolve_node on the rows in registers
+                sh[t0] = sh[t0] + (o[COMP + 0] * o[12] + o[COMP + 1] * o[13]);
+                sQ[t0] = sQ[t0] + (o[COMP + 2] * o[12] + o[COMP + 3] * o[13]);
+            }
+            ++it;
+            if constexpr (LN > 1) __syncthreads();   // the closures' lanes read the update
+            probe.mark(PH_BACKSOLVE);
+        }
+
+        cluster.sync();   // every rank's update done: node N-1 is read below
+        probe.mark(PH_LEVEL);
+        STORE_LEVEL(k)
+        gate_stage = ds_bc.bed_level + *at(sh, n - 1);
+        if (first) {
+            iters[k] = it;
+            errs[k] = err;
+            conv[k] = err < tol ? 1 : 0;
+            gate[k] = gc.open;
+        }
+    }
+    // no rank exits while another reads its shared memory
+    cluster.sync();
+    probe.write(probe_out);
+#undef STORE_LEVEL
+}
+
 // Every build has one signature: a build is a kernel pointer, its block, its
 // dynamic shared memory and (the cluster build) the blocks of its cluster.
 using KernelFn = decltype(&fused_simulate_kernel<128, false, 1, false, false>);
@@ -1927,9 +2265,10 @@ struct Build { KernelFn fn; int threads; size_t smem; int cluster = 1; };
 // LONG_BUILD: every N up to LONG_MAX_N, with a scratch in device memory a
 // simulation; BRACKET_BUILD: N <= 128 without storage, table geometry;
 // CLUSTER_BUILD: every N up to LONG_MAX_N, one simulation over a
-// thread-block cluster, on a persistent grid of clusters.
+// thread-block cluster, on a persistent grid of clusters; REACH_BUILD: every
+// N up to LONG_MAX_N, one simulation over a cluster of REACH_RANKS blocks.
 enum { REGISTER_BUILD = 0, RESIDENCY_BUILD = 1, LATENCY_BUILD = 2, LONG_BUILD = 3, BRACKET_BUILD = 4,
-       CLUSTER_BUILD = 5 };
+       CLUSTER_BUILD = 5, REACH_BUILD = 6 };
 
 int threads_for(int n) { return ((n + 31) / 32) * 32; }
 size_t smem_for(int n) { return (size_t)SMEM_DOUBLES_PER_NODE * n * sizeof(double); }
@@ -1958,6 +2297,27 @@ KernelFn cluster_build(bool storage, bool table) {
     return storage ? &fused_cluster_kernel<true, false, false> : &fused_cluster_kernel<false, false, false>;
 }
 
+template <int LN>
+KernelFn reach_build(bool storage, bool table) {
+    if (table) return storage ? &fused_reach_kernel<true, true, false, LN> : &fused_reach_kernel<false, true, false, LN>;
+    return storage ? &fused_reach_kernel<true, false, false, LN> : &fused_reach_kernel<false, false, false, LN>;
+}
+
+// The reach build's kernel of `lanes` closure lanes a node; its probe
+// build: trapezoid geometry without storage.
+KernelFn reach_kernel(bool storage, bool table, bool probe, int lanes) {
+    if (probe) return lanes == 2 ? &fused_reach_kernel<false, false, true, 2> : &fused_reach_kernel<false, false, true, 1>;
+    return lanes == 2 ? reach_build<2>(storage, table) : reach_build<1>(storage, table);
+}
+
+// The reach build's closure lanes a node at N nodes (REACH_RANKS blocks):
+// LANES while LANES rank_nodes threads fit its 512-thread launch bound
+// (N <= 4096), else one.  Measured on an H100 (PERF.md §6): 16 blocks beat
+// 8 and 4 at every N, two lanes beat one up to 4096 nodes.
+int reach_lanes(int n) {
+    return LANES * rank_nodes(n, REACH_RANKS) <= REACH_BLOCK ? LANES : 1;
+}
+
 // the blocks of the cluster build's cluster at N nodes: the fewest (at least
 // 2) at which a rank holds at most CLUSTER_BLOCK nodes
 int cluster_blocks_for(int n) {
@@ -1977,8 +2337,18 @@ int cluster_blocks_for(int n) {
 // dynamic shared memory, every shape, no probe build.  CLUSTER_BUILD: its
 // cluster (cluster_blocks_for), rank_nodes threads and CLUSTER_DOUBLES_PER_NODE
 // doubles of shared memory a rank node, every shape; a probe build of
-// trapezoid geometry without storage.
+// trapezoid geometry without storage.  REACH_BUILD: its cluster
+// (REACH_RANKS blocks), reach_lanes * rank_nodes threads and
+// REACH_DOUBLES_PER_NODE doubles of shared memory a rank node, every shape;
+// a probe build of trapezoid geometry without storage.
 int pick_build(int n, bool storage, bool table, int build, bool probe, Build* out) {
+    if (build == REACH_BUILD) {
+        const int rn = rank_nodes(n, REACH_RANKS), ln = reach_lanes(n);
+        if (probe && (storage || table)) return (int)cudaErrorInvalidValue;
+        *out = Build{reach_kernel(storage, table, probe, ln), ln * rn,
+                     (size_t)REACH_DOUBLES_PER_NODE * rn * sizeof(double), REACH_RANKS};
+        return 0;
+    }
     if (build == LONG_BUILD) {
         if (probe) return (int)cudaErrorInvalidValue;
         *out = Build{long_build(storage, table), LONG_BLOCK, 0};
@@ -2070,23 +2440,24 @@ int active_clusters(const Build& b, int* clusters) {
 
 // The grid of a launch of n_sims simulations: a block a simulation (the
 // long build's each with its own scratch); the cluster build the blocks of
-// as many clusters as the card holds at once, at most one a simulation
-// (cudaErrorLaunchOutOfResources when it holds none).
+// as many clusters as the card holds at once, at most one a simulation; the
+// reach build a cluster a simulation (both: cudaErrorLaunchOutOfResources
+// when the card holds no cluster).
 int grid_of(const Build& b, int build, int n_sims, int* grid) {
     *grid = n_sims;
     int rc, clusters;
-    if (build == CLUSTER_BUILD) {
+    if (build == CLUSTER_BUILD || build == REACH_BUILD) {
         if ((rc = active_clusters(b, &clusters))) return rc;
         if (clusters < 1) return (int)cudaErrorLaunchOutOfResources;
-        *grid = (clusters < n_sims ? clusters : n_sims) * b.cluster;
+        *grid = (build == REACH_BUILD || n_sims < clusters ? n_sims : clusters) * b.cluster;
     }
     return 0;
 }
 
 // The build a launch of n_sims simulations takes (fused_newton.chosen_build
 // asks it through flowsim_fused_chosen_build): at N > REGISTER_MAX_N the
-// long build for one simulation and the cluster build for a batch (a card
-// that cannot hold one of its clusters refuses the launch: grid_of); at N <= 128 without storage the latency
+// reach build for one simulation and the cluster build for a batch (a card
+// that cannot hold one of their clusters refuses the launch: grid_of); at N <= 128 without storage the latency
 // build while the batch fits the card in one wave of it, then the register
 // build while it fits in one wave of that, then the residency build where it
 // holds more members; every other shape the register build.  Table geometry
@@ -2097,7 +2468,7 @@ int choose_build_id(int n_sims, int n, bool storage, bool table, int* build) {
     int dev, sms, lat_bps, reg_bps, res_bps, rc;
     Build b;
     if (n > REGISTER_MAX_N) {
-        *build = n_sims == 1 ? LONG_BUILD : CLUSTER_BUILD;
+        *build = n_sims == 1 ? REACH_BUILD : CLUSTER_BUILD;
         return 0;
     }
     if (n > LATENCY_MAX_N || storage) return 0;
@@ -2143,6 +2514,11 @@ extern "C" int flowsim_fused_bracket_bytes_per_node() {
 extern "C" int flowsim_fused_cluster_block() { return CLUSTER_BLOCK; }
 extern "C" int flowsim_fused_cluster_bytes_per_node() { return CLUSTER_DOUBLES_PER_NODE * (int)sizeof(double); }
 extern "C" int flowsim_fused_max_cluster() { return MAX_LONG_CLUSTER; }
+extern "C" int flowsim_fused_reach_bytes_per_node() { return REACH_DOUBLES_PER_NODE * (int)sizeof(double); }
+extern "C" int flowsim_fused_reach_ranks() { return REACH_RANKS; }
+// The closures' lanes a node of the reach build at N nodes (the rule's one
+// home: fused_newton.reach_lanes asks it); 0 outside 2 <= N <= LONG_MAX_N.
+extern "C" int flowsim_fused_reach_lanes(int n) { return n > 1 && n <= LONG_MAX_N ? reach_lanes(n) : 0; }
 
 #define FLOWSIM_SIM_PARAMS const void* geo, const void* h0, const void* Q0, const void* us, const void* ds, \
         const void* par, const void* qlat, void* depth, void* flow, void* iters, void* err, void* conv, \
@@ -2211,7 +2587,7 @@ int launch(int build, bool probe, long long* probe_out, FLOWSIM_SIM_PARAMS, void
 // tab_dk [n_sims, N, M] (K, n_eq, dK/dA).  scratch: [n_sims,
 // LONG_DOUBLES_PER_NODE, N] doubles for the long build (null otherwise).
 // build: -1 chooses by the shape, the geometry and the member count
-// (choose_build_id: what the wrappers do); 0-5 forces a build, so that chip_smoke.py can time the builds against each
+// (choose_build_id: what the wrappers do); 0-6 forces a build, so that chip_smoke.py can time the builds against each
 // other and hold them to one another's bits.
 extern "C" int flowsim_fused_simulate(FLOWSIM_SIM_PARAMS, int build, void* stream) {
     return launch(build, false, nullptr, FLOWSIM_SIM_ARGS, stream);
@@ -2220,7 +2596,7 @@ extern "C" int flowsim_fused_simulate(FLOWSIM_SIM_PARAMS, int build, void* strea
 // The probe build of the register or the latency build (trapezoid geometry)
 // or of the residency or the bracket build (table geometry) at N <= 128
 // without storage (build -1: the one the C entry chooses), or of the cluster
-// build (trapezoid geometry without storage, any N): the same launch, and
+// or the reach build (trapezoid geometry without storage, any N): the same launch, and
 // the cycles of each phase of thread 0 of block 0 summed over the run into
 // probe [PH_COUNT] (device memory); clock_khz receives the SM clock rate the
 // cycles count at.
@@ -2262,7 +2638,7 @@ extern "C" int flowsim_fused_plan(int n_sims, int n, int storage, int table, int
         return (int)cudaErrorInvalidValue;
     Build b;
     *out_build = build;
-    *cluster = build == CLUSTER_BUILD ? cluster_blocks_for(n) : 1;
+    *cluster = build == CLUSTER_BUILD ? cluster_blocks_for(n) : build == REACH_BUILD ? REACH_RANKS : 1;
     const int rc = plan_launch(n_sims, n, storage != 0, table != 0, probe != 0, out_build, &b, grid);
     if (!rc) *cluster = b.cluster;
     return rc;

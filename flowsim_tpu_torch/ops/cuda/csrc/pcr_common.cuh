@@ -348,32 +348,39 @@ __device__ __forceinline__ void sweep_node_carried(const double* __restrict__ sr
 }
 
 // sweep_node_carried with node i's own rows held by its thread across the
-// sweeps in o[0..13] (L, D, U, b as components 0-13) and its inverse of D in
-// o[14..17]: the partners are read from src as there, the node's new rows
-// replace o, and dst receives what the next sweep's partners read (L, U, b
-// and the inverse; not D, which only its own thread reads).  The same
-// arithmetic, operation for operation; a sweep reads 28 doubles of shared
-// memory a node and writes 14, where sweep_node_carried reads 42 and writes
-// 18 (the bracket build of fused_newton.cu, whose sweeps that traffic bounds
-// at four blocks an SM).  Before the first sweep the caller loads o[0..13]
-// from the assembled system.
-template <bool CARRIED>
-__device__ __forceinline__ void sweep_node_carried_own(const double* __restrict__ src, double* __restrict__ dst,
-                                                       int ld, int n, int s, int i, double* o) {
-    const int im = i - s, ip = i + s;
-    const bool vm = im >= 0, vp = ip < n;
-#define PCR_M(c, dflt) (vm ? src[(c) * ld + im] : (dflt))
-#define PCR_P(c, dflt) (vp ? src[(c) * ld + ip] : (dflt))
+// sweeps, over RHS right-hand-side pairs, with the partners given as
+// pointers to their component 0 (component c at [c * ld]; pm and pp read
+// only where vm and vp say they exist, and they may lie in another block's
+// shared memory).  o[0 .. 12 + 2 RHS) holds the node's own L, D, U and
+// right-hand sides, o[12 + 2 RHS + 0..3] its inv(D); the node's new rows
+// replace o, and dst receives what the next sweep's partners read: L, U,
+// the right-hand sides and the inverse in components INV..INV+3 (not D,
+// which only its own thread reads).  INV = 4, the inverse in D's place,
+// keeps a buffer at 12 + 2 RHS components (kernel 1's reach build and the
+// bracket build of fused_network.cu); INV = INV_COMP, beside D in an
+// 18-component buffer (kernel 3's bracket build, RHS = 1).  The first sweep
+// (CARRIED = false) reads the partners' D from the assembled system there
+// and inverts it; later sweeps read their inverse.  The same arithmetic,
+// operation for operation, as sweep_node; a sweep reads 12 + 2 RHS + 4
+// doubles of each partner, where sweep_node_carried also reads the node's
+// own.  Before the first sweep the caller loads o[0 .. 12 + 2 RHS) from the
+// assembled system.
+template <int RHS, bool CARRIED, int INV = 4>
+__device__ __forceinline__ void sweep_node_at_carried(double* o, const double* pm, const double* pp, double* dst,
+                                                      int ld, bool vm, bool vp) {
+#define PCR_M(c, dflt) (vm ? pm[(c) * ld] : (dflt))
+#define PCR_P(c, dflt) (vp ? pp[(c) * ld] : (dflt))
+    constexpr int V = 12 + 2 * RHS;   // o's inverse of D
     const double l00 = o[0], l01 = o[1], l10 = o[2], l11 = o[3];
     const double u00 = o[8], u01 = o[9], u10 = o[10], u11 = o[11];
     double mi00, mi01, mi10, mi11, pi00, pi01, pi10, pi11;
     if (CARRIED) {
         double e00, e01, e10, e11;
         inv2(1.0, 0.0, 0.0, 1.0, e00, e01, e10, e11);
-        mi00 = PCR_M(INV_COMP + 0, e00); mi01 = PCR_M(INV_COMP + 1, e01);
-        mi10 = PCR_M(INV_COMP + 2, e10); mi11 = PCR_M(INV_COMP + 3, e11);
-        pi00 = PCR_P(INV_COMP + 0, e00); pi01 = PCR_P(INV_COMP + 1, e01);
-        pi10 = PCR_P(INV_COMP + 2, e10); pi11 = PCR_P(INV_COMP + 3, e11);
+        mi00 = PCR_M(INV + 0, e00); mi01 = PCR_M(INV + 1, e01);
+        mi10 = PCR_M(INV + 2, e10); mi11 = PCR_M(INV + 3, e11);
+        pi00 = PCR_P(INV + 0, e00); pi01 = PCR_P(INV + 1, e01);
+        pi10 = PCR_P(INV + 2, e10); pi11 = PCR_P(INV + 3, e11);
     } else {
         inv2(PCR_M(4, 1.0), PCR_M(5, 0.0), PCR_M(6, 0.0), PCR_M(7, 1.0), mi00, mi01, mi10, mi11);
         inv2(PCR_P(4, 1.0), PCR_P(5, 0.0), PCR_P(6, 0.0), PCR_P(7, 1.0), pi00, pi01, pi10, pi11);
@@ -409,23 +416,30 @@ __device__ __forceinline__ void sweep_node_carried_own(const double* __restrict_
     const double d11 = (o[7] + (a10 * m01 + a11 * m11)) + (c10 * p01 + c11 * p11);
     double i00, i01, i10, i11;
     inv2(d00, d01, d10, d11, i00, i01, i10, i11);
-    const double mb0 = PCR_M(12, 0.0), mb1 = PCR_M(13, 0.0);
-    const double pb0 = PCR_P(12, 0.0), pb1 = PCR_P(13, 0.0);
-    const double b0 = (o[12] + (a00 * mb0 + a01 * mb1)) + (c00 * pb0 + c01 * pb1);
-    const double b1 = (o[13] + (a10 * mb0 + a11 * mb1)) + (c10 * pb0 + c11 * pb1);
+    double nb[2 * RHS];
+#pragma unroll
+    for (int r = 0; r < RHS; ++r) {
+        const int c0 = 12 + 2 * r, c1 = c0 + 1;
+        const double mb0 = PCR_M(c0, 0.0), mb1 = PCR_M(c1, 0.0);
+        const double pb0 = PCR_P(c0, 0.0), pb1 = PCR_P(c1, 0.0);
+        nb[2 * r] = (o[c0] + (a00 * mb0 + a01 * mb1)) + (c00 * pb0 + c01 * pb1);
+        nb[2 * r + 1] = (o[c1] + (a10 * mb0 + a11 * mb1)) + (c10 * pb0 + c11 * pb1);
+    }
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
         o[c] = nl[c];
         o[8 + c] = nu[c];
-        dst[c * ld + i] = nl[c];
-        dst[(8 + c) * ld + i] = nu[c];
+        dst[c * ld] = nl[c];
+        dst[(8 + c) * ld] = nu[c];
     }
     o[4] = d00; o[5] = d01; o[6] = d10; o[7] = d11;
-    o[INV_COMP + 0] = i00; o[INV_COMP + 1] = i01; o[INV_COMP + 2] = i10; o[INV_COMP + 3] = i11;
-    o[12] = b0; o[13] = b1;
-    dst[(INV_COMP + 0) * ld + i] = i00; dst[(INV_COMP + 1) * ld + i] = i01;
-    dst[(INV_COMP + 2) * ld + i] = i10; dst[(INV_COMP + 3) * ld + i] = i11;
-    dst[12 * ld + i] = b0; dst[13 * ld + i] = b1;
+    o[V + 0] = i00; o[V + 1] = i01; o[V + 2] = i10; o[V + 3] = i11;
+    dst[(INV + 0) * ld] = i00; dst[(INV + 1) * ld] = i01; dst[(INV + 2) * ld] = i10; dst[(INV + 3) * ld] = i11;
+#pragma unroll
+    for (int c = 0; c < 2 * RHS; ++c) {
+        o[12 + c] = nb[c];
+        dst[(12 + c) * ld] = nb[c];
+    }
 #undef PCR_M
 #undef PCR_P
 }

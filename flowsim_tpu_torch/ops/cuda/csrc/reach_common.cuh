@@ -257,6 +257,48 @@ __device__ Sec section_state(const TabGeo& g, double depth) {
     return s;
 }
 
+// A node's bracket cached in shared memory (the bracket builds: kernel 3's
+// in fused_newton.cu, kernel 6's table path in fused_network.cu): lo and hi
+// of each of the seven tables, [BK_COUNT][ld]
+enum { BK_A, BK_P = 2, BK_T = 4, BK_DR = 6, BK_K = 8, BK_NEQ = 10, BK_DK = 12, BK_COUNT = 14 };
+
+// section_state(const TabGeo&) with node i's bracket cached at cache[c * ld
+// + i] and its index at cidx[i] (-1: none yet): the same index (a NaN depth
+// gives 0), the same values, the same expressions.
+__device__ __forceinline__ Sec section_state_cached(const TabGeo& g, double depth, double* cache, int* cidx,
+                                                    int ld, int i) {
+    const double x = depth / g.dgrid;
+    const double jf = fmin(fmax(floor(x), 0.0), g.jmax);
+    const int j = (int)jf;
+    const double frac = x - jf;
+    if (j != cidx[i]) {
+        cidx[i] = j;
+        const double* rows[7] = {g.ts + TS_A * g.nm, g.ts + TS_P * g.nm, g.ts + TS_T * g.nm,
+                                 g.ts + TS_DR * g.nm, g.k, g.neq, g.dk};
+#pragma unroll
+        for (int t = 0; t < 7; ++t) {
+            cache[(2 * t) * ld + i] = rows[t][j];
+            cache[(2 * t + 1) * ld + i] = rows[t][j + 1];
+        }
+    }
+    auto lerp = [&](int c) {
+        const double lo = cache[c * ld + i];
+        return lo + frac * (cache[(c + 1) * ld + i] - lo);
+    };
+    const bool wet = depth > 0.0;
+    Sec s;
+    s.A = wet ? lerp(BK_A) : 0.0;
+    s.P = wet ? lerp(BK_P) : 0.0;
+    s.T = wet ? lerp(BK_T) : 0.0;
+    s.K = wet ? lerp(BK_K) : 0.0;
+    s.n_eq = lerp(BK_NEQ);
+    s.dK_dA = lerp(BK_DK);
+    s.dR_dA = lerp(BK_DR);
+    s.R = safe_div(s.A, s.P);
+    s.dA_dh = s.T;
+    return s;
+}
+
 // Geometry GEO: Geo (trapezoid) or TabGeo (tables); it reads the curvature alone
 template <class GEO>
 __device__ Slope energy_slope(const GEO& g, const Sec& s, double h, double Q) {

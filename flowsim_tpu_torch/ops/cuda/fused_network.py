@@ -58,7 +58,13 @@ network's size and the member count (every build gives the same bits):
   through distributed shared memory): one slot a thread of each rank up to
   4096 slots, the loop form over 16 blocks beyond.  It allocates no
   scratch.  Every field but the norm has the other builds' bits; the norm,
-  summed rank by rank, agrees to rounding.
+  summed rank by rank, agrees to rounding;
+* the **bracket build** (:data:`BRACKET_BUILD`, networks with table branches
+  only) where the residency build would run: the residency build's form
+  (two blocks an SM) with each table slot's bracket index and 14 bracket
+  values cached in shared memory (re-read from the tables only when the
+  depth leaves the bracket; :func:`bracket_smem_bytes`) and the sweeps with
+  the carried inverse, the slot's own rows in registers.  The same bits.
 
 A forced ``build_id`` (``_launch``, with ``cluster`` for the cluster build:
 its blocks, plus :data:`CLUSTER_PAIR` for the two-blocks-an-SM form) is a
@@ -93,7 +99,7 @@ MAX_THREADS = 256
 # the kernel's builds (csrc/fused_network.cu).  The C entry chooses by the
 # member count; a forced build id is a test hook for chip_smoke.py, which
 # times the builds against each other and holds them to the same bits.
-LOOP_BUILD, LATENCY_BUILD, RESIDENCY_BUILD, SCRATCH_BUILD, CLUSTER_BUILD = 0, 1, 2, 3, 4
+LOOP_BUILD, LATENCY_BUILD, RESIDENCY_BUILD, SCRATCH_BUILD, CLUSTER_BUILD, BRACKET_BUILD = 0, 1, 2, 3, 4, 5
 CHOOSE_BUILD = -1
 PROBE_PHASES = fn.PROBE_PHASES
 # dynamic shared memory a block may take: 227 KB less the static reduction
@@ -106,12 +112,17 @@ MAX_CLUSTER = 16
 CLUSTER_SMEM_LIMIT = 232448 - 528
 CLUSTER_PAIR = 256
 _BUILD_NAMES = {LOOP_BUILD: "loop build", LATENCY_BUILD: "latency build", RESIDENCY_BUILD: "residency build",
-                SCRATCH_BUILD: "scratch build", CLUSTER_BUILD: "cluster build"}
+                SCRATCH_BUILD: "scratch build", CLUSTER_BUILD: "cluster build", BRACKET_BUILD: "bracket build"}
 # what the C entry's refusals mean (cudaError_t)
 _REFUSALS = {1: "cudaErrorInvalidValue: the build does not take this network or form, or its block exceeds the "
                 "card's shared memory",
              701: "cudaErrorLaunchOutOfResources: the card cannot hold one cluster of this shape at once",
              912: f"cudaErrorInvalidClusterSize: a cluster has 2-{MAX_CLUSTER} blocks"}
+# the bracket build (networks with table branches): each slot's bracket
+# index and its 14 bracket values, an int and 14 doubles a slot, after the
+# junction block; its level-start state lies in the assembly buffer, so a
+# slot holds 6 doubles of state fewer than in the other builds
+BRACKET_BYTES_PER_SLOT = 14 * 8 + 4
 # the JAX kernel's junction limit (flowsim_tpu/ops/pallas/fused_network.py:1103):
 # the J x J Schur matrix stays in shared memory, about 121 KB at J = 120
 MAX_JUNCTIONS = 120
@@ -138,6 +149,7 @@ scratch_launch_count = 0
 batched_scratch_launch_count = 0
 cluster_launch_count = 0
 batched_cluster_launch_count = 0
+batched_bracket_launch_count = 0
 
 
 def smem_bytes(slots: int, n_branches: int, n_junctions: int, m_rhs: int) -> int:
@@ -145,6 +157,16 @@ def smem_bytes(slots: int, n_branches: int, n_junctions: int, m_rhs: int) -> int
     slot arrays (:func:`scratch_bytes` of one block); the J x J Schur matrix
     and six junction columns; four gate-state doubles per branch."""
     return scratch_bytes(1, slots, m_rhs) + 8 * (n_junctions * (n_junctions + 6) + 4 * n_branches)
+
+
+def bracket_smem_bytes(slots: int, n_branches: int, n_junctions: int, m_rhs: int) -> int:
+    """Dynamic shared memory of one block of the bracket build: per slot two
+    PCR buffers of 12 + 2 m_rhs doubles (the inverse of D carried in D's
+    place, so the other builds' size), h and Q (the level-start state lies
+    in the assembly buffer) and the bracket cache
+    (:data:`BRACKET_BYTES_PER_SLOT`); the junction block."""
+    return slots * (8 * (2 * (12 + 2 * m_rhs) + 2) + BRACKET_BYTES_PER_SLOT) \
+        + 8 * (n_junctions * (n_junctions + 6) + 4 * n_branches)
 
 
 def scratch_bytes(n_blocks: int, slots: int, m_rhs: int) -> int:
@@ -215,6 +237,11 @@ def _lib(table: bool = False):
         lib.flowsim_fused_network_smem_bytes.restype = ctypes.c_longlong
         lib.flowsim_fused_network_scratch_bytes.argtypes = [ctypes.c_int] * 2
         lib.flowsim_fused_network_scratch_bytes.restype = ctypes.c_longlong
+        lib.flowsim_fused_network_bracket_smem_bytes.argtypes = [ctypes.c_int] * 4
+        lib.flowsim_fused_network_bracket_smem_bytes.restype = ctypes.c_longlong
+        if any(lib.flowsim_fused_network_bracket_smem_bytes(*a) != bracket_smem_bytes(*a)
+               for a in ((183, 3, 1, 2), (195, 15, 7, 3))):
+            raise RuntimeError("the bracket build's shared memory in fused_network.cu and its wrapper differ")
         if lib.flowsim_fused_network_branch_ints() != _BI_COUNT \
                 or lib.flowsim_fused_network_junction_params() != _JP_COUNT \
                 or lib.flowsim_fused_network_probe_phases() != len(PROBE_PHASES) \
@@ -507,7 +534,7 @@ def _launch(p, M, B, J, settings, topo, build_id=CHOOSE_BUILD, probe=None, clust
     allocated here, counted with the outputs against the card's free memory;
     the cluster build allocates none.  ``probe``: ``None``, or an int64
     tensor ``[len(PROBE_PHASES)]`` on the device that the probe build of the
-    loop, latency, scratch or cluster build fills with cycles; the SM clock
+    loop, latency, scratch, cluster or bracket build fills with cycles; the SM clock
     in kHz is then returned after the outputs.  A refused launch raises
     :class:`RuntimeError` (:func:`launch_error`)."""
     nt, Nmax = settings.n_time_levels, topo.n_max
@@ -550,7 +577,8 @@ def chosen_build(n_members: int, slots: int, n_branches: int, n_junctions: int, 
     for more slots than threads; else the latency build, or the residency
     build for a batch larger than the card holds in the latency one);
     ``table``: a network with table branches, which chooses among the table
-    builds the same way."""
+    builds the same way, the bracket build where the residency build would
+    run."""
     out = ctypes.c_int(0)
     rc = _lib(table).flowsim_fused_network_chosen_build(n_members, slots, n_branches, n_junctions, m_rhs,
                                                         ctypes.byref(out))
@@ -676,7 +704,8 @@ def fused_simulate_network_probe(branches, n_junctions, settings, build_id=LATEN
     (:data:`LOOP_BUILD`), latency (:data:`LATENCY_BUILD`), scratch
     (:data:`SCRATCH_BUILD`) or cluster (:data:`CLUSTER_BUILD`, ``cluster``
     as :func:`_launch` takes it) build on CUDA tensors; the scratch and
-    cluster ones for trapezoid networks.  Returns ``(NetworkOutput, cycles,
+    cluster ones for trapezoid networks, the bracket build's
+    (:data:`BRACKET_BUILD`) for networks with table branches.  Returns ``(NetworkOutput, cycles,
     clock_khz)``: ``cycles`` maps each of :data:`PROBE_PHASES` to the SM
     cycles thread 0 (of the first cluster's rank 0) spent in it over the
     run, ``clock_khz`` is the clock rate they count at.  Its outputs are the
@@ -712,7 +741,8 @@ def fused_simulate_network_batched(branches, n_junctions, settings, batch, Y0=No
     and flow ``[M, nt, N_b]`` per branch).  Raises :class:`FusedUnsupported`
     outside the kernel's scope and ``MemoryError`` when the outputs (with the
     scratch build's scratch) would not fit the card.  CPU tensors take the plain version."""
-    global batched_launch_count, batched_scratch_launch_count, batched_cluster_launch_count
+    global batched_launch_count, batched_scratch_launch_count, batched_cluster_launch_count, \
+        batched_bracket_launch_count
     M = net.check_batch(branches, batch, settings)
     net._check_supported(branches, n_junctions, settings)
     net.check_junction_inputs(junction_area, junction_rating, n_junctions)
@@ -728,4 +758,5 @@ def fused_simulate_network_batched(branches, n_junctions, settings, batch, Y0=No
     batched_launch_count += 1
     batched_scratch_launch_count += build_id == SCRATCH_BUILD
     batched_cluster_launch_count += build_id == CLUSTER_BUILD
+    batched_bracket_launch_count += build_id == BRACKET_BUILD
     return _output(raw, topo, junction_rating)

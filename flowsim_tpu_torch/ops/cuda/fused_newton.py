@@ -24,10 +24,12 @@ stay in device memory (:func:`pack_tables`).
 
 Reaches of up to :data:`MAX_N` nodes keep their state in shared memory; from
 there to :data:`LONG_MAX_N` (the TPU kernel's limit) one simulation takes the
-long build, its state in a scratch of device memory that :func:`launch`
-allocates, and a batch the cluster build, one
-member over a thread-block cluster with its state in the blocks' shared
-memory (:func:`cluster_blocks`).  A lumped
+reach build, spread over a thread-block cluster of :data:`REACH_RANKS`
+blocks with its state in their shared memory, and a batch the cluster
+build, one member over the fewest blocks that hold it
+(:func:`cluster_blocks`).  Neither holds a scratch; the long build (its
+state in a scratch of device memory that :func:`launch` allocates) runs only
+where a test hook forces it.  A lumped
 storage's outflow rating may be of any kind but ``gated_blend``
 (:func:`pack_storage` packs poly_n coefficients and rating tables after the
 storage's own tables).
@@ -60,6 +62,13 @@ LONG_SCRATCH_BYTES_PER_NODE = (2 * 14 + 2 + 6) * 8
 CLUSTER_BLOCK = 768
 CLUSTER_BYTES_PER_NODE = LONG_SCRATCH_BYTES_PER_NODE + 8
 MAX_CLUSTER = 16
+# the reach build: the same 296 B a node (its PCR buffers carry the inverse
+# of D in D's place) over a cluster of REACH_RANKS blocks at every N, node i
+# on rank i % REACH_RANKS; at most REACH_MAX_RANK_NODES nodes a rank; its
+# closure lanes a node are the C entry's rule (reach_lanes)
+REACH_BYTES_PER_NODE = CLUSTER_BYTES_PER_NODE
+REACH_RANKS = 16
+REACH_MAX_RANK_NODES = 512
 # the bracket build's shared memory a node: two carried-inverse PCR buffers
 # of 18 components, h, Q, 5 doubles of the previous level, the 14 bracket
 # values and the bracket index
@@ -94,12 +103,14 @@ _STORAGE_RC_KINDS = ("polynomial", "blended_poly", "poly_n", "power", "table")
 # that holds it, then the residency build (four blocks an SM, not two); on
 # lookup tables the bracket build instead (each node's bracket cached in
 # shared memory, carried-inverse sweeps).  Above MAX_N one simulation takes
-# the long build (1024 threads, up to 8 nodes a thread, its state in device
-# memory) and a batch the cluster build.  A test hook forces a build at any
-# shape it takes; the C entry refuses it elsewhere (plan).
-REGISTER_BUILD, RESIDENCY_BUILD, LATENCY_BUILD, LONG_BUILD, BRACKET_BUILD, CLUSTER_BUILD = range(6)
+# the reach build (a cluster of REACH_RANKS blocks) and a batch the cluster
+# build; the long build (1024 threads, up to 8 nodes a thread, its state in
+# device memory) runs only forced.  A test hook forces a build at any shape
+# it takes; the C entry refuses it elsewhere (plan).
+REGISTER_BUILD, RESIDENCY_BUILD, LATENCY_BUILD, LONG_BUILD, BRACKET_BUILD, CLUSTER_BUILD, REACH_BUILD = range(7)
 BUILD_NAMES = {REGISTER_BUILD: "register build", RESIDENCY_BUILD: "residency build", LATENCY_BUILD: "latency build",
-               LONG_BUILD: "long build", BRACKET_BUILD: "bracket build", CLUSTER_BUILD: "cluster build"}
+               LONG_BUILD: "long build", BRACKET_BUILD: "bracket build", CLUSTER_BUILD: "cluster build",
+               REACH_BUILD: "reach build"}
 LATENCY_MAX_N = 128
 # what the C entry's refusals mean (cudaError_t)
 _REFUSALS = {1: "cudaErrorInvalidValue: the build does not take this shape, or its block exceeds the card's "
@@ -114,9 +125,11 @@ PROBE_PHASES = ("level_start", "previous_level", "closures", "assembly", "sweeps
                 "schur_rows", "junction_solve", "update")
 
 # number of kernel launches made by fused_simulate (not by its plain version),
-# and of those the launches that took the long build (N > MAX_N)
+# of those the launches of a long reach (N > MAX_N), and of those the ones
+# that took the reach build
 launch_count = 0
 long_launch_count = 0
+reach_launch_count = 0
 
 
 class FusedUnsupported(Exception):
@@ -214,12 +227,15 @@ def _lib():
         lib.flowsim_fused_chosen_build.restype = ctypes.c_int
         lib.flowsim_fused_plan.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)] * 3
         lib.flowsim_fused_plan.restype = ctypes.c_int
+        lib.flowsim_fused_reach_lanes.argtypes = [ctypes.c_int]
+        lib.flowsim_fused_reach_lanes.restype = ctypes.c_int
         for aux in (lib.flowsim_fused_param_count, lib.flowsim_fused_smem_bytes_per_node,
                     lib.flowsim_fused_storage_param_count, lib.flowsim_fused_probe_phases,
                     lib.flowsim_fused_latency_max_n, lib.flowsim_fused_register_max_n,
                     lib.flowsim_fused_long_max_n, lib.flowsim_fused_long_scratch_bytes_per_node,
                     lib.flowsim_fused_bracket_bytes_per_node, lib.flowsim_fused_cluster_block,
-                    lib.flowsim_fused_cluster_bytes_per_node, lib.flowsim_fused_max_cluster):
+                    lib.flowsim_fused_cluster_bytes_per_node, lib.flowsim_fused_max_cluster,
+                    lib.flowsim_fused_reach_bytes_per_node, lib.flowsim_fused_reach_ranks):
             aux.argtypes = []
             aux.restype = ctypes.c_int
         if lib.flowsim_fused_param_count() != _N_PARAMS \
@@ -229,12 +245,14 @@ def _lib():
                 or lib.flowsim_fused_register_max_n() != MAX_N \
                 or lib.flowsim_fused_long_max_n() != LONG_MAX_N \
                 or lib.flowsim_fused_cluster_block() != CLUSTER_BLOCK \
-                or lib.flowsim_fused_max_cluster() != MAX_CLUSTER:
+                or lib.flowsim_fused_max_cluster() != MAX_CLUSTER \
+                or lib.flowsim_fused_reach_ranks() != REACH_RANKS:
             raise RuntimeError("parameter layout of fused_newton.cu and its wrapper differ")
         if lib.flowsim_fused_smem_bytes_per_node() != SMEM_BYTES_PER_NODE \
                 or lib.flowsim_fused_long_scratch_bytes_per_node() != LONG_SCRATCH_BYTES_PER_NODE \
                 or lib.flowsim_fused_bracket_bytes_per_node() != BRACKET_BYTES_PER_NODE \
-                or lib.flowsim_fused_cluster_bytes_per_node() != CLUSTER_BYTES_PER_NODE:
+                or lib.flowsim_fused_cluster_bytes_per_node() != CLUSTER_BYTES_PER_NODE \
+                or lib.flowsim_fused_reach_bytes_per_node() != REACH_BYTES_PER_NODE:
             raise RuntimeError("memory layout of fused_newton.cu and its wrapper differ")
         fn._typed = True
     return lib
@@ -422,10 +440,31 @@ def scratch_bytes(n_sims: int, n: int) -> int:
 
 def uses_long_build(n: int, build_id: int = -1, n_sims: int = 1) -> bool:
     """Whether ``n_sims`` simulations at N nodes take the long build, and so
-    hold a scratch: the C entry takes it above :data:`MAX_N` for one
-    simulation (``choose_build_id``; a batch there takes the cluster build,
-    whose state lies in shared memory), and a test hook may force it."""
-    return build_id == LONG_BUILD or (build_id < 0 and n > MAX_N and n_sims == 1)
+    hold a scratch: only where a test hook forces it (the C entry gives one
+    simulation above :data:`MAX_N` the reach build and a batch the cluster
+    build, whose state lies in shared memory)."""
+    return build_id == LONG_BUILD
+
+
+def uses_reach_build(n: int, build_id: int = -1, n_sims: int = 1) -> bool:
+    """Whether ``n_sims`` simulations at N nodes take the reach build: the C
+    entry takes it above :data:`MAX_N` for one simulation
+    (``choose_build_id``), and a test hook may force it."""
+    return build_id == REACH_BUILD or (build_id < 0 and n > MAX_N and n_sims == 1)
+
+
+def reach_rank_nodes(n: int) -> int:
+    """Nodes a rank of the reach build holds (node i on rank i %
+    :data:`REACH_RANKS`): ceil(N / REACH_RANKS) rounded up to a whole warp."""
+    return rank_nodes(n, REACH_RANKS)
+
+
+def reach_lanes(n: int) -> int:
+    """The reach build's closure lanes a node at N nodes, the C entry's rule
+    (``reach_lanes`` in ``csrc/fused_newton.cu``, asked here): two while two
+    a node of a rank fit its 512-thread launch bound (N <= 4096), else one;
+    its block is lanes x :func:`reach_rank_nodes` threads.  Needs the card."""
+    return _lib().flowsim_fused_reach_lanes(n)
 
 
 def rank_nodes(n: int, blocks: int) -> int:
@@ -453,11 +492,14 @@ def launch_grid(build_id: int, n_sims: int, n: int, sms: int, clusters_at_once: 
     of N nodes in a build on a card of ``sms`` SMs: one block a simulation;
     the cluster build's persistent grid the blocks of at most
     ``clusters_at_once`` clusters — the card's answer, which its layout of
-    SMs may put below ``sms // cluster_blocks(n)``, the default here."""
+    SMs may put below ``sms // cluster_blocks(n)``, the default here; the
+    reach build a cluster of :data:`REACH_RANKS` blocks a simulation."""
     if build_id == CLUSTER_BUILD:
         blocks = cluster_blocks(n)
         clusters = sms // blocks if clusters_at_once is None else clusters_at_once
         return min(n_sims, clusters) * blocks
+    if build_id == REACH_BUILD:   # a cluster a simulation
+        return n_sims * REACH_RANKS
     return n_sims
 
 
@@ -465,7 +507,7 @@ def launch_error(rc: int, build_id: int, cluster: int = 1) -> str:
     """The message of a launch the C entry refused with ``rc``: the build,
     its cluster and what the code means."""
     what = BUILD_NAMES.get(build_id, f"build {build_id}")
-    if build_id == CLUSTER_BUILD:
+    if build_id in (CLUSTER_BUILD, REACH_BUILD):
         what += f" ({cluster} blocks a cluster)"
     return (f"fused_simulate launch failed in the {what}: CUDA error {rc} "
             f"({_REFUSALS.get(rc, 'see cudaGetErrorString')}); no other build or plain version runs in its place")
@@ -511,7 +553,7 @@ def resident_blocks(n: int, storage: bool = False, build_id: int = REGISTER_BUIL
 def chosen_build(n_sims: int, n: int, storage: bool = False, table: bool = False) -> int:
     """The build the kernel's C entry takes for ``n_sims`` simulations of
     ``n`` nodes (``choose_build_id`` in ``csrc/fused_newton.cu``): above
-    :data:`MAX_N` the long build for one simulation and the cluster build
+    :data:`MAX_N` the reach build for one simulation and the cluster build
     for a batch; with storage or N > :data:`LATENCY_MAX_N` the register
     build; else the latency build while one wave of it holds the batch
     (trapezoid geometry; ``table`` skips it), the register build while one
@@ -560,7 +602,7 @@ def launch(geo_rows, h0, Q0, us_series, ds_series, par, qlat, settings, us_kind,
     int64 tensor ``[len(PROBE_PHASES)]`` on the device and a
     ``ctypes.c_int`` — for one launch of the probe build of that build (the
     register or latency build on trapezoids, the residency or bracket build
-    on tables, N <= 128; the cluster build on trapezoids; no storage), which
+    on tables, N <= 128; the cluster and the reach build on trapezoids; no storage), which
     fills them with the cycles of each phase and the SM clock in kHz.  Returns a SimOutput whose fields
     carry the ``S`` axis."""
     dev = geo_rows.device
@@ -650,17 +692,23 @@ def check_device(dev, h0, Q0, geo, us_bc, ds_bc, name):
         raise ValueError("geometry, boundaries and state must lie on the same device")
 
 
-def _launch_one(geo, us_bc, ds_bc, h0, Q0, settings, qlat, probe=None, build_id=-1) -> prs.SimOutput:
-    """One simulation on a grid of one block."""
+def _launch_one(geo, us_bc, ds_bc, h0, Q0, settings, qlat, probe=None,
+                build_id=-1) -> tuple[prs.SimOutput, int]:
+    """One simulation in ``build_id`` (-1: the build the C entry chooses,
+    :func:`chosen_build`).  Returns the output and the build launched."""
     nt, dev = settings.n_time_levels, h0.device
     par, rc_kind, us_rc_kind = pack_params(us_bc, ds_bc, settings)
     stor, stab, st_ints = pack_storage(us_bc, ds_bc)
+    tables = pack_tables(geo)
+    if build_id < 0:
+        with torch.cuda.device(dev):
+            build_id = chosen_build(1, geo.n_nodes, bool((st_ints[0] | st_ints[1]) & _ST_ON), bool(tables[2]))
     one = lambda t: t.unsqueeze(0).contiguous()
     out = launch(one(pack_geometry(geo)), one(h0), one(Q0), one(series(us_bc, nt, dev)),
                  one(series(ds_bc, nt, dev)), one(par), None if qlat is None else one(qlat),
                  settings, us_bc.kind, ds_bc.kind, rc_kind, us_rc_kind,
-                 (one(stor), stab, st_ints), pack_tables(geo), build_id=build_id, probe=probe)
-    return prs.SimOutput(*(None if f is None else f[0] for f in out))
+                 (one(stor), stab, st_ints), tables, build_id=build_id, probe=probe)
+    return prs.SimOutput(*(None if f is None else f[0] for f in out)), build_id
 
 
 def fused_simulate_probe(geo, us_bc, ds_bc, h0, Q0, settings, build_id=-1):
@@ -677,7 +725,7 @@ def fused_simulate_probe(geo, us_bc, ds_bc, h0, Q0, settings, build_id=-1):
     check_device(h0.device, h0, Q0, geo, us_bc, ds_bc, "fused_simulate_probe")
     cycles = torch.zeros(len(PROBE_PHASES), dtype=torch.int64, device=h0.device)
     clock = ctypes.c_int(0)
-    out = _launch_one(geo, us_bc, ds_bc, h0, Q0, settings, None, probe=(cycles, clock), build_id=build_id)
+    out, _ = _launch_one(geo, us_bc, ds_bc, h0, Q0, settings, None, probe=(cycles, clock), build_id=build_id)
     return out, dict(zip(PROBE_PHASES, cycles.tolist())), clock.value
 
 
@@ -688,7 +736,7 @@ def fused_simulate(geo, us_bc, ds_bc, h0, Q0, settings, lateral_inflow=None) -> 
     ``[nt, N]``.  Raises :class:`FusedUnsupported` for configurations outside
     the kernel's scope.  CPU tensors take the plain version.
     """
-    global launch_count, long_launch_count
+    global launch_count, long_launch_count, reach_launch_count
     _check_supported(geo, us_bc, ds_bc, settings)
     qlat = prs.as_lateral_inflow(lateral_inflow, h0)
     prs.check_shapes(geo, us_bc, ds_bc, h0, Q0, settings, qlat)
@@ -696,7 +744,8 @@ def fused_simulate(geo, us_bc, ds_bc, h0, Q0, settings, lateral_inflow=None) -> 
     if dev.type == "cpu":
         return fused_simulate_plain(geo, us_bc, ds_bc, h0, Q0, settings, qlat)
     check_device(dev, h0, Q0, geo, us_bc, ds_bc, "fused_simulate")
-    out = _launch_one(geo, us_bc, ds_bc, h0, Q0, settings, qlat)
+    out, build_id = _launch_one(geo, us_bc, ds_bc, h0, Q0, settings, qlat)
     launch_count += 1
-    long_launch_count += uses_long_build(geo.n_nodes)
+    long_launch_count += geo.n_nodes > MAX_N
+    reach_launch_count += build_id == REACH_BUILD
     return out

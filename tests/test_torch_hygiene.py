@@ -213,21 +213,25 @@ def test_check_supported_raises_fused_unsupported(flagship, case):
 
 @pytest.mark.parametrize("n", [965, 8192, 8193])
 def test_check_supported_takes_the_long_build_up_to_8192_nodes(flagship, n):
-    """From 965 to 8192 nodes the long build takes the reach (its state in a
-    scratch of device memory, counted with the outputs before anything is
-    allocated); 8193 is refused by name, with the solver that goes on."""
+    """From 965 to 8192 nodes one simulation takes the reach build (its state
+    in a thread-block cluster's shared memory; the long build, its state in
+    a scratch of device memory counted with the outputs before anything is
+    allocated, runs where a test hook forces it); 8193 is refused by name,
+    with the solver that goes on."""
     from flowsim_tpu_torch import trees
     from flowsim_tpu_torch.ops.cuda import fused_newton as fn
 
     solver, channel, sset = flagship
     geo = trees.tree_map(lambda v: v[:1].expand(n).contiguous(), channel.geometry)
-    assert fn.uses_long_build(n) == (n > fn.MAX_N) and fn.uses_long_build(121, fn.LONG_BUILD)
+    assert fn.uses_reach_build(n) == (n > fn.MAX_N) and not fn.uses_long_build(n)
+    assert fn.uses_long_build(121, fn.LONG_BUILD)
     if n > fn.LONG_MAX_N:
         with pytest.raises(fn.FusedUnsupported, match=r"N=8193 exceeds .* 8192 nodes.*cuda_tiled"):
             fn._check_supported(geo, solver.us_params, solver.ds_params, sset)
         return
     fn._check_supported(geo, solver.us_params, solver.ds_params, sset)
-    # 1024 members: outputs (two stored nodes) and the scratch, 288 B a node
+    # the long build forced on 1024 members: outputs (two stored nodes) and
+    # the scratch, 288 B a node
     need = fn.output_bytes(1024, n, 9, "boundaries") + fn.scratch_bytes(1024, n)
     assert fn.scratch_bytes(1024, n) == 1024 * n * 36 * 8
     fn.check_output_memory(1024, n, 9, "boundaries", free_bytes=need, long_build=True)

@@ -1,19 +1,25 @@
-"""The reckoning of kernel 3's bracket and cluster builds, as pure functions.
+"""The reckoning of the long-reach and bracket builds of kernels 1 and 3, as
+pure functions.
 
 On the card a batch of reaches of 965-8192 nodes runs in the cluster build
 (each member over a thread-block cluster, its state in the blocks' shared
-memory) and one simulation there in the long build (its state in a scratch
-of device memory); a table batch past one wave of the register build runs
-in the bracket build.  None of that runs here, so this file holds the
-wrapper's arithmetic to what the C entry does:
+memory) and one simulation there in the reach build (one reach over a
+cluster of 16 blocks, node i on rank i % 16, its state in their shared
+memory); the long build (its state in a scratch of device memory) runs only
+forced.  A table batch past one wave of the register build runs in the
+bracket build.  None of that runs here, so this file holds the wrapper's
+arithmetic to what the C entry does:
 
 * the cluster of each long shape (``cluster_blocks``: 2 blocks at N = 965, 3
   at 2048, 6 at 4096, 11 at 8192) and the grids (``launch_grid``): a block a
   simulation, the cluster build the clusters the card holds at once;
+* the reach build's cluster and nodes a rank at each long shape
+  (``REACH_RANKS``, ``reach_rank_nodes``), its threads and a rank's bytes;
 * the state each holds: the long build a scratch a simulation, the cluster
-  build the shared memory of its grid, no scratch (``scratch_bytes``,
-  ``uses_long_build``, ``check_output_memory``): a batch that one scratch a
-  member would have refused is taken, one whose outputs do not fit is not;
+  and the reach build shared memory, no scratch (``scratch_bytes``,
+  ``uses_long_build``, ``uses_reach_build``, ``check_output_memory``): a
+  batch that one scratch a member would have refused is taken, one whose
+  outputs do not fit is not, and one simulation counts no scratch;
 * the exception and message of a launch the C entry refuses (``refusal``,
   ``launch_error``); which forced builds it refuses is the C entry's own
   rule, held on the card by ``chip_smoke.py``.
@@ -69,10 +75,34 @@ def test_grids_of_1024_members(n):
     assert fn.launch_grid(fn.BRACKET_BUILD, 10240, 121, H100_SMS) == 10240
 
 
+# N: the reach build's nodes a rank (N / 16 to a whole warp; two threads a
+# node, so 128-1024 threads a block)
+REACH = {965: 64, 2048: 128, 2409: 160, 4096: 256, 8192: 512}
+
+
+@pytest.mark.parametrize("n", sorted(REACH))
+def test_reach_build_of_each_long_shape(n):
+    ranks, rn = fn.REACH_RANKS, fn.reach_rank_nodes(n)
+    assert ranks == fn.REACH_RANKS == 16 and ranks & (ranks - 1) == 0 and ranks <= fn.MAX_CLUSTER
+    assert rn == REACH[n] and rn % 32 == 0 and ranks * rn >= n > ranks * (rn - 32)
+    # two threads a node in one block of at most 1024; a rank's share of the
+    # state (the cluster build's 296 B a node) within a block's shared memory
+    assert 2 * rn <= 1024 and rn <= fn.REACH_MAX_RANK_NODES
+    assert rn * fn.REACH_BYTES_PER_NODE <= BLOCK_SMEM and fn.REACH_BYTES_PER_NODE == fn.CLUSTER_BYTES_PER_NODE
+    # one simulation takes it over one cluster; a batch, or a reach that
+    # shared memory holds in one block, does not; forced, a cluster a member
+    assert fn.uses_reach_build(n) and not fn.uses_reach_build(n, n_sims=2)
+    assert not fn.uses_reach_build(fn.MAX_N) and fn.uses_reach_build(fn.MAX_N, fn.REACH_BUILD)
+    assert fn.launch_grid(fn.REACH_BUILD, 1, n, H100_SMS) == ranks
+    assert fn.launch_grid(fn.REACH_BUILD, 4, n, H100_SMS) == 4 * ranks
+
+
 @pytest.mark.parametrize("n", [2048, 8192])
 def test_state_of_each_long_build(n):
-    # one simulation: the long build and one scratch
-    assert fn.uses_long_build(n) and fn.scratch_bytes(1, n) == n * 36 * 8
+    # one simulation: the reach build, no scratch; the long build (one
+    # scratch) only where a test hook forces it
+    assert not fn.uses_long_build(n) and fn.uses_reach_build(n)
+    assert fn.uses_long_build(n, fn.LONG_BUILD) and fn.scratch_bytes(1, n) == n * 36 * 8
     # a batch: the cluster build and no scratch, its state in the shared
     # memory of at most one cluster an SM's worth of blocks
     assert not fn.uses_long_build(n, n_sims=1024)
@@ -102,11 +132,14 @@ def test_check_output_memory_takes_a_batch_one_scratch_a_member_would_refuse(cas
         fn.check_output_memory(members, n, nt, store, out, long_build=True)
     with pytest.raises(MemoryError, match=r"outputs .* chunk_size"):
         fn.check_output_memory(members, n, nt, store, out - 1, fn.uses_long_build(n, n_sims=members))
-    # one simulation counts its scratch
-    one = fn.output_bytes(1, n, nt, store) + fn.scratch_bytes(1, n)
+    # one simulation (the reach build) counts its outputs alone; forced into
+    # the long build it counts its scratch
+    one = fn.output_bytes(1, n, nt, store)
     fn.check_output_memory(1, n, nt, store, one, fn.uses_long_build(n))
-    with pytest.raises(MemoryError, match="scratch"):
+    with pytest.raises(MemoryError, match=r"outputs .* chunk_size"):
         fn.check_output_memory(1, n, nt, store, one - 1, fn.uses_long_build(n))
+    with pytest.raises(MemoryError, match="scratch"):
+        fn.check_output_memory(1, n, nt, store, one, fn.uses_long_build(n, fn.LONG_BUILD))
 
 
 # the codes the C entry refuses a launch with, and what each message says
@@ -122,10 +155,19 @@ def test_a_refused_launch_raises_with_the_build_and_the_error(build_id, rc):
     assert type(e) is (FusedUnsupported if rc == 1 else RuntimeError)
     msg = str(e)
     assert f"the {fn.BUILD_NAMES[build_id]}" in msg and f"CUDA error {rc}" in msg and CODES[rc] in msg
-    assert ("(11 blocks a cluster)" in msg) == (build_id == fn.CLUSTER_BUILD)
+    assert ("(11 blocks a cluster)" in msg) == (build_id in (fn.CLUSTER_BUILD, fn.REACH_BUILD))
     assert "no other build or plain version" in msg
 
 
 def test_a_refused_launch_of_no_such_build_names_its_id():
     msg = str(fn.refusal(1, 7))
     assert "build 7" in msg and "cudaErrorInvalidValue" in msg
+
+
+def test_a_refused_reach_build_names_its_cluster():
+    # a card that cannot hold 16 blocks of the reach build at once refuses
+    # the launch: the message names the build and its cluster, and nothing
+    # runs in its place
+    e = fn.refusal(701, fn.REACH_BUILD, cluster=fn.REACH_RANKS)
+    assert type(e) is RuntimeError
+    assert "the reach build (16 blocks a cluster)" in str(e) and "cannot hold one cluster" in str(e)

@@ -21,7 +21,8 @@ tensors the wrappers run the kernel's plain version, so here:
 * the cluster build's reckoning as pure functions: the cluster the wrapper
   expects for each network the card runs (``cluster_blocks``), no scratch
   counted inside a cluster's shared memory and the scratch build's beyond
-  it, just below and above the limit; the messages of refused launches.
+  it, just below and above the limit; the messages of refused launches;
+* the bracket build's shared memory a slot and a block (two blocks an SM).
 
 One JAX network simulation is compiled, once, in a module-scoped fixture.
 """
@@ -219,6 +220,7 @@ REFUSALS = {
     "two_an_sm_on_242_slots": (1, fnet.CLUSTER_BUILD, 15 | fnet.CLUSTER_PAIR,
                                ("15 blocks a cluster, two an SM)", "does not take this network")),
     "scratch_build": (1, fnet.SCRATCH_BUILD, 0, ("scratch build:", "does not take this network")),
+    "bracket_build_on_trapezoids": (1, fnet.BRACKET_BUILD, 0, ("bracket build:", "does not take this network")),
 }
 
 
@@ -229,3 +231,32 @@ def test_a_refused_launch_names_its_build_and_code(case):
     assert f"CUDA error {rc} " in msg and "no other build or plain version runs in its place" in msg
     for w in words:
         assert w in msg
+
+
+# H100: 228 KB of shared memory an SM, 1 KB of it reserved a block, and the
+# kernel's static reduction area (512 B)
+SM_SMEM, BLOCK_RESERVED, STATIC_SMEM = 233472, 1024, 512
+# (slots, branches, junctions, RHS pairs): the surveyed mixed network of the
+# table ensemble (two table branches of 61 nodes and the tributary padded to
+# 61, one junction), and a 15-branch basin's 195 slots, three RHS pairs
+BRACKET_NETWORKS = {"surveyed_mixed": (183, 3, 1, 2), "basin_levels4": (195, 15, 7, 3)}
+
+
+@pytest.mark.parametrize("case", sorted(BRACKET_NETWORKS))
+def test_bracket_build_shared_memory_a_slot(case):
+    slots, B, J, rhs = BRACKET_NETWORKS[case]
+    # a slot: two PCR buffers of 12 + 2 RHS doubles (the inverse of D carried
+    # in D's place, no extra component), h and Q (the level-start state lies
+    # in the assembly buffer), and the bracket cache, 14 doubles and an int:
+    # 388 B at two RHS pairs, 420 B at three
+    per_slot = 8 * (2 * (12 + 2 * rhs) + 2) + fnet.BRACKET_BYTES_PER_SLOT
+    assert per_slot == {2: 388, 3: 420}[rhs]
+    smem = fnet.bracket_smem_bytes(slots, B, J, rhs)
+    assert smem == slots * per_slot + 8 * (J * (J + 6) + 4 * B)
+    assert smem - fnet.smem_bytes(slots, B, J, rhs) == slots * (fnet.BRACKET_BYTES_PER_SLOT - 6 * 8)
+    # shared memory holds three such blocks an SM at the surveyed network's
+    # 183 slots and two RHS pairs (the residency build's registers hold two),
+    # two at the basin's 195 slots and three
+    block = smem + STATIC_SMEM + BLOCK_RESERVED
+    fit = {"surveyed_mixed": 3, "basin_levels4": 2}[case]
+    assert fit * block <= SM_SMEM < (fit + 1) * block

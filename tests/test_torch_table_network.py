@@ -13,8 +13,10 @@ its mixed variant adds a 4 km trapezoid tributary at the junction.
   stacked engine with each geometry class stacked on its own) against the
   JAX loop engine, mixed — the JAX fused kernel's own tests hold that kernel
   to this loop engine;
-* a two-member batch through ``batched_simulate_network(engine="fused")``
-  against the port's loop engine member by member;
+* a three-member batch through ``batched_simulate_network(engine="fused")``:
+  two members against the port's loop engine member by member, and one
+  against the JAX loop engine where every table branch's depths leave their
+  bracket from level to level (the case the bracket build's cache meets);
 * ``api.NetworkSolver`` with two surveyed channels and a trapezoid one
   against the JAX ``NetworkSolver`` (both apis' tables at M = 48);
 * the refusals: mismatched depth-grid resolutions, a per-member table
@@ -174,16 +176,54 @@ def _scaled_upper(branches, scales):
     return dataclasses.replace(batched, target_series=us.target_series[None, :] * s[:, None])
 
 
-def test_batched_mixed_network_matches_member_runs(cases):
+@pytest.fixture(scope="module")
+def batched_mixed(cases):
+    """One batch of the mixed network through
+    ``batched_simulate_network(engine="fused")`` on CPU tensors (kernel 6's
+    plain version): members at SCALES of the upper inflow, then one at the
+    JAX case's own inflow.  Returns the batch and its output."""
     br, sset = cases["port"]["mixed"], cases["sset"]
-    batch = [dict(us=_scaled_upper(br, SCALES))] + [dict() for _ in br[1:]]
+    batch = [dict(us=_scaled_upper(br, SCALES + (1.0,)))] + [dict() for _ in br[1:]]
     before = fnet.batched_launch_count
     out = ens.batched_simulate_network(br, 1, sset, batch, engine="fused")
     assert fnet.batched_launch_count == before
+    return batch, out
+
+
+def _member(out, m):
+    return net.NetworkOutput(*(tuple(x[m] for x in f) if isinstance(f, tuple) else f[m] for f in out))
+
+
+def test_batched_mixed_network_matches_member_runs(cases, batched_mixed):
+    br, sset = cases["port"]["mixed"], cases["sset"]
+    batch, out = batched_mixed
     for m in range(len(SCALES)):
         ref = net.simulate_network(net.member_branches(br, batch, m), 1, sset, engine="loop")
-        _assert_network_matches(net.NetworkOutput(*(tuple(x[m] for x in f) if isinstance(f, tuple) else f[m]
-                                                    for f in out)), ref, f"member {m}")
+        _assert_network_matches(_member(out, m), ref, f"member {m}")
+
+
+def _brackets(geo, depth):
+    """Each node's bracket index at ``depth`` ([levels, N]), formed as the
+    plain engine forms it (the index the bracket build caches)."""
+    M = geo.area.shape[-1]
+    return torch.clamp(torch.floor(depth / (geo.depth_max / (M - 1))), 0, M - 2).long()
+
+
+def test_batched_plain_network_across_bracket_changes_matches_jax(cases, batched_mixed):
+    """The network kernel's bracket build caches each table slot's bracket
+    and re-reads the tables only when the depth leaves it.  In this case the
+    depths of every table branch leave their bracket from level to level
+    (so within a level's Newton iterations too, which start from the
+    previous level's depths): kernel 6's plain version on a batch holds the
+    JAX loop engine there (the batch's member at the JAX case's inflow)."""
+    br = cases["port"]["mixed"]
+    member = _member(batched_mixed[1], len(SCALES))
+    _assert_network_matches(member, cases["ref"]["mixed_loop"], "batched plain network, bracket changes")
+    tables = [(b.geo, d) for b, d in zip(br, member.depth) if isinstance(b.geo, TableGeometry)]
+    assert len(tables) == 2
+    for geo, depth in tables:
+        j = _brackets(geo, depth)
+        assert int((j[1:] != j[:-1]).sum()) > 0
 
 
 def _api_channels(mod, irregular, trapezoid_station):

@@ -238,13 +238,13 @@ def test_long_reach_cuda_tiled_matches_jax_pcr(long_reach):
 
 
 def test_fused_simulate_on_the_long_reach_matches_jax(long_reach):
-    """The slice of the long build: ``fused_simulate`` takes a reach of 2048
-    nodes (the kernel's long build on the card; here, on CPU tensors, its
-    plain version, the eager engine with the PCR solve), held against the
-    JAX package's run of the same reach."""
+    """The slice of the long reaches: ``fused_simulate`` takes a reach of
+    2048 nodes (the kernel's reach build on the card; here, on CPU tensors,
+    its plain version, the eager engine with the PCR solve), held against
+    the JAX package's run of the same reach."""
     args, jout = long_reach
     n = args[0].n_nodes
-    assert fused_newton.MAX_N < n <= fused_newton.LONG_MAX_N and fused_newton.uses_long_build(n)
+    assert fused_newton.MAX_N < n <= fused_newton.LONG_MAX_N and fused_newton.uses_reach_build(n)
     before = fused_newton.launch_count
     out = fused_newton.fused_simulate(*args)
     assert fused_newton.launch_count == before       # CPU tensors: the plain version

@@ -246,8 +246,8 @@ LONG_BIT_MEMBERS = 4
 # and 6): the tributary on the flagship at 50 m (split at node 1200: 1201 /
 # 201 / 1209 nodes, 3627 slots, 385 levels; the plain version on its first
 # 25) and at 250 m (split at node 240: 241 / 41 / 243 nodes, 729 slots) for
-# the network Monte-Carlo's members (members 0 and 1023 against the plain
-# version on SCRATCH_PLAIN_LEVELS levels); the basin at levels=6 (63 x 13
+# the network Monte-Carlo's members (member 1023 against the plain version
+# on SCRATCH_PLAIN_LEVELS levels; members 0-3 against single launches); the basin at levels=6 (63 x 13
 # slots) and LARGE_BASIN (127 x 45), 25 levels; the N = 2048 scaling reach on
 # tables (M = 32) split at node 1024 with a trapezoid tributary (3 x 1025)
 SCRATCH_TRIB_50 = dict(split_node=1200, spatial_step=50.0)
@@ -302,6 +302,17 @@ def readings(fn, n: int = 3) -> list:
     a comparison in turns each build's median of them, since a stall of the
     host inside a reading adds to it."""
     return [time_cuda(fn, reps=1, warmup=int(not r)) for r in range(n)]
+
+
+def builds_in_turns(launch, ids: dict, rounds: int = 3) -> dict:
+    """Each build of ``ids`` (name: build id) launched by ``launch`` in turns
+    (forward, backward, forward, backward), ``rounds`` readings a turn
+    (:func:`readings`): name -> its readings in ms."""
+    runs = {n: [] for n in ids}
+    for r in range(4):
+        for n in (list(ids) if r % 2 == 0 else list(ids)[::-1]):
+            runs[n] += readings(lambda: launch(ids[n]), n=rounds)
+    return runs
 
 
 def wall_ms(fn) -> float:
@@ -511,15 +522,21 @@ def kernel2_times(dev) -> dict:
     return out
 
 
-SASS_OPS = ("DFMA", "DMUL", "DADD", "DSETP", "DMNMX", "MUFU.RCP64H", "MUFU.RSQ64H", "CALL", "SHFL", "BAR")
+SASS_OPS = ("DFMA", "DMUL", "DADD", "DSETP", "DMNMX", "MUFU.RCP64H", "MUFU.RSQ64H", "CALL", "SHFL", "BAR", "LDL",
+            "STL", "LDG")
+SASS_FLOAT64 = ("DFMA", "DMUL", "DADD", "DSETP", "DMNMX", "MUFU.RCP64H", "MUFU.RSQ64H")
 
 
-def sass_counts(names=("fused_newton", "pcr_kernel"), out_dir="build/sass") -> dict:
-    """Float64 instructions of each kernel in the built libraries, from
+def sass_counts(names=("fused_newton", "pcr_kernel", "fused_network", "fused_network_table"),
+                out_dir="build/sass") -> dict:
+    """Float64 instructions, local-memory loads and stores (``LDL``/``STL``:
+    spills) and global loads of each kernel in the built libraries, from
     ``cuobjdump -sass``: per kernel the totals of :data:`SASS_OPS` and the same
     counts between consecutive barriers (``BAR.SYNC``) in program order, so
-    that the closures, the assembly and one sweep can be read apart.  The
-    dumps go to ``out_dir``."""
+    that the closures, the assembly and one sweep can be read apart.  A
+    network kernel's ``assembly`` is the segment from the closures' barrier
+    to the norm's (the first that holds the norm's shuffles), with its
+    ``float64`` sum.  The dumps go to ``out_dir``."""
     import os
     from flowsim_tpu_torch.ops.cuda import build
 
@@ -552,6 +569,11 @@ def sass_counts(names=("fused_newton", "pcr_kernel"), out_dir="build/sass") -> d
             segs[-1][key] += 1
             if key == "BAR" and op.startswith("BAR.SYNC"):
                 segs.append(dict.fromkeys(SASS_OPS, 0))
+    for kernel, rec in out.items():
+        if "fused_network_kernel" in kernel:
+            seg = next((sg for sg in rec["segments"] if sg["SHFL"]), None)
+            if seg is not None:
+                rec["assembly"] = dict(seg, float64=sum(seg[k] for k in SASS_FLOAT64))
     return out
 
 
@@ -944,16 +966,18 @@ def network_kernel_builds(ptxas: list) -> list:
     """Registers and spills of fused_network.cu's builds, by template
     arguments (RHS pairs, launch-bound block, blocks an SM, one slot a
     thread, probe, table branches, slot arrays in a scratch, one network
-    over a cluster, the bracket cache; a source without the last arguments
-    has no scratch, cluster or bracket build)."""
+    over a cluster, the bracket cache, the lean form, its side warps; a
+    source without the last arguments has no scratch, cluster, bracket or
+    lean build)."""
     out = []
     for rec in ptxas:
         m = re.search(r"fused_network_kernelILi(\d+)ELi(\d+)ELi(\d+)ELb([01])ELb([01])ELb([01])E"
-                      r"(?:Lb([01])E)?(?:Lb([01])E)?(?:Lb([01])E)?", rec["kernel"])
+                      r"(?:Lb([01])E)?(?:Lb([01])E)?(?:Lb([01])E)?(?:Lb([01])E)?(?:Lb([01])E)?", rec["kernel"])
         if m:
             out.append(dict(rhs=int(m.group(1)), block=int(m.group(2)), min_blocks=int(m.group(3)),
                             one_slot=m.group(4) == "1", probe=m.group(5) == "1", table=m.group(6) == "1",
                             scratch=m.group(7) == "1", cluster=m.group(8) == "1", bracket=m.group(9) == "1",
+                            lean=m.group(10) == "1", side_warps=m.group(11) == "1",
                             static_smem_bytes=rec.get("static_smem_bytes"),
                             **{k: rec.get(k) for k in ("registers", "stack_bytes", "spill_store_bytes",
                                                        "spill_load_bytes")}))
@@ -1993,7 +2017,7 @@ def build_network_case(name: str, device, sim_hours: float = 2.0):
     return branches, nj, sset, kw
 
 
-def storage_outlet_networks(dev) -> dict:
+def storage_outlet_networks(dev, sim_hours: float = 2.0) -> dict:
     """The basin's ``storage_outlet`` case (:func:`build_network_case`) with
     an outflow rating on the outlet's reservoir, one network per kind:
     ``power`` Q = 20 Y^1.5 (Y the stage, 1.57 m at the start), a ``table`` of
@@ -2002,7 +2026,7 @@ def storage_outlet_networks(dev) -> dict:
     from flowsim_tpu_torch.ops import rating_curve as rcurve
     from flowsim_tpu_torch.ops import storage as stg
 
-    b7, n7, s7, _ = build_network_case("storage_outlet", dev)
+    b7, n7, s7, _ = build_network_case("storage_outlet", dev, sim_hours=sim_hours)
     ratings = dict(
         power=rcurve.make_power(20.0, 1.5, device=dev),
         table=rcurve.make_table([0.0, 1.0, 1.5, 2.0, 3.0, 5.0, 10.0, 100.0],
@@ -2109,20 +2133,20 @@ def check_network_kernels(dev) -> dict:
     out["basin_levels4_25"] = compare_networks(fnet.fused_simulate_network(b4, n4, s4),
                                                fnet.fused_simulate_network_plain(b4, n4, s4), "basin levels=4")
 
-    # (v) kernel 6 against its plain version: 4 members x 25 levels with
+    # (v) kernel 6 against its plain version: 2 members x 25 levels with
     # per-member inflows, tributary roughness and lateral inflow
-    batch = scale_inflows(br, [0.9, 1.0, 1.1, 1.2])
-    batch[1]["geo"] = ensemble.roughness_ensemble(br[1].geo, [0.028, 0.032, 0.036, 0.040])
+    batch = scale_inflows(br, [0.9, 1.2])
+    batch[1]["geo"] = ensemble.roughness_ensemble(br[1].geo, [0.028, 0.040])
     rng = np.random.default_rng(4)
-    batch[2]["qlat"] = torch.tensor(rng.uniform(0.0, 1e-3, (4, int(br[2].h0.shape[0]))), dtype=torch.float64,
+    batch[2]["qlat"] = torch.tensor(rng.uniform(0.0, 1e-3, (2, int(br[2].h0.shape[0]))), dtype=torch.float64,
                                     device=dev)
     ob = fnet.fused_simulate_network_batched(br, nj, sset_t, batch)
     t0 = time.perf_counter()
     op = fnet.fused_simulate_network_batched_plain(br, nj, sset_t, batch)
     torch.cuda.synchronize()
     batched_plain_ms = (time.perf_counter() - t0) * 1e3
-    recs = [compare_networks(network_member(ob, m), network_member(op, m), f"batched member {m}") for m in range(4)]
-    out["batched_4x25"] = dict(members=4, levels=25, iterations=sum(r["iterations"] for r in recs),
+    recs = [compare_networks(network_member(ob, m), network_member(op, m), f"batched member {m}") for m in range(2)]
+    out["batched_2x25"] = dict(members=2, levels=25, iterations=sum(r["iterations"] for r in recs),
                                max_abs_dh=max(r["max_abs_dh"] for r in recs),
                                max_abs_dQ=max(r["max_abs_dQ"] for r in recs),
                                max_abs_dY=max(r["max_abs_dY"] for r in recs), plain_ms=batched_plain_ms)
@@ -2264,10 +2288,15 @@ def check_network_kernels(dev) -> dict:
 def probe_record(cycles: dict, clock_khz: int, iterations: int, launch_ms: float) -> dict:
     """Microseconds per Newton iteration of each probe phase (cycles at the
     SM clock the device reports), and their sum against the launch's time
-    by CUDA events."""
+    by CUDA events; the network probe's parts of the assembly phase
+    (``fused_network.ASSEMBLY_PARTS``) are listed and not summed."""
+    from flowsim_tpu_torch.ops.cuda import fused_network as fnet
+
     us = {ph: c / clock_khz * 1e3 / iterations for ph, c in cycles.items()}
-    total_ms = sum(cycles.values()) / clock_khz
-    return dict(us_per_iteration=us, us_per_iteration_sum=sum(us.values()), iterations=iterations,
+    total_ms = sum(c for ph, c in cycles.items() if ph not in fnet.ASSEMBLY_PARTS) / clock_khz
+    return dict(us_per_iteration=us, us_per_iteration_sum=sum(v for ph, v in us.items()
+                                                              if ph not in fnet.ASSEMBLY_PARTS),
+                iterations=iterations,
                 cycles=cycles, clock_khz=clock_khz, probe_ms=total_ms, launch_ms=launch_ms,
                 probe_ms_over_launch_ms=total_ms / launch_ms)
 
@@ -3024,7 +3053,8 @@ def drive_table_network(dev, launches: dict, reach: dict, t_start: float) -> tup
     network — the table phase's validation reach (N = 121, M = 1024, 193
     levels) split at node 60 into two table branches, with the trapezoid
     tributary (mixed) and without it (all-table) — through
-    ``simulate_network(engine="fused")`` (one launch of kernel 5 each), and
+    ``simulate_network(engine="fused")`` (one launch of kernel 5 each, in
+    its lean build with side warps), and
     the mixed network at M = 96 with NETWORK_MC_MEMBERS members through
     ``batched_simulate_network(engine="fused")`` (one launch of kernel 6, in
     its bracket build).  The branches are sliced from the table phase's
@@ -3032,13 +3062,19 @@ def drive_table_network(dev, launches: dict, reach: dict, t_start: float) -> tup
     solve on the card (the kernel's plain version) on their first
     TABLE_NET_COMPARED_LEVELS levels, kernel 5
     alone by CUDA events, every build the C entry can take for a table
-    network forced (the same bits), the probe builds, and the ensemble:
+    network forced (the same bits), the loop build's probe, the lean builds
+    with and without side warps, the latency and the bracket build in turns
+    with their probe builds (:func:`single_table_builds`; the lean build
+    with side warps must be the fastest), and the ensemble:
     timed, every build on its members, the bracket build in turns with the
     residency build (:func:`table_ensemble_builds`, with its probe build),
-    its forms for three RHS pairs, 256 threads and storage ends on other
-    networks (:func:`bracket_forms`), B = 4 against single launches, two of
-    its members against the plain version, a NaN member among 15 sound ones
-    (also in the bracket build forced).
+    its and the lean build's forms for three RHS pairs, 256 threads, storage
+    ends and the other end rows on other networks (:func:`bracket_forms`),
+    B = 4 against single launches, two of its members against the plain
+    version, a NaN member among 15 sound ones (also in the bracket build
+    forced); B = 4 takes the lean build with side warps and is held to the
+    latency build forced; 3/2 the SMs of all-table members take the lean
+    build without them (:func:`lean_batch_past_one_an_sm`).
     Returns the phase record and the kernel-table rows."""
     from flowsim_tpu_torch.geometry import TableGeometry
     from flowsim_tpu_torch.ops import network as net
@@ -3062,21 +3098,22 @@ def drive_table_network(dev, launches: dict, reach: dict, t_start: float) -> tup
         return ensemble.batched_simulate_network(ens_br, 1, sset_e, batch, engine="fused")
 
     # -- the main path
-    fnet.launch_count = 0
+    fnet.launch_count = fnet.lean_launch_count = 0
     fnet.batched_launch_count = fnet.batched_bracket_launch_count = 0
     outs = {k: net.simulate_network(b, 1, sset, engine="fused") for k, b in nets.items()}
     torch.cuda.synchronize()
-    single_launches = fnet.launch_count
+    single_launches, lean_launches = fnet.launch_count, fnet.lean_launch_count
     out_e = run_ensemble()
     torch.cuda.synchronize()
     launches["fused_simulate_network_table"] = single_launches
+    launches["fused_simulate_network_table_lean"] = lean_launches
     launches["fused_simulate_network_batched_table"] = fnet.batched_launch_count
     launches["fused_simulate_network_batched_bracket"] = fnet.batched_bracket_launch_count
-    if single_launches != 2 or fnet.batched_launch_count != 1 or fnet.launch_count != 2 \
+    if single_launches != 2 or lean_launches != 2 or fnet.batched_launch_count != 1 or fnet.launch_count != 2 \
             or fnet.batched_bracket_launch_count != 1:
-        raise AssertionError(f"table network main path: {fnet.launch_count} single and "
-                             f"{fnet.batched_launch_count} batched launches ({fnet.batched_bracket_launch_count} in "
-                             "the bracket build), expected 2 and 1 (1)")
+        raise AssertionError(f"table network main path: {fnet.launch_count} single ({lean_launches} in the lean "
+                             f"build) and {fnet.batched_launch_count} batched launches "
+                             f"({fnet.batched_bracket_launch_count} in the bracket build), expected 2 (2) and 1 (1)")
     nt = sset.n_time_levels
     for k, b in nets.items():
         o = outs[k]
@@ -3107,9 +3144,13 @@ def drive_table_network(dev, launches: dict, reach: dict, t_start: float) -> tup
         _, launch = network_packed(b, 1, sset)
         runs = [time_cuda(lambda: launch(-1), reps=1, warmup=int(not i)) for i in range(5)]
         chosen = fnet.chosen_build(1, *shape, table=True)
+        if chosen != fnet.LEAN_SIDE_BUILD:
+            raise AssertionError(f"table network {k}: the C entry chooses build {chosen}, not the lean build "
+                                 "with side warps")
+        # the builds the comparison of SINGLE_TABLE_BUILDS in turns (below)
+        # does not hold to its bits
         builds = {}
-        for name, bid in (("loop_build", fnet.LOOP_BUILD), ("latency_build", fnet.LATENCY_BUILD),
-                          ("residency_build", fnet.RESIDENCY_BUILD)):
+        for name, bid in (("loop_build", fnet.LOOP_BUILD), ("residency_build", fnet.RESIDENCY_BUILD)):
             compare_networks(network_launch(b, 1, sset, build_id=bid), outs[k],
                              f"table network {k}: the {name} against the chosen build", exact=True)
             builds[name] = dict(build_id=bid, bit_identical=True,
@@ -3125,17 +3166,24 @@ def drive_table_network(dev, launches: dict, reach: dict, t_start: float) -> tup
                                           us_per_newton_iteration=statistics.median(runs) * 1e3 / iters),
             plain_compared_levels=L, plain_ms=plain_ms, plain=cmp,
             table_samples_read=table_samples_read(b, outs[k].depth), topo=topo)
-    # the probe builds split a mixed-network iteration by phase
+    # the probe builds split a mixed-network iteration by phase: the loop
+    # build's here, those of SINGLE_TABLE_BUILDS with their times in turns
+    # on both networks (bits against the first, the chosen)
     b = nets["mixed"]
-    probe = {}
-    for bid in (fnet.LOOP_BUILD, fnet.LATENCY_BUILD):
-        probed, cycles, clock = fnet.fused_simulate_network_probe(b, 1, sset, build_id=bid)
-        compare_networks(probed, mixed, f"probe of the mixed network, build {bid}", exact=True)
-        name = {fnet.LOOP_BUILD: "loop_build", fnet.LATENCY_BUILD: "latency_build"}[bid]
-        probe[name] = dict(probe_record(cycles, clock, singles["mixed"]["total_iterations"],
-                                        singles["mixed"]["builds"][name]["ms"]), bit_identical_to_production=True)
+    probed, cycles, clock = fnet.fused_simulate_network_probe(b, 1, sset, build_id=fnet.LOOP_BUILD)
+    compare_networks(probed, mixed, "probe of the mixed network, the loop build", exact=True)
+    probe = dict(loop_build=dict(probe_record(cycles, clock, singles["mixed"]["total_iterations"],
+                                              singles["mixed"]["builds"]["loop_build"]["ms"]),
+                                 bit_identical_to_production=True))
     rec["single"] = {k: {f: v for f, v in r.items() if f != "topo"} for k, r in singles.items()}
     rec["single"]["mixed"].update(probe=probe, max_junction_imbalance_m3s=imbalance)
+    in_turns_single = single_table_builds(nets, sset)
+    for k in nets:
+        t = in_turns_single[k]
+        if t["fastest"] != "lean_side_build":
+            raise AssertionError(f"table network {k}: the C entry takes the lean build with side warps, but the "
+                                 f"{t['fastest']} was faster in turns ({ {n: t[n]['ms'] for n in SINGLE_TABLE_BUILDS} })")
+        rec["single"][k]["builds_in_turns"] = t
 
     # -- kernel 6's table path: the ensemble
     ens_iters = int(out_e.iterations.sum())
@@ -3150,13 +3198,19 @@ def drive_table_network(dev, launches: dict, reach: dict, t_start: float) -> tup
              if k["rhs"] == topo_e.m_rhs and not k["probe"] and k["table"] and not k["scratch"]
              and not k["cluster"]]
     blk = 192 if shape_e[0] <= 192 else 256
-    bounds = {fnet.LOOP_BUILD: (256, 1, False, False), fnet.LATENCY_BUILD: (256, 1, True, False),
-              fnet.RESIDENCY_BUILD: (blk, 2, True, False), fnet.BRACKET_BUILD: (blk, 2, True, True)}
+    # (launch-bound block, blocks an SM, one slot a thread, bracket, lean,
+    # side warps): the lean build at M members has no side warps
+    bounds = {fnet.LOOP_BUILD: (256, 1, False, False, False, False),
+              fnet.LATENCY_BUILD: (256, 1, True, False, False, False),
+              fnet.RESIDENCY_BUILD: (blk, 2, True, False, False, False),
+              fnet.BRACKET_BUILD: (blk, 2, True, True, False, False), fnet.LEAN_BUILD: (256, 1, True, True, True, False),
+              fnet.LEAN_SIDE_BUILD: (256, 1, True, True, True, True)}
     ens_builds = dict(multiprocessors=sms, chosen_build=chosen_e)
     if chosen_e != fnet.BRACKET_BUILD:
         raise AssertionError(f"table network ensemble: the C entry chooses build {chosen_e}, not the bracket build")
     for name, bid in (("loop_build", fnet.LOOP_BUILD), ("latency_build", fnet.LATENCY_BUILD),
-                      ("residency_build", fnet.RESIDENCY_BUILD), ("bracket_build", fnet.BRACKET_BUILD)):
+                      ("residency_build", fnet.RESIDENCY_BUILD), ("bracket_build", fnet.BRACKET_BUILD),
+                      ("lean_build", fnet.LEAN_BUILD), ("lean_side_build", fnet.LEAN_SIDE_BUILD)):
         ob = fnet._output(launch_e(bid), topo_e, None)
         for a, c in zip((*ob.depth, *ob.flow, ob.junction_stage, ob.error, ob.iterations),
                         (*out_e.depth, *out_e.flow, out_e.junction_stage, out_e.error, out_e.iterations)):
@@ -3164,11 +3218,10 @@ def drive_table_network(dev, launches: dict, reach: dict, t_start: float) -> tup
                 raise AssertionError(f"table network ensemble: the {name} disagrees with the wrapper's build")
         del ob
         bps = fnet.resident_blocks(*shape_e, bid, table=True)
-        b_, minb, one, bracket = bounds[bid]
         ens_builds[name] = dict(build_id=bid, resident_blocks_per_sm=bps, members_in_flight=bps * sms,
                                 ms=time_cuda(lambda: launch_e(bid), reps=2, warmup=1), bit_identical=True,
-                                ptxas=[k for k in ptxas if (k["block"], k["min_blocks"], k["one_slot"], k["bracket"])
-                                       == (b_, minb, one, bracket)])
+                                ptxas=[k for k in ptxas if (k["block"], k["min_blocks"], k["one_slot"], k["bracket"],
+                                                            k["lean"], k["side_warps"]) == bounds[bid]])
     # the bracket build against the residency build by CUDA events in turns,
     # its probe build on the batch; its other forms on other networks
     ens_builds["in_turns"] = table_ensemble_builds(dev, ens_br, sset_e, batch, chosen_out=out_e)
@@ -3176,6 +3229,11 @@ def drive_table_network(dev, launches: dict, reach: dict, t_start: float) -> tup
     # B = 4 against single launches, and the timed batch's first members against them
     part = [{k: trees_slice(v, TABLE_NET_BIT_MEMBERS) for k, v in d.items()} for d in batch]
     ob4 = fnet.fused_simulate_network_batched(ens_br, 1, sset_e, part)
+    if fnet.chosen_build(TABLE_NET_BIT_MEMBERS, *shape_e, table=True) != fnet.LEAN_SIDE_BUILD:
+        raise AssertionError("table network B=4: the C entry does not choose the lean build with side warps")
+    same_network_bits(network_launch(ens_br, 1, sset_e, part, build_id=fnet.LATENCY_BUILD), ob4,
+                      "table network B=4: the latency build forced vs the lean build with side warps")
+    ens_builds["lean_past_one_an_sm"] = lean_batch_past_one_an_sm(dev, reach, sset_e)
     for m in range(TABLE_NET_BIT_MEMBERS):
         one = fnet.fused_simulate_network(net.member_branches(ens_br, part, m), 1, sset_e)
         compare_networks(network_member(ob4, m), one, f"table network B=4 member {m} vs its single launch",
@@ -3248,8 +3306,10 @@ def drive_table_network(dev, launches: dict, reach: dict, t_start: float) -> tup
              launches=launches["fused_simulate_network_table"], max_abs_err=sm_["plain"]["max_abs_dh"],
              ms=sm_["kernel_alone_cuda_events"]["ms"], plain_ms=sm_["plain_ms"], bound_ms=sb, bound_by=sby,
              library_ms=None, bound_terms=sterms, build=sm_["chosen_build"],
+             lean_launches=launches["fused_simulate_network_table_lean"],
              us_per_newton_iteration=sm_["kernel_alone_cuda_events"]["us_per_newton_iteration"],
              all_table_ms=singles["all_table"]["kernel_alone_cuda_events"]["ms"],
+             in_turns_ms={k: {b: in_turns_single[k][b]["ms"] for b in SINGLE_TABLE_BUILDS} for k in nets},
              shape=dict(network="mixed", branches=sm_["branches"], nodes_per_branch=sm_["nodes_per_branch"],
                         samples=sm_["samples"], n_time_levels=nt, newton_iterations=sm_["total_iterations"]),
              plain_shape=dict(n_time_levels=L, newton_iterations=sm_["plain"]["iterations"]),
@@ -3607,7 +3667,7 @@ def drive_network_scratch(dev, launches: dict, reach: dict, large_basin) -> tupl
         compare_networks(network_member(out_e, m), one, f"250 m ensemble member {m} vs its single launch",
                          exact=True, err_rtol=None if build_e == fnet.CLUSTER_BUILD else CLUSTER_ERR_RTOL)
     del ob4
-    picked, plain_recs, Lc = [0, M - 1], [], SCRATCH_PLAIN_LEVELS
+    picked, plain_recs, Lc = [M - 1], [], SCRATCH_PLAIN_LEVELS
     t0 = time.perf_counter()
     for m in picked:
         bm, sm = cut_network_levels(net.member_branches(b250, batch, m), s250, Lc)
@@ -3989,13 +4049,15 @@ def main() -> int:
 
     # -- fused_simulate_batched: (i) against its plain version ---------------
     batched_checks = {}
-    scales4 = [0.85, 1.0, 1.1, 1.2]
     plain_batched_ms = kernel_batched_cmp_ms = None
-    for name, kw, pivots in (("smooth_4x25", {}, (-0.1, 0.0, 0.05, 0.1)),
-                             ("gated_blend_4x25", dict(smooth=False), (0.0, -0.6, 0.2, -1.0))):
+    # (name, flagship options, roughness, inflow scale and rating pivot shift of each member)
+    for name, kw, ns, scales, pivots in (
+            ("smooth_2x25", {}, [0.026, 0.044], [0.85, 1.2], (-0.1, 0.1)),
+            ("gated_blend_4x25", dict(smooth=False), [0.026, 0.030, 0.036, 0.044], [0.85, 1.0, 1.1, 1.2],
+             (0.0, -0.6, 0.2, -1.0))):
         solver, channel = model.build(device=dev, sim_duration=3600 * 24, **kw)
-        geob = ensemble.roughness_ensemble(channel.geometry, [0.026, 0.030, 0.036, 0.044])
-        us_b = scaled_inflow(solver.us_params, scales4)
+        geob = ensemble.roughness_ensemble(channel.geometry, ns)
+        us_b = scaled_inflow(solver.us_params, scales)
         ds_members = [dataclasses.replace(solver.ds_params, rating=dataclasses.replace(
             solver.ds_params.rating, pivot_stage=solver.ds_params.rating.pivot_stage + dp))
             for dp in pivots]
@@ -4008,7 +4070,7 @@ def main() -> int:
         out_p = fused_simulate_batched_plain(*args, **kw_b)
         torch.cuda.synchronize()
         plain_ms_here = (time.perf_counter() - t0) * 1e3
-        members = [prs_out_member(out_p, m) for m in range(4)]
+        members = [prs_out_member(out_p, m) for m in range(len(ns))]
         batched_checks[name] = dict(
             compare_members(out_k, members, name, exact=False), plain_ms=plain_ms_here,
             gate_switches=[int((g[1:] != g[:-1]).sum()) for g in out_k.gate_open],
@@ -4389,7 +4451,7 @@ def main() -> int:
 
     # -- phase 12: the network Monte-Carlo, one launch of kernel 6 ------------
     t0 = time.perf_counter()
-    network_ens, ens_table = drive_network_ensemble(dev, launches, network_checks["batched_4x25"]["plain_ms"])
+    network_ens, ens_table = drive_network_ensemble(dev, launches, network_checks["batched_2x25"]["plain_ms"])
     emit("network_ensemble", **network_ens, seconds=time.perf_counter() - t0)
 
     # -- phase 13: irregular sections, the table paths of kernels 1 and 3 ------
@@ -4504,7 +4566,7 @@ def main() -> int:
                                net_table["levels"])
     eb, eby, _ = network_bound(ens_table["iterations"], ens_table["topo"], ens_table["n_junctions"],
                                ens_table["n_time_levels"], members=ens_table["members"])
-    batched4 = network_checks["batched_4x25"]
+    batched4 = network_checks["batched_2x25"]
     kernels += [
         dict(name="fused_simulate_network", route="cuda",
              source="flowsim_tpu_torch/ops/cuda/csrc/fused_network.cu",
@@ -4568,22 +4630,19 @@ def table_ensemble_builds(dev, ens_br, sset_e, batch, chosen_out=None, rounds: i
                       "table ensemble: the bracket build vs the residency build")
     if chosen_out is not None:
         same_network_bits(chosen_out, ref, "table ensemble: the main path's run vs the residency build")
-    rec = {b: dict(build_id=i, ms_runs=[]) for b, i in ids.items()}
-    order = list(ids)
-    for r in range(4):
-        for b in (order if r % 2 == 0 else order[::-1]):
-            rec[b]["ms_runs"] += readings(lambda: launch(ids[b]), n=rounds)
+    runs = builds_in_turns(launch, ids, rounds)
+    rec = {b: dict(build_id=i, ms_runs=runs[b]) for b, i in ids.items()}
     for b in ids:
         rec[b]["ms"] = statistics.median(rec[b]["ms_runs"])
     # the bracket build's probe build on the batch
     shape = (len(ens_br) * topo.n_max, len(ens_br), 1, topo.m_rhs)
     members = int(ref.iterations.shape[0])
     p = fnet._pack(ens_br, 1, sset_e, batch, members, None, None, None, topo)
-    cycles = torch.zeros(len(fnet.PROBE_PHASES), dtype=torch.int64, device=dev)
+    cycles = torch.zeros(len(fnet.PROBE_FIELDS), dtype=torch.int64, device=dev)
     *raw, clock = fnet._launch(p, members, len(ens_br), 1, sset_e, topo, build_id=fnet.BRACKET_BUILD, probe=cycles)
     same_network_bits(fnet._output(tuple(raw), topo, None), ref, "table ensemble: bracket probe")
     rec["bracket_build"]["probe_member_0"] = probe_record(
-        dict(zip(fnet.PROBE_PHASES, cycles.tolist())), clock, int(ref.iterations[0].sum()),
+        dict(zip(fnet.PROBE_FIELDS, cycles.tolist())), clock, int(ref.iterations[0].sum()),
         rec["bracket_build"]["ms"])
     for b, i in ids.items():
         rec[b]["smem_bytes_per_block"] = fnet.bracket_smem_bytes(*shape) if i == fnet.BRACKET_BUILD \
@@ -4595,48 +4654,201 @@ def table_ensemble_builds(dev, ens_br, sset_e, batch, chosen_out=None, rounds: i
     return rec
 
 
-def bracket_forms(dev) -> dict:
-    """The bracket build's forms that the surveyed ensemble does not run,
-    forced against the residency build forced, bit for bit, on
-    BRACKET_FORM_MEMBERS members (inflows scaled 0.9-1.1) over two hours (9
-    levels of 900 s): the 15-branch basin (levels=4: 195 slots,
-    so the 256-thread instance, and three RHS pairs) and the 7-branch basin
-    draining into a lumped storage with a power outflow rating (the storage
-    end rows; :func:`storage_outlet_networks`), every branch lowered to
-    lookup tables (:func:`as_table`, M = BRACKET_FORM_SAMPLES).  Counts no
-    launch."""
-    from flowsim_tpu_torch.models import basin
+def lean_batch_past_one_an_sm(dev, reach: dict, sset) -> dict:
+    """Kernel 6's table path between one member an SM and the latency
+    build's one wave: 3/2 the card's SMs of members of the all-table
+    surveyed network on the ensemble's tables (M = 96), inflows scaled
+    0.9-1.1.  The C entry takes the lean build there, two blocks an SM as
+    the latency build (with side warps a block holds an SM, two waves); its
+    launch against the latency build and the lean build with side warps
+    forced, bit for bit, and the three by CUDA events in turns
+    (:func:`builds_in_turns`), where the lean build must be the fastest.
+    Counts no launch."""
     from flowsim_tpu_torch.ops.cuda import fused_network as fnet
 
-    nets = dict(basin_levels4=basin.build(levels=4, sim_hours=2, device=dev),
-                storage_outlet_power=storage_outlet_networks(dev)["power"])
+    br = surveyed_network(reach, reach["geo96"], reach["h96"], reach["Q96"], False)
+    M = torch.cuda.get_device_properties(dev).multi_processor_count * 3 // 2
+    topo, launch = network_packed(br, 1, sset, scale_inflows(br, np.linspace(0.9, 1.1, M)))
+    shape = (len(br) * topo.n_max, len(br), 1, topo.m_rhs)
+    ids = dict(lean_build=fnet.LEAN_BUILD, lean_side_build=fnet.LEAN_SIDE_BUILD, latency_build=fnet.LATENCY_BUILD)
+    chosen = fnet.chosen_build(M, *shape, table=True)
+    bps = {n: fnet.resident_blocks(*shape, i, table=True) for n, i in ids.items()}
+    if chosen != fnet.LEAN_BUILD or bps != dict(lean_build=2, lean_side_build=1, latency_build=2):
+        raise AssertionError(f"table batch of {M}: the C entry takes build {chosen}, {bps} blocks an SM; expected "
+                             "the lean build, two an SM")
+    out = fnet._output(launch(-1), topo, None)
+    for n in ("lean_side_build", "latency_build"):
+        same_network_bits(fnet._output(launch(ids[n]), topo, None), out,
+                          f"table batch of {M}: the {n} vs the lean build")
+    if not bool(out.converged.all()):
+        raise AssertionError(f"table batch of {M}: not converged at every level")
+    runs = builds_in_turns(launch, ids)
+    ms = {n: statistics.median(v) for n, v in runs.items()}
+    if min(ms, key=ms.get) != "lean_build":
+        raise AssertionError(f"table batch of {M}: the C entry takes the lean build, but it was not the fastest in "
+                             f"turns ({ms})")
+    return dict(network="all_table", members=M, slots=shape[0], samples=int(reach["geo96"].area.shape[-1]),
+                chosen_build=chosen, resident_blocks_per_sm=bps, total_iterations=int(out.iterations.sum()),
+                bits="every field of every member", in_turns_ms=ms, ms_runs=runs)
+
+
+def gated_ends_network(dev, sim_hours: float = 2.0):
+    """The basin's ``gated_outlet`` case (:func:`build_network_case`: the
+    outlet through a gated rating whose controller acts) with two
+    headwaters' upstream ends changed: the first to a rating through its
+    initial stage and flow that falls as the stage rises (an upstream
+    rating is gate-style), the second to a stage hydrograph about its
+    initial stage.  Returns (branches, n_junctions, settings)."""
+    from flowsim_tpu_torch.ops import boundary as bnd
+    from flowsim_tpu_torch.ops import network as net
+    from flowsim_tpu_torch.ops import rating_curve as rcurve
+
+    br, nj, sset, _ = build_network_case("gated_outlet", dev, sim_hours=sim_hours)
+    rated, staged = [b for b, x in enumerate(br) if not net._is_junction(x.us)][:2]
+    z = lambda b: float(br[b].geo.z_bed[0])
+    y = lambda b: z(b) + float(br[b].h0[0])
+    rating = rcurve.make_polynomial(0.0, -30.0, float(br[rated].Q0[0]), stage_shift=-y(rated), device=dev)
+    stage = y(staged) + 0.05 * np.sin(np.linspace(0.0, np.pi, sset.n_time_levels))
+    br[rated] = dataclasses.replace(br[rated], us=bnd.make_boundary("rating_curve", bed_level=z(rated),
+                                                                    rating=rating, device=dev))
+    br[staged] = dataclasses.replace(br[staged], us=bnd.make_boundary("stage_hydrograph", bed_level=z(staged),
+                                                                      target_series=stage, device=dev))
+    return br, nj, sset
+
+
+def bracket_forms(dev) -> dict:
+    """The bracket and lean builds' forms that the surveyed networks do not
+    run, every branch lowered to lookup tables (:func:`as_table`, M =
+    BRACKET_FORM_SAMPLES), over two hours (9 levels of 900 s): the 15-branch
+    basin (levels=4: 195 slots, so the bracket build's 256-thread instance,
+    three RHS pairs, and the lean build, whose side warps that many slots
+    leave no room for), the 7-branch basin draining into a lumped storage
+    with a power outflow rating (:func:`storage_outlet_networks`: the
+    storage end rows, three RHS pairs; the lean build, as the C entry takes
+    no side warps beside a storage, and the lean build with side warps
+    forced) and the 7-branch basin's gated outlet with an upstream rating
+    and an upstream stage hydrograph (:func:`gated_ends_network`: the other
+    end rows, in the side warps).  On each, the bracket build and the lean
+    builds that take the network forced on BRACKET_FORM_MEMBERS members
+    (inflows scaled 0.9-1.1) against the residency build forced, bit for
+    bit; on a single launch of the same network over a day (97 levels)
+    those lean builds and the latency build against the C entry's choice,
+    bit for bit, and by CUDA events in turns (:func:`builds_in_turns`, five
+    readings a turn, each build's median), where the C entry's choice must
+    beat the latency build.  Counts no launch."""
+    from flowsim_tpu_torch.models import basin
+    from flowsim_tpu_torch.ops import network as net
+    from flowsim_tpu_torch.ops.cuda import fused_network as fnet
+
+    nets = dict(basin_levels4=lambda hours: basin.build(levels=4, sim_hours=hours, device=dev),
+                storage_outlet_power=lambda hours: storage_outlet_networks(dev, sim_hours=hours)["power"],
+                gated_ends=lambda hours: gated_ends_network(dev, sim_hours=hours))
+    names = {fnet.LEAN_SIDE_BUILD: "lean_side_build", fnet.LEAN_BUILD: "lean_build", fnet.LATENCY_BUILD: "latency_build"}
+    tables = lambda br: [dataclasses.replace(b, geo=as_table(b.geo, samples=BRACKET_FORM_SAMPLES)) for b in br]
     out = {}
-    for name, (br, nj, st) in nets.items():
-        br = [dataclasses.replace(b, geo=as_table(b.geo, samples=BRACKET_FORM_SAMPLES)) for b in br]
+    for name, make in nets.items():
+        br, nj, st = make(2.0)
+        br = tables(br)
         batch = scale_inflows(br, np.linspace(0.9, 1.1, BRACKET_FORM_MEMBERS))
         topo, launch = network_packed(br, nj, st, batch)
+        shape = (len(br) * topo.n_max, len(br), nj, topo.m_rhs)
+        storage = any(x.storage is not None for b in br for x in (b.us, b.ds) if not net._is_junction(x))
+        chosen = {m: fnet.chosen_build(m, *shape, table=True, storage=storage) for m in (1, BRACKET_FORM_MEMBERS)}
+        # whether the side warps take the network (the C entry's choice for
+        # it without a storage)
+        side = fnet.chosen_build(1, *shape, table=True) == fnet.LEAN_SIDE_BUILD
+        if chosen[1] not in (fnet.LEAN_BUILD, fnet.LEAN_SIDE_BUILD) or chosen[BRACKET_FORM_MEMBERS] != chosen[1] \
+                or (chosen[1] == fnet.LEAN_SIDE_BUILD) != (side and not storage):
+            raise AssertionError(f"bracket forms, {name}: the C entry takes builds {chosen}")
         res = fnet._output(launch(fnet.RESIDENCY_BUILD), topo, None)
-        same_network_bits(fnet._output(launch(fnet.BRACKET_BUILD), topo, None), res,
-                          f"bracket forms, {name}: the bracket build vs the residency build")
+        forms = [fnet.BRACKET_BUILD, fnet.LEAN_BUILD] + ([fnet.LEAN_SIDE_BUILD] if side else [])
+        for bid in forms:
+            same_network_bits(fnet._output(launch(bid), topo, None), res,
+                              f"bracket forms, {name}: build {bid} vs the residency build")
         if not bool(res.converged.all()):
             raise AssertionError(f"bracket forms, {name}: not converged at every level")
-        slots = len(br) * topo.n_max
-        out[name] = dict(branches=len(br), junctions=nj, slots=slots, rhs_pairs=topo.m_rhs,
-                         block_threads=192 if slots <= 192 else 256, storage_end=br[0].ds.storage is not None,
-                         members=BRACKET_FORM_MEMBERS, levels=st.n_time_levels, samples=BRACKET_FORM_SAMPLES,
-                         iterations=int(res.iterations.sum()), bits="every field of every member")
+        # one launch of a day (97 levels): the lean builds that take the
+        # network and the latency build against the C entry's choice, which
+        # must beat the latency build
+        br1, nj1, st1 = make(24.0)
+        topo1, launch1 = network_packed(tables(br1), nj1, st1)
+        ids = {names[i]: i for i in names if side or i != fnet.LEAN_SIDE_BUILD}
+        ref = fnet._single(fnet._output(launch1(-1), topo1, None))
+        for n, i in ids.items():
+            same_network_bits(fnet._single(fnet._output(launch1(i), topo1, None)), ref,
+                              f"bracket forms, {name}: one launch, the {n} vs the C entry's choice")
+        runs = builds_in_turns(launch1, ids, rounds=5)
+        ms = {n: statistics.median(v) for n, v in runs.items()}
+        if ms[names[chosen[1]]] >= ms["latency_build"] or not bool(ref.converged.all()):
+            raise AssertionError(f"bracket forms, {name}: the C entry takes the {names[chosen[1]]}, but it did not "
+                                 f"beat the latency build in turns ({ms}), or a level did not converge")
+        out[name] = dict(branches=len(br), junctions=nj, slots=shape[0], rhs_pairs=topo.m_rhs,
+                         block_threads=192 if shape[0] <= 192 else 256, storage_end=br[0].ds.storage is not None,
+                         ends=sorted({x.kind for b in br for x in (b.us, b.ds) if not net._is_junction(x)}),
+                         chosen=chosen, takes_side_warps=side, members=BRACKET_FORM_MEMBERS, levels=st.n_time_levels,
+                         samples=BRACKET_FORM_SAMPLES, iterations=int(res.iterations.sum()),
+                         bits="every field of every member", forms=forms,
+                         one_launch=dict(levels=st1.n_time_levels, iterations=int(ref.iterations.sum()),
+                                         in_turns_ms=ms, ms_runs=runs, fastest=min(ms, key=ms.get)))
     if (out["basin_levels4"]["rhs_pairs"], out["basin_levels4"]["block_threads"]) != (3, 256) \
-            or not out["storage_outlet_power"]["storage_end"]:
+            or {k: v["chosen"][1] for k, v in out.items()} != dict(
+                basin_levels4=fnet.LEAN_BUILD, storage_outlet_power=fnet.LEAN_BUILD, gated_ends=fnet.LEAN_SIDE_BUILD) \
+            or not out["storage_outlet_power"]["takes_side_warps"] \
+            or not out["storage_outlet_power"]["storage_end"] or out["storage_outlet_power"]["rhs_pairs"] != 3 \
+            or not {"rating_curve", "stage_hydrograph", "flow_hydrograph"} <= set(out["gated_ends"]["ends"]):
         raise AssertionError(f"bracket forms: not the forms meant: {out}")
     return out
 
 
+# kernel 5's table builds timed against each other on single networks
+# (:func:`single_table_builds`), the first the reference of their bits
+SINGLE_TABLE_BUILDS = ("lean_side_build", "lean_build", "latency_build", "bracket_build")
+
+
+def single_table_builds(nets: dict, sset, rounds: int = 3) -> dict:
+    """Kernel 5's table path on single networks: each of SINGLE_TABLE_BUILDS
+    forced on each network of ``nets``, bit for bit against the first, then
+    by CUDA events in turns (forward, backward, forward, backward;
+    ``rounds`` readings a turn, :func:`readings`; each build's median), and
+    each build's probe build (its fields hold the split of the assembly
+    phase), whose bits are the production launch's.  Counts no launch."""
+    from flowsim_tpu_torch.ops.cuda import fused_network as fnet
+
+    ids = {n: getattr(fnet, n.upper()) for n in SINGLE_TABLE_BUILDS}
+    first = SINGLE_TABLE_BUILDS[0]
+    out = {}
+    for k, b in nets.items():
+        topo, launch = network_packed(b, 1, sset)
+        outs = {n: fnet._single(fnet._output(launch(i), topo, None)) for n, i in ids.items()}
+        for n in ids:
+            same_network_bits(outs[n], outs[first], f"table network {k}: the {n} vs the {first}")
+        runs = builds_in_turns(launch, ids, rounds)
+        rec = {n: dict(build_id=i, ms_runs=runs[n]) for n, i in ids.items()}
+        iters = int(outs[first].iterations.sum())
+        for n, i in ids.items():
+            rec[n]["ms"] = statistics.median(rec[n]["ms_runs"])
+            rec[n]["us_per_newton_iteration"] = rec[n]["ms"] * 1e3 / iters
+            probed, cycles, clock = fnet.fused_simulate_network_probe(b, 1, sset, build_id=i)
+            same_network_bits(probed, outs[n], f"table network {k}: the {n}'s probe build")
+            rec[n]["probe"] = dict(probe_record(cycles, clock, iters, rec[n]["ms"]),
+                                   bit_identical_to_production=True)
+        out[k] = dict(slots=len(b) * topo.n_max, threads=-(-len(b) * topo.n_max // 32) * 32,
+                      chosen_build=fnet.chosen_build(1, len(b) * topo.n_max, len(b), 1, topo.m_rhs, table=True),
+                      total_iterations=iters, bits=f"every field, against the {first}",
+                      fastest=min(ids, key=lambda n: rec[n]["ms"]), **rec)
+    return out
+
+
 def table_network_times(dev, rounds: int = 3) -> dict:
-    """Kernel 6's table path alone: NETWORK_MC_MEMBERS members of the
-    surveyed mixed network at M = TABLE_BATCH_SAMPLES (the ``table_network``
-    phase's ensemble, its tables sampled by the api at M = 96 rather than
-    sliced from the M = 1024 reach), the bracket and the residency build in
-    turns (:func:`table_ensemble_builds`).  ``python3 chip_smoke.py
+    """Kernels 5 and 6's table paths alone, on tables the api samples at M =
+    TABLE_BATCH_SAMPLES (rather than sliced from the M = 1024 reach, whose
+    host build takes minutes): kernel 5 on the single surveyed networks,
+    mixed and all-table, 193 levels at TABLE_TOL (:func:`single_table_builds`),
+    with the trapezoid tributary's latency build probed beside them; kernel
+    6 on 3/2 the SMs of all-table members (:func:`lean_batch_past_one_an_sm`)
+    and on NETWORK_MC_MEMBERS members of the mixed network (the
+    ``table_network`` phase's ensemble), the bracket and the residency build
+    in turns (:func:`table_ensemble_builds`).  ``python3 chip_smoke.py
     --table-network-times`` prints only this."""
     import functools
 
@@ -4652,10 +4864,30 @@ def table_network_times(dev, rounds: int = 3) -> dict:
     geo96 = solver.channel.geometry
     h96, Q96 = ic.initial_conditions(geo96, "steady-state", 400.0, solver.spatial_step)
     ens_br = surveyed_network(dict(solver=solver), geo96, h96, Q96, True)
+    nets = dict(mixed=ens_br, all_table=surveyed_network(dict(solver=solver), geo96, h96, Q96, False))
+    singles = single_table_builds(nets, solver.settings(TABLE_TOL, 100), rounds=rounds)
+    singles["trapezoid_tributary_latency_probe"] = tributary_latency_probe(dev)
     sset_e = solver.settings(TABLE_BATCH_TOL, 100)
     batch = scale_inflows(ens_br, 0.9 + 0.2 * np.random.default_rng(NETWORK_MC_SEED).random(NETWORK_MC_MEMBERS))
-    return dict(members=NETWORK_MC_MEMBERS, samples=TABLE_BATCH_SAMPLES,
+    past = lean_batch_past_one_an_sm(dev, dict(solver=solver, geo96=geo96, h96=h96, Q96=Q96), sset_e)
+    return dict(samples=TABLE_BATCH_SAMPLES, single=singles, lean_past_one_an_sm=past, members=NETWORK_MC_MEMBERS,
                 **table_ensemble_builds(dev, ens_br, sset_e, batch, rounds=rounds))
+
+
+def tributary_latency_probe(dev) -> dict:
+    """The probe build of kernel 5's trapezoid latency build on the
+    tributary (385 levels), its bits the production launch's: the
+    trapezoid counterpart of the table builds' split assembly."""
+    from flowsim_tpu_torch.models import gerd_tributary
+    from flowsim_tpu_torch.ops.cuda import fused_network as fnet
+
+    br, nj, sset, _ = gerd_tributary.build(device=dev)
+    topo, launch = network_packed(br, nj, sset)
+    prod = fnet._single(fnet._output(launch(fnet.LATENCY_BUILD), topo, None))
+    ms = time_cuda(lambda: launch(fnet.LATENCY_BUILD), reps=3, warmup=1)
+    probed, cycles, clock = fnet.fused_simulate_network_probe(br, nj, sset, build_id=fnet.LATENCY_BUILD)
+    same_network_bits(probed, prod, "the tributary's latency probe build")
+    return dict(slots=len(br) * topo.n_max, **probe_record(cycles, clock, int(prod.iterations.sum()), ms))
 
 
 def network_times(dev, rounds: int = 3) -> dict:
@@ -4692,14 +4924,17 @@ def ptxas_figures(dev) -> dict:
 
 def ptxas_key(kernel: str) -> str:
     """A kernel's mangled name without the anonymous namespace's hash (which
-    changes with the source) and without a trailing defaulted ``false``
-    template argument of the network kernel (the bracket build's flag): the
-    same key for the same build in two checkouts."""
+    changes with the source) and without the network kernel's trailing
+    defaulted ``false`` template arguments (the flags of the builds added
+    since, the bracket and the lean build's): the same key for the same build
+    in two checkouts."""
     k = re.sub(r"_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]{8}", "", kernel).split("EEvPK")[0]
     m = re.match(r"(.*fused_network_kernelI)((?:L[ib]\d+E)+)$", k)
     if m:
         args = re.findall(r"L[ib]\d+E", m.group(2))
-        k = m.group(1) + "".join(args[:8] if len(args) > 8 and args[8:] == ["Lb0E"] else args)
+        while len(args) > 8 and args[-1] == "Lb0E":
+            args.pop()
+        k = m.group(1) + "".join(args)
     return k
 
 

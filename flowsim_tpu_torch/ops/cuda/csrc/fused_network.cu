@@ -132,10 +132,32 @@
 //    blocks an SM (three ran slower: 96 registers).  The residency build
 //    read two rows of seven tables through L2 at every closure and inverted
 //    every partner's D twice a sweep.  The same bits.
+//  * the LEAN build (table library only), for a network with table branches
+//    where the LATENCY build would run (one network, batches the card holds
+//    at once) and the LEAN build holds the batch at once too: the BRACKET
+//    form under the LATENCY build's launch bound (255 registers), and one
+//    closure pass a Newton iteration, none between levels: a level's
+//    previous-level closures are those of its first iteration (the same
+//    state, no update between them), which that iteration's closures and
+//    cells keep in registers, so a level has no closure pass and no
+//    barrier before its Newton loop and no level-start array; a trapezoid
+//    slot that is not compound evaluates its section without the compound
+//    code (section_state_plain).  The LEAN_SIDE build, where the network
+//    has up to 192 slots, 16 branches and 32 junctions (lean_side) and each
+//    member has an SM of its own, is the LEAN build with two warps beyond
+//    the slots' (the side warps) that take the external end rows and the
+//    junction rows while the slots' warps assemble their cells.  The probe
+//    split the surveyed mixed network's assembly and found most of it to
+//    be the wait at the closures' barrier:
+//    the tributary's trapezoid slots ran the compound code (flood-plain
+//    subsections and a compound conveyance, computed and discarded for a
+//    plain trapezoid) while every table slot waited; the end and junction
+//    rows came after the cells in their warps (PERF.md).  The same bits.
 //  Every build does the same operations in the same order and gives the
 //  same bits; the build id of the C entry is a test hook for chip_smoke.py.
-//  The probe build (PROBE, reach_common.cuh) of the loop, latency, scratch and
-//  cluster forms sums the cycles of each phase of an iteration.
+//  The probe build (PROBE, reach_common.cuh) of the loop, latency, scratch,
+//  cluster, bracket and lean forms sums the cycles of each phase of an
+//  iteration, and splits the assembly (AssemblyProbe).
 //
 // Table branches (irregular sections; the TABLE builds).  A branch's geometry
 // is a trapezoid (closed forms) or per-node lookup tables of M depth samples
@@ -221,6 +243,7 @@ enum { JR_NONE = -1, JR_POLY = RC_POLY, JR_BLEND = RC_BLEND, JR_POLY_N = RC_POLY
        JR_TABLE = RC_TABLE };
 
 constexpr int MAX_THREADS = 256;
+constexpr int SIDE_WARPS = 2;   // the LEAN build's side warps: external end rows, junction rows
 constexpr int MAX_JUNCTION_ENDS = 8;   // a longer list is scanned from the branch table
 constexpr int STATE_DOUBLES_PER_SLOT = 8;   // h, Q, hp, Qp, Ap, Sep, Q2Ap, qavg
 
@@ -463,14 +486,18 @@ __device__ __forceinline__ Sec section_state(const SlotGeo& s, double depth) {
 
 // A slot's section: in the BRACKET build a table slot's bracket cached in
 // shared memory at cache[c * ld + x], its index at cidx[x]
-// (section_state_cached: the same values and expressions); every other
-// slot, and every other build, section_state.
-template <bool BRACKET, class GEO>
+// (section_state_cached: the same values and expressions), and in the LEAN
+// build a trapezoid slot that is not compound by section_state_plain; every
+// other slot, and every other build, section_state.
+template <bool BRACKET, bool LEAN = false, class GEO>
 __device__ __forceinline__ Sec slot_section(const GEO& g, double depth, double* cache, int* cidx, int ld, int x) {
     if constexpr (BRACKET) {
         if (g.row != nullptr)
             return section_state_cached(tab_geo(g.row, g.nm, g.g.z, g.curv, g.dgrid, g.jmax), depth, cache, cidx,
                                         ld, x);
+    }
+    if constexpr (LEAN) {
+        if (!g.g.compound) return section_state_plain(g.g, depth);
     }
     return section_state(g, depth);
 }
@@ -482,6 +509,127 @@ __host__ __device__ inline size_t bracket_smem_bytes(int slots, int B, int J, in
     return ((size_t)slots * (2 * comp(rhs) + 2) + junction_doubles(B, J)) * sizeof(double)
         + (size_t)slots * (BK_COUNT * sizeof(double) + sizeof(int));
 }
+
+// -- the LEAN build's side warps ----------------------------------------------
+
+// Whether a network fits the LEAN build's side warps: they fit the block
+// beside the slots' warps, and one warp's lanes hold the external ends (at
+// most two a branch) and the junctions.
+inline bool lean_side(int slots, int B, int J) {
+    return ((slots + 31) / 32) * 32 + SIDE_WARPS * 32 <= MAX_THREADS && 2 * B <= 32 && J <= 32;
+}
+
+// The side warps' shared memory (LEAN): 32 external end residuals, then 32
+// junctions' G.
+template <bool ON>
+__device__ __forceinline__ double* side_area() {
+    if constexpr (ON) {
+        __shared__ double a[2 * 32];
+        return a;
+    } else {
+        return nullptr;
+    }
+}
+
+// Named barrier 1 between the side warps (arrive, having written their
+// results) and the slots' warps that read them (wait); count threads in all.
+__device__ __forceinline__ void side_arrive(int count) {
+    __threadfence_block();
+    __syncwarp();
+    asm volatile("bar.arrive 1, %0;" ::"r"(count) : "memory");
+}
+__device__ __forceinline__ void side_wait(int count) {
+    __syncwarp();
+    asm volatile("bar.sync 1, %0;" ::"r"(count) : "memory");
+}
+
+// -- the probe build's split of the assembly phase -----------------------------
+
+// Parts of PH_ASSEMBLY, by the cycle at which the block's last thread
+// reaches each point: the start of its first cell row (the wait: the
+// probing thread reads the clock after the closures' barrier when its warp
+// arrives there, not when the barrier releases, so a phase that ends at a
+// barrier leaves the barrier's wait to the next), the end of its cell rows,
+// of its end rows, of the junction rows, of the probe's own stamps (a warp
+// maximum of each), then the norm (block_sum and its barrier); they add up
+// to PH_ASSEMBLY.  Each thread stamps its own parts (in the loop forms, its
+// first slot's start and its last slot's ends), so the split costs no
+// barrier and changes no operation.
+enum { AP_WAIT, AP_CELLS, AP_ENDS, AP_JUNCTIONS, AP_STAMPS, AP_NORM, AP_COUNT };
+
+template <bool ON>
+struct AssemblyProbe {
+    __device__ __forceinline__ void begin(long long) {}
+    __device__ __forceinline__ void start() {}
+    __device__ __forceinline__ void mark(int) {}
+    __device__ __forceinline__ void publish() {}
+    __device__ __forceinline__ void account(bool, long long) {}
+    __device__ __forceinline__ void write(bool, long long*) {}
+};
+
+template <>
+struct AssemblyProbe<true> {
+    // this thread's stamps at the start of its first cell row and after its
+    // cell rows, end rows and junction rows; the probing thread's reading at
+    // the closures' barrier
+    long long ts = 0, t[3] = {}, t_begin = 0, cycles[AP_COUNT] = {};
+    bool started = false;
+    // per warp: the four stamps' maxima, then the warp's stamp after
+    // publishing them
+    static __device__ __forceinline__ long long* area() {
+        __shared__ long long a[5][32];
+        return &a[0][0];
+    }
+    __device__ __forceinline__ void begin(long long t0) {
+        t_begin = t0;
+        ts = t[0] = t[1] = t[2] = clock64();
+        started = false;
+    }
+    __device__ __forceinline__ void start() {
+        if (!started) ts = clock64();
+        started = true;
+    }
+    __device__ __forceinline__ void mark(int part) { t[part] = clock64(); }
+    // every thread of the block, after the junction rows
+    __device__ __forceinline__ void publish() {
+        long long v[4] = {ts, t[0], t[1], t[2]};
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+#pragma unroll
+            for (int off = 16; off > 0; off >>= 1) v[k] = max(v[k], __shfl_xor_sync(0xffffffffu, v[k], off));
+        const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+        long long* a = area();
+        if (lane == 0) {
+#pragma unroll
+            for (int k = 0; k < 4; ++k) a[k * 32 + warp] = v[k];
+            a[4 * 32 + warp] = clock64();
+        }
+    }
+    // the probing thread, after the norm's barrier (t_end its reading there)
+    __device__ __forceinline__ void account(bool active, long long t_end) {
+        if (!active) return;
+        const long long* a = area();
+        long long m[5];
+#pragma unroll
+        for (int k = 0; k < 5; ++k) {
+            m[k] = a[k * 32];
+            for (int w = 1; w < (int)(blockDim.x >> 5); ++w) m[k] = max(m[k], a[k * 32 + w]);
+        }
+        // each part from the last thread's stamp before it to its own
+        long long prev = t_begin;
+#pragma unroll
+        for (int k = 0; k < 5; ++k) {
+            cycles[AP_WAIT + k] += m[k] - prev;
+            prev = m[k];
+        }
+        cycles[AP_NORM] += t_end - prev;
+    }
+    __device__ __forceinline__ void write(bool active, long long* out) {
+        if (!active) return;
+#pragma unroll
+        for (int k = 0; k < AP_COUNT; ++k) out[PH_COUNT + k] = cycles[k];
+    }
+};
 
 __device__ __forceinline__ Geo load_geo(const double* __restrict__ geo, int n_max, int b, int i) {
     const double* r = geo + (size_t)b * G_ROWS * n_max + i;
@@ -503,8 +651,12 @@ __device__ __forceinline__ Geo load_geo(const double* __restrict__ geo, int n_ma
 // with its slot arrays in device memory, on a persistent grid.  CLUSTER: one
 // network over the blocks of a thread-block cluster, its slot arrays split
 // by rank in their shared memory, on a persistent grid of clusters.
+// BRACKET: the residency form with each table slot's bracket cached and
+// carried sweeps.  LEAN: the BRACKET form under the LATENCY build's launch
+// bound, one closure pass a Newton iteration and none between levels.
+// LEAN_SIDE: the LEAN build with its side warps.
 enum { LOOP_BUILD = 0, LATENCY_BUILD = 1, RESIDENCY_BUILD = 2, SCRATCH_BUILD = 3, CLUSTER_BUILD = 4,
-       BRACKET_BUILD = 5 };
+       BRACKET_BUILD = 5, LEAN_BUILD = 6, LEAN_SIDE_BUILD = 7 };
 
 // ONE: the latency build's one slot a thread (needs slots <= blockDim.x).
 // PROBE: the probe build (reach_common.cuh, Probe).  TABLE: a network with
@@ -517,9 +669,21 @@ enum { LOOP_BUILD = 0, LATENCY_BUILD = 1, RESIDENCY_BUILD = 2, SCRATCH_BUILD = 3
 // (ONE: one slot a thread of the rank's).  BRACKET (with ONE and TABLE): each
 // table slot's bracket cached in shared memory after the junction block,
 // and the sweeps with the carried inverse and the slot's own rows in
-// registers (pcr::sweep_node_at_carried).
+// registers (pcr::sweep_node_at_carried).  LEAN (with BRACKET, under the
+// latency build's launch bound): a level's previous-level closures are its first Newton
+// iteration's (the same state: no update between them), kept in registers
+// as that iteration's closures and cells read them, so a level has no
+// closure pass and no barrier of its own before the Newton loop and no
+// level-start array; a trapezoid slot that is not compound takes
+// section_state_plain.  SIDE (with LEAN): two warps beyond the slots' (the
+// side warps) take the external end rows (lane e the network's e-th external end,
+// branches in order, upstream end first) and the junction rows (lane j
+// junction j) off the slots' warps while those assemble their cells; a
+// slot's end residual and a junction's G reach the thread that adds them
+// to the norm, in their old place, through shared memory and a named
+// barrier, so the norm keeps its bits.
 template <int RHS, int BLOCK, int MINB, bool ONE, bool PROBE, bool TABLE, bool SCRATCH, bool CLUSTER,
-          bool BRACKET = false>
+          bool BRACKET = false, bool LEAN = false, bool SIDE = false>
 __global__ void __launch_bounds__(BLOCK, MINB)
 fused_network_kernel(const double* __restrict__ geo_all,   // [M, B, 13, Nmax]
                      const double* __restrict__ h0_all,    // [M, B, Nmax]
@@ -542,7 +706,7 @@ fused_network_kernel(const double* __restrict__ geo_all,   // [M, B, 13, Nmax]
                      int* __restrict__ conv_all,           // [M, nt]
                      double* stage_all,                    // [M, nt, B, 2]; NaN-filled
                      double* __restrict__ gate_all,        // [M, nt, B, 2]
-                     long long* __restrict__ probe_out,    // [PH_COUNT] cycles (probe build)
+                     long long* __restrict__ probe_out,    // [PH_COUNT + AP_COUNT] cycles (probe build)
                      int B, int n_max, int J, int nt, int max_iter, int sweeps, int qlat_mode,
                      const int* __restrict__ tab_branch,   // [B]: index among the table branches, or -1
                      const double* __restrict__ tab_all,   // [T, TAB_COUNT, Nmax, M], shared (TABLE)
@@ -550,6 +714,8 @@ fused_network_kernel(const double* __restrict__ geo_all,   // [M, B, 13, Nmax]
                      double* scratch_all) {                // [grid, slot_doubles] (SCRATCH)
     static_assert(!SCRATCH || (!ONE && !CLUSTER), "the SCRATCH build is the loop form, in one block");
     static_assert(!BRACKET || (ONE && TABLE && !SCRATCH && !CLUSTER), "the BRACKET build is a TABLE latency form");
+    static_assert(!LEAN || BRACKET, "the LEAN build is the BRACKET form");
+    static_assert(!SIDE || LEAN, "the side warps are the LEAN build's");
     constexpr int C = comp(RHS);
     extern __shared__ double smem[];
     __shared__ double warp_part[2][32];
@@ -648,9 +814,14 @@ fused_network_kernel(const double* __restrict__ geo_all,   // [M, B, 13, Nmax]
         const int tj = lead ? tid : 1 << 30;
         // the junction rows go to the threads that own no slot when there are J
         // of them (junction j on thread slots + j), else to threads 0..J-1
+        // (SIDE: among the slots' warps, as without the side warps; j0 is
+        // then the junction whose G the thread adds to the norm)
+        const int nslot = SIDE ? nthr - SIDE_WARPS * 32 : nthr;
         const int j0 = CLUSTER ? (!lead ? J : nthr - cnt >= J ? (tid >= cnt ? tid - cnt : J) : tid)
-                               : nthr - ld >= J ? (tid >= ld ? tid - ld : J) : tid;
+                     : SIDE ? (nslot - ld >= J ? (tid >= ld && tid < nslot ? tid - ld : J) : tid)
+                            : nthr - ld >= J ? (tid >= ld ? tid - ld : J) : tid;
         Probe<PROBE> probe;
+        AssemblyProbe<PROBE> ap;
 
 #define TDIFF(c1, c0, p1, p0) (((c1) + (c0) - (p1) - (p0)) / (2.0 * dt))
 #define SDIFF(c1, c0, p1, p0) ((theta * ((c1) - (c0)) + (1.0 - theta) * ((p1) - (p0))) / dx)
@@ -688,6 +859,30 @@ fused_network_kernel(const double* __restrict__ geo_all,   // [M, B, 13, Nmax]
                     odgrid = og.b / (double)(tab_m - 1);   // the table span, row G_BMAIN
                 }
             }
+        }
+        // SIDE: lane e of the ends warp (ew) takes the e-th external end, slot
+        // e_s of branch e_b (-1: none), and keeps its level-start h and Q; a
+        // slot's index among the external ends, o_e (-1: not one); the warps
+        // that wait for the side warps (waits: one of their threads adds an
+        // end residual or a junction's G to the norm), and the named
+        // barrier's threads
+        const int warp = tid >> 5, lane = tid & 31, ew = nslot >> 5;
+        int e_s = -1, e_b = 0, o_e = -1, side_count = 0;
+        bool e_up = false, waits = false;
+        double ehp = 0.0, eQp = 0.0;
+        if constexpr (SIDE) {
+            int e = 0;
+            for (int b = 0; b < B; ++b) {
+                for (int up = 1; up >= 0; --up) {
+                    if (BRANCH_INT(b, up ? BI_US_J : BI_DS_J) >= 0) continue;
+                    const int sl = b * n_max + (up ? 0 : n_max - 1);
+                    if (warp == ew && lane == e) { e_s = sl; e_b = b; e_up = up; }
+                    if (own && tid == sl) o_e = e;
+                    ++e;
+                }
+            }
+            waits = warp < ew && __any_sync(0xffffffffu, o_e >= 0 || j0 < J);
+            side_count = 32 * (__syncthreads_count(lane == 0 && waits) + SIDE_WARPS);
         }
         // every slot of this thread: once in the latency build, a loop otherwise
         auto each_slot = [&](auto&& body) {
@@ -795,22 +990,36 @@ fused_network_kernel(const double* __restrict__ geo_all,   // [M, B, 13, Nmax]
 
             // -- previous-level state per slot; junction level-start terms
             each_slot([&](int s, int b, int i) {
-                const double h = sh[s], Q = sQ[s];
-                const auto g = geo_at(b, i);
-                const Sec sc = slot_section<BRACKET>(g, h, bcache, bcidx, ld, s);
-                const Slope e = energy_slope(g, sc, h, Q);
-                const double Q2A = Q * Q / sc.A;
-                shp[s] = h; sQp[s] = Q;
-                sAp[s] = sc.A; sSep[s] = e.Se; sQ2Ap[s] = Q2A;
-                double qa = 0.0;
-                if (qlat_mode != QLAT_NONE && i < n_max - 1) {
-                    const double* qc = qlat_mode == QLAT_LEVELS ? qlat + (size_t)k * ld : qlat;
-                    const double* qp = qlat_mode == QLAT_LEVELS ? qlat + (size_t)(k - 1) * ld : qlat;
-                    qa = CAVG(qc[GS(s) + 1], qc[GS(s)], qp[GS(s) + 1], qp[GS(s)]);
+                // the slot's level-start inflow (cell i, i+1)
+                auto inflow = [&]() {
+                    double qa = 0.0;
+                    if (qlat_mode != QLAT_NONE && i < n_max - 1) {
+                        const double* qc = qlat_mode == QLAT_LEVELS ? qlat + (size_t)k * ld : qlat;
+                        const double* qp = qlat_mode == QLAT_LEVELS ? qlat + (size_t)(k - 1) * ld : qlat;
+                        qa = CAVG(qc[GS(s) + 1], qc[GS(s)], qp[GS(s) + 1], qp[GS(s)]);
+                    }
+                    return qa;
+                };
+                if constexpr (LEAN) {
+                    // h, Q and the inflow: the closures come with the first
+                    // iteration's
+                    ohp0 = sh[s]; oQp0 = sQ[s]; oqavg = inflow();
+                } else {
+                    const double h = sh[s], Q = sQ[s];
+                    const auto g = geo_at(b, i);
+                    const Sec sc = slot_section<BRACKET>(g, h, bcache, bcidx, ld, s);
+                    const Slope e = energy_slope(g, sc, h, Q);
+                    const double Q2A = Q * Q / sc.A;
+                    shp[s] = h; sQp[s] = Q;
+                    sAp[s] = sc.A; sSep[s] = e.Se; sQ2Ap[s] = Q2A;
+                    const double qa = inflow();
+                    if constexpr (!BRACKET) sqavg[s] = qa;
+                    if constexpr (ONE) { ohp0 = h; oQp0 = Q; oAp0 = sc.A; oSep0 = e.Se; oQ2Ap0 = Q2A; oqavg = qa; }
                 }
-                if constexpr (!BRACKET) sqavg[s] = qa;
-                if constexpr (ONE) { ohp0 = h; oQp0 = Q; oAp0 = sc.A; oSep0 = e.Se; oQ2Ap0 = Q2A; oqavg = qa; }
             });
+            if constexpr (SIDE) {   // the ends warp's level-start state of its end
+                if (e_s >= 0) { ehp = sh[e_s]; eQp = sQ[e_s]; }
+            }
             for (int j = j0; j < J; j += nthr) {
                 const double* jp = jpar + (size_t)j * JP_COUNT;
                 double S = 0.0;
@@ -822,9 +1031,13 @@ fused_network_kernel(const double* __restrict__ geo_all,   // [M, B, 13, Nmax]
                 sSp[j] = S;
                 sqp[j] = junction_q(jp, jtab, sY[j]);
             }
-            NET_SYNC();
-            probe.mark(PH_PREV);
-            if constexpr (ONE) {
+            // (LEAN: what the junction rows read here, the closures' barrier
+            // publishes)
+            if constexpr (!LEAN) {
+                NET_SYNC();
+                probe.mark(PH_PREV);
+            }
+            if constexpr (ONE && !LEAN) {
                 if (own && oi < n_max - 1) {
                     const int t = tid + 1;
                     ohp1 = AT(shp, t); oQp1 = AT(sQp, t); oAp1 = AT(sAp, t); oSep1 = AT(sSep, t);
@@ -840,7 +1053,7 @@ fused_network_kernel(const double* __restrict__ geo_all,   // [M, B, 13, Nmax]
                 each_slot([&](int s, int b, int i) {
                     const double h = sh[s], Q = sQ[s];
                     const auto g = geo_at(b, i);
-                    const Sec sc = slot_section<BRACKET>(g, h, bcache, bcidx, ld, s);
+                    const Sec sc = slot_section<BRACKET, LEAN>(g, h, bcache, bcidx, ld, s);
                     const Slope e = energy_slope(g, sc, h, Q);
                     const double Q2A = Q * Q / sc.A, QA = Q / sc.A;
                     buf1[0 * LD + s] = sc.A;      buf1[1 * LD + s] = Q2A;
@@ -851,6 +1064,9 @@ fused_network_kernel(const double* __restrict__ geo_all,   // [M, B, 13, Nmax]
                         // what an end row reads of the section, beside the
                         // exchange area (no Sec held in registers)
                         oh = h; oQ = Q;
+                        if constexpr (LEAN) {
+                            if (it == 0) { oAp0 = sc.A; oSep0 = e.Se; oQ2Ap0 = Q2A; }
+                        }
                         if (i == 0 || i == n_max - 1) {
                             buf1[7 * LD + s] = sc.R;      buf1[8 * LD + s] = sc.n_eq;
                             buf1[9 * LD + s] = sc.dR_dA;  buf1[10 * LD + s] = sc.K;
@@ -862,9 +1078,11 @@ fused_network_kernel(const double* __restrict__ geo_all,   // [M, B, 13, Nmax]
                 });
                 NET_SYNC();
                 probe.mark(PH_CLOSURES);
+                ap.begin(probe.t);
 
                 double sq = 0.0;
                 each_slot([&](int s, int b, int i) {
+                    ap.start();
                     const int n_b = ONE ? on_b : BRANCH_INT(b, BI_N);
                     const int us_j = ONE ? ous_j : BRANCH_INT(b, BI_US_J);
                     const int ds_j = ONE ? ods_j : BRANCH_INT(b, BI_DS_J);
@@ -896,6 +1114,9 @@ fused_network_kernel(const double* __restrict__ geo_all,   // [M, B, 13, Nmax]
                             const double Se1 = ATC(buf1, 2, t), dA_dh1 = ATC(buf1, 3, t);
                             const double dSe_dA1 = ATC(buf1, 4, t), dSe_dQ1 = ATC(buf1, 5, t);
                             const double QA1 = ATC(buf1, 6, t);
+                            if constexpr (LEAN) {   // the level's first iteration: its state is the level's start
+                                if (it == 0) { ohp1 = h1; oQp1 = Q1; oAp1 = A1; oSep1 = Se1; oQ2Ap1 = Q2A1; }
+                            }
                             double hp0, hp1, Qp0, Qp1, Ap0, Ap1, Sep0, Sep1, Q2Ap0, Q2Ap1, qavg, z0, z1;
                             if constexpr (ONE) {
                                 hp0 = ohp0; hp1 = ohp1; Qp0 = oQp0; Qp1 = oQp1; Ap0 = oAp0; Ap1 = oAp1;
@@ -941,6 +1162,7 @@ fused_network_kernel(const double* __restrict__ geo_all,   // [M, B, 13, Nmax]
                             ATC(buf0, 12, t) = -(AT(sQ, t) - Q);
                         }
                     }
+                    ap.mark(0);
                     if (i == 0 || i == n_max - 1) {   // the branch's end rows
                         const bool up = i == 0;
                         const int jid = up ? us_j : ds_j;
@@ -958,7 +1180,7 @@ fused_network_kernel(const double* __restrict__ geo_all,   // [M, B, 13, Nmax]
                             // its -1 coupling column: the upstream coupling first
                             const int col = 1 + (up ? 0 : (us_j >= 0 ? 1 : 0));
                             buf0[(12 + 2 * col + (up ? 0 : 1)) * LD + s] = -1.0;
-                        } else {
+                        } else if constexpr (!SIDE) {   // (SIDE: the ends warp's)
                             Sec sc;
                             if constexpr (BRACKET) {   // what the closures kept
                                 sc.A = buf1[0 * LD + s];   sc.T = buf1[3 * LD + s];   sc.dA_dh = sc.T;
@@ -1007,10 +1229,18 @@ fused_network_kernel(const double* __restrict__ geo_all,   // [M, B, 13, Nmax]
                                 *p_dh = df_dh; *p_dq = df_dQ; *p_b = -res;
                             }
                         }
-                        sq += res * res;
+                        if constexpr (SIDE) {
+                            if (jid >= 0) sq += res * res;
+                        } else {
+                            sq += res * res;
+                        }
                     }
+                    ap.mark(1);
                 });
-                // junction rows: G_j, and dQ_out/dY for the Schur diagonal
+                // junction rows: G_j, and dQ_out/dY for the Schur diagonal (SIDE:
+                // the side warps' rows and the threads that add them to the
+                // norm, below)
+                if constexpr (!SIDE) {
                 for (int j = j0; j < J; j += nthr) {
                     const double* jp = jpar + (size_t)j * JP_COUNT;
                     double S = 0.0;
@@ -1027,11 +1257,97 @@ fused_network_kernel(const double* __restrict__ geo_all,   // [M, B, 13, Nmax]
                     sdY[j] = junction_dq(jp, jtab, sY[j]);
                     sq += Gj * Gj;
                 }
+                } else {
+                    // SIDE: lane e of the ends warp the e-th external end's row,
+                    // lane j of the junction warp junction j's, the rows above in
+                    // their arithmetic (the other builds keep their own text of
+                    // them: through a shared function their ptxas figures moved);
+                    // the slots' warps that add them to the norm wait for them,
+                    // then add them in their place
+                    double* side = side_area<SIDE>();
+                    if (warp == ew) {
+                        if (e_s >= 0) {
+                            const int s = e_s, b = e_b;
+                            const bool up = e_up;
+                            const double h = sh[s], Q = sQ[s];
+                            const double* par = par_m + (size_t)b * P_COUNT;
+                            double* p_dh = &buf0[(up ? 4 : 6) * LD + s];
+                            double* p_dq = &buf0[(up ? 5 : 7) * LD + s];
+                            double* p_b = &buf0[(up ? 12 : 13) * LD + s];
+                            double res, df_dh, df_dQ;
+                            Sec sc;   // what the closures kept
+                            sc.A = buf1[0 * LD + s];   sc.T = buf1[3 * LD + s];   sc.dA_dh = sc.T;
+                            sc.R = buf1[7 * LD + s];   sc.n_eq = buf1[8 * LD + s];
+                            sc.dR_dA = buf1[9 * LD + s];
+                            sc.K = buf1[10 * LD + s];  sc.dK_dA = buf1[11 * LD + s];
+                            const int kind = BRANCH_INT(b, up ? BI_US_KIND : BI_DS_KIND);
+                            const int sflags = BRANCH_INT(b, up ? BI_US_SFLAGS : BI_DS_SFLAGS);
+                            const double bed = par[up ? P_US_BED_LEVEL : P_DS_BED_LEVEL];
+                            double* st = &stage[((size_t)k * B + b) * 2 + (up ? 0 : 1)];
+                            if (kind == BC_FIXED && (sflags & ST_ON)) {
+                                const double Y_old = k == 1 ? (up ? ehp : h) + bed
+                                    : stage[((size_t)(k - 1) * B + b) * 2 + (up ? 0 : 1)];
+                                const int nv = BRANCH_INT(b, up ? BI_US_NV : BI_DS_NV);
+                                const int na = BRANCH_INT(b, up ? BI_US_NA : BI_DS_NA);
+                                const int nr = BRANCH_INT(b, up ? BI_US_NR : BI_DS_NR);
+                                const int off = BRANCH_INT(b, BI_TAB_OFF)
+                                    + (up ? 0 : 2 * (BRANCH_INT(b, BI_US_NV) + BRANCH_INT(b, BI_US_NA))
+                                                    + BRANCH_INT(b, BI_US_NR));
+                                res = storage_row(stor_m + ((size_t)b * 2 + (up ? 0 : 1)) * SP_COUNT, stab_m + off,
+                                                  sflags, nv, na, nr, up ? -1.0 : 1.0, bed, dt, eQp, Y_old, sc.A,
+                                                  sc.R, sc.n_eq, sc.dR_dA, sc.dA_dh, h, Q, p_dh, p_dq, p_b, st);
+                            } else {
+                                Bc bc = up ? Bc{par[P_US_BED_LEVEL], par[P_US_BED_SLOPE], par[P_US_INIT_DEPTH], kind}
+                                           : Bc{par[P_DS_BED_LEVEL], par[P_DS_BED_SLOPE], par[P_DS_INIT_DEPTH], kind};
+                                Rating rat{};
+                                if (kind == BC_RATING)
+                                    rat = up ? Rating{par[P_URC_LOW0], par[P_URC_LOW1], par[P_URC_LOW2],
+                                                      par[P_URC_HIGH0], par[P_URC_HIGH1], par[P_URC_HIGH2],
+                                                      par[P_URC_SHIFT], par[P_URC_PIVOT], par[P_URC_BUFFER],
+                                                      par[P_URC_FD], 0.0, BRANCH_INT(b, BI_URC_KIND)}
+                                             : Rating{par[P_RC_LOW0], par[P_RC_LOW1], par[P_RC_LOW2],
+                                                      par[P_RC_HIGH0], par[P_RC_HIGH1], par[P_RC_HIGH2],
+                                                      par[P_RC_SHIFT], par[P_RC_PIVOT], par[P_RC_BUFFER],
+                                                      par[P_RC_FD], par[P_RC_COOLDOWN], BRANCH_INT(b, BI_RC_KIND)};
+                                const double target = ser[((size_t)b * 2 + (up ? 0 : 1)) * nt + k];
+                                boundary_row(bc, rat, sc, h, Q, target, up ? 0.0 : gopen[b], res, df_dh, df_dQ);
+                                *p_dh = df_dh; *p_dq = df_dQ; *p_b = -res;
+                            }
+                            side[lane] = res;
+                        }
+                        side_arrive(side_count);
+                    } else if (warp == ew + 1) {
+                        for (int j = lane; j < J; j += 32) {
+                            const double* jp = jpar + (size_t)j * JP_COUNT;
+                            double S = 0.0;
+                            for (int b = 0; b < B; ++b) {
+                                if (BRANCH_INT(b, BI_DS_J) == j) S += sQ[b * n_max + n_max - 1];
+                                if (BRANCH_INT(b, BI_US_J) == j) S += -sQ[b * n_max];
+                            }
+                            const double area = jp[JP_AREA];
+                            const double q = junction_q(jp, jtab, sY[j]);
+                            const double Gj = area > 0.0
+                                ? area * (sY[j] - sYp[j]) / dt - 0.5 * (S + sSp[j]) + 0.5 * (q + sqp[j])
+                                : S - q;
+                            srhs[j] = Gj;
+                            sdY[j] = junction_dq(jp, jtab, sY[j]);
+                            side[32 + j] = Gj;
+                        }
+                        side_arrive(side_count);
+                    } else if (waits) {
+                        side_wait(side_count);
+                        if (o_e >= 0) sq += side[o_e] * side[o_e];
+                        if (j0 < J) sq += side[32 + j0] * side[32 + j0];
+                    }
+                }
+                ap.mark(2);
+                ap.publish();
                 // the barrier inside publishes buf0 and retires every read of the
                 // exchange area before the first sweep overwrites it
                 if constexpr (CLUSTER) err = sqrt(cluster_sum(sq, warp_part[it & 1], it & 1));
                 else err = sqrt(block_sum(sq, warp_part[it & 1]));
                 probe.mark(PH_ASSEMBLY);
+                ap.account(probe.active, probe.t);
 
                 double* src = buf0;
                 double* dst = buf1;
@@ -1202,6 +1518,7 @@ fused_network_kernel(const double* __restrict__ geo_all,   // [M, B, 13, Nmax]
             probe.mark(PH_LEVEL);
         }
         probe.write(probe_out);
+        ap.write(probe.active, probe_out);
         // the next member's set-up must not overwrite what this one still
         // reads, and (CLUSTER) no rank exits while another can read its
         // shared memory
@@ -1238,10 +1555,14 @@ int threads_for(int slots) {
 // build is the loop build's form; it runs any network, forced on one that
 // fits shared memory too.  The CLUSTER build (slots: a rank's) is the
 // latency form at one slot a thread, the loop form beyond, or (pair) the
-// residency build's 192-thread form.  The probe builds are those of the
-// loop, latency, scratch and cluster forms; the scratch and cluster ones
-// only in the trapezoid library.  This library's builds are those of
-// networks with table branches or those of trapezoid networks (LIB_TABLE).
+// residency build's 192-thread form.  The BRACKET build is the residency
+// form with the bracket cache; the LEAN build its form under the latency
+// build's launch bound, and the LEAN_SIDE build the LEAN build with two side
+// warps beyond the slots'.  The probe builds are those of the loop, latency, scratch and
+// cluster forms, and of the BRACKET and LEAN forms; the scratch and cluster
+// ones only in the trapezoid library, the BRACKET and LEAN ones only in the
+// table library.  This library's builds are those of networks with table
+// branches or those of trapezoid networks (LIB_TABLE).
 template <int RHS>
 int pick_rhs(int build, int slots, bool probe, bool pair, NetKernel* out) {
     const bool one = slots <= MAX_THREADS;
@@ -1281,6 +1602,22 @@ int pick_rhs(int build, int slots, bool probe, bool pair, NetKernel* out) {
             else
                 *out = probe ? &fused_network_kernel<RHS, MAX_THREADS, BRACKET_MINB, true, true, true, false, false, true>
                              : &fused_network_kernel<RHS, MAX_THREADS, BRACKET_MINB, true, false, true, false, false, true>;
+            return 0;
+        }
+        return (int)cudaErrorInvalidValue;
+    case LEAN_BUILD:
+        if constexpr (LIB_TABLE) {
+            if (!one) return (int)cudaErrorInvalidValue;
+            *out = probe ? &fused_network_kernel<RHS, MAX_THREADS, 1, true, true, true, false, false, true, true>
+                         : &fused_network_kernel<RHS, MAX_THREADS, 1, true, false, true, false, false, true, true>;
+            return 0;
+        }
+        return (int)cudaErrorInvalidValue;
+    case LEAN_SIDE_BUILD:   // (plan_of refuses a network lean_side does not take)
+        if constexpr (LIB_TABLE) {
+            if (!one) return (int)cudaErrorInvalidValue;
+            *out = probe ? &fused_network_kernel<RHS, MAX_THREADS, 1, true, true, true, false, false, true, true, true>
+                         : &fused_network_kernel<RHS, MAX_THREADS, 1, true, false, true, false, false, true, true, true>;
             return 0;
         }
         return (int)cudaErrorInvalidValue;
@@ -1324,7 +1661,9 @@ struct Plan {
 
 // The plan of a build for a network of `slots` slots.  cluster (CLUSTER
 // build): its blocks, 2-MAX_CLUSTER (cudaErrorInvalidClusterSize otherwise),
-// plus CLUSTER_PAIR for the two-blocks-an-SM form.
+// plus CLUSTER_PAIR for the two-blocks-an-SM form.  The LEAN_SIDE build's
+// block has the side warps beyond the slots' warps, for a network that
+// lean_side takes.
 int plan_of(int build, int cluster, bool probe, int slots, int B, int J, int rhs, Plan* p) {
     if (build == CLUSTER_BUILD) {
         p->blocks = cluster & ~CLUSTER_PAIR;
@@ -1332,9 +1671,11 @@ int plan_of(int build, int cluster, bool probe, int slots, int B, int J, int rhs
         if (p->blocks < 2 || p->blocks > MAX_CLUSTER) return (int)cudaErrorInvalidClusterSize;
     }
     const int per = rank_slots(slots, p->blocks);
+    if (build == LEAN_SIDE_BUILD && !lean_side(per, B, J)) return (int)cudaErrorInvalidValue;
     const int rc = pick_build(build, per, rhs, probe, p->pair, &p->fn);
-    p->threads = threads_for(per);
-    p->smem = build == BRACKET_BUILD ? bracket_smem_bytes(per, B, J, rhs)
+    p->threads = threads_for(per) + (build == LEAN_SIDE_BUILD ? SIDE_WARPS * 32 : 0);
+    p->smem = build == BRACKET_BUILD || build == LEAN_BUILD || build == LEAN_SIDE_BUILD
+        ? bracket_smem_bytes(per, B, J, rhs)
         : (build == SCRATCH_BUILD ? junction_doubles(B, J) : smem_doubles(per, B, J, rhs)) * sizeof(double);
     return rc;
 }
@@ -1432,8 +1773,14 @@ int choose_cluster(int slots, int B, int J, int rhs, int* cluster, int* clusters
 // the loop build.  Else the latency build runs every batch the card holds at
 // once in it; a larger batch takes the residency build when that holds more
 // members.  A network with table branches chooses the same way among its
-// TABLE builds.
-int choose_build(int n_members, int slots, int B, int J, int rhs, int* build) {
+// TABLE builds, the BRACKET build where the residency build would run, and
+// where the latency build would: the LEAN_SIDE build where lean_side takes
+// the network, each member has an SM of its own and no external end has a
+// lumped storage (storage), else the LEAN build where the card holds the
+// batch at once in it too.  Each beat the latency build in turns there; a
+// storage's end row (its bisection) outlasts the cells, so there the side
+// warps only slowed the sweeps (PERF.md).
+int choose_build(int n_members, int slots, int B, int J, int rhs, bool storage, int* build) {
     Plan loop;
     bool fits;
     int rc;
@@ -1450,10 +1797,24 @@ int choose_build(int n_members, int slots, int B, int J, int rhs, int* build) {
     Plan fast, res;
     if ((rc = (int)cudaGetDevice(&dev))) return rc;
     if ((rc = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))) return rc;
-    if (n_members <= sms) return 0;
+    // within one wave of the latency build, a network with table branches:
+    // the LEAN_SIDE or the LEAN build where its block fits shared memory and
+    // the card holds the batch at once in it
+    auto lean = [&]() {
+        if constexpr (LIB_TABLE) {
+            const int id = n_members <= sms && !storage && lean_side(slots, B, J) ? LEAN_SIDE_BUILD : LEAN_BUILD;
+            Plan p;
+            int bps = 1, rc2;
+            if ((rc2 = plan_of(id, 0, false, slots, B, J, rhs, &p)) || (rc2 = smem_fits(p, &fits))) return rc2;
+            if (fits && n_members > sms && (rc2 = resident_blocks(p, &bps))) return rc2;
+            if (fits && n_members <= bps * sms) *build = id;
+        }
+        return 0;
+    };
+    if (n_members <= sms) return lean();
     if ((rc = plan_of(*build, 0, false, slots, B, J, rhs, &fast))) return rc;
     if ((rc = resident_blocks(fast, &fast_bps))) return rc;
-    if (n_members <= fast_bps * sms) return 0;
+    if (n_members <= fast_bps * sms) return lean();
     // past one wave of the latency build: the residency build, and for a
     // network with table branches the bracket build
     const int many = LIB_TABLE ? BRACKET_BUILD : RESIDENCY_BUILD;
@@ -1561,6 +1922,7 @@ int check_args(int n_members, int B, int n_max, int J, int nt, int qlat_mode, co
 extern "C" int flowsim_fused_network_branch_ints() { return BI_COUNT; }
 extern "C" int flowsim_fused_network_junction_params() { return JP_COUNT; }
 extern "C" int flowsim_fused_network_probe_phases() { return PH_COUNT; }
+extern "C" int flowsim_fused_network_assembly_parts() { return AP_COUNT; }
 extern "C" int flowsim_fused_network_tables() { return TAB_COUNT; }
 // dynamic shared memory of one block of the shared-memory builds, in bytes
 // (of one rank of the CLUSTER build, with slots its rank_slots)
@@ -1589,7 +1951,7 @@ extern "C" long long flowsim_fused_network_scratch_bytes(int slots, int rhs) {
 // caller.  tab_m: 0 for a network of trapezoid branches (tab and tab_branch
 // null), else the depth samples M of every table branch's tables, tab [T, 7,
 // Nmax, M], and tab_branch [B] each branch's index among them (-1: trapezoid).
-// build: 0-5 (5 in the table library only); the wrappers pass what
+// build: 0-7 (5-7 in the table library only); the wrappers pass what
 // flowsim_fused_network_chosen_build answers, a forced build is a test hook
 // (chip_smoke.py times the builds against each other and holds them to the
 // same bits).  cluster (build 4): 0 for the C entry's cluster
@@ -1613,12 +1975,13 @@ extern "C" int flowsim_fused_network(const void* geo, const void* h0, const void
                   max_iter, rhs, qlat_mode, tab_m, (cudaStream_t)stream);
 }
 
-// The probe build of the loop (build 0), latency (1), scratch (3) or cluster
-// (4, not its two-blocks-an-SM form; 3 and 4 in the trapezoid library) form:
+// The probe build of the loop (build 0), latency (1), scratch (3), cluster
+// (4, not its two-blocks-an-SM form; 3 and 4 in the trapezoid library),
+// bracket (5) or lean (6, 7; 5-7 in the table library) form:
 // the same launch, and the cycles of each phase of thread 0 of block 0 (the
-// first cluster's rank 0) summed over the run into probe [PH_COUNT] (device
-// memory); clock_khz receives the SM clock rate the cycles count at
-// (cudaDevAttrClockRate).
+// first cluster's rank 0) summed over the run into probe [PH_COUNT], then
+// the parts of its assembly phase, [AP_COUNT] (device memory); clock_khz
+// receives the SM clock rate the cycles count at (cudaDevAttrClockRate).
 extern "C" int flowsim_fused_network_probe(const void* geo, const void* h0, const void* Q0, const void* ser,
                                            const void* par, const void* qlat, const void* stor, const void* stab,
                                            long long stab_stride, const void* Y0, const void* bint,
@@ -1640,15 +2003,17 @@ extern "C" int flowsim_fused_network_probe(const void* geo, const void* h0, cons
 }
 #undef FLOWSIM_NET_ARGS
 
-// dynamic shared memory of one block of the BRACKET build, in bytes
+// dynamic shared memory of one block of the BRACKET and LEAN builds, in bytes
 extern "C" long long flowsim_fused_network_bracket_smem_bytes(int slots, int B, int J, int rhs) {
     return (long long)bracket_smem_bytes(slots, B, J, rhs);
 }
 
-// The build flowsim_fused_network takes for n_members members (build -1).
-extern "C" int flowsim_fused_network_chosen_build(int n_members, int slots, int B, int J, int rhs, int* build) {
+// The build flowsim_fused_network takes for n_members members (build -1);
+// storage: whether an external end has a lumped storage.
+extern "C" int flowsim_fused_network_chosen_build(int n_members, int slots, int B, int J, int rhs, int storage,
+                                                  int* build) {
     if (n_members <= 0 || slots <= 0 || B <= 0 || J <= 0 || build == nullptr) return (int)cudaErrorInvalidValue;
-    return choose_build(n_members, slots, B, J, rhs, build);
+    return choose_build(n_members, slots, B, J, rhs, storage != 0, build);
 }
 
 // The cluster the CLUSTER build launches with `cluster` (0: the C entry's

@@ -203,6 +203,33 @@ __device__ Sec section_state(const Geo& g, double depth_in) {
     return s;
 }
 
+// section_state of a geometry that is not compound, by its own expressions
+// alone: the values section_state selects for it, bit for bit, without the
+// flood-plain subsections and the compound conveyance that it computes and
+// discards.  The network kernel's lean build takes it for a trapezoid slot
+// beside table slots, where that work made every other slot wait at the
+// closures' barrier.
+__device__ __forceinline__ Sec section_state_plain(const Geo& g, double depth_in) {
+    const double depth = clamp_min(depth_in, 0.0);
+    const bool wet = depth > 0.0;
+    const double sq_m = sqrt(1.0 + g.m * g.m);
+    double T = g.b + 2.0 * g.m * depth;
+    double A = (g.b + g.m * depth) * depth;
+    double P = g.b + 2.0 * depth * sq_m;
+    if (!wet) { A = 0.0; P = 0.0; T = 0.0; }
+    const double R = safe_div(A, P);
+    Sec s;
+    s.K = conveyance(A, g.n, R);
+    s.n_eq = g.n;
+    const double dP_dh = 2.0 * sq_m;
+    const bool ok = (P > 0.0) && (T > 0.0);
+    const double dP_dA = dP_dh / (ok ? T : 1.0);
+    s.dR_dA = ok ? (P - A * dP_dA) / (P * P) : 0.0;
+    s.dK_dA = A > 0.0 ? hyd_dK_dA(A, s.n_eq, R, s.dR_dA) : 0.0;
+    s.A = A; s.P = P; s.R = R; s.T = T; s.dA_dh = T;
+    return s;
+}
+
 // -- ops/sections.py, the table path (irregular sections) ---------------------
 
 // rows of the packed table geometry [TG_ROWS, N]; the seven tables stay in

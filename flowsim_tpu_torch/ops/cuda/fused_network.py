@@ -64,7 +64,20 @@ network's size and the member count (every build gives the same bits):
   (two blocks an SM) with each table slot's bracket index and 14 bracket
   values cached in shared memory (re-read from the tables only when the
   depth leaves the bracket; :func:`bracket_smem_bytes`) and the sweeps with
-  the carried inverse, the slot's own rows in registers.  The same bits.
+  the carried inverse, the slot's own rows in registers.  The same bits;
+* the **lean build** (:data:`LEAN_BUILD`, networks with table branches only)
+  where the latency build would run (one network, batches the card holds at
+  once) and the lean build holds the batch at once too: the bracket build's
+  form under the latency build's launch bound (255 registers), with one
+  closure pass a Newton iteration and none between levels (a level's
+  previous-level closures are its first iteration's), and a trapezoid slot
+  that is not compound evaluated without the compound code.  Where a
+  network has at most 192 slots, 16 branches and 32 junctions, each member
+  has an SM of its own and no external end has a lumped storage, the
+  **lean build with side warps**
+  (:data:`LEAN_SIDE_BUILD`): two warps beyond the slots' take the external
+  end rows and the junction rows off the slots' warps.  Their shared memory
+  is the bracket build's.  The same bits.
 
 A forced ``build_id`` (``_launch``, with ``cluster`` for the cluster build:
 its blocks, plus :data:`CLUSTER_PAIR` for the two-blocks-an-SM form) is a
@@ -100,8 +113,18 @@ MAX_THREADS = 256
 # member count; a forced build id is a test hook for chip_smoke.py, which
 # times the builds against each other and holds them to the same bits.
 LOOP_BUILD, LATENCY_BUILD, RESIDENCY_BUILD, SCRATCH_BUILD, CLUSTER_BUILD, BRACKET_BUILD = 0, 1, 2, 3, 4, 5
+LEAN_BUILD, LEAN_SIDE_BUILD = 6, 7
 CHOOSE_BUILD = -1
 PROBE_PHASES = fn.PROBE_PHASES
+# the probe build's split of the assembly phase (csrc/fused_network.cu's
+# AP_*), by the cycle at which the block's last thread reaches each point:
+# the wait at the closures' barrier (the probing thread reads the clock when
+# its warp arrives at a barrier, so the phase after a barrier carries its
+# wait), its cell rows, end rows and junction rows, the probe's own stamps
+# and the norm; they add up to "assembly"
+ASSEMBLY_PARTS = ("assembly_wait", "assembly_cells", "assembly_ends", "assembly_junctions", "assembly_stamps",
+                  "assembly_norm")
+PROBE_FIELDS = PROBE_PHASES + ASSEMBLY_PARTS
 # dynamic shared memory a block may take: 227 KB less the static reduction
 # area; a network that needs more takes the cluster or the scratch build
 SMEM_LIMIT = 232448 - 512
@@ -112,7 +135,8 @@ MAX_CLUSTER = 16
 CLUSTER_SMEM_LIMIT = 232448 - 528
 CLUSTER_PAIR = 256
 _BUILD_NAMES = {LOOP_BUILD: "loop build", LATENCY_BUILD: "latency build", RESIDENCY_BUILD: "residency build",
-                SCRATCH_BUILD: "scratch build", CLUSTER_BUILD: "cluster build", BRACKET_BUILD: "bracket build"}
+                SCRATCH_BUILD: "scratch build", CLUSTER_BUILD: "cluster build", BRACKET_BUILD: "bracket build",
+                LEAN_BUILD: "lean build", LEAN_SIDE_BUILD: "lean build with side warps"}
 # what the C entry's refusals mean (cudaError_t)
 _REFUSALS = {1: "cudaErrorInvalidValue: the build does not take this network or form, or its block exceeds the "
                 "card's shared memory",
@@ -142,7 +166,9 @@ _JP_AREA, _JP_KIND, _JP_SHIFT, _JP_PIVOT, _JP_BUFFER, _JP_FD, _JP_C0, _JP_H0, _J
 
 # kernel launches made by fused_simulate_network and by
 # fused_simulate_network_batched (not by their plain versions), and those of
-# them that took the scratch build and the cluster build
+# them that took the scratch, cluster, bracket and lean builds (the build
+# the C entry chose and the launch took; the lean build with or without its
+# side warps)
 launch_count = 0
 batched_launch_count = 0
 scratch_launch_count = 0
@@ -150,6 +176,8 @@ batched_scratch_launch_count = 0
 cluster_launch_count = 0
 batched_cluster_launch_count = 0
 batched_bracket_launch_count = 0
+lean_launch_count = 0
+batched_lean_launch_count = 0
 
 
 def smem_bytes(slots: int, n_branches: int, n_junctions: int, m_rhs: int) -> int:
@@ -226,11 +254,12 @@ def _lib(table: bool = False):
             + [ctypes.c_int] * 11 + [ctypes.c_void_p]
         lib.flowsim_fused_network_probe.restype = ctypes.c_int
         out = [ctypes.POINTER(ctypes.c_int)]
-        for name, ints in (("resident_blocks", 6), ("chosen_build", 5), ("grid", 7), ("cluster", 5)):
+        for name, ints in (("resident_blocks", 6), ("chosen_build", 6), ("grid", 7), ("cluster", 5)):
             getattr(lib, f"flowsim_fused_network_{name}").argtypes = [ctypes.c_int] * ints + out
             getattr(lib, f"flowsim_fused_network_{name}").restype = ctypes.c_int
         for aux in (lib.flowsim_fused_network_branch_ints, lib.flowsim_fused_network_junction_params,
-                    lib.flowsim_fused_network_probe_phases, lib.flowsim_fused_network_tables):
+                    lib.flowsim_fused_network_probe_phases, lib.flowsim_fused_network_assembly_parts,
+                    lib.flowsim_fused_network_tables):
             aux.argtypes = []
             aux.restype = ctypes.c_int
         lib.flowsim_fused_network_smem_bytes.argtypes = [ctypes.c_int] * 4
@@ -245,6 +274,7 @@ def _lib(table: bool = False):
         if lib.flowsim_fused_network_branch_ints() != _BI_COUNT \
                 or lib.flowsim_fused_network_junction_params() != _JP_COUNT \
                 or lib.flowsim_fused_network_probe_phases() != len(PROBE_PHASES) \
+                or lib.flowsim_fused_network_assembly_parts() != len(ASSEMBLY_PARTS) \
                 or lib.flowsim_fused_network_tables() != len(_TABLES):
             raise RuntimeError("parameter layout of fused_network.cu and its wrapper differ")
         if any(lib.flowsim_fused_network_smem_bytes(*a) != smem_bytes(*a) for a in ((183, 3, 1, 2), (403, 31, 15, 3))) \
@@ -429,7 +459,7 @@ def _pack(branches, J, settings, batch, M, Y0, junction_area, junction_rating, t
     lead = (M,)
     geo_rows, h0s, Q0s, sers, pars, stors, tabs, qlats = [], [], [], [], [], [], [], []
     bint = torch.zeros((B, _BI_COUNT), dtype=torch.int32)
-    any_tab_member = False
+    any_tab_member = storage = False
     tab_off = 0
     for b, (br, d) in enumerate(zip(branches, batch)):
         geo, us, ds = (d.get(k, getattr(br, k)) for k in ("geo", "us", "ds"))
@@ -447,6 +477,7 @@ def _pack(branches, J, settings, batch, M, Y0, junction_area, junction_rating, t
         sers.append(torch.stack([fn.series(e, nt, dev, lead) for e in ends], dim=1))
         stor, stab, st = fn.pack_storage(ends[0], ends[1], batch_shape=lead)
         stors.append(stor)
+        storage |= bool((st[0] | st[1]) & fn._ST_ON)
         tab_len = fn.storage_table_len(st)
         if tab_len:
             tabs.append(stab)
@@ -501,7 +532,7 @@ def _pack(branches, J, settings, batch, M, Y0, junction_area, junction_rating, t
     return dict(geo=geo_all, h0=h0_all, Q0=Q0_all, ser=ser_all, par=par_all, qlat=qlat_all, stor=stor_all,
                 stab=stab_all, stride=stride, Y0=Y0_all.contiguous(), bint=bint.to(dev), jpar=jpar, jtab=jtab,
                 tab=pack_tables(branches, Nmax), tab_branch=table_branches(branches, dev),
-                tab_m=table_resolution(branches))
+                tab_m=table_resolution(branches), storage=storage)
 
 
 def _outputs(M, B, J, nt, n_max, dev):
@@ -533,8 +564,8 @@ def _launch(p, M, B, J, settings, topo, build_id=CHOOSE_BUILD, probe=None, clust
     scratch (:func:`scratch_bytes` of :func:`scratch_grid` blocks) is
     allocated here, counted with the outputs against the card's free memory;
     the cluster build allocates none.  ``probe``: ``None``, or an int64
-    tensor ``[len(PROBE_PHASES)]`` on the device that the probe build of the
-    loop, latency, scratch, cluster or bracket build fills with cycles; the SM clock
+    tensor ``[len(PROBE_FIELDS)]`` on the device that the probe build of the
+    loop, latency, scratch, cluster, bracket or lean build fills with cycles; the SM clock
     in kHz is then returned after the outputs.  A refused launch raises
     :class:`RuntimeError` (:func:`launch_error`)."""
     nt, Nmax = settings.n_time_levels, topo.n_max
@@ -569,7 +600,7 @@ def _launch(p, M, B, J, settings, topo, build_id=CHOOSE_BUILD, probe=None, clust
 
 
 def chosen_build(n_members: int, slots: int, n_branches: int, n_junctions: int, m_rhs: int,
-                 table: bool = False) -> int:
+                 table: bool = False, storage: bool = False) -> int:
     """The build the C entry takes for ``n_members`` members of a network of
     this shape (when the slot arrays do not fit one block's shared memory,
     the cluster build while a cluster holds them and the card holds the
@@ -578,10 +609,13 @@ def chosen_build(n_members: int, slots: int, n_branches: int, n_junctions: int, 
     build for a batch larger than the card holds in the latency one);
     ``table``: a network with table branches, which chooses among the table
     builds the same way, the bracket build where the residency build would
-    run."""
+    run, and where the latency build would the lean build with side warps
+    for a network that takes them, an SM a member and (``storage``) no
+    lumped storage at an external end, else the lean build where it holds
+    the batch at once."""
     out = ctypes.c_int(0)
     rc = _lib(table).flowsim_fused_network_chosen_build(n_members, slots, n_branches, n_junctions, m_rhs,
-                                                        ctypes.byref(out))
+                                                        int(storage), ctypes.byref(out))
     if rc != 0:
         raise RuntimeError(f"build choice failed: CUDA error {rc}")
     return out.value
@@ -668,7 +702,7 @@ def fused_simulate_network(branches, n_junctions, settings, Y0=None, junction_ar
     :class:`FusedUnsupported` outside the kernel's scope (:func:`check_supported`)
     and ``ValueError`` for inputs of the wrong shape, before any launch.  CPU
     tensors take the plain version."""
-    global launch_count, scratch_launch_count, cluster_launch_count
+    global launch_count, scratch_launch_count, cluster_launch_count, lean_launch_count
     net._check_supported(branches, n_junctions, settings)
     net.check_junction_inputs(junction_area, junction_rating, n_junctions)
     topo = check_supported(branches, n_junctions, settings, junction_rating)
@@ -683,13 +717,14 @@ def fused_simulate_network(branches, n_junctions, settings, Y0=None, junction_ar
     launch_count += 1
     scratch_launch_count += build_id == SCRATCH_BUILD
     cluster_launch_count += build_id == CLUSTER_BUILD
+    lean_launch_count += build_id in (LEAN_BUILD, LEAN_SIDE_BUILD)
     return _single(_output(raw, topo, junction_rating))
 
 
 def _chosen(p, M, B, J, topo) -> int:
     """The build the C entry takes for this packed launch of M members."""
     with torch.cuda.device(p["geo"].device):
-        return chosen_build(M, B * topo.n_max, B, J, topo.m_rhs, table=p["tab_m"] != 0)
+        return chosen_build(M, B * topo.n_max, B, J, topo.m_rhs, table=p["tab_m"] != 0, storage=p["storage"])
 
 
 def _single(out) -> net.NetworkOutput:
@@ -704,11 +739,13 @@ def fused_simulate_network_probe(branches, n_junctions, settings, build_id=LATEN
     (:data:`LOOP_BUILD`), latency (:data:`LATENCY_BUILD`), scratch
     (:data:`SCRATCH_BUILD`) or cluster (:data:`CLUSTER_BUILD`, ``cluster``
     as :func:`_launch` takes it) build on CUDA tensors; the scratch and
-    cluster ones for trapezoid networks, the bracket build's
-    (:data:`BRACKET_BUILD`) for networks with table branches.  Returns ``(NetworkOutput, cycles,
+    cluster ones for trapezoid networks, the bracket and lean builds'
+    (:data:`BRACKET_BUILD`, :data:`LEAN_BUILD`, :data:`LEAN_SIDE_BUILD`) for networks with table
+    branches.  Returns ``(NetworkOutput, cycles,
     clock_khz)``: ``cycles`` maps each of :data:`PROBE_PHASES` to the SM
     cycles thread 0 (of the first cluster's rank 0) spent in it over the
-    run, ``clock_khz`` is the clock rate they count at.  Its outputs are the
+    run, and each of :data:`ASSEMBLY_PARTS` to its cycles of the assembly
+    phase; ``clock_khz`` is the clock rate they count at.  Its outputs are the
     production build's bits.  Counts no launch."""
     net._check_supported(branches, n_junctions, settings)
     net.check_junction_inputs(junction_area, junction_rating, n_junctions)
@@ -717,10 +754,10 @@ def fused_simulate_network_probe(branches, n_junctions, settings, build_id=LATEN
     _check_device(branches, dev, "fused_simulate_network_probe")
     p = _pack(branches, n_junctions, settings, [dict() for _ in branches], 1, Y0, junction_area,
               junction_rating, topo)
-    probe = torch.zeros(len(PROBE_PHASES), dtype=torch.int64, device=dev)
+    probe = torch.zeros(len(PROBE_FIELDS), dtype=torch.int64, device=dev)
     *raw, clock_khz = _launch(p, 1, len(branches), n_junctions, settings, topo, build_id=build_id, probe=probe,
                               cluster=cluster)
-    return _single(_output(raw, topo, junction_rating)), dict(zip(PROBE_PHASES, probe.tolist())), clock_khz
+    return _single(_output(raw, topo, junction_rating)), dict(zip(PROBE_FIELDS, probe.tolist())), clock_khz
 
 
 def fused_simulate_network_batched_plain(branches, n_junctions, settings, batch, Y0=None,
@@ -742,7 +779,7 @@ def fused_simulate_network_batched(branches, n_junctions, settings, batch, Y0=No
     outside the kernel's scope and ``MemoryError`` when the outputs (with the
     scratch build's scratch) would not fit the card.  CPU tensors take the plain version."""
     global batched_launch_count, batched_scratch_launch_count, batched_cluster_launch_count, \
-        batched_bracket_launch_count
+        batched_bracket_launch_count, batched_lean_launch_count
     M = net.check_batch(branches, batch, settings)
     net._check_supported(branches, n_junctions, settings)
     net.check_junction_inputs(junction_area, junction_rating, n_junctions)
@@ -759,4 +796,5 @@ def fused_simulate_network_batched(branches, n_junctions, settings, batch, Y0=No
     batched_scratch_launch_count += build_id == SCRATCH_BUILD
     batched_cluster_launch_count += build_id == CLUSTER_BUILD
     batched_bracket_launch_count += build_id == BRACKET_BUILD
+    batched_lean_launch_count += build_id in (LEAN_BUILD, LEAN_SIDE_BUILD)
     return _output(raw, topo, junction_rating)

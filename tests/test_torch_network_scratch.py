@@ -221,6 +221,9 @@ REFUSALS = {
                                ("15 blocks a cluster, two an SM)", "does not take this network")),
     "scratch_build": (1, fnet.SCRATCH_BUILD, 0, ("scratch build:", "does not take this network")),
     "bracket_build_on_trapezoids": (1, fnet.BRACKET_BUILD, 0, ("bracket build:", "does not take this network")),
+    "lean_build_on_trapezoids": (1, fnet.LEAN_BUILD, 0, ("lean build:", "does not take this network")),
+    "side_warps_beyond_the_block": (1, fnet.LEAN_SIDE_BUILD, 0, ("lean build with side warps:",
+                                                                 "does not take this network")),
 }
 
 
@@ -238,8 +241,11 @@ def test_a_refused_launch_names_its_build_and_code(case):
 SM_SMEM, BLOCK_RESERVED, STATIC_SMEM = 233472, 1024, 512
 # (slots, branches, junctions, RHS pairs): the surveyed mixed network of the
 # table ensemble (two table branches of 61 nodes and the tributary padded to
-# 61, one junction), and a 15-branch basin's 195 slots, three RHS pairs
-BRACKET_NETWORKS = {"surveyed_mixed": (183, 3, 1, 2), "basin_levels4": (195, 15, 7, 3)}
+# 61, one junction), the all-table network (its two table branches; the lean
+# build's other single network), and a 15-branch basin's 195 slots, three
+# RHS pairs.  The lean build has the bracket build's shared memory.
+BRACKET_NETWORKS = {"surveyed_mixed": (183, 3, 1, 2), "surveyed_all_table": (122, 2, 1, 2),
+                    "basin_levels4": (195, 15, 7, 3)}
 
 
 @pytest.mark.parametrize("case", sorted(BRACKET_NETWORKS))
@@ -255,8 +261,9 @@ def test_bracket_build_shared_memory_a_slot(case):
     assert smem == slots * per_slot + 8 * (J * (J + 6) + 4 * B)
     assert smem - fnet.smem_bytes(slots, B, J, rhs) == slots * (fnet.BRACKET_BYTES_PER_SLOT - 6 * 8)
     # shared memory holds three such blocks an SM at the surveyed network's
-    # 183 slots and two RHS pairs (the residency build's registers hold two),
-    # two at the basin's 195 slots and three
+    # 183 slots and two RHS pairs (the residency build's registers hold two;
+    # the lean build's, at 255 a thread, one), four at the all-table
+    # network's 122, two at the basin's 195 slots and three
     block = smem + STATIC_SMEM + BLOCK_RESERVED
-    fit = {"surveyed_mixed": 3, "basin_levels4": 2}[case]
+    fit = {"surveyed_mixed": 3, "surveyed_all_table": 4, "basin_levels4": 2}[case]
     assert fit * block <= SM_SMEM < (fit + 1) * block

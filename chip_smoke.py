@@ -50,7 +50,10 @@ the main paths through the user entry points:
 * irregular sections (phase ``table``): the JAX package's hardware-validation
   reach of two surveyed polylines (N = 121, M = 1024 depth samples, 193
   levels) through ``api.PreissmannSolver.run(engine="fused")`` — the table
-  path of kernel 1 — and its 10 240-member roughness ensemble
+  path of kernel 1, its lean build, held to the register build bit for bit
+  on every table case and timed in turns with it and the bracket build, on
+  one launch and on batches, their probe builds beside — and its 10
+  240-member roughness ensemble
   (``table_roughness_ensemble`` -> ``batched_simulate(engine="fused")``, M =
   96) — the table path of kernel 3, its bracket build, timed in turns with
   the residency build it replaced and both probed —, with a mixed-station
@@ -101,7 +104,9 @@ Without a CUDA device the script exits non-zero and prints no result.
 packing outside: the flagship at 97 and 385 levels in every build, the
 reservoir example), ``--kernel2-times`` kernel 2 alone (the host's path and
 the device alone), ``--network-times`` kernels 5 and 6 alone (the tributary,
-one launch and 1024 members), ``--sass`` counts each kernel's float64
+one launch and 1024 members), ``--table-times`` kernel 1's table builds in
+turns with their probes (the validation reach at M = 1024 and 96, 16 members
+and one wave at M = 96), ``--sass`` counts each kernel's float64
 instructions between barriers; with any of them the script prints only
 those, to compare two checkouts on one card.
 """
@@ -409,7 +414,7 @@ def check_latency_build(dev) -> dict:
 
 
 KERNEL1_BUILD_NAMES = {0: "register_build", 1: "residency_build", 2: "latency_build", 3: "long_build",
-                      4: "bracket_build", 5: "cluster_build", 6: "reach_build"}
+                      4: "bracket_build", 5: "cluster_build", 6: "reach_build", 7: "lean_build"}
 
 
 def kernel1_build_ids(fn) -> list:
@@ -923,13 +928,13 @@ def kernel_builds(ptxas: list) -> list:
 
 
 def bracket_kernel_builds(ptxas: list) -> list:
-    """Registers and spills of fused_newton.cu's bracket build and its probe
-    build, by template argument (probe)."""
+    """Registers and spills of fused_newton.cu's bracket and lean builds and
+    their probe builds, by template argument (probe, lean)."""
     out = []
     for rec in ptxas:
-        m = re.search(r"fused_bracket_kernelILb([01])E", rec["kernel"])
+        m = re.search(r"fused_bracket_kernelILb([01])E(?:Lb([01])E)?", rec["kernel"])
         if m:
-            out.append(dict(probe=m.group(1) == "1",
+            out.append(dict(probe=m.group(1) == "1", lean=m.group(2) == "1",
                             **{k: rec.get(k) for k in ("registers", "stack_bytes", "spill_store_bytes",
                                                        "spill_load_bytes", "static_smem_bytes")}))
     return out
@@ -1642,8 +1647,9 @@ def single_builds_in_turns(dev, cases: dict, main_outs: dict) -> dict:
 
 def refused_launches(dev, refused_n_8193: str) -> dict:
     """The launches refused by name: N = 8193 (by the wrapper); the builds
-    forced where they do not apply (the bracket build on trapezoids, a probe
-    of the cluster or the reach build on tables, a probe of the long build), by the C
+    forced where they do not apply (the bracket and the lean build on
+    trapezoids, a probe of the cluster or the reach build on tables, a probe
+    of the long build), by the C
     entry's own rules through ``fused_newton.plan`` before anything is
     allocated, and the plan of the bracket build on trapezoids asked of it
     directly."""
@@ -1657,6 +1663,7 @@ def refused_launches(dev, refused_n_8193: str) -> dict:
     tpacked = pack_one(as_table(c.geometry, samples=32), *args[1:])
     probe = (torch.zeros(len(fn.PROBE_PHASES), dtype=torch.int64, device=dev), ctypes.c_int(0))
     for name, pk, kw in (("bracket_build_on_trapezoids", packed, dict(build_id=fn.BRACKET_BUILD)),
+                         ("lean_build_on_trapezoids", packed, dict(build_id=fn.LEAN_BUILD)),
                          ("cluster_build_probe_on_tables", tpacked, dict(build_id=fn.CLUSTER_BUILD, probe=probe)),
                          ("reach_build_probe_on_tables", tpacked, dict(build_id=fn.REACH_BUILD, probe=probe)),
                          ("long_build_probe", packed, dict(build_id=fn.LONG_BUILD, probe=probe))):
@@ -1736,11 +1743,11 @@ def drive_long_fused(dev, launches: dict) -> tuple[dict, list]:
     if (fn.launch_count, fn.long_launch_count, fn.reach_launch_count) != (1 + len(LONG_FUSED_NODES),) * 3 \
             or (fused_batched.launch_count, fused_batched.long_launch_count) != (1, 1) \
             or fused_batched.cluster_launch_count != 1:
-        raise AssertionError(f"long reaches: {fn.reach_launch_count} of {fn.long_launch_count} long single launches "
-                             f"({fn.launch_count} in all) took the reach build, expected {1 + len(LONG_FUSED_NODES)}; "
-                             f"{fused_batched.long_launch_count} of {fused_batched.launch_count} batched launches a "
-                             f"long-reach build, {fused_batched.cluster_launch_count} the cluster build, expected 1 "
-                             "and 1")
+        raise AssertionError(f"long reaches: of {fn.launch_count} single launches {fn.long_launch_count} took a "
+                             f"long-reach build, {fn.reach_launch_count} the reach build, expected "
+                             f"{1 + len(LONG_FUSED_NODES)} each; of {fused_batched.launch_count} batched launches "
+                             f"{fused_batched.long_launch_count} a long-reach build, "
+                             f"{fused_batched.cluster_launch_count} the cluster build, expected 1 each")
 
     # -- the flagship at 50 m: all 385 levels, the plain engine on the first 25
     n50, nt50 = s50.number_of_nodes, s50.number_of_time_levels
@@ -2703,15 +2710,19 @@ def drive_table(dev, launches: dict) -> tuple[dict, list, dict]:
     and timed, a mixed-station reach through the api, lateral inflow
     with store="boundaries", the boundary pairs and storage rows on tables,
     B = 16 against 16 single launches bit for bit (the wrapper's build and
-    the bracket build forced), and a NaN member beside sound ones; every
-    table build on the 10 240 members against the chosen one bit for bit,
-    the bracket and the residency build in turns by CUDA events, their probe
-    builds, and the bracket build forced on the single run.  Returns the phase record, the kernel-table rows and the
-    reach's geometry (``solver``, and ``geo96``, ``h96``, ``Q96`` at M = 96)
-    for the network phase, which slices it rather than building it again."""
+    the bracket build forced), and a NaN member beside sound ones; the lean
+    and the bracket build forced on every single table launch above against
+    the register build bit for bit; kernel 1's lean, register and bracket
+    builds in turns by CUDA events with their probe builds
+    (:func:`table_reach_builds`: the validation reach at M = 1024 and 96, 16
+    members and one wave at M = 96; the C entry's choice must be the faster
+    of the lean and the register build at each); every table build on the
+    10 240 members against the chosen one bit for bit, the bracket and the
+    residency build in turns by CUDA events and their probe builds.  Returns
+    the phase record, the kernel-table rows and the reach's geometry
+    (``solver``, and ``geo96``, ``h96``, ``Q96`` at M = 96) for the network
+    phase, which slices it rather than building it again."""
     from flowsim_tpu_torch import api, trees
-    from flowsim_tpu_torch.geometry_tables import build_table_geometry
-    from flowsim_tpu_torch.ops import initial_conditions as ic
     from flowsim_tpu_torch.ops.cuda import build, fused_batched, fused_newton as fn
     from flowsim_tpu_torch.ops.cuda.fused_batched import fused_simulate_batched, fused_simulate_batched_plain
     from flowsim_tpu_torch.ops.cuda.fused_newton import fused_simulate, fused_simulate_plain
@@ -2726,9 +2737,7 @@ def drive_table(dev, launches: dict) -> tuple[dict, list, dict]:
     if (n, nt, M, solver.theta) != (TABLE_NODES, TABLE_LEVELS, 1024, TABLE_THETA):
         raise AssertionError(f"table reach is not the validation case: N={n}, nt={nt}, M={M}")
     t0 = time.perf_counter()
-    geo96 = build_table_geometry(table_stations(), [0.0, TABLE_LENGTH], np.linspace(0.0, TABLE_LENGTH, n),
-                                 samples=TABLE_BATCH_SAMPLES, device=dev)
-    h96, Q96 = ic.initial_conditions(geo96, "steady-state", 400.0, solver.spatial_step)
+    geo96, h96, Q96 = batch_geometry(solver, dev)
     rec["batch_geometry_build_seconds"] = time.perf_counter() - t0
     B = ENSEMBLE_MEMBERS
     sset_b = dataclasses.replace(solver.settings(TABLE_BATCH_TOL, 100), store="boundaries")
@@ -2739,23 +2748,25 @@ def drive_table(dev, launches: dict) -> tuple[dict, list, dict]:
                                          engine="fused")
 
     # -- the main path
-    fn.launch_count = 0
+    fn.launch_count = fn.lean_launch_count = 0
     fused_batched.launch_count = 0
     out = solver.run(engine="fused", tolerance=TABLE_TOL, max_iter=100, verbose=0)
     torch.cuda.synchronize()
     launches["fused_simulate_table"] = fn.launch_count
+    launches["fused_simulate_table_lean"] = fn.lean_launch_count
     fn.launch_count = 0
     fused_batched.bracket_launch_count = 0
     out_e = run_ensemble()
     torch.cuda.synchronize()
     launches["fused_simulate_batched_table"] = fused_batched.launch_count
     launches["fused_simulate_batched_bracket"] = fused_batched.bracket_launch_count
-    if launches["fused_simulate_table"] != 1 or launches["fused_simulate_batched_table"] != 1 \
-            or fn.launch_count != 0 \
+    if launches["fused_simulate_table"] != 1 or launches["fused_simulate_table_lean"] != 1 \
+            or launches["fused_simulate_batched_table"] != 1 or fn.launch_count != 0 \
             or fused_batched.bracket_launch_count != 1:
-        raise AssertionError(f"table main path: {launches['fused_simulate_table']} single and "
-                             f"{fused_batched.launch_count} batched launches ({fused_batched.bracket_launch_count} "
-                             "in the bracket build), expected 1 and 1, in the bracket build")
+        raise AssertionError(f"table main path: {launches['fused_simulate_table']} single launches "
+                             f"({launches['fused_simulate_table_lean']} in the lean build) and "
+                             f"{fused_batched.launch_count} batched ({fused_batched.bracket_launch_count} in the "
+                             "bracket build), expected 1 in the lean build and 1 in the bracket build")
     total_it = int(out.iterations.sum())
     if out.depth.shape != (nt, n) or not bool(out.converged.all()) or not bool(torch.isfinite(out.depth).all()):
         raise AssertionError("table reach: not converged or not finite")
@@ -2781,20 +2792,12 @@ def drive_table(dev, launches: dict) -> tuple[dict, list, dict]:
     runs = [time_cuda(lambda: fn.launch(*packed), reps=1, warmup=int(not i)) for i in range(5)]
     events = dict(ms=statistics.median(runs), ms_runs=runs,
                   us_per_newton_iteration=statistics.median(runs) * 1e3 / total_it)
-    # the latency build's closures are the trapezoid's: tables take the register build
-    if fn.chosen_build(1, n, table=True) != fn.REGISTER_BUILD:
-        raise AssertionError("one table launch does not take the register build")
-    # the bracket build forced on the single launch (kernel 1 keeps the
-    # register build): its bits, and the two in turns by CUDA events
-    same_bits(fn.launch(*packed, build_id=fn.BRACKET_BUILD), fn.launch(*packed, build_id=fn.REGISTER_BUILD),
-              "table reach: bracket vs register build")
-    forced = {"bracket_build": [], "register_build": []}
-    for b in ("bracket_build", "register_build", "register_build", "bracket_build"):
-        bid = fn.BRACKET_BUILD if b == "bracket_build" else fn.REGISTER_BUILD
-        forced[b] += readings(lambda: fn.launch(*packed, build_id=bid))
-    events["forced_in_turns"] = dict(bit_identical=True, **{f"{b}_ms_runs": v for b, v in forced.items()},
-                                     **{f"{b}_ms": statistics.median(v) for b, v in forced.items()})
+    if fn.chosen_build(1, n, table=True) != fn.LEAN_BUILD:
+        raise AssertionError("one table launch does not take the lean build")
+    # kernel 1's table builds on one and on many members, in turns, probed
+    in_turns = table_reach_builds(dev, table_reach_launches(dev, solver, geo96, h96, Q96))
     rec["single"].update(kernel_alone_cuda_events=events, plain_compared_levels=nt, plain_ms=plain_ms, **cmp)
+    rec["builds_in_turns"] = in_turns
 
     # -- through the api: a mixed-station reach
     mixed = mixed_reach_solver(dev)
@@ -2816,24 +2819,27 @@ def drive_table(dev, launches: dict) -> tuple[dict, list, dict]:
         raise AssertionError(f"lateral inflow on tables: shape {tuple(out_q.depth.shape)}, moved {moved}")
     checks["lateral_inflow_store_boundaries"]["moved_outflow_by"] = moved
     # every boundary pair and the storage rows, on the tables of the same prismatic reaches
-    bracket_cases = {"lateral_inflow_store_boundaries": (*a25b, q)}
+    forced_cases = {"validation_reach_193_levels": args, "lateral_inflow_store_boundaries": (*a25b, q)}
     for name in BOUNDARY_CASES:
         b = build_boundary_case(api, name, device=dev)
         ba = (as_table(b.channel.geometry), b.us_params, b.ds_params, b.h0, b.Q0, b.settings(1e-8, 100))
         checks["boundary_" + name] = compare_runs(fused_simulate(*ba), fused_simulate_plain(*ba), "table " + name)
-        bracket_cases["boundary_" + name] = ba
-    # the bracket build (kernel 3's table batches) forced on those single
-    # launches and on the gated_blend flagship's reach on tables, against
-    # the register build bit for bit: every option and boundary row
+        forced_cases["boundary_" + name] = ba
+    # the lean build (kernel 1's) and the bracket build (kernel 3's table
+    # batches) forced on those single launches and on the gated_blend
+    # flagship's reach on tables (its curvature, which the validation reach
+    # has not), against the register build bit for bit: every option and
+    # boundary row
     from flowsim_tpu_torch.models.gerd_roseires import model
     sg, cg = model.build(device=dev, sim_duration=3600 * 24, smooth=False)
-    bracket_cases["gated_blend_25_levels"] = (as_table(cg.geometry), sg.us_params, sg.ds_params, sg.h0, sg.Q0,
+    forced_cases["gated_blend_25_levels"] = (as_table(cg.geometry), sg.us_params, sg.ds_params, sg.h0, sg.Q0,
                                               sg.settings(tolerance=1e-6, max_iter=100))
-    for name, a in bracket_cases.items():
+    for name, a in forced_cases.items():
         pk = pack_one(*a)
-        same_bits(fn.launch(*pk, build_id=fn.BRACKET_BUILD), fn.launch(*pk, build_id=fn.REGISTER_BUILD),
-                  f"bracket vs register build, table {name}")
-    checks["bracket_build_forced_bit_identical"] = sorted(bracket_cases)
+        reg = fn.launch(*pk, build_id=fn.REGISTER_BUILD)
+        for bid in (fn.LEAN_BUILD, fn.BRACKET_BUILD):
+            same_bits(fn.launch(*pk, build_id=bid), reg, f"{fn.BUILD_NAMES[bid]} vs register build, table {name}")
+    checks["lean_and_bracket_builds_forced_bit_identical"] = sorted(forced_cases)
     for name in ("ds_curve_rating_losses", "both_ends"):
         sa = build_storage_case(name, dev)
         sa = (as_table(sa[0], depth_max=30.0), *sa[1:])
@@ -2849,7 +2855,7 @@ def drive_table(dev, launches: dict) -> tuple[dict, list, dict]:
     batched = dict(bit_identity_16_members=compare_members(out16, singles, "table batch vs single launches",
                                                        exact=True))
     # the 16 members in the bracket build forced (the wrapper gives a batch
-    # of 16 the register build), against the same single launches
+    # of 16 the lean build), against the same single launches
     b16 = batched_launch(g16, solver.us_params, solver.ds_params, h96, Q96, sset16, fn.BRACKET_BUILD)
     batched["bit_identity_16_members_bracket_build"] = compare_members(
         b16, singles, "table batch in the bracket build vs single launches", exact=True)
@@ -2880,7 +2886,9 @@ def drive_table(dev, launches: dict) -> tuple[dict, list, dict]:
     if bool(out_nan.converged[bad, 1:].any()):
         raise AssertionError("table batch: the NaN member converged at some level")
     nan_b = batched_launch(g16, solver.us_params, solver.ds_params, h_nan, Q96, sset16, fn.BRACKET_BUILD)
-    same_bits(nan_b, out_nan, "table batch with a NaN member: bracket vs register build")
+    same_bits(nan_b, out_nan, "table batch with a NaN member: bracket vs lean build")
+    same_bits(batched_launch(g16, solver.us_params, solver.ds_params, h_nan, Q96, sset16, fn.REGISTER_BUILD),
+              out_nan, "table batch with a NaN member: register vs lean build")
     batched["nan_member"] = dict(member=bad, levels_converged=int(out_nan.converged[bad, 1:].sum()),
                                  sound_members_bit_identical=True)
     # the 10 240 members: timed, and the build the C entry chose against the register build
@@ -2888,7 +2896,7 @@ def drive_table(dev, launches: dict) -> tuple[dict, list, dict]:
     ens_ms = statistics.median(ens_runs)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     table_builds = (("register_build", fn.REGISTER_BUILD), ("residency_build", fn.RESIDENCY_BUILD),
-                    ("bracket_build", fn.BRACKET_BUILD))
+                    ("bracket_build", fn.BRACKET_BUILD), ("lean_build", fn.LEAN_BUILD))
     builds = {name: dict(resident_blocks_per_sm=fn.resident_blocks(n, False, bid, table=True))
               for name, bid in table_builds}
     chosen = fn.chosen_build(B, n, table=True)
@@ -2953,6 +2961,8 @@ def drive_table(dev, launches: dict) -> tuple[dict, list, dict]:
              ms=events["ms"], plain_ms=plain_ms, bound_ms=sb, bound_by=sby, library_ms=None, bound_terms=sterms,
              table_closures="flowsim_tpu/ops/pallas/fused_newton.py:268 _section_df_table, :317",
              build=rec["single"]["build"], us_per_newton_iteration=events["us_per_newton_iteration"],
+             lean_launches=launches["fused_simulate_table_lean"],
+             in_turns_ms={k: {b: v[b]["ms"] for b in TABLE_REACH_BUILDS} for k, v in in_turns.items()},
              shape=dict(n_nodes=n, samples=M, n_time_levels=nt, newton_iterations=total_it),
              tolerance=dict(depth_m=H_TOL, flow_m3s=Q_TOL, iteration_counts="identical")),
         dict(name="fused_simulate_batched_table", route="cuda",
@@ -4613,6 +4623,101 @@ def main() -> int:
     return 0
 
 
+# kernel 1's builds on tables, timed in turns (:func:`table_reach_builds`): the
+# C entry's choice must be the faster of the first two at each launch
+TABLE_REACH_BUILDS = ("lean_build", "register_build", "bracket_build")
+
+
+def batch_geometry(solver, dev):
+    """The validation reach at M = TABLE_BATCH_SAMPLES (its ensemble's
+    tables) and its steady state: ``(geo96, h96, Q96)``."""
+    from flowsim_tpu_torch.geometry_tables import build_table_geometry
+    from flowsim_tpu_torch.ops import initial_conditions as ic
+
+    n = solver.channel.geometry.n_nodes
+    geo96 = build_table_geometry(table_stations(), [0.0, TABLE_LENGTH], np.linspace(0.0, TABLE_LENGTH, n),
+                                 samples=TABLE_BATCH_SAMPLES, device=dev)
+    h96, Q96 = ic.initial_conditions(geo96, "steady-state", 400.0, solver.spatial_step)
+    return geo96, h96, Q96
+
+
+def table_reach_launches(dev, solver, geo96, h96, Q96) -> dict:
+    """Kernel 1's table launches its builds are held and timed on, as
+    ``fused_newton.launch``'s arguments, name -> (members, packed): the
+    validation reach at M = 1024 (TABLE_TOL) and at M = TABLE_BATCH_SAMPLES
+    (TABLE_BATCH_TOL), TABLE_SMALL_BATCH members at M = 96 (the JAX case) and
+    one full wave of the lean build (its resident blocks an SM times the
+    SMs), members of ``table_roughness_ensemble`` over TABLE_N_RANGE."""
+    from flowsim_tpu_torch.ops.cuda import fused_newton as fn
+    from flowsim_tpu_torch.parallel import ensemble
+
+    n = solver.channel.geometry.n_nodes
+    sset = solver.settings(TABLE_BATCH_TOL, 100)
+    wave = fn.resident_blocks(n, False, fn.LEAN_BUILD, table=True) * torch.cuda.get_device_properties(
+        dev).multi_processor_count
+    cases = {"validation_reach_m1024": (1, pack_one(solver.channel.geometry, solver.us_params, solver.ds_params,
+                                                    solver.h0, solver.Q0, solver.settings(TABLE_TOL, 100))),
+             "validation_reach_m96": (1, pack_one(geo96, solver.us_params, solver.ds_params, h96, Q96, sset))}
+    for name, members in ((f"batch_{TABLE_SMALL_BATCH}_m96", TABLE_SMALL_BATCH), (f"wave_{wave}_m96", wave)):
+        geob = ensemble.table_roughness_ensemble(geo96, np.linspace(*TABLE_N_RANGE, members))
+        cases[name] = (members, batched_packed(geob, solver.us_params, solver.ds_params, h96, Q96, sset))
+    return cases
+
+
+def table_reach_builds(dev, cases: dict, rounds: int = 3) -> dict:
+    """Kernel 1's table path on each launch of ``cases`` (name -> (members,
+    packed), :func:`table_reach_launches`): each of TABLE_REACH_BUILDS
+    forced, bit for bit against the register build; by
+    CUDA events in turns (:func:`builds_in_turns`, ``rounds`` readings a
+    turn; each build's median); and on one simulation each build's probe
+    build (member 0, thread 0; its bits the production launch's).  Fails
+    unless the build the C entry chooses is the faster of the first two of
+    TABLE_REACH_BUILDS at each launch.  Counts no launch."""
+    from flowsim_tpu_torch.ops.cuda import fused_newton as fn
+
+    ids = {b: getattr(fn, b.upper()) for b in TABLE_REACH_BUILDS}
+    compared = TABLE_REACH_BUILDS[:2]
+    out = {}
+    for name, (members, pk) in cases.items():
+        n = int(pk[1].shape[1])
+        outs = {b: fn.launch(*pk, build_id=i) for b, i in ids.items()}
+        for b in ids:
+            same_bits(outs[b], outs["register_build"], f"table reach {name}: the {b} vs the register build")
+        iters = int(outs["register_build"].iterations.sum())
+        runs = builds_in_turns(lambda i: fn.launch(*pk, build_id=i), ids, rounds)
+        chosen = KERNEL1_BUILD_NAMES[fn.chosen_build(members, n, table=True)]
+        rec = dict(members=members, n_nodes=n, samples=pk[13][2], total_iterations=iters, chosen_build=chosen,
+                   bits="every field, against the register build")
+        for b, i in ids.items():
+            ms = statistics.median(runs[b])
+            rec[b] = dict(build_id=i, ms_runs=runs[b], ms=ms, us_per_newton_iteration=ms * 1e3 * members / iters,
+                          resident_blocks_per_sm=fn.resident_blocks(n, False, i, table=True))
+            if members == 1:
+                cycles = torch.zeros(len(fn.PROBE_PHASES), dtype=torch.int64, device=dev)
+                clock = ctypes.c_int(0)
+                probed = fn.launch(*pk, build_id=i, probe=(cycles, clock))
+                same_bits(probed, outs[b], f"table reach {name}: the {b}'s probe build")
+                rec[b]["probe"] = dict(probe_record(dict(zip(fn.PROBE_PHASES, cycles.tolist())), clock.value,
+                                                    iters, ms), bit_identical_to_production=True)
+        del outs
+        rec["fastest"] = min(compared, key=lambda b: rec[b]["ms"])
+        if chosen in compared and rec[chosen]["ms"] > rec[rec["fastest"]]["ms"]:
+            raise AssertionError(f"table reach {name}: the C entry takes the {chosen} ({rec[chosen]['ms']:.4f} ms), "
+                                 f"slower in turns than the {rec['fastest']} ({rec[rec['fastest']]['ms']:.4f} ms)")
+        out[name] = rec
+    return out
+
+
+def table_times(dev, rounds: int = 3) -> dict:
+    """Kernel 1's table builds alone (:func:`table_reach_builds` on
+    :func:`table_reach_launches`): the validation reach through the api at M
+    = 1024 (about a minute of host work) and at M = 96, and batches at M =
+    96.  ``python3 chip_smoke.py --table-times`` prints only this."""
+    solver = table_reach_solver(dev)
+    cases = table_reach_launches(dev, solver, *batch_geometry(solver, dev))
+    return table_reach_builds(dev, cases, rounds)
+
+
 def table_ensemble_builds(dev, ens_br, sset_e, batch, chosen_out=None, rounds: int = 3) -> dict:
     """Kernel 6's table path on a batch (the surveyed mixed network's
     ensemble): the bracket build against the residency build, both forced,
@@ -4922,19 +5027,25 @@ def ptxas_figures(dev) -> dict:
     return {n: dict(seconds=i["seconds"], ptxas=i["ptxas"]) for n, i in build.build_info.items()}
 
 
+# kernels that gained defaulted template flags (the builds added since: the
+# network kernel's bracket and lean builds, kernel 1's lean build), and the
+# template arguments they had before
+FLAGGED_KERNELS = {"fused_network_kernelI": 8, "fused_bracket_kernelI": 1}
+
+
 def ptxas_key(kernel: str) -> str:
     """A kernel's mangled name without the anonymous namespace's hash (which
-    changes with the source) and without the network kernel's trailing
-    defaulted ``false`` template arguments (the flags of the builds added
-    since, the bracket and the lean build's): the same key for the same build
-    in two checkouts."""
+    changes with the source) and without the trailing defaulted ``false``
+    template arguments of FLAGGED_KERNELS: the same key for the same build in
+    two checkouts."""
     k = re.sub(r"_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]{8}", "", kernel).split("EEvPK")[0]
-    m = re.match(r"(.*fused_network_kernelI)((?:L[ib]\d+E)+)$", k)
-    if m:
-        args = re.findall(r"L[ib]\d+E", m.group(2))
-        while len(args) > 8 and args[-1] == "Lb0E":
-            args.pop()
-        k = m.group(1) + "".join(args)
+    for name, before in FLAGGED_KERNELS.items():
+        m = re.match(rf"(.*{name})((?:L[ib]\d+E)+)$", k)
+        if m:
+            args = re.findall(r"L[ib]\d+E", m.group(2))
+            while len(args) > before and args[-1] == "Lb0E":
+                args.pop()
+            k = m.group(1) + "".join(args)
     return k
 
 
@@ -4959,16 +5070,17 @@ def ptxas_changes(parent: dict, change: dict) -> dict:
 MODES = {"--kernel1-times": ("kernel1_times", kernel1_times), "--kernel2-times": ("kernel2_times", kernel2_times),
          "--network-times": ("network_times", network_times), "--sass": ("sass", lambda dev: sass_counts()),
          "--table-network-times": ("table_network_times", table_network_times),
+         "--table-times": ("table_times", table_times),
          "--ptxas": ("ptxas", ptxas_figures)}
 
 
 def modes_main(flags) -> int:
     """``--kernel1-times`` / ``--kernel2-times`` / ``--network-times`` /
-    ``--sass`` / ``--table-network-times`` / ``--ptxas`` (any of them): the
-    card's name and power limit, then one JSON line with each asked
-    measurement (:func:`kernel1_times`, :func:`kernel2_times`,
+    ``--sass`` / ``--table-network-times`` / ``--table-times`` / ``--ptxas``
+    (any of them): the card's name and power limit, then one JSON line with
+    each asked measurement (:func:`kernel1_times`, :func:`kernel2_times`,
     :func:`network_times`, :func:`sass_counts`, :func:`table_network_times`,
-    :func:`ptxas_figures`) as the last line."""
+    :func:`table_times`, :func:`ptxas_figures`) as the last line."""
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1

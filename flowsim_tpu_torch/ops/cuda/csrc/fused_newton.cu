@@ -97,8 +97,9 @@
 // trajectory matches the plain PyTorch engine to rounding.
 //
 // Builds.  One arithmetic, the same bits; choose_build_id picks by the shape,
-// the geometry and the member count (table geometry: the register build, and
-// the bracket build past one wave of it; N > 964: the reach build for one
+// the geometry and the member count (table geometry at N <= 128 without
+// storage: the lean build while one wave of it holds the batch, then the
+// register build, then the bracket build; N > 964: the reach build for one
 // simulation, the cluster build for a batch; the long build, which kept a
 // reach on one SM with its state in device memory, only forced).  The
 // register build (one thread a node, 248 registers, two blocks an SM) runs
@@ -1018,11 +1019,12 @@ fused_latency_kernel(const double* __restrict__ geo_all, const double* __restric
 // Kernel 3's table path on a batch past one wave of the register build (the
 // TPU kernel's _section_df_table_rows, fused_newton.py:341, inside
 // _kernel_batched): N <= 128 nodes of lookup tables, no storage, one thread a
-// node, four blocks an SM.  The residency build it replaces re-read the two
-// bracket rows of all seven tables (14 scattered doubles a node, three of the
-// tables per member) from L2 at every evaluation, inverted each partner's D
-// twice a sweep and held the previous level's state in registers, spilling
-// at 128.  This build:
+// node, four blocks an SM.  Its LEAN form (below) is kernel 1's table path
+// (_section_df_table / _section_from_brackets, fused_newton.py:268 / :317).
+// The residency build it replaces re-read the two bracket rows of all seven
+// tables (14 scattered doubles a node, three of the tables per member) from
+// L2 at every evaluation, inverted each partner's D twice a sweep and held
+// the previous level's state in registers, spilling at 128.  This build:
 //
 //  * keeps each node's bracket index and its 14 bracket values in shared
 //    memory (section_state_cached), re-read from device memory only when the
@@ -1040,16 +1042,34 @@ fused_latency_kernel(const double* __restrict__ geo_all, const double* __restric
 // 57 doubles and an int a node: 55.7 KB at N = 121, so four blocks fit an
 // SM's 228 KB.  The residual norm is block_sum over the same threads, so
 // every loop decision and every field has the residency build's bits.
+//
+// The lean build (LEAN): kernel 1's table path on one surveyed reach, and
+// table batches that one wave of it holds.  The register build it replaces
+// there read the 14 bracket values of a node through L2 at every closure
+// pass, ran a previous-level closure pass and two barriers at every level
+// start, and inverted each partner's D twice a sweep; the bracket build
+// fixed the first and the last but, bound to four blocks an SM (128
+// registers, spilling), was slower on one launch.  The lean build is the
+// bracket build under the latency build's launch bound (one block an SM
+// guaranteed, up to 255 registers) with no previous-level pass: a level's
+// previous-level h, Q, A, Se and Q^2/A are those of its first Newton
+// iteration (the same state: the gate update moves no h or Q), which that
+// iteration's closures (own node) and cells (node i+1) keep in registers.
+// So a level starts without a closure pass or a barrier, and there is no
+// previous-level array: 52 doubles and an int a node, 50.8 KB at N = 121.
+// The same operations on the same values, so the register build's bits.
 constexpr int BRACKET_BLOCK = 128;
 constexpr int BRACKET_MINB = 4;
 constexpr int BRACKET_DOUBLES_PER_NODE = 2 * pcr::CARRY_COMP + 2 + X_COUNT + BK_COUNT;
+constexpr int LEAN_DOUBLES_PER_NODE = 2 * pcr::CARRY_COMP + 2 + BK_COUNT;
 
 // The bracket build: the register build's signature (storage arguments not
 // read: a run with storage never takes it); 32 ceil(N / 32) threads, node
 // threadIdx.x.  PROBE: its probe build (the previous level's barrier is
-// PH_PREV; PH_LEVEL reads 0).
-template <bool PROBE>
-__global__ void __launch_bounds__(BRACKET_BLOCK, BRACKET_MINB)
+// PH_PREV; PH_LEVEL reads 0; the lean build has neither, its level start
+// is in the closures of the level's first iteration).  LEAN: the lean build.
+template <bool PROBE, bool LEAN = false>
+__global__ void __launch_bounds__(BRACKET_BLOCK, LEAN ? 1 : BRACKET_MINB)
 fused_bracket_kernel(const double* __restrict__ geo_all, const double* __restrict__ h0_all,
                      const double* __restrict__ Q0_all, const double* __restrict__ us_all,
                      const double* __restrict__ ds_all, const double* __restrict__ par_all,
@@ -1087,8 +1107,8 @@ fused_bracket_kernel(const double* __restrict__ geo_all, const double* __restric
     double* buf1 = buf0 + (size_t)pcr::CARRY_COMP * n;   // closures of every node / sweep pong
     double* sh = buf1 + (size_t)pcr::CARRY_COMP * n;     // depth per node
     double* sQ = sh + n;                                 // discharge per node
-    double* prev = sQ + n;                               // previous level [X_COUNT][N]
-    double* cache = prev + (size_t)X_COUNT * n;          // brackets [BK_COUNT][N]
+    double* prev = sQ + n;                               // previous level [X_COUNT][N] (not LEAN)
+    double* cache = prev + (size_t)(LEAN ? 0 : X_COUNT) * n;   // brackets [BK_COUNT][N]
     int* cidx = (int*)(cache + (size_t)BK_COUNT * n);    // bracket index per node
 
     const int i = threadIdx.x;
@@ -1144,13 +1164,16 @@ fused_bracket_kernel(const double* __restrict__ geo_all, const double* __restric
         if (gated) gc.step(rat, k, dt, gate_stage);
 
         // -- previous-level state of this node, read by the cells i-1 and i
-        if (node) {
-            const double hp = sh[i], Qp = sQ[i];
-            const Sec s = section_state_cached(g, hp, cache, cidx, n, i);
-            const Slope e = energy_slope(g, s, hp, Qp);
-            prev[X_H * n + i] = hp;   prev[X_Q * n + i] = Qp;
-            prev[X_A * n + i] = s.A;  prev[X_SE * n + i] = e.Se;
-            prev[X_Q2A * n + i] = Qp * Qp / s.A;
+        //    (LEAN: the closures of the level's first iteration, p0 and p1)
+        if constexpr (!LEAN) {
+            if (node) {
+                const double hp = sh[i], Qp = sQ[i];
+                const Sec s = section_state_cached(g, hp, cache, cidx, n, i);
+                const Slope e = energy_slope(g, s, hp, Qp);
+                prev[X_H * n + i] = hp;   prev[X_Q * n + i] = Qp;
+                prev[X_A * n + i] = s.A;  prev[X_SE * n + i] = e.Se;
+                prev[X_Q2A * n + i] = Qp * Qp / s.A;
+            }
         }
         const double us_target = us_series[k], ds_target = ds_series[k];
         double qavg = 0.0;
@@ -1159,8 +1182,11 @@ fused_bracket_kernel(const double* __restrict__ geo_all, const double* __restric
             const double* qp = qlat_mode == QLAT_LEVELS ? qlat + (size_t)(k - 1) * n : qlat;
             qavg = 0.5 * theta * (qc[i + 1] + qc[i]) + 0.5 * (1.0 - theta) * (qp[i + 1] + qp[i]);
         }
-        __syncthreads();
-        probe.mark(PH_PREV);
+        if constexpr (!LEAN) {
+            __syncthreads();
+            probe.mark(PH_PREV);
+        }
+        NodePrev p0{}, p1{};   // LEAN: node i's and node i+1's level start
 
         double err = CUDART_INF;
         int it = 0;
@@ -1175,6 +1201,9 @@ fused_bracket_kernel(const double* __restrict__ geo_all, const double* __restric
                 buf1[4 * n + i] = e.dSe_dA; buf1[5 * n + i] = e.dSe_dQ;
                 buf1[6 * n + i] = Q / s.A;  buf1[7 * n + i] = s.K;
                 buf1[8 * n + i] = s.dK_dA;
+                if constexpr (LEAN) {
+                    if (it == 0) p0 = NodePrev{h, Q, s.A, e.Se, Q * Q / s.A};
+                }
             }
             __syncthreads();
             probe.mark(PH_CLOSURES);
@@ -1195,8 +1224,15 @@ fused_bracket_kernel(const double* __restrict__ geo_all, const double* __restric
                                     prev[X_SE * n + m], prev[X_Q2A * n + m]};
                 };
                 const int j = i + 1;
-                sq = cell_rows(buf0, n, i, theta, dt, dx, it_of(i, h, Q), it_of(j, sh[j], sQ[j]), prev_of(i),
-                               prev_of(j), (z1 - g.z) / dx, qlat_mode != QLAT_NONE, qavg);
+                if constexpr (LEAN) {
+                    const NodeIt c1 = it_of(j, sh[j], sQ[j]);
+                    if (it == 0) p1 = NodePrev{c1.h, c1.Q, c1.A, c1.Se, c1.Q2A};
+                    sq = cell_rows(buf0, n, i, theta, dt, dx, it_of(i, h, Q), c1, p0, p1, (z1 - g.z) / dx,
+                                   qlat_mode != QLAT_NONE, qavg);
+                } else {
+                    sq = cell_rows(buf0, n, i, theta, dt, dx, it_of(i, h, Q), it_of(j, sh[j], sQ[j]), prev_of(i),
+                                   prev_of(j), (z1 - g.z) / dx, qlat_mode != QLAT_NONE, qavg);
+                }
             }
             if (node && (first || last)) {   // the boundary rows read the node's conveyance
                 Sec s{};
@@ -2266,9 +2302,10 @@ struct Build { KernelFn fn; int threads; size_t smem; int cluster = 1; };
 // simulation; BRACKET_BUILD: N <= 128 without storage, table geometry;
 // CLUSTER_BUILD: every N up to LONG_MAX_N, one simulation over a
 // thread-block cluster, on a persistent grid of clusters; REACH_BUILD: every
-// N up to LONG_MAX_N, one simulation over a cluster of REACH_RANKS blocks.
+// N up to LONG_MAX_N, one simulation over a cluster of REACH_RANKS blocks;
+// LEAN_BUILD: N <= 128 without storage, table geometry.
 enum { REGISTER_BUILD = 0, RESIDENCY_BUILD = 1, LATENCY_BUILD = 2, LONG_BUILD = 3, BRACKET_BUILD = 4,
-       CLUSTER_BUILD = 5, REACH_BUILD = 6 };
+       CLUSTER_BUILD = 5, REACH_BUILD = 6, LEAN_BUILD = 7 };
 
 int threads_for(int n) { return ((n + 31) / 32) * 32; }
 size_t smem_for(int n) { return (size_t)SMEM_DOUBLES_PER_NODE * n * sizeof(double); }
@@ -2330,9 +2367,10 @@ int cluster_blocks_for(int n) {
 // gets the full register budget (250 registers at N <= 128: two blocks an SM)
 // and only a long one is squeezed to 64.  RESIDENCY_BUILD: four blocks an SM,
 // 128 registers, the rest spilled.  A probe build exists for N <= 128 without
-// storage, of the register and the latency builds (trapezoid geometry) and of
-// the residency and the bracket builds (table geometry).  Table geometry
-// (table) has the register, residency and bracket builds: the latency
+// storage, of the register build (both geometries), of the latency build
+// (trapezoid geometry) and of the residency, the bracket and the lean builds
+// (table geometry).  Table geometry
+// (table) has the register, residency, bracket and lean builds: the latency
 // build's closures are the trapezoid's own.  LONG_BUILD: 1024 threads, no
 // dynamic shared memory, every shape, no probe build.  CLUSTER_BUILD: its
 // cluster (cluster_blocks_for), rank_nodes threads and CLUSTER_DOUBLES_PER_NODE
@@ -2376,7 +2414,14 @@ int pick_build(int n, bool storage, bool table, int build, bool probe, Build* ou
                      (size_t)BRACKET_DOUBLES_PER_NODE * n * sizeof(double) + (size_t)n * sizeof(int)};
         return 0;
     }
-    if (probe && (!small || build != (table ? RESIDENCY_BUILD : REGISTER_BUILD))) return (int)cudaErrorInvalidValue;
+    if (build == LEAN_BUILD) {
+        if (!small || !table) return (int)cudaErrorInvalidValue;
+        *out = Build{probe ? &fused_bracket_kernel<true, true> : &fused_bracket_kernel<false, true>, threads_for(n),
+                     (size_t)LEAN_DOUBLES_PER_NODE * n * sizeof(double) + (size_t)n * sizeof(int)};
+        return 0;
+    }
+    if (probe && (!small || !(build == REGISTER_BUILD || (table && build == RESIDENCY_BUILD))))
+        return (int)cudaErrorInvalidValue;
     out->threads = threads_for(n);
     out->smem = smem_for(n);
     if (build == RESIDENCY_BUILD) {
@@ -2387,7 +2432,8 @@ int pick_build(int n, bool storage, bool table, int build, bool probe, Build* ou
         return 0;
     }
     if (build != REGISTER_BUILD) return (int)cudaErrorInvalidValue;
-    if (probe) out->fn = &fused_simulate_kernel<128, false, 1, true, false>;
+    if (probe) out->fn = table ? &fused_simulate_kernel<128, false, 1, true, true>
+                               : &fused_simulate_kernel<128, false, 1, true, false>;
     else out->fn = table ? register_build_for<true>(n, storage) : register_build_for<false>(n, storage);
     return 0;
 }
@@ -2458,14 +2504,13 @@ int grid_of(const Build& b, int build, int n_sims, int* grid) {
 // asks it through flowsim_fused_chosen_build): at N > REGISTER_MAX_N the
 // reach build for one simulation and the cluster build for a batch (a card
 // that cannot hold one of their clusters refuses the launch: grid_of); at N <= 128 without storage the latency
-// build while the batch fits the card in one wave of it, then the register
-// build while it fits in one wave of that, then the residency build where it
-// holds more members; every other shape the register build.  Table geometry
-// skips the latency build and takes the bracket build past one wave of the
-// register build.
+// build (table geometry: the lean build) while the batch fits the card in
+// one wave of it, then the register build while it fits in one wave of
+// that, then the residency build (table geometry: the bracket build) where
+// it holds more members; every other shape the register build.
 int choose_build_id(int n_sims, int n, bool storage, bool table, int* build) {
     *build = REGISTER_BUILD;
-    int dev, sms, lat_bps, reg_bps, res_bps, rc;
+    int dev, sms, first_bps, reg_bps, res_bps, rc;
     Build b;
     if (n > REGISTER_MAX_N) {
         *build = n_sims == 1 ? REACH_BUILD : CLUSTER_BUILD;
@@ -2474,11 +2519,9 @@ int choose_build_id(int n_sims, int n, bool storage, bool table, int* build) {
     if (n > LATENCY_MAX_N || storage) return 0;
     if ((rc = (int)cudaGetDevice(&dev))) return rc;
     if ((rc = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))) return rc;
-    if (!table) {
-        if ((rc = pick_build(n, false, false, LATENCY_BUILD, false, &b)) || (rc = resident_blocks(b, &lat_bps)))
-            return rc;
-        if (n_sims <= lat_bps * sms) { *build = LATENCY_BUILD; return 0; }
-    }
+    const int first = table ? LEAN_BUILD : LATENCY_BUILD;
+    if ((rc = pick_build(n, false, table, first, false, &b)) || (rc = resident_blocks(b, &first_bps))) return rc;
+    if (n_sims <= first_bps * sms) { *build = first; return 0; }
     if ((rc = pick_build(n, false, table, REGISTER_BUILD, false, &b)) || (rc = resident_blocks(b, &reg_bps)))
         return rc;
     if (n_sims <= reg_bps * sms) return 0;
@@ -2510,6 +2553,9 @@ extern "C" int flowsim_fused_long_max_n() { return LONG_MAX_N; }
 extern "C" int flowsim_fused_long_scratch_bytes_per_node() { return LONG_DOUBLES_PER_NODE * (int)sizeof(double); }
 extern "C" int flowsim_fused_bracket_bytes_per_node() {
     return BRACKET_DOUBLES_PER_NODE * (int)sizeof(double) + (int)sizeof(int);
+}
+extern "C" int flowsim_fused_lean_bytes_per_node() {
+    return LEAN_DOUBLES_PER_NODE * (int)sizeof(double) + (int)sizeof(int);
 }
 extern "C" int flowsim_fused_cluster_block() { return CLUSTER_BLOCK; }
 extern "C" int flowsim_fused_cluster_bytes_per_node() { return CLUSTER_DOUBLES_PER_NODE * (int)sizeof(double); }
@@ -2587,17 +2633,17 @@ int launch(int build, bool probe, long long* probe_out, FLOWSIM_SIM_PARAMS, void
 // tab_dk [n_sims, N, M] (K, n_eq, dK/dA).  scratch: [n_sims,
 // LONG_DOUBLES_PER_NODE, N] doubles for the long build (null otherwise).
 // build: -1 chooses by the shape, the geometry and the member count
-// (choose_build_id: what the wrappers do); 0-6 forces a build, so that chip_smoke.py can time the builds against each
+// (choose_build_id: what the wrappers do); 0-7 forces a build, so that chip_smoke.py can time the builds against each
 // other and hold them to one another's bits.
 extern "C" int flowsim_fused_simulate(FLOWSIM_SIM_PARAMS, int build, void* stream) {
     return launch(build, false, nullptr, FLOWSIM_SIM_ARGS, stream);
 }
 
-// The probe build of the register or the latency build (trapezoid geometry)
-// or of the residency or the bracket build (table geometry) at N <= 128
-// without storage (build -1: the one the C entry chooses), or of the cluster
-// or the reach build (trapezoid geometry without storage, any N): the same launch, and
-// the cycles of each phase of thread 0 of block 0 summed over the run into
+// The probe build of the register build, of the latency build (trapezoid
+// geometry) or of the residency, the bracket or the lean build (table
+// geometry) at N <= 128 without storage (build -1: the one the C entry
+// chooses), or of the cluster or the reach build (trapezoid geometry without
+// storage, any N): the same launch, and the cycles of each phase of thread 0 of block 0 summed over the run into
 // probe [PH_COUNT] (device memory); clock_khz receives the SM clock rate the
 // cycles count at.
 extern "C" int flowsim_fused_simulate_probe(FLOWSIM_SIM_PARAMS, int build, void* probe, int* clock_khz,

@@ -73,6 +73,9 @@ REACH_MAX_RANK_NODES = 512
 # of 18 components, h, Q, 5 doubles of the previous level, the 14 bracket
 # values and the bracket index
 BRACKET_BYTES_PER_NODE = (2 * 18 + 2 + 5 + 14) * 8 + 4
+# the lean build's: the bracket build's without the previous level (its
+# cells keep the level start in registers)
+LEAN_BYTES_PER_NODE = (2 * 18 + 2 + 14) * 8 + 4
 
 _GEO_ROWS = ("z_bed", "b_main", "m_main", "n_main", "compound", "h_bank", "b_fp_left",
              "b_fp_right", "m_fp", "n_left", "n_right", "bed_slope", "curvature")
@@ -100,17 +103,22 @@ _STORAGE_RC_KINDS = ("polynomial", "blended_poly", "poly_n", "power", "table")
 # register build.  At N <= LATENCY_MAX_N without storage a launch that fits
 # the card in one wave of the latency build (two threads a node for the
 # closures) takes it; a larger batch the register build while one wave of
-# that holds it, then the residency build (four blocks an SM, not two); on
-# lookup tables the bracket build instead (each node's bracket cached in
-# shared memory, carried-inverse sweeps).  Above MAX_N one simulation takes
-# the reach build (a cluster of REACH_RANKS blocks) and a batch the cluster
-# build; the long build (1024 threads, up to 8 nodes a thread, its state in
-# device memory) runs only forced.  A test hook forces a build at any shape
-# it takes; the C entry refuses it elsewhere (plan).
-REGISTER_BUILD, RESIDENCY_BUILD, LATENCY_BUILD, LONG_BUILD, BRACKET_BUILD, CLUSTER_BUILD, REACH_BUILD = range(7)
+# that holds it, then the residency build (four blocks an SM, not two).  On
+# lookup tables the lean build takes the latency build's place (each node's
+# bracket cached in shared memory, carried-inverse sweeps, the level start
+# kept from the first iteration's closures) and the bracket build the
+# residency build's (the same cache, four blocks an SM).  Above MAX_N one
+# simulation takes the reach build (a cluster of REACH_RANKS blocks) and a
+# batch the cluster build; the long build (1024 threads, up to 8 nodes a
+# thread, its state in device memory) runs only forced.  A test hook forces
+# a build at any shape it takes; the C entry refuses it elsewhere (plan).
+REGISTER_BUILD, RESIDENCY_BUILD, LATENCY_BUILD, LONG_BUILD, BRACKET_BUILD, CLUSTER_BUILD, REACH_BUILD, \
+    LEAN_BUILD = range(8)
 BUILD_NAMES = {REGISTER_BUILD: "register build", RESIDENCY_BUILD: "residency build", LATENCY_BUILD: "latency build",
                LONG_BUILD: "long build", BRACKET_BUILD: "bracket build", CLUSTER_BUILD: "cluster build",
-               REACH_BUILD: "reach build"}
+               REACH_BUILD: "reach build", LEAN_BUILD: "lean build"}
+# the builds of the reaches above MAX_N (the C entry takes no other there)
+LONG_REACH_BUILDS = (LONG_BUILD, CLUSTER_BUILD, REACH_BUILD)
 LATENCY_MAX_N = 128
 # what the C entry's refusals mean (cudaError_t)
 _REFUSALS = {1: "cudaErrorInvalidValue: the build does not take this shape, or its block exceeds the card's "
@@ -125,11 +133,12 @@ PROBE_PHASES = ("level_start", "previous_level", "closures", "assembly", "sweeps
                 "schur_rows", "junction_solve", "update")
 
 # number of kernel launches made by fused_simulate (not by its plain version),
-# of those the launches of a long reach (N > MAX_N), and of those the ones
-# that took the reach build
+# and of those, by the build launched: a long-reach build
+# (LONG_REACH_BUILDS), the reach build, the lean build
 launch_count = 0
 long_launch_count = 0
 reach_launch_count = 0
+lean_launch_count = 0
 
 
 class FusedUnsupported(Exception):
@@ -233,7 +242,8 @@ def _lib():
                     lib.flowsim_fused_storage_param_count, lib.flowsim_fused_probe_phases,
                     lib.flowsim_fused_latency_max_n, lib.flowsim_fused_register_max_n,
                     lib.flowsim_fused_long_max_n, lib.flowsim_fused_long_scratch_bytes_per_node,
-                    lib.flowsim_fused_bracket_bytes_per_node, lib.flowsim_fused_cluster_block,
+                    lib.flowsim_fused_bracket_bytes_per_node, lib.flowsim_fused_lean_bytes_per_node,
+                    lib.flowsim_fused_cluster_block,
                     lib.flowsim_fused_cluster_bytes_per_node, lib.flowsim_fused_max_cluster,
                     lib.flowsim_fused_reach_bytes_per_node, lib.flowsim_fused_reach_ranks):
             aux.argtypes = []
@@ -251,6 +261,7 @@ def _lib():
         if lib.flowsim_fused_smem_bytes_per_node() != SMEM_BYTES_PER_NODE \
                 or lib.flowsim_fused_long_scratch_bytes_per_node() != LONG_SCRATCH_BYTES_PER_NODE \
                 or lib.flowsim_fused_bracket_bytes_per_node() != BRACKET_BYTES_PER_NODE \
+                or lib.flowsim_fused_lean_bytes_per_node() != LEAN_BYTES_PER_NODE \
                 or lib.flowsim_fused_cluster_bytes_per_node() != CLUSTER_BYTES_PER_NODE \
                 or lib.flowsim_fused_reach_bytes_per_node() != REACH_BYTES_PER_NODE:
             raise RuntimeError("memory layout of fused_newton.cu and its wrapper differ")
@@ -555,10 +566,10 @@ def chosen_build(n_sims: int, n: int, storage: bool = False, table: bool = False
     ``n`` nodes (``choose_build_id`` in ``csrc/fused_newton.cu``): above
     :data:`MAX_N` the reach build for one simulation and the cluster build
     for a batch; with storage or N > :data:`LATENCY_MAX_N` the register
-    build; else the latency build while one wave of it holds the batch
-    (trapezoid geometry; ``table`` skips it), the register build while one
-    wave of that does, then the residency build (``table``: the bracket
-    build) where it holds more members an SM."""
+    build; else the latency build (``table``: the lean build) while one wave
+    of it holds the batch, the register build while one wave of that does,
+    then the residency build (``table``: the bracket build) where it holds
+    more members an SM."""
     out = ctypes.c_int(0)
     rc = _lib().flowsim_fused_chosen_build(n_sims, n, int(storage), int(table), ctypes.byref(out))
     if rc != 0:
@@ -601,8 +612,8 @@ def launch(geo_rows, h0, Q0, us_series, ds_series, par, qlat, settings, us_kind,
     against the card's free memory.  ``probe``: ``None``, or ``(cycles, clock)`` — an
     int64 tensor ``[len(PROBE_PHASES)]`` on the device and a
     ``ctypes.c_int`` — for one launch of the probe build of that build (the
-    register or latency build on trapezoids, the residency or bracket build
-    on tables, N <= 128; the cluster and the reach build on trapezoids; no storage), which
+    register build, the latency build on trapezoids, the residency, bracket
+    or lean build on tables, N <= 128; the cluster and the reach build on trapezoids; no storage), which
     fills them with the cycles of each phase and the SM clock in kHz.  Returns a SimOutput whose fields
     carry the ``S`` axis."""
     dev = geo_rows.device
@@ -717,9 +728,11 @@ def fused_simulate_probe(geo, us_bc, ds_bc, h0, Q0, settings, build_id=-1):
     one, on CUDA tensors.  Returns ``(SimOutput, cycles, clock_khz)``:
     ``cycles`` maps each of :data:`PROBE_PHASES` to the SM cycles thread 0
     spent in it over the run.  Its outputs are the production build's bits.
-    Trapezoid geometry only.  Counts no launch."""
-    if not isinstance(geo, TrapezoidGeometry):
-        raise FusedUnsupported("the probe builds are of the trapezoid closures")
+    Both geometries; the C entry refuses a build without a probe build for
+    the geometry (:func:`plan`).  Counts no launch."""
+    if h0.device.type != "cuda":
+        raise ValueError(f"fused_simulate_probe reads a kernel's clock on the card: it needs CUDA tensors, got "
+                         f"{h0.device} (the plain version has no probe)")
     _check_supported(geo, us_bc, ds_bc, settings)
     prs.check_shapes(geo, us_bc, ds_bc, h0, Q0, settings, None)
     check_device(h0.device, h0, Q0, geo, us_bc, ds_bc, "fused_simulate_probe")
@@ -736,7 +749,7 @@ def fused_simulate(geo, us_bc, ds_bc, h0, Q0, settings, lateral_inflow=None) -> 
     ``[nt, N]``.  Raises :class:`FusedUnsupported` for configurations outside
     the kernel's scope.  CPU tensors take the plain version.
     """
-    global launch_count, long_launch_count, reach_launch_count
+    global launch_count, long_launch_count, reach_launch_count, lean_launch_count
     _check_supported(geo, us_bc, ds_bc, settings)
     qlat = prs.as_lateral_inflow(lateral_inflow, h0)
     prs.check_shapes(geo, us_bc, ds_bc, h0, Q0, settings, qlat)
@@ -746,6 +759,7 @@ def fused_simulate(geo, us_bc, ds_bc, h0, Q0, settings, lateral_inflow=None) -> 
     check_device(dev, h0, Q0, geo, us_bc, ds_bc, "fused_simulate")
     out, build_id = _launch_one(geo, us_bc, ds_bc, h0, Q0, settings, qlat)
     launch_count += 1
-    long_launch_count += geo.n_nodes > MAX_N
+    long_launch_count += build_id in LONG_REACH_BUILDS
     reach_launch_count += build_id == REACH_BUILD
+    lean_launch_count += build_id == LEAN_BUILD
     return out

@@ -1,5 +1,5 @@
-"""The reckoning of the long-reach and bracket builds of kernels 1 and 3, as
-pure functions.
+"""The reckoning of the long-reach, bracket and lean builds of kernels 1 and
+3, as pure functions.
 
 On the card a batch of reaches of 965-8192 nodes runs in the cluster build
 (each member over a thread-block cluster, its state in the blocks' shared
@@ -7,8 +7,9 @@ memory) and one simulation there in the reach build (one reach over a
 cluster of 16 blocks, node i on rank i % 16, its state in their shared
 memory); the long build (its state in a scratch of device memory) runs only
 forced.  A table batch past one wave of the register build runs in the
-bracket build.  None of that runs here, so this file holds the wrapper's
-arithmetic to what the C entry does:
+bracket build; one surveyed reach, and table batches one wave of it holds,
+in the lean build.  None of that runs here, so this file holds the
+wrapper's arithmetic to what the C entry does:
 
 * the cluster of each long shape (``cluster_blocks``: 2 blocks at N = 965, 3
   at 2048, 6 at 4096, 11 at 8192) and the grids (``launch_grid``): a block a
@@ -22,7 +23,9 @@ arithmetic to what the C entry does:
   outputs do not fit is not, and one simulation counts no scratch;
 * the exception and message of a launch the C entry refuses (``refusal``,
   ``launch_error``); which forced builds it refuses is the C entry's own
-  rule, held on the card by ``chip_smoke.py``.
+  rule, held on the card by ``chip_smoke.py``;
+* the lean build's id, name, shared memory a node and block, and grid, and
+  that its probe (a measurement of the card) refuses a CPU table geometry.
 
 No JAX compile and no simulation: each test takes milliseconds.
 """
@@ -160,8 +163,9 @@ def test_a_refused_launch_raises_with_the_build_and_the_error(build_id, rc):
 
 
 def test_a_refused_launch_of_no_such_build_names_its_id():
-    msg = str(fn.refusal(1, 7))
-    assert "build 7" in msg and "cudaErrorInvalidValue" in msg
+    no_such = max(fn.BUILD_NAMES) + 1
+    msg = str(fn.refusal(1, no_such))
+    assert f"build {no_such}" in msg and "cudaErrorInvalidValue" in msg
 
 
 def test_a_refused_reach_build_names_its_cluster():
@@ -171,3 +175,56 @@ def test_a_refused_reach_build_names_its_cluster():
     e = fn.refusal(701, fn.REACH_BUILD, cluster=fn.REACH_RANKS)
     assert type(e) is RuntimeError
     assert "the reach build (16 blocks a cluster)" in str(e) and "cannot hold one cluster" in str(e)
+
+
+def test_the_lean_build_is_build_7_of_both_wrappers():
+    # the C entry's LEAN_BUILD; its name in refusals; neither a long-reach
+    # build nor one of the builds before it
+    assert fn.LEAN_BUILD == 7 and fn.BUILD_NAMES[fn.LEAN_BUILD] == "lean build"
+    assert sorted(fn.BUILD_NAMES) == list(range(8)) and len(set(fn.BUILD_NAMES.values())) == 8
+    assert fn.LEAN_BUILD not in fn.LONG_REACH_BUILDS
+    assert set(fn.LONG_REACH_BUILDS) == {fn.LONG_BUILD, fn.CLUSTER_BUILD, fn.REACH_BUILD}
+
+
+def test_the_lean_build_holds_the_bracket_state_but_the_previous_level():
+    # two carried-inverse PCR buffers of 18 components, h, Q, the 14 bracket
+    # values and the bracket index: 52 doubles and an int a node, the
+    # bracket build's 57 less the previous level's 5 (kept in registers)
+    assert fn.LEAN_BYTES_PER_NODE == 52 * 8 + 4 == 420
+    assert fn.BRACKET_BYTES_PER_NODE - fn.LEAN_BYTES_PER_NODE == 5 * 8
+
+
+@pytest.mark.parametrize("n", [121, 128])
+def test_a_lean_block_fits_one_sm(n):
+    # 50.8 KB at the validation reach's N = 121; the largest N it takes
+    # (LATENCY_MAX_N) within a block's shared memory, with room for a second
+    # block on the SM (232 448 B)
+    smem = n * fn.LEAN_BYTES_PER_NODE
+    assert n <= fn.LATENCY_MAX_N and smem <= BLOCK_SMEM and 2 * smem <= 232448
+    assert (smem == 50820) == (n == 121)
+
+
+@pytest.mark.parametrize("n_sims", [1, 16, 264])
+def test_the_lean_build_launches_a_block_a_simulation(n_sims):
+    assert fn.launch_grid(fn.LEAN_BUILD, n_sims, 121, H100_SMS) == n_sims
+
+
+def test_the_probe_of_a_cpu_table_geometry_asks_for_the_card():
+    import numpy as np
+
+    from flowsim_tpu_torch.geometry import TableGeometry, TrapezoidStation
+    from flowsim_tpu_torch.geometry_tables import build_table_geometry
+    from flowsim_tpu_torch.models import example
+
+    s, c = example.build(device="cpu")
+    g, n = c.geometry, c.geometry.n_nodes
+    ends = [TrapezoidStation(z_bed=float(g.z_bed[i]), b_main=float(g.b_main[i]), m_main=float(g.m_main[i]),
+                             n_main=float(g.n_main[i]), bed_slope=float(g.bed_slope[i])) for i in (0, -1)]
+    tg = build_table_geometry(ends, [0.0, float(n - 1)], np.arange(n, dtype=np.float64), depth_max=20.0,
+                              samples=8, device="cpu")
+    assert isinstance(tg, TableGeometry)
+    # the probe takes table geometry; on the CPU it says it needs the card,
+    # not that it takes trapezoids only
+    with pytest.raises(ValueError, match="needs CUDA tensors") as e:
+        fn.fused_simulate_probe(tg, s.us_params, s.ds_params, s.h0, s.Q0, s.settings(1e-6, 100))
+    assert "trapezoid" not in str(e.value)
